@@ -1,0 +1,51 @@
+"""Frozen-gas initializer of the cooling family.
+
+Counterpart of ``mdqtplasmasims_tpu/core/init.py:31-93``: uniform positions
+in the L^3 cell, zero velocities, random S-manifold superpositions
+(laserCoolingPlusExpansionMDQTSpeedUp.cpp:289-348).  ``exact_n=True`` pins
+N = N0; otherwise N ~ Binomial(N9L, 1/729) is drawn on the host as the
+reference does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mdqtplasmasims_tpu.units import PlasmaUnits
+
+from ..state import complex_dtype
+from .qt import random_s_superposition
+
+
+def sample_cell_count(rng: np.random.Generator, n0: int) -> int:
+    """Number of ions falling in the unit cell when N9L = 729*N0 candidates
+    are scattered over a 9L box (laserCooling...SpeedUp.cpp:299-308)."""
+    L = PlasmaUnits.box_length(n0)
+    n9l = int(9.0 ** 3 * L ** 3 * 3.0 / (4.0 * math.pi))  # = 729*N0
+    return int(rng.binomial(n9l, 1.0 / 729.0))            # p = L^3/(9L)^3
+
+
+def frozen_gas_init(generator: torch.Generator, n0: int, *,
+                    n_states: int = 0, exact_n: bool = True,
+                    dtype=torch.float32,
+                    seed_for_count: Optional[int] = None):
+    """Positions, velocities (=0) and wavefunctions for a frozen-gas start,
+    drawn from ``generator`` on its device.  Returns ``(R, V, psi,
+    n_actual)``; ``psi`` is None when ``n_states`` is 0."""
+    L = PlasmaUnits.box_length(n0)
+    if exact_n:
+        n = n0
+    else:
+        n = sample_cell_count(np.random.default_rng(seed_for_count), n0)
+    device = generator.device
+    R = torch.rand((n, 3), generator=generator, dtype=dtype,
+                   device=device) * L
+    V = torch.zeros((n, 3), dtype=dtype, device=device)
+    psi = (random_s_superposition(generator, n, n_states,
+                                  complex_dtype(dtype))
+           if n_states else None)
+    return R, V, psi, n

@@ -1,0 +1,374 @@
+"""One MD step's quantum-substepped ticks as one kernel launch.
+
+Counterpart of ``mdqtplasmasims_tpu/core/qt_fused.py`` (explicit-rolls
+variant).  The SpeedUp scheme runs ``ratio`` quantum ticks between force
+refreshes; each tick is a leapfrog substep with fixed forces, then the
+quantum update of every ion: Doppler shift (+ expansion detuning), the
+beat-note phase, the jump test, an RK step of the renormalized
+non-Hermitian propagator, the Ehrenfest kick, the jump collapse with its
+recoil, and optional renormalization.
+
+Layout: R/V/F ``[3, Np]``, the per-ion clock ``[1, Np]``, psi as real and
+imaginary ``[SP, Np]`` planes (S padded to a multiple of 8; pad rows and
+padded lanes stay exactly zero), uniforms ``[n_ticks*5, Np]`` in [0, 1).
+The level-scheme tables ride as ``vecs [SP, 8]`` (decay weight, e0, e1,
+jump-source mask) and ``mats [4*SP, SP]`` (coupling | cumulative S-branch
+destinations^T | cumulative D-branch destinations^T | lower-triangular
+ones), packed exactly as the JAX kernel packs them.
+
+:func:`fused_md_substeps` launches ``csrc/fused_ticks.cu`` for CUDA
+tensors and runs :func:`fused_md_substeps_reference`, the plain torch
+twin, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mdqtplasmasims_tpu.levels import LevelScheme
+
+from .. import _build
+
+# capacity of the kernel's parameter block (csrc/fused_ticks.cu)
+_MAX_TDEP = 4
+_MAX_FORCE = 16
+_KERNEL_S = (3, 5, 7, 12)      # state counts csrc/fused_ticks.cu is built for
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedTickSpec:
+    """Constants of the fused tick block."""
+
+    scheme: LevelScheme
+    h: float                 # quantum tick in gamma time
+    qdt: float               # quantum tick in plasma time
+    plas_to_quant_vel: float
+    gamma_to_einstein: float
+    ratio: int               # ticks per launch
+    L: float
+    apply_force: bool
+    # expanding-frame detuning c1*t/sqrt(1+c2*t^2) added to the Doppler
+    # shift, from the tick counter (laserCoolingPlusExpansionMDQTSpeedUp.cpp
+    # :447); zero coefficients disable it
+    exp_c1: float = 0.0
+    exp_c2: float = 0.0
+    # explicit norm division after every tick (SpeedUp.cpp:706-712)
+    renormalize: bool = False
+
+    @property
+    def S(self) -> int:
+        return self.scheme.n_states
+
+    @property
+    def SP(self) -> int:      # padded state count
+        return _round_up(self.S, 8)
+
+
+def check_real_couplings(scheme: LevelScheme) -> None:
+    """The tick unrolls complex arithmetic assuming purely real coupling
+    tables (true for all four reference schemes); fail loudly otherwise."""
+    if np.abs(np.asarray(scheme.coupling).imag).max() != 0.0:
+        raise ValueError("fused kernel requires a real coupling matrix; "
+                         f"scheme {scheme.name} has complex entries")
+    if any(complex(m).imag != 0.0 for m in scheme.tdep_coefs):
+        raise ValueError("fused kernel requires real tdep coefficients; "
+                         f"scheme {scheme.name} has complex entries")
+
+
+def pack_tables(spec: FusedTickSpec, dtype=np.float32):
+    """``(vecs [SP, 8], mats [4*SP, SP])`` numpy tables, packed as
+    mdqtplasmasims_tpu/core/qt_fused.py:405-426 packs them (float32
+    there; float64 here feeds the float64 twin)."""
+    S, SP, sch = spec.S, spec.SP, spec.scheme
+    vecs = np.zeros((SP, 8), dtype)
+    vecs[:S, 0] = sch.decay_w
+    vecs[:S, 1] = sch.e0
+    vecs[:S, 2] = sch.e1
+    for s in sch.jump_src:
+        vecs[s, 3] = 1.0
+    mats = np.zeros((4 * SP, SP), dtype)
+    mats[:S, :S] = sch.coupling.real
+    # destination-cumulative tables, padded DEST rows saturated to 1 so a
+    # uniform roll (< 1) never counts them in the categorical comparison
+    mats[SP:2 * SP, :] = 1.0
+    mats[2 * SP:3 * SP, :] = 1.0
+    mats[SP:SP + S, :S] = np.cumsum(sch.jump_dest[:, 0, :], -1).T
+    mats[2 * SP:2 * SP + S, :S] = np.cumsum(sch.jump_dest[:, 1, :], -1).T
+    mats[3 * SP:4 * SP, :] = np.tril(np.ones((SP, SP), dtype))
+    return vecs, mats
+
+
+class FusedTables(NamedTuple):
+    vecs: torch.Tensor       # [SP, 8]
+    mats: torch.Tensor       # [4*SP, SP]
+
+
+def fused_tables(spec: FusedTickSpec, device,
+                 dtype=torch.float32) -> FusedTables:
+    """The packed tables on ``device`` (made once per run: a host-to-device
+    copy per MD step would stall the loop)."""
+    check_real_couplings(spec.scheme)
+    vecs, mats = pack_tables(
+        spec, np.float64 if dtype == torch.float64 else np.float32)
+    return FusedTables(torch.as_tensor(vecs).to(device),
+                       torch.as_tensor(mats).to(device))
+
+
+def fused_md_substeps_reference(spec: FusedTickSpec, first: bool,
+                                R, V, F, tp, psi_re, psi_im, rolls,
+                                tables: FusedTables, tick0: int = 0):
+    """Plain torch twin of the fused kernel: ``spec.ratio`` ticks on the
+    planes, with the JAX kernel's arithmetic (core/qt_fused.py:204-343 of
+    the JAX package) in the planes' dtype.  Returns new
+    ``(R, V, tp, psi_re, psi_im)``."""
+    S, SP = spec.S, spec.SP
+    sch = spec.scheme
+    h, qdt, L = spec.h, spec.qdt, spec.L
+    vecs, mats = tables
+    w_c, e0_c, e1_c, mask_c = (vecs[:, k:k + 1] for k in range(4))
+    C = mats[0:SP]
+    cumS_T, cumD_T = mats[SP:2 * SP], mats[2 * SP:3 * SP]
+    rows = torch.arange(SP, device=R.device)[:, None]
+    half = 0.5 * qdt
+    a, b = psi_re, psi_im
+
+    def hpsi(a, b, u, cphi, sphi):
+        diag_r = e0_c + e1_c * u
+        hr_a = C @ a + diag_r * a
+        hr_b = C @ b + diag_r * b
+        re = hr_a - (-0.5 * w_c) * b
+        im = hr_b + (-0.5 * w_c) * a
+        if sch.tdep_rows:
+            re, im = re.clone(), im.clone()
+            for r, cl, m in zip(sch.tdep_rows, sch.tdep_cols,
+                                sch.tdep_coefs):
+                mr = complex(m).real
+                # H[r,cl] = m e^{i phi}; H[cl,r] = m e^{-i phi}
+                ar, br = a[r:r + 1], b[r:r + 1]
+                ac, bc = a[cl:cl + 1], b[cl:cl + 1]
+                re[r:r + 1] += mr * (cphi * ac - sphi * bc)
+                im[r:r + 1] += mr * (cphi * bc + sphi * ac)
+                re[cl:cl + 1] += mr * (cphi * ar + sphi * br)
+                im[cl:cl + 1] += mr * (cphi * br - sphi * ar)
+        return re, im
+
+    def dp_of(a, b):
+        return h * torch.sum(w_c * (a * a + b * b), dim=0, keepdim=True)
+
+    def g_slope(a, b, u, cphi, sphi):
+        pref = torch.rsqrt(1.0 - torch.clamp(dp_of(a, b), 0.0, 0.9))
+        hre, him = hpsi(a, b, u, cphi, sphi)
+        return ((pref * (a + h * him) - a) / h,
+                (pref * (b - h * hre) - b) / h)
+
+    for i in range(spec.ratio):
+        # ---- leapfrog substep (forces fixed); the 2nd-order first drift
+        # only on the run's first tick
+        fs = 1.0 if (first and i == 0) else 0.0
+        R = R + half * V + fs * half * half * F
+        R = torch.where(R < 0, R + L, R)
+        R = torch.where(R > L, R - L, R)
+        V = V + qdt * F
+        R = R + half * V + fs * half * half * F
+        R = torch.where(R < 0, R + L, R)
+        R = torch.where(R > L, R - L, R)
+
+        # ---- quantum tick: the clock advances before the beat note ----
+        tp = tp + qdt
+        u = V[0:1] * spec.plas_to_quant_vel
+        if spec.exp_c1:
+            # expansion detuning at the tick's entry time (tick0+i)*qdt
+            tpl = float(np.float32(tick0 + i)) * qdt
+            u = u + (spec.exp_c1 * tpl
+                     / math.sqrt(1.0 + spec.exp_c2 * tpl * tpl))
+        if sch.tdep_rows:
+            ang = (sch.tdep_freq * u) * (tp * spec.gamma_to_einstein)
+            cphi, sphi = torch.cos(ang), torch.sin(ang)
+        else:
+            cphi = sphi = None
+        r0, r1, r2, r3, r4 = (rolls[i * 5 + k:i * 5 + k + 1]
+                              for k in range(5))
+
+        jumped = r0 < dp_of(a, b)         # unclipped dp, strict <
+        k1a, k1b = g_slope(a, b, u, cphi, sphi)
+        k2a, k2b = g_slope(a + 0.5 * h * k1a, b + 0.5 * h * k1b,
+                           u, cphi, sphi)
+        k3a, k3b = g_slope(a + 0.5 * h * k2a, b + 0.5 * h * k2b,
+                           u, cphi, sphi)
+        k4a, k4b = g_slope(a + h * k3a, b + h * k3b, u, cphi, sphi)
+        ae = a + (k1a + 3 * k2a + 3 * k3a + k4a) * (h / 8)
+        be = b + (k1b + 3 * k2b + 3 * k3b + k4b) * (h / 8)
+
+        # Ehrenfest kick from the tick's initial amplitudes:
+        # Im(psi_a conj(psi_b)) = b_a a_b - a_a b_b
+        kick_nj = torch.zeros_like(tp)
+        for fa, fb, fw in zip(sch.force_a, sch.force_b, sch.force_w):
+            if fw == 0.0:
+                continue
+            kick_nj = kick_nj + fw * (b[fa:fa + 1] * a[fb:fb + 1]
+                                      - a[fa:fa + 1] * b[fb:fb + 1])
+        kick_nj = kick_nj * h
+
+        # ---- jump collapse ----
+        src_cum = torch.cumsum((a * a + b * b) * mask_c, dim=0)
+        tot = torch.clamp(src_cum[SP - 1:SP], min=1e-30)
+        src = torch.clamp(torch.sum((r1 * tot >= src_cum).to(torch.int64),
+                                    dim=0), max=S - 1)
+        d_branch = r2 < sch.branch_d_prob
+        dest_cum = torch.where(d_branch, cumD_T[:, src], cumS_T[:, src])
+        dest = torch.clamp(torch.sum((r4 >= dest_cum).to(torch.int64),
+                                     dim=0, keepdim=True), max=S - 1)
+        a_j = (rows == dest).to(a.dtype)
+        sign = torch.where(r3 < 0.5, 1.0, -1.0).to(a.dtype)
+        kick_j = sign * torch.where(d_branch, torch.full_like(tp, sch.kick_d),
+                                    torch.full_like(tp, sch.kick_s))
+        if not sch.apply_recoil:
+            kick_j = torch.zeros_like(kick_j)
+
+        a = torch.where(jumped, a_j, ae)
+        b = torch.where(jumped, torch.zeros_like(be), be)
+        tp = torch.where(jumped, torch.zeros_like(tp), tp)
+        if spec.renormalize:
+            # guarded so pad lanes (norm 0) stay exactly zero
+            nrm = torch.sqrt(torch.sum(a * a + b * b, dim=0, keepdim=True))
+            inv = torch.where(nrm > 0.0, 1.0 / nrm, torch.zeros_like(nrm))
+            a = a * inv
+            b = b * inv
+        if spec.apply_force and sch.has_force:
+            V = torch.cat([V[0:1] + torch.where(jumped, kick_j, kick_nj),
+                           V[1:3]])
+    return R, V, tp, a, b
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``struct FusedParams`` in csrc/fused_ticks.cu."""
+    _fields_ = ([(k, ctypes.c_int) for k in (
+        "S", "SP", "n_ticks", "n_tdep", "n_force", "apply_kick",
+        "apply_recoil", "renormalize", "has_exp")]
+        + [(k, ctypes.c_float) for k in (
+            "h", "half_h", "h8", "qdt", "half_qdt", "p2q", "g2e", "L",
+            "exp_c1", "exp_c2", "tdep_freq", "branch_d", "kick_s",
+            "kick_d")]
+        + [("tdep_row", ctypes.c_int * _MAX_TDEP),
+           ("tdep_col", ctypes.c_int * _MAX_TDEP),
+           ("tdep_coef", ctypes.c_float * _MAX_TDEP),
+           ("force_a", ctypes.c_int * _MAX_FORCE),
+           ("force_b", ctypes.c_int * _MAX_FORCE),
+           ("force_w", ctypes.c_float * _MAX_FORCE)])
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_params(spec: FusedTickSpec) -> _Params:
+    """The spec's constants as the kernel's parameter block.  Each float
+    is the f32 rounding of the double the JAX kernel folds in
+    (``jnp.float32(0.5 * qdt)`` etc.), so both kernels see equal
+    constants."""
+    sch = spec.scheme
+    if spec.S not in _KERNEL_S:
+        raise ValueError(f"the CUDA tick kernel is built for S in "
+                         f"{_KERNEL_S}, got {spec.S}")
+    forces = [(a, b, w) for a, b, w in zip(sch.force_a, sch.force_b,
+                                           sch.force_w) if w != 0.0]
+    if len(sch.tdep_rows) > _MAX_TDEP or len(forces) > _MAX_FORCE:
+        raise ValueError("scheme exceeds the tick kernel's term capacity")
+    p = _Params(
+        S=spec.S, SP=spec.SP, n_ticks=spec.ratio, n_tdep=len(sch.tdep_rows),
+        n_force=len(forces),
+        apply_kick=int(spec.apply_force and sch.has_force),
+        apply_recoil=int(sch.apply_recoil),
+        renormalize=int(spec.renormalize), has_exp=int(spec.exp_c1 != 0.0),
+        h=spec.h, half_h=0.5 * spec.h, h8=spec.h / 8, qdt=spec.qdt,
+        half_qdt=0.5 * spec.qdt, p2q=spec.plas_to_quant_vel,
+        g2e=spec.gamma_to_einstein, L=spec.L, exp_c1=spec.exp_c1,
+        exp_c2=spec.exp_c2, tdep_freq=sch.tdep_freq,
+        branch_d=sch.branch_d_prob, kick_s=sch.kick_s, kick_d=sch.kick_d)
+    for k, (r, c, m) in enumerate(zip(sch.tdep_rows, sch.tdep_cols,
+                                      sch.tdep_coefs)):
+        p.tdep_row[k], p.tdep_col[k], p.tdep_coef[k] = r, c, complex(m).real
+    for k, (a, b, w) in enumerate(forces):
+        p.force_a[k], p.force_b[k], p.force_w[k] = a, b, w
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_ticks")
+    v = ctypes.c_void_p
+    lib.fused_ticks_launch.argtypes = ([v] * 15
+                                       + [ctypes.c_int, ctypes.c_float,
+                                          ctypes.c_float, v])
+    lib.fused_ticks_launch.restype = ctypes.c_int
+    return lib
+
+
+def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
+                      psi_re, psi_im, rolls, tick0: int = 0,
+                      tables: FusedTables = None):
+    """One MD step's worth of quantum-substepped ticks.
+
+    Shapes: R/V/F [3, Np], tp [1, Np], psi planes [SP, Np], rolls
+    [spec.ratio*5, Np] uniforms in [0, 1).  ``first`` selects the
+    reference's 2nd-order first drift (tick 0 of the run); ``tick0`` is
+    the run tick counter at entry (the expansion detuning's clock).
+    ``tables`` are :func:`fused_tables` (packed here when omitted).
+    Returns new ``(R, V, tp, psi_re, psi_im)``.
+
+    CUDA tensors (float32, contiguous, Np a multiple of 128) launch
+    ``csrc/fused_ticks.cu`` and add one to ``fused_md_substeps.launches``;
+    CPU tensors run :func:`fused_md_substeps_reference`."""
+    check_real_couplings(spec.scheme)
+    SP = spec.SP
+    npad = R.shape[-1]
+    want = {"R": (3, npad), "V": (3, npad), "F": (3, npad), "tp": (1, npad),
+            "psi_re": (SP, npad), "psi_im": (SP, npad),
+            "rolls": (spec.ratio * 5, npad)}
+    args = {"R": R, "V": V, "F": F, "tp": tp, "psi_re": psi_re,
+            "psi_im": psi_im, "rolls": rolls}
+    for k, x in args.items():
+        if tuple(x.shape) != want[k]:
+            raise ValueError(f"{k} must be {list(want[k])}, got "
+                             f"{list(x.shape)}")
+        if x.device != R.device or x.dtype != R.dtype:
+            raise ValueError(f"{k} must share R's device and dtype")
+    if tables is None:
+        tables = fused_tables(spec, R.device, R.dtype)
+    if R.device.type == "cpu":
+        return fused_md_substeps_reference(spec, first, R, V, F, tp, psi_re,
+                                           psi_im, rolls, tables, tick0)
+    if R.device.type != "cuda":
+        raise ValueError(f"no tick kernel for device {R.device}")
+    if R.dtype != torch.float32:
+        raise ValueError(f"the CUDA tick kernel is float32, got {R.dtype}")
+    if npad % 128:
+        raise ValueError(f"Np={npad} must be a multiple of 128")
+    tabs = (tables.vecs, tables.mats)
+    if any(not x.is_contiguous() for x in (*args.values(), *tabs)):
+        raise ValueError("fused_md_substeps needs contiguous tensors")
+    if any(t.device != R.device or t.dtype != torch.float32 for t in tabs):
+        raise ValueError("tables must be float32 on R's device")
+    params = _kernel_params(spec)
+    outs = [torch.empty_like(x) for x in (R, V, tp, psi_re, psi_im)]
+    lib = _lib()
+    with torch.cuda.device(R.device):
+        err = lib.fused_ticks_launch(
+            ctypes.addressof(params),
+            *(x.data_ptr() for x in (*args.values(), *tabs, *outs)),
+            npad, 1.0 if first else 0.0, float(tick0),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "fused_ticks_launch")
+    fused_md_substeps.launches += 1
+    return tuple(outs)
+
+
+fused_md_substeps.launches = 0

@@ -1,0 +1,149 @@
+"""SpeedUp multirate scheduler of the cooling family: forces once per MD
+step, drift/kick and the quantum update at the quantum substep
+(laserCoolingPlusExpansionMDQTSpeedUp.cpp:1365-1378).
+
+Counterpart of ``mdqtplasmasims_tpu/core/scheduler.py:85-230``.  The port
+has one stepping path on every device: the state stays in the kernels'
+lane layout for a whole sampling segment (``soa_init -> soa_md_step x k ->
+soa_restore``), and each MD step is one force launch plus one fused tick
+launch.  The loop runs on the host; ``tick`` is a host int, so a step
+makes no device-to-host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..state import SimState, complex_dtype, tick_time
+from ..ops.yukawa import yukawa_forces_n3l_soa
+from .qt_fused import FusedTickSpec, fused_md_substeps, fused_tables
+
+#: Candidate ion-lane paddings (multiples of 128; 3584 covers the flagship
+#: N0=3500).  Kept from the JAX package so both pad to the same widths.
+_QT_TILE_CANDIDATES = (512, 896, 1024, 1792, 3584)
+
+
+def auto_qt_tile(n: int) -> int:
+    """Lane tile the SoA planes are padded to: among the candidate widths
+    with the least padding, the largest one that still leaves >= 2 tiles
+    (the JAX package's rule, so ``_npad`` agrees with it)."""
+    min_npad = min(-(-max(n, t) // t) * t for t in _QT_TILE_CANDIDATES)
+    fitting = [t for t in _QT_TILE_CANDIDATES
+               if -(-max(n, t) // t) * t == min_npad]
+    pipelined = [t for t in fitting if min_npad // t >= 2]
+    return max(pipelined or fitting)
+
+
+def uniform_rolls(generator: torch.Generator) -> Callable:
+    """``rolls_fn`` drawing ``[n_ticks*5, npad]`` uniforms in [0, 1) from
+    ``generator`` on its device (no host sync)."""
+    def rolls_fn(n_ticks: int, npad: int) -> torch.Tensor:
+        return torch.rand((n_ticks * 5, npad), generator=generator,
+                          dtype=torch.float32, device=generator.device)
+    return rolls_fn
+
+
+class SoACarry(NamedTuple):
+    """A segment's state in the kernels' lane layout."""
+    R: torch.Tensor        # [3, Np]
+    V: torch.Tensor        # [3, Np]
+    F: torch.Tensor        # [3, Np] forces of the last refresh
+    tp: torch.Tensor       # [1, Np]
+    psi_re: torch.Tensor   # [SP, Np]
+    psi_im: torch.Tensor   # [SP, Np]
+    tick: int
+
+
+@dataclasses.dataclass
+class CoolingScheduler:
+    """SpeedUp-scheme stepper: quantum-substepped leapfrog.
+
+    ``rolls_fn(n_ticks, npad)`` supplies each MD step's uniforms; it is
+    the scheduler's only source of randomness, so a test can replay
+    another implementation's draws through it."""
+
+    fused_spec: FusedTickSpec
+    L: float
+    ldeb: float
+    qdt: float           # quantum timestep, plasma units
+    ratio: int           # quantum substeps per MD step
+    tile: int
+    device: torch.device
+    rolls_fn: Callable[[int, int], torch.Tensor]
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        self.tables = fused_tables(self.fused_spec, self.device, self.dtype)
+
+    def _npad(self, n: int) -> int:
+        return -(-max(n, self.tile) // self.tile) * self.tile
+
+    def soa_forces_fn(self, n: int) -> Callable:
+        """``Rp [3, Np] -> F [3, Np]`` for a state of ``n`` real ions."""
+        npad = self._npad(n)
+        mask_row = torch.zeros((1, npad), dtype=self.dtype, device=self.device)
+        mask_row[0, :n] = 1.0
+        return lambda Rp: yukawa_forces_n3l_soa(Rp, mask_row, self.L,
+                                                self.ldeb)
+
+    def soa_init(self, state: SimState) -> SoACarry:
+        """SimState -> zero-padded lane planes (forces from state.F)."""
+        n = state.R.shape[0]
+        npad = self._npad(n)
+        SP = self.fused_spec.SP
+
+        def pad_rows(x, rows):
+            out = torch.zeros((rows, npad), dtype=self.dtype,
+                              device=self.device)
+            out[:x.shape[0], :n] = x
+            return out
+
+        psi_sm = state.psi.T
+        return SoACarry(pad_rows(state.R.T, 3), pad_rows(state.V.T, 3),
+                        pad_rows(state.F.T, 3),
+                        pad_rows(state.t_part[None, :], 1),
+                        pad_rows(psi_sm.real, SP), pad_rows(psi_sm.imag, SP),
+                        state.tick)
+
+    def soa_restore(self, carry: SoACarry, state: SimState) -> SimState:
+        """Lane planes -> SimState (shapes and dtypes from the template)."""
+        n, S = state.psi.shape
+        psi = torch.complex(carry.psi_re[:S, :n], carry.psi_im[:S, :n]).T
+        return SimState(
+            R=carry.R[:, :n].T.contiguous(), V=carry.V[:, :n].T.contiguous(),
+            F=carry.F[:, :n].T.contiguous(),
+            psi=psi.to(complex_dtype(state.dtype)).contiguous(),
+            t_part=carry.tp[0, :n].contiguous(), tick=carry.tick,
+            t=tick_time(carry.tick, self.qdt, state.dtype))
+
+    def _tick_spec(self, n_ticks: Optional[int]) -> FusedTickSpec:
+        """Spec of a (possibly partial) tick block: the sampling MD step
+        is split [1 tick | sample | ratio-1 ticks]."""
+        if n_ticks is None or n_ticks == self.fused_spec.ratio:
+            return self.fused_spec
+        return dataclasses.replace(self.fused_spec, ratio=n_ticks)
+
+    def soa_md_step(self, carry: SoACarry, soa_forces_fn: Callable,
+                    n_ticks: Optional[int] = None,
+                    reuse_forces: bool = False) -> SoACarry:
+        """One MD step in lane layout: refresh forces (unless
+        ``reuse_forces`` continues a split step with the carried ones),
+        then ``n_ticks`` (default ``ratio``) fused ticks."""
+        spec = self._tick_spec(n_ticks)
+        npad = carry.R.shape[1]
+        Fp = carry.F if reuse_forces else soa_forces_fn(carry.R)
+        rolls = self.rolls_fn(spec.ratio, npad).to(self.dtype)
+        R, V, tp, pre, pim = fused_md_substeps(
+            spec, carry.tick == 0, carry.R, carry.V, Fp, carry.tp,
+            carry.psi_re, carry.psi_im, rolls, tick0=carry.tick,
+            tables=self.tables)
+        return SoACarry(R, V, Fp, tp, pre, pim, carry.tick + spec.ratio)
+
+    def md_step(self, state: SimState) -> SimState:
+        """One full MD step of a SimState (forces refreshed first)."""
+        carry = self.soa_md_step(self.soa_init(state),
+                                 self.soa_forces_fn(state.n_ions))
+        return self.soa_restore(carry, state)
