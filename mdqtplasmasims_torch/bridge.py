@@ -42,6 +42,24 @@ def state_from_numpy(src, *, device, dtype=torch.float32) -> SimState:
                       t=float(np.asarray(src.t)))
 
 
+def states_from_numpy(src, *, device, dtype=torch.float32) -> SimState:
+    """Ensemble fold ``[E, n, ...]`` from a stacked JAX ``SimState`` or
+    :class:`NumpyState`.  The members must share one tick (the fold's
+    precondition); F and t_part default to zeros."""
+    from .core.scheduler import check_uniform_tick
+    tick, t = np.asarray(src.tick), np.asarray(src.t)
+    check_uniform_tick(tick)
+    R = np.array(src.R)
+    F = getattr(src, "F", None)
+    t_part = getattr(src, "t_part", None)
+    return make_state(R, np.array(src.V), np.array(src.psi), device=device,
+                      dtype=dtype,
+                      F=np.zeros_like(R) if F is None else np.array(F),
+                      t_part=(np.zeros(R.shape[:2], R.dtype) if t_part is None
+                              else np.array(t_part)),
+                      tick=int(tick.flat[0]), t=float(t.flat[0]))
+
+
 def state_to_numpy(state: SimState) -> NumpyState:
     """Host numpy copy of a port state (one device sync)."""
     return NumpyState(R=state.R.cpu().numpy(), V=state.V.cpu().numpy(),

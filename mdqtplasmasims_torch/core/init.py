@@ -29,18 +29,36 @@ def sample_cell_count(rng: np.random.Generator, n0: int) -> int:
     return int(rng.binomial(n9l, 1.0 / 729.0))            # p = L^3/(9L)^3
 
 
+def poisson_member_mask(n0: int, n_members: int, seed: int,
+                        round_to: int = 1):
+    """``[E, n_arr]`` real-ion mask with per-member Poissonian counts, the
+    fixed-shape ensemble fold's stand-in for the reference's per-job init
+    draw (one :func:`sample_cell_count` per array job, from
+    ``np.random.default_rng(seed)``, so the counts equal the JAX
+    package's for the same seed).  ``round_to`` rounds the padded lane
+    count up.  Returns ``(mask float32 ndarray, counts list)``."""
+    rng = np.random.default_rng(seed)
+    n_js = [sample_cell_count(rng, n0) for _ in range(n_members)]
+    n_arr = -(-max(n_js) // round_to) * round_to
+    m = np.zeros((n_members, n_arr), np.float32)
+    for j, nj in enumerate(n_js):
+        m[j, :nj] = 1.0
+    return m, n_js
+
+
 def frozen_gas_init(generator: torch.Generator, n0: int, *,
                     n_states: int = 0, exact_n: bool = True,
                     dtype=torch.float32,
-                    seed_for_count: Optional[int] = None):
+                    seed_for_count: Optional[int] = None,
+                    n: Optional[int] = None):
     """Positions, velocities (=0) and wavefunctions for a frozen-gas start,
-    drawn from ``generator`` on its device.  Returns ``(R, V, psi,
-    n_actual)``; ``psi`` is None when ``n_states`` is 0."""
+    drawn from ``generator`` on its device.  ``n`` draws that many ions in
+    the n0 cell instead (a Poissonian fold's padded width).  Returns
+    ``(R, V, psi, n_actual)``; ``psi`` is None when ``n_states`` is 0."""
     L = PlasmaUnits.box_length(n0)
-    if exact_n:
-        n = n0
-    else:
-        n = sample_cell_count(np.random.default_rng(seed_for_count), n0)
+    if n is None:
+        n = (n0 if exact_n else
+             sample_cell_count(np.random.default_rng(seed_for_count), n0))
     device = generator.device
     R = torch.rand((n, 3), generator=generator, dtype=dtype,
                    device=device) * L

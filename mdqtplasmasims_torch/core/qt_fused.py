@@ -16,6 +16,13 @@ jump-source mask) and ``mats [4*SP, SP]`` (coupling | cumulative S-branch
 destinations^T | cumulative D-branch destinations^T | lower-triangular
 ones), packed exactly as the JAX kernel packs them.
 
+Sweep folds (ensemble members with different laser parameters in one
+launch) use two per-lane variants: ``per_lane_e0`` takes the diagonal
+energies from an ``[SP, Np]`` plane (detunings enter only through e0),
+and ``per_lane_om`` scales two base coupling patterns, ``scheme_sp`` (om=1,
+om_dp=0) and ``scheme_dp`` (om=0, om_dp=1), by an ``[2, Np]`` (om, om_dp)
+plane; its tables gain a fifth ``[SP, SP]`` block (the DP pattern).
+
 :func:`fused_md_substeps` launches ``csrc/fused_ticks.cu`` for CUDA
 tensors and runs :func:`fused_md_substeps_reference`, the plain torch
 twin, for CPU tensors.
@@ -40,6 +47,7 @@ from .. import _build
 _MAX_TDEP = 4
 _MAX_FORCE = 16
 _KERNEL_S = (3, 5, 7, 12)      # state counts csrc/fused_ticks.cu is built for
+_LANE_S = 12                   # the per-lane variants are built for sr12 only
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,6 +73,15 @@ class FusedTickSpec:
     exp_c2: float = 0.0
     # explicit norm division after every tick (SpeedUp.cpp:706-712)
     renormalize: bool = False
+    # diagonal energies from a per-lane [SP, Np] plane (detuning sweeps)
+    per_lane_e0: bool = False
+    # per-lane Rabi frequencies: H = om*C_sp + om_dp*C_dp + diag exactly
+    # (every coupling, beat-note coefficient and force weight is linear in
+    # its Rabi frequency); the base patterns are the scheme built at
+    # (om, om_dp) = (1, 0) and (0, 1), scaled by an [2, Np] lane plane
+    per_lane_om: bool = False
+    scheme_sp: LevelScheme = None
+    scheme_dp: LevelScheme = None
 
     @property
     def S(self) -> int:
@@ -75,21 +92,37 @@ class FusedTickSpec:
         return _round_up(self.S, 8)
 
 
-def check_real_couplings(scheme: LevelScheme) -> None:
+def check_real_couplings(spec: FusedTickSpec) -> None:
     """The tick unrolls complex arithmetic assuming purely real coupling
-    tables (true for all four reference schemes); fail loudly otherwise."""
-    if np.abs(np.asarray(scheme.coupling).imag).max() != 0.0:
-        raise ValueError("fused kernel requires a real coupling matrix; "
-                         f"scheme {scheme.name} has complex entries")
-    if any(complex(m).imag != 0.0 for m in scheme.tdep_coefs):
-        raise ValueError("fused kernel requires real tdep coefficients; "
-                         f"scheme {scheme.name} has complex entries")
+    tables (true for all four reference schemes); fail loudly otherwise.
+    Checks the scheme and, with ``per_lane_om``, both base patterns."""
+    schemes = [spec.scheme]
+    if spec.per_lane_om:
+        if spec.scheme_sp is None or spec.scheme_dp is None:
+            raise ValueError("spec.per_lane_om requires scheme_sp/scheme_dp "
+                             "base patterns")
+        schemes += [spec.scheme_sp, spec.scheme_dp]
+    for scheme in schemes:
+        if np.abs(np.asarray(scheme.coupling).imag).max() != 0.0:
+            raise ValueError("fused kernel requires a real coupling matrix; "
+                             f"scheme {scheme.name} has complex entries")
+        if any(complex(m).imag != 0.0 for m in scheme.tdep_coefs):
+            raise ValueError("fused kernel requires real tdep coefficients; "
+                             f"scheme {scheme.name} has complex entries")
+
+
+def _tdep_scheme(spec: FusedTickSpec) -> LevelScheme:
+    """Source of the beat-note terms: with the om split they come from the
+    om_dp=1 pattern, scaled per lane by om_dp."""
+    return spec.scheme_dp if spec.per_lane_om else spec.scheme
 
 
 def pack_tables(spec: FusedTickSpec, dtype=np.float32):
-    """``(vecs [SP, 8], mats [4*SP, SP])`` numpy tables, packed as
+    """``(vecs [SP, 8], mats [n*SP, SP])`` numpy tables, packed as
     mdqtplasmasims_tpu/core/qt_fused.py:405-426 packs them (float32
-    there; float64 here feeds the float64 twin)."""
+    there; float64 here feeds the float64 twin).  ``n`` is 5 with
+    ``per_lane_om`` (block 0 the SP pattern, block 4 the DP pattern),
+    else 4 (block 0 the scheme's coupling)."""
     S, SP, sch = spec.S, spec.SP, spec.scheme
     vecs = np.zeros((SP, 8), dtype)
     vecs[:S, 0] = sch.decay_w
@@ -97,8 +130,11 @@ def pack_tables(spec: FusedTickSpec, dtype=np.float32):
     vecs[:S, 2] = sch.e1
     for s in sch.jump_src:
         vecs[s, 3] = 1.0
-    mats = np.zeros((4 * SP, SP), dtype)
-    mats[:S, :S] = sch.coupling.real
+    mats = np.zeros(((5 if spec.per_lane_om else 4) * SP, SP), dtype)
+    mats[:S, :S] = (spec.scheme_sp if spec.per_lane_om
+                    else sch).coupling.real
+    if spec.per_lane_om:
+        mats[4 * SP:4 * SP + S, :S] = spec.scheme_dp.coupling.real
     # destination-cumulative tables, padded DEST rows saturated to 1 so a
     # uniform roll (< 1) never counts them in the categorical comparison
     mats[SP:2 * SP, :] = 1.0
@@ -111,14 +147,14 @@ def pack_tables(spec: FusedTickSpec, dtype=np.float32):
 
 class FusedTables(NamedTuple):
     vecs: torch.Tensor       # [SP, 8]
-    mats: torch.Tensor       # [4*SP, SP]
+    mats: torch.Tensor       # [4*SP, SP] ([5*SP, SP] with per_lane_om)
 
 
 def fused_tables(spec: FusedTickSpec, device,
                  dtype=torch.float32) -> FusedTables:
     """The packed tables on ``device`` (made once per run: a host-to-device
     copy per MD step would stall the loop)."""
-    check_real_couplings(spec.scheme)
+    check_real_couplings(spec)
     vecs, mats = pack_tables(
         spec, np.float64 if dtype == torch.float64 else np.float32)
     return FusedTables(torch.as_tensor(vecs).to(device),
@@ -127,33 +163,52 @@ def fused_tables(spec: FusedTickSpec, device,
 
 def fused_md_substeps_reference(spec: FusedTickSpec, first: bool,
                                 R, V, F, tp, psi_re, psi_im, rolls,
-                                tables: FusedTables, tick0: int = 0):
+                                tables: FusedTables, tick0: int = 0,
+                                e0_lanes=None, om_lanes=None):
     """Plain torch twin of the fused kernel: ``spec.ratio`` ticks on the
-    planes, with the JAX kernel's arithmetic (core/qt_fused.py:204-343 of
-    the JAX package) in the planes' dtype.  Returns new
+    planes, with the JAX kernel's arithmetic (core/qt_fused.py:155-343 of
+    the JAX package) in the planes' dtype.  ``e0_lanes [SP, Np]`` and
+    ``om_lanes [2, Np]`` feed the per-lane variants.  Returns new
     ``(R, V, tp, psi_re, psi_im)``."""
     S, SP = spec.S, spec.SP
     sch = spec.scheme
+    tsch = _tdep_scheme(spec)
     h, qdt, L = spec.h, spec.qdt, spec.L
     vecs, mats = tables
     w_c, e0_c, e1_c, mask_c = (vecs[:, k:k + 1] for k in range(4))
+    # diagonal energies: the per-lane plane (detuning sweep) or the
+    # scheme's shared column, the same broadcast either way
+    e0_b = e0_lanes if spec.per_lane_e0 else e0_c
     C = mats[0:SP]
     cumS_T, cumD_T = mats[SP:2 * SP], mats[2 * SP:3 * SP]
+    if spec.per_lane_om:
+        Cdp = mats[4 * SP:5 * SP]
+        om_r, omdp_r = om_lanes[0:1], om_lanes[1:2]
+        # force terms are linear in their Rabi frequency by group
+        groups = ((spec.scheme_sp, om_r), (spec.scheme_dp, omdp_r))
+    else:
+        groups = ((sch, None),)
     rows = torch.arange(SP, device=R.device)[:, None]
     half = 0.5 * qdt
     a, b = psi_re, psi_im
 
     def hpsi(a, b, u, cphi, sphi):
-        diag_r = e0_c + e1_c * u
-        hr_a = C @ a + diag_r * a
-        hr_b = C @ b + diag_r * b
+        diag_r = e0_b + e1_c * u
+        if spec.per_lane_om:
+            hr_a = om_r * (C @ a) + omdp_r * (Cdp @ a) + diag_r * a
+            hr_b = om_r * (C @ b) + omdp_r * (Cdp @ b) + diag_r * b
+        else:
+            hr_a = C @ a + diag_r * a
+            hr_b = C @ b + diag_r * b
         re = hr_a - (-0.5 * w_c) * b
         im = hr_b + (-0.5 * w_c) * a
-        if sch.tdep_rows:
+        if tsch.tdep_rows:
             re, im = re.clone(), im.clone()
-            for r, cl, m in zip(sch.tdep_rows, sch.tdep_cols,
-                                sch.tdep_coefs):
+            for r, cl, m in zip(tsch.tdep_rows, tsch.tdep_cols,
+                                tsch.tdep_coefs):
                 mr = complex(m).real
+                if spec.per_lane_om:
+                    mr = omdp_r * mr
                 # H[r,cl] = m e^{i phi}; H[cl,r] = m e^{-i phi}
                 ar, br = a[r:r + 1], b[r:r + 1]
                 ac, bc = a[cl:cl + 1], b[cl:cl + 1]
@@ -192,8 +247,8 @@ def fused_md_substeps_reference(spec: FusedTickSpec, first: bool,
             tpl = float(np.float32(tick0 + i)) * qdt
             u = u + (spec.exp_c1 * tpl
                      / math.sqrt(1.0 + spec.exp_c2 * tpl * tpl))
-        if sch.tdep_rows:
-            ang = (sch.tdep_freq * u) * (tp * spec.gamma_to_einstein)
+        if tsch.tdep_rows:
+            ang = (tsch.tdep_freq * u) * (tp * spec.gamma_to_einstein)
             cphi, sphi = torch.cos(ang), torch.sin(ang)
         else:
             cphi = sphi = None
@@ -213,11 +268,15 @@ def fused_md_substeps_reference(spec: FusedTickSpec, first: bool,
         # Ehrenfest kick from the tick's initial amplitudes:
         # Im(psi_a conj(psi_b)) = b_a a_b - a_a b_b
         kick_nj = torch.zeros_like(tp)
-        for fa, fb, fw in zip(sch.force_a, sch.force_b, sch.force_w):
-            if fw == 0.0:
-                continue
-            kick_nj = kick_nj + fw * (b[fa:fa + 1] * a[fb:fb + 1]
-                                      - a[fa:fa + 1] * b[fb:fb + 1])
+        for gsch, scale in groups:
+            acc = torch.zeros_like(tp)
+            for fa, fb, fw in zip(gsch.force_a, gsch.force_b,
+                                  gsch.force_w):
+                if fw == 0.0:          # the om splits zero the other group
+                    continue
+                acc = acc + fw * (b[fa:fa + 1] * a[fb:fb + 1]
+                                  - a[fa:fa + 1] * b[fb:fb + 1])
+            kick_nj = kick_nj + (acc if scale is None else scale * acc)
         kick_nj = kick_nj * h
 
         # ---- jump collapse ----
@@ -255,7 +314,8 @@ class _Params(ctypes.Structure):
     """Mirror of ``struct FusedParams`` in csrc/fused_ticks.cu."""
     _fields_ = ([(k, ctypes.c_int) for k in (
         "S", "SP", "n_ticks", "n_tdep", "n_force", "apply_kick",
-        "apply_recoil", "renormalize", "has_exp")]
+        "apply_recoil", "renormalize", "has_exp", "per_lane_e0",
+        "per_lane_om")]
         + [(k, ctypes.c_float) for k in (
             "h", "half_h", "h8", "qdt", "half_qdt", "p2q", "g2e", "L",
             "exp_c1", "exp_c2", "tdep_freq", "branch_d", "kick_s",
@@ -265,7 +325,19 @@ class _Params(ctypes.Structure):
            ("tdep_coef", ctypes.c_float * _MAX_TDEP),
            ("force_a", ctypes.c_int * _MAX_FORCE),
            ("force_b", ctypes.c_int * _MAX_FORCE),
+           ("force_g", ctypes.c_int * _MAX_FORCE),
            ("force_w", ctypes.c_float * _MAX_FORCE)])
+
+
+def _force_terms(spec: FusedTickSpec):
+    """``(a, b, w, group)`` of every nonzero Ehrenfest force term: group 0
+    is scaled by om, group 1 by om_dp (only with ``per_lane_om``; without
+    it every term is in group 0 and unscaled)."""
+    groups = ((spec.scheme_sp, spec.scheme_dp) if spec.per_lane_om
+              else (spec.scheme,))
+    return [(a, b, w, g) for g, sch in enumerate(groups)
+            for a, b, w in zip(sch.force_a, sch.force_b, sch.force_w)
+            if w != 0.0]
 
 
 @functools.lru_cache(maxsize=64)
@@ -274,30 +346,33 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
     is the f32 rounding of the double the JAX kernel folds in
     (``jnp.float32(0.5 * qdt)`` etc.), so both kernels see equal
     constants."""
-    sch = spec.scheme
+    sch, tsch = spec.scheme, _tdep_scheme(spec)
     if spec.S not in _KERNEL_S:
         raise ValueError(f"the CUDA tick kernel is built for S in "
                          f"{_KERNEL_S}, got {spec.S}")
-    forces = [(a, b, w) for a, b, w in zip(sch.force_a, sch.force_b,
-                                           sch.force_w) if w != 0.0]
-    if len(sch.tdep_rows) > _MAX_TDEP or len(forces) > _MAX_FORCE:
+    if (spec.per_lane_e0 or spec.per_lane_om) and spec.S != _LANE_S:
+        raise ValueError(f"the per-lane tick kernels are built for S="
+                         f"{_LANE_S} only, got {spec.S}")
+    forces = _force_terms(spec)
+    if len(tsch.tdep_rows) > _MAX_TDEP or len(forces) > _MAX_FORCE:
         raise ValueError("scheme exceeds the tick kernel's term capacity")
     p = _Params(
-        S=spec.S, SP=spec.SP, n_ticks=spec.ratio, n_tdep=len(sch.tdep_rows),
+        S=spec.S, SP=spec.SP, n_ticks=spec.ratio, n_tdep=len(tsch.tdep_rows),
         n_force=len(forces),
         apply_kick=int(spec.apply_force and sch.has_force),
         apply_recoil=int(sch.apply_recoil),
         renormalize=int(spec.renormalize), has_exp=int(spec.exp_c1 != 0.0),
+        per_lane_e0=int(spec.per_lane_e0), per_lane_om=int(spec.per_lane_om),
         h=spec.h, half_h=0.5 * spec.h, h8=spec.h / 8, qdt=spec.qdt,
         half_qdt=0.5 * spec.qdt, p2q=spec.plas_to_quant_vel,
         g2e=spec.gamma_to_einstein, L=spec.L, exp_c1=spec.exp_c1,
-        exp_c2=spec.exp_c2, tdep_freq=sch.tdep_freq,
+        exp_c2=spec.exp_c2, tdep_freq=tsch.tdep_freq,
         branch_d=sch.branch_d_prob, kick_s=sch.kick_s, kick_d=sch.kick_d)
-    for k, (r, c, m) in enumerate(zip(sch.tdep_rows, sch.tdep_cols,
-                                      sch.tdep_coefs)):
+    for k, (r, c, m) in enumerate(zip(tsch.tdep_rows, tsch.tdep_cols,
+                                      tsch.tdep_coefs)):
         p.tdep_row[k], p.tdep_col[k], p.tdep_coef[k] = r, c, complex(m).real
-    for k, (a, b, w) in enumerate(forces):
-        p.force_a[k], p.force_b[k], p.force_w[k] = a, b, w
+    for k, (a, b, w, g) in enumerate(forces):
+        p.force_a[k], p.force_b[k], p.force_w[k], p.force_g[k] = a, b, w, g
     return p
 
 
@@ -305,7 +380,7 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ticks")
     v = ctypes.c_void_p
-    lib.fused_ticks_launch.argtypes = ([v] * 15
+    lib.fused_ticks_launch.argtypes = ([v] * 17
                                        + [ctypes.c_int, ctypes.c_float,
                                           ctypes.c_float, v])
     lib.fused_ticks_launch.restype = ctypes.c_int
@@ -314,7 +389,8 @@ def _lib() -> ctypes.CDLL:
 
 def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
                       psi_re, psi_im, rolls, tick0: int = 0,
-                      tables: FusedTables = None):
+                      tables: FusedTables = None, e0_lanes=None,
+                      om_lanes=None):
     """One MD step's worth of quantum-substepped ticks.
 
     Shapes: R/V/F [3, Np], tp [1, Np], psi planes [SP, Np], rolls
@@ -322,12 +398,17 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     reference's 2nd-order first drift (tick 0 of the run); ``tick0`` is
     the run tick counter at entry (the expansion detuning's clock).
     ``tables`` are :func:`fused_tables` (packed here when omitted).
+    ``e0_lanes [SP, Np]`` is required with ``spec.per_lane_e0`` and
+    ``om_lanes [2, Np]`` with ``spec.per_lane_om`` (and refused without).
     Returns new ``(R, V, tp, psi_re, psi_im)``.
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
-    ``csrc/fused_ticks.cu`` and add one to ``fused_md_substeps.launches``;
-    CPU tensors run :func:`fused_md_substeps_reference`."""
-    check_real_couplings(spec.scheme)
+    ``csrc/fused_ticks.cu`` and count the launch: in
+    ``fused_md_substeps.launches`` for the plain variant, and in
+    ``launches_per_lane_e0`` / ``launches_per_lane_om`` for a per-lane
+    one (a launch with both flags counts in both).  CPU tensors run
+    :func:`fused_md_substeps_reference`."""
+    check_real_couplings(spec)
     SP = spec.SP
     npad = R.shape[-1]
     want = {"R": (3, npad), "V": (3, npad), "F": (3, npad), "tp": (1, npad),
@@ -335,6 +416,15 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
             "rolls": (spec.ratio * 5, npad)}
     args = {"R": R, "V": V, "F": F, "tp": tp, "psi_re": psi_re,
             "psi_im": psi_im, "rolls": rolls}
+    for name, flag, x, shape in (("e0_lanes", spec.per_lane_e0, e0_lanes,
+                                  (SP, npad)),
+                                 ("om_lanes", spec.per_lane_om, om_lanes,
+                                  (2, npad))):
+        if flag != (x is not None):
+            raise ValueError(f"{name} must be given exactly when spec."
+                             f"per_lane_{name[:2]} is set (it is {flag})")
+        if flag:
+            want[name], args[name] = shape, x
     for k, x in args.items():
         if tuple(x.shape) != want[k]:
             raise ValueError(f"{k} must be {list(want[k])}, got "
@@ -345,7 +435,8 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
         tables = fused_tables(spec, R.device, R.dtype)
     if R.device.type == "cpu":
         return fused_md_substeps_reference(spec, first, R, V, F, tp, psi_re,
-                                           psi_im, rolls, tables, tick0)
+                                           psi_im, rolls, tables, tick0,
+                                           e0_lanes, om_lanes)
     if R.device.type != "cuda":
         raise ValueError(f"no tick kernel for device {R.device}")
     if R.dtype != torch.float32:
@@ -357,18 +448,30 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
         raise ValueError("fused_md_substeps needs contiguous tensors")
     if any(t.device != R.device or t.dtype != torch.float32 for t in tabs):
         raise ValueError("tables must be float32 on R's device")
+    if tables.mats.shape[0] != (5 if spec.per_lane_om else 4) * SP:
+        raise ValueError("tables were packed for another per_lane_om flag")
     params = _kernel_params(spec)
     outs = [torch.empty_like(x) for x in (R, V, tp, psi_re, psi_im)]
+    lane_ptrs = [None if x is None else x.data_ptr()
+                 for x in (e0_lanes, om_lanes)]
     lib = _lib()
     with torch.cuda.device(R.device):
         err = lib.fused_ticks_launch(
             ctypes.addressof(params),
-            *(x.data_ptr() for x in (*args.values(), *tabs, *outs)),
+            *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im, rolls)),
+            *lane_ptrs, *(x.data_ptr() for x in (*tabs, *outs)),
             npad, 1.0 if first else 0.0, float(tick0),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "fused_ticks_launch")
-    fused_md_substeps.launches += 1
+    if spec.per_lane_e0:
+        fused_md_substeps.launches_per_lane_e0 += 1
+    if spec.per_lane_om:
+        fused_md_substeps.launches_per_lane_om += 1
+    if not (spec.per_lane_e0 or spec.per_lane_om):
+        fused_md_substeps.launches += 1
     return tuple(outs)
 
 
 fused_md_substeps.launches = 0
+fused_md_substeps.launches_per_lane_e0 = 0
+fused_md_substeps.launches_per_lane_om = 0

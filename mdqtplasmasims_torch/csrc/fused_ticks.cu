@@ -33,11 +33,31 @@
 // parameter block.  Uniforms are read from the explicit rolls
 // [n_ticks*5, Np].  IEEE f32 throughout (no fast math).
 //
+// Sweep variants (the JAX kernel's per_lane_e0 / per_lane_om flags), two
+// template flags instantiated for S=12 only (sr12 is the one scheme that
+// folds sweeps):
+//   PE0  the diagonal energies come from an [SP, Np] lane plane (each
+//        ensemble member's detunings) instead of the vecs column;
+//   POM  H = om*C_sp + om_dp*C_dp + diag with (om, om_dp) from an [2, Np]
+//        lane plane: C_sp is table block 0, C_dp a fifth [SP, SP] block;
+//        the beat-note terms are the DP pattern's, scaled by om_dp; the
+//        Ehrenfest terms carry a group tag (0: SP, scaled by om; 1: DP,
+//        scaled by om_dp; sr12 has 4 + 8 of them) and are summed per group.
+// The lane values are constant across the ticks.  Each block stages them
+// once in shared memory ([S][THREADS] e0 and [2][THREADS] om planes); the
+// tick loop reads e0 from there rather than holding 12 more values per
+// thread in the already full register file, and om, om_dp ride in two
+// registers.  Shared memory is (SP*8 + 5*SP*SP + (S+2)*THREADS) floats at
+// most: 12.5 KiB for sr12.
+//
 // Registers (nvcc 12.8 -O3 -Xptxas -v, sm_90a): S=12 (sr12, the main
 // path) 255 per thread with 208 B spill stores / 352 B spill loads; S=7
-// 128, S=5 96, S=3 72.  The S=12 spills (likely the loop-invariant
-// coupling loads hoisted into registers across ticks) are the second
-// thing a performance change should look at.
+// 128, S=5 96, S=3 72.  Sweep variants (S=12, all at 255 registers):
+// PE0 208 / 316 B, POM 1232 / 2056 B, PE0+POM 1208 / 2036 B of spill
+// stores / loads: the second matvec of POM overflows the register file
+// and runs ~1.75x the plain variant's time.  The S=12 spills (likely the
+// loop-invariant coupling loads hoisted into registers across ticks) are
+// the second thing a performance change should look at.
 #include <cuda_runtime.h>
 
 #define THREADS 128
@@ -47,11 +67,12 @@
 struct FusedParams {
   int S, SP, n_ticks, n_tdep, n_force;
   int apply_kick, apply_recoil, renormalize, has_exp;
+  int per_lane_e0, per_lane_om;
   float h, half_h, h8, qdt, half_qdt, p2q, g2e, L;
   float exp_c1, exp_c2, tdep_freq, branch_d, kick_s, kick_d;
   int tdep_row[MAX_TDEP], tdep_col[MAX_TDEP];
   float tdep_coef[MAX_TDEP];
-  int force_a[MAX_FORCE], force_b[MAX_FORCE];
+  int force_a[MAX_FORCE], force_b[MAX_FORCE], force_g[MAX_FORCE];
   float force_w[MAX_FORCE];
 };
 
@@ -75,12 +96,20 @@ __device__ __forceinline__ float wrap(float r, float L) {
   return (r > L) ? r - L : r;
 }
 
+// The per-lane planes of a thread: e0[s * THREADS] (PE0), om/omdp (POM)
+struct LaneVals {
+  const float* e0;
+  float om, omdp;
+};
+
 // One RK slope of the renormalized propagator at stage input (sa, sb):
 // k = (pref * (phi - i h H phi) - phi) / h, pref = rsqrt(1 - clip(dp)).
-template <int S>
+template <int S, bool PE0, bool POM>
 __device__ __forceinline__ void g_slope(const FusedParams& p,
                                         const float* __restrict__ vec,
-                                        const float* __restrict__ C, int SP,
+                                        const float* __restrict__ C,
+                                        const float* __restrict__ Cdp, int SP,
+                                        const LaneVals& lv,
                                         const float (&sa)[S],
                                         const float (&sb)[S], float u,
                                         float cphi, float sphi, float (&ka)[S],
@@ -101,7 +130,19 @@ __device__ __forceinline__ void g_slope(const FusedParams& p,
       hra += m * sa[c];
       hrb += m * sb[c];
     }
-    const float diag = vec[r * 8 + 1] + vec[r * 8 + 2] * u;
+    if (POM) {   // om * (C_sp phi) + om_dp * (C_dp phi)
+      float dra = 0.f, drb = 0.f;
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        const float m = Cdp[r * SP + c];
+        dra += m * sa[c];
+        drb += m * sb[c];
+      }
+      hra = lv.om * hra + lv.omdp * dra;
+      hrb = lv.om * hrb + lv.omdp * drb;
+    }
+    const float e0 = PE0 ? lv.e0[r * THREADS] : vec[r * 8 + 1];
+    const float diag = e0 + vec[r * 8 + 2] * u;
     hra += diag * sa[r];
     hrb += diag * sb[r];
     const float hw = -0.5f * vec[r * 8];
@@ -114,7 +155,7 @@ __device__ __forceinline__ void g_slope(const FusedParams& p,
   for (int k = 0; k < MAX_TDEP; ++k) {
     if (k >= p.n_tdep) break;
     const int r = p.tdep_row[k], c = p.tdep_col[k];
-    const float m = p.tdep_coef[k];
+    const float m = POM ? lv.omdp * p.tdep_coef[k] : p.tdep_coef[k];
     const float ar = pick(sa, r), br = pick(sb, r);
     const float ac = pick(sa, c), bc = pick(sb, c);
     add_at(re, r, m * (cphi * ac - sphi * bc));
@@ -129,7 +170,7 @@ __device__ __forceinline__ void g_slope(const FusedParams& p,
   }
 }
 
-template <int S>
+template <int S, bool PE0, bool POM>
 __global__ void __launch_bounds__(THREADS)
 fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    const float* __restrict__ V, const float* __restrict__ F,
@@ -137,6 +178,8 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    const float* __restrict__ pre,
                    const float* __restrict__ pim,
                    const float* __restrict__ rolls,
+                   const float* __restrict__ e0_lanes,
+                   const float* __restrict__ om_lanes,
                    const float* __restrict__ vecs,
                    const float* __restrict__ mats, float* __restrict__ Ro,
                    float* __restrict__ Vo, float* __restrict__ tpo,
@@ -144,16 +187,33 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    int npad, float first, float tick0) {
   extern __shared__ float smem[];
   const int SP = p.SP;
-  const int n_tab = SP * 8 + 4 * SP * SP;
+  const int n_tab = SP * 8 + (POM ? 5 : 4) * SP * SP;
   for (int k = threadIdx.x; k < n_tab; k += THREADS)
     smem[k] = (k < SP * 8) ? vecs[k] : mats[k - SP * 8];
-  __syncthreads();
   const float* vec = smem;                       // [SP, 8]
   const float* C = smem + SP * 8;                // [SP, SP]
   const float* cumS = C + SP * SP;               // [dest, src]
   const float* cumD = cumS + SP * SP;
+  const float* Cdp = C + 4 * SP * SP;            // [SP, SP] (POM only)
 
   const int n = blockIdx.x * THREADS + threadIdx.x;   // npad % THREADS == 0
+  // this block's lane planes: e0 [S][THREADS], then (om, om_dp) [2][THREADS]
+  float* lanes = smem + n_tab;
+  if (PE0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      lanes[s * THREADS + threadIdx.x] = e0_lanes[(size_t)s * npad + n];
+  }
+  float* oml = lanes + (PE0 ? S * THREADS : 0);
+  if (POM) {
+    oml[threadIdx.x] = om_lanes[n];
+    oml[THREADS + threadIdx.x] = om_lanes[npad + n];
+  }
+  __syncthreads();
+  LaneVals lv;
+  lv.e0 = lanes + threadIdx.x;
+  lv.om = POM ? oml[threadIdx.x] : 1.f;
+  lv.omdp = POM ? oml[THREADS + threadIdx.x] : 1.f;
   float x = R[n], y = R[npad + n], z = R[2 * npad + n];
   float vx = V[n], vy = V[npad + n], vz = V[2 * npad + n];
   const float fx = F[n], fy = F[npad + n], fz = F[2 * npad + n];
@@ -199,7 +259,7 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
 
     // ---- RK step: acc = k1 + 3 k2 + 3 k3 + k4 ----
     float acca[S], accb[S], ka[S], kb[S], sa[S], sb[S];
-    g_slope<S>(p, vec, C, SP, a, b, u, cphi, sphi, ka, kb);
+    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, a, b, u, cphi, sphi, ka, kb);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       acca[s] = ka[s];
@@ -207,7 +267,8 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
       sa[s] = a[s] + p.half_h * ka[s];
       sb[s] = b[s] + p.half_h * kb[s];
     }
-    g_slope<S>(p, vec, C, SP, sa, sb, u, cphi, sphi, ka, kb);
+    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, sa, sb, u, cphi, sphi, ka,
+                         kb);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       acca[s] = acca[s] + 3.f * ka[s];
@@ -215,7 +276,8 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
       sa[s] = a[s] + p.half_h * ka[s];
       sb[s] = b[s] + p.half_h * kb[s];
     }
-    g_slope<S>(p, vec, C, SP, sa, sb, u, cphi, sphi, ka, kb);
+    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, sa, sb, u, cphi, sphi, ka,
+                         kb);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       acca[s] = acca[s] + 3.f * ka[s];
@@ -223,7 +285,8 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
       sa[s] = a[s] + p.h * ka[s];
       sb[s] = b[s] + p.h * kb[s];
     }
-    g_slope<S>(p, vec, C, SP, sa, sb, u, cphi, sphi, ka, kb);
+    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, sa, sb, u, cphi, sphi, ka,
+                         kb);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       acca[s] = acca[s] + ka[s];
@@ -232,14 +295,20 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
 
     // ---- Ehrenfest kick from the initial amplitudes:
     // Im(psi_a conj(psi_b)) = b_a a_b - a_a b_b
-    float kick_nj = 0.f;
+    // (POM: summed per group, SP terms x om and DP terms x om_dp)
+    float kick_nj = 0.f, kick_dp = 0.f;
 #pragma unroll
     for (int k = 0; k < MAX_FORCE; ++k) {
       if (k >= p.n_force) break;
       const int fa = p.force_a[k], fb = p.force_b[k];
-      kick_nj = kick_nj + p.force_w[k] * (pick(b, fa) * pick(a, fb) -
-                                           pick(a, fa) * pick(b, fb));
+      const float term = p.force_w[k] * (pick(b, fa) * pick(a, fb) -
+                                         pick(a, fa) * pick(b, fb));
+      if (POM && p.force_g[k])
+        kick_dp = kick_dp + term;
+      else
+        kick_nj = kick_nj + term;
     }
+    if (POM) kick_nj = lv.om * kick_nj + lv.omdp * kick_dp;
     kick_nj = kick_nj * p.h;
 
     // ---- jump collapse ----
@@ -310,24 +379,33 @@ extern "C" {
 int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* F, const float* tp, const float* pre,
                        const float* pim, const float* rolls,
+                       const float* e0_lanes, const float* om_lanes,
                        const float* vecs, const float* mats, float* Ro,
                        float* Vo, float* tpo, float* preo, float* pimo,
                        int npad, float first, float tick0, void* stream) {
+  const int pe0 = p->per_lane_e0 != 0, pom = p->per_lane_om != 0;
   if (npad <= 0 || npad % THREADS != 0 || p->n_ticks < 1 ||
-      p->n_tdep > MAX_TDEP || p->n_force > MAX_FORCE || p->SP < p->S)
+      p->n_tdep > MAX_TDEP || p->n_force > MAX_FORCE || p->SP < p->S ||
+      (pe0 && !e0_lanes) || (pom && !om_lanes))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(p->SP * 8 + 4 * p->SP * p->SP) * sizeof(float);
+  const size_t smem =
+      (size_t)(p->SP * 8 + (pom ? 5 : 4) * p->SP * p->SP +
+               ((pe0 ? p->S : 0) + (pom ? 2 : 0)) * THREADS) *
+      sizeof(float);
   const dim3 grid(npad / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(SV)                                                          \
-  fused_ticks_kernel<SV><<<grid, THREADS, smem, st>>>(                      \
-      *p, R, V, F, tp, pre, pim, rolls, vecs, mats, Ro, Vo, tpo, preo, pimo, \
-      npad, first, tick0)
-  switch (p->S) {
-    case 3: LAUNCH(3); break;
-    case 5: LAUNCH(5); break;
-    case 7: LAUNCH(7); break;
-    case 12: LAUNCH(12); break;
+#define LAUNCH(SV, E0, OM)                                                  \
+  fused_ticks_kernel<SV, E0, OM><<<grid, THREADS, smem, st>>>(              \
+      *p, R, V, F, tp, pre, pim, rolls, e0_lanes, om_lanes, vecs, mats, Ro, \
+      Vo, tpo, preo, pimo, npad, first, tick0)
+  switch (p->S * 4 + pe0 * 2 + pom) {
+    case 3 * 4: LAUNCH(3, false, false); break;
+    case 5 * 4: LAUNCH(5, false, false); break;
+    case 7 * 4: LAUNCH(7, false, false); break;
+    case 12 * 4: LAUNCH(12, false, false); break;
+    case 12 * 4 + 2: LAUNCH(12, true, false); break;
+    case 12 * 4 + 1: LAUNCH(12, false, true); break;
+    case 12 * 4 + 3: LAUNCH(12, true, true); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH

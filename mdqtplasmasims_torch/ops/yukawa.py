@@ -14,6 +14,11 @@ Counterpart of ``mdqtplasmasims_tpu/ops/yukawa.py``.  Physics:
   refresh in the lane layout ``[3, Np]``.  On a CUDA tensor it launches
   the hand-written kernel ``csrc/yukawa_forces.cu``; on a CPU tensor it
   runs :func:`yukawa_forces_n3l_soa_reference`, the plain twin.
+* ``yukawa_forces_n3l_soa_batched``: the same for an ensemble fold
+  ``[3, E*Np]`` (member blocks contiguous on the lane axis), with a
+  shared or per-member real-ion mask and an optional per-member 1/lambda;
+  one launch of the same kernel with a member grid axis, or
+  :func:`yukawa_forces_n3l_soa_batched_reference` on the CPU.
 """
 
 from __future__ import annotations
@@ -83,13 +88,17 @@ def soa_force_tile(npad: int) -> int:
 
 def yukawa_forces_n3l_soa_reference(Rp: torch.Tensor, mask_row: torch.Tensor,
                                     L: float, ldeb: float,
-                                    chunk: int = 256) -> torch.Tensor:
+                                    chunk: int = 256,
+                                    inv_ldeb=None) -> torch.Tensor:
     """Plain torch twin of the force kernel: ``F [3, Np]`` from ``Rp [3, Np]``
     and ``mask_row [1, Np]``, the same tile math as the JAX kernel
-    (_half_pair_tile), chunked over rows.  Works in Rp's dtype."""
+    (_half_pair_tile), chunked over rows.  Works in Rp's dtype.
+    ``inv_ldeb`` (a 0-d tensor) replaces ``1/ldeb`` as the kernel's
+    per-member value."""
     npad = Rp.shape[1]
     rcut2 = (L / 2.0) ** 2
-    inv_ldeb = 1.0 / ldeb
+    if inv_ldeb is None:
+        inv_ldeb = 1.0 / ldeb
     m = mask_row[0] > 0
     F = torch.empty_like(Rp)
     for s in range(0, npad, chunk):
@@ -113,6 +122,10 @@ def _lib() -> ctypes.CDLL:
     p, f = ctypes.c_void_p, ctypes.c_float
     lib.yukawa_forces_launch.argtypes = [p, p, p, ctypes.c_int, f, f, f, f, p]
     lib.yukawa_forces_launch.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.yukawa_forces_batched_launch.argtypes = [p, p, i, p, p, i, i, f, f,
+                                                 f, f, p]
+    lib.yukawa_forces_batched_launch.restype = ctypes.c_int
     return lib
 
 
@@ -153,3 +166,79 @@ def yukawa_forces_n3l_soa(Rp: torch.Tensor, mask_row: torch.Tensor,
 
 
 yukawa_forces_n3l_soa.launches = 0
+
+
+def yukawa_forces_n3l_soa_batched_reference(
+        Rp: torch.Tensor, mask_row: torch.Tensor, e: int, L: float,
+        ldeb: float, inv_ldeb: Optional[torch.Tensor] = None,
+        chunk: int = 256) -> torch.Tensor:
+    """Plain torch twin of the batched force kernel: member by member,
+    the tile math of :func:`yukawa_forces_n3l_soa_reference` on that
+    member's lane block.  ``inv_ldeb [E]`` overrides ``1/ldeb`` per
+    member."""
+    npad = Rp.shape[1] // e
+    F = torch.empty_like(Rp)
+    for k in range(e):
+        lanes = slice(k * npad, (k + 1) * npad)
+        m = mask_row[k if mask_row.shape[0] > 1 else 0][None]
+        F[:, lanes] = yukawa_forces_n3l_soa_reference(
+            Rp[:, lanes], m, L, ldeb, chunk,
+            inv_ldeb=None if inv_ldeb is None else inv_ldeb[k])
+    return F
+
+
+def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
+                                  e: int, L: float, ldeb: float,
+                                  inv_ldeb: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Job-batched forces straight from the folded lane layout: ``Rp [3,
+    E*Np]`` (member blocks contiguous on the lane axis, as the ensemble
+    loop carries them) and ``mask_row`` marking real ions, ``[1, Np]``
+    shared by the members or ``[E, Np]`` per member (Poissonian counts).
+    ``inv_ldeb [E]`` gives each member its own 1/lambda (the JAX kernel's
+    ys column 4); otherwise all use ``1/ldeb``.  Returns ``F [3, E*Np]``;
+    padded lanes are exactly 0.
+
+    CUDA tensors (float32, contiguous, Np a multiple of 128) launch
+    ``csrc/yukawa_forces.cu`` over an (Np/64, E) grid and add one to
+    ``yukawa_forces_n3l_soa_batched.launches``; CPU tensors run the plain
+    twin."""
+    if Rp.dim() != 2 or Rp.shape[0] != 3 or e < 1 or Rp.shape[1] % e:
+        raise ValueError(f"want Rp [3, E*Np] with E={e}, got "
+                         f"{tuple(Rp.shape)}")
+    npad = Rp.shape[1] // e
+    if tuple(mask_row.shape) not in ((1, npad), (e, npad)):
+        raise ValueError(f"want mask_row [1, {npad}] or [{e}, {npad}], got "
+                         f"{tuple(mask_row.shape)}")
+    extra = [mask_row] + ([] if inv_ldeb is None else [inv_ldeb])
+    if inv_ldeb is not None and tuple(inv_ldeb.shape) != (e,):
+        raise ValueError(f"want inv_ldeb [{e}], got {tuple(inv_ldeb.shape)}")
+    if any(x.device != Rp.device or x.dtype != Rp.dtype for x in extra):
+        raise ValueError("Rp, mask_row and inv_ldeb must share device and "
+                         "dtype")
+    if Rp.device.type == "cpu":
+        return yukawa_forces_n3l_soa_batched_reference(Rp, mask_row, e, L,
+                                                       ldeb, inv_ldeb)
+    if Rp.device.type != "cuda":
+        raise ValueError(f"no force kernel for device {Rp.device}")
+    if Rp.dtype != torch.float32:
+        raise ValueError(f"the CUDA force kernel is float32, got {Rp.dtype}")
+    if not all(x.is_contiguous() for x in [Rp] + extra):
+        raise ValueError("Rp, mask_row and inv_ldeb must be contiguous")
+    soa_force_tile(npad)               # Np must be a multiple of 128
+    F = torch.empty_like(Rp)
+    lib = _lib()
+    with torch.cuda.device(Rp.device):
+        err = lib.yukawa_forces_batched_launch(
+            Rp.data_ptr(), mask_row.data_ptr(),
+            npad if mask_row.shape[0] > 1 else 0,
+            None if inv_ldeb is None else inv_ldeb.data_ptr(),
+            F.data_ptr(), npad, e, float(L), float(1.0 / L),
+            float((L / 2.0) ** 2), float(1.0 / ldeb),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "yukawa_forces_batched_launch")
+    yukawa_forces_n3l_soa_batched.launches += 1
+    return F
+
+
+yukawa_forces_n3l_soa_batched.launches = 0

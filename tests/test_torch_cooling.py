@@ -119,14 +119,23 @@ def test_dat_and_checkpoint_trees_match_jax(both_runs):
 
 
 def test_unported_options_raise():
+    """What the port still refuses: float64 on CUDA, multi-device folds
+    (``mesh=``), and a CUDA run without a card (no fallback to the CPU)."""
     cfg = tlc.CoolingConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="resume"):
-        tlc.run(cfg, resume=True, device="cpu")
-    for bad in (dict(checkpoint_every_segments=1), dict(exact_n=False)):
-        with pytest.raises(NotImplementedError):
-            tlc.run(tlc.CoolingConfig(**SMALL, **bad), device="cpu")
+    f64 = tlc.CoolingConfig(dtype="float64", **SMALL)
     with pytest.raises(NotImplementedError, match="float64"):
-        tlc.run(tlc.CoolingConfig(dtype="float64", **SMALL), device="cuda")
+        tlc.run(f64, device="cuda")
+    with pytest.raises(NotImplementedError, match="float64"):
+        tlc.run_ensemble(f64, 2, device="cuda")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tlc.run_ensemble(cfg, 2, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tlc.run_sweep(cfg, [(-1.0, 1.0)], mesh=object(), device="cpu")
+    if not torch.cuda.is_available():
+        for call in (lambda: tlc.run(cfg, device="cuda"),
+                     lambda: tlc.run_ensemble(cfg, 2, device="cuda")):
+            with pytest.raises(RuntimeError):
+                call()
 
 
 def test_float64_cpu_run_tracks_float32():
@@ -152,14 +161,21 @@ def test_float64_cpu_run_tracks_float32():
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = sys.modules['jaxlib'] = None   # block\n"
         "import mdqtplasmasims_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 12, mods\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('jaxlib')]\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and ("
+        "m == 'jax' or m.startswith('jax.') or m.startswith('jaxlib'))]\n"
         "assert not bad, bad[:5]\n"
+        "from mdqtplasmasims_torch.experiments import laser_cooling as lc\n"
+        "cfg = lc.CoolingConfig(n0=32, tmax=0.004, sample_freq=2,\n"
+        "                       exact_n=False, checkpoint_every_segments=1)\n"
+        "lc.run_sweep(cfg, [{'detuning': -1.0, 'om': 0.9},\n"
+        "                   {'detuning': -0.5, 'om': 1.1}], device='cpu')\n"
+        "lc.run(cfg, device='cpu')\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -177,3 +177,152 @@ def test_flagship_run_meets_soak_bands(cuda):
     assert 0.45 < m["pop_s"] < 0.72, m
     assert 0.10 < m["pop_p"] < 0.30, m
     assert 0.10 < m["pop_d"] < 0.35, m
+
+
+# ---- ensemble folds: kernel C and the per-lane tick variants ----
+
+E_FOLD = 8
+
+
+def _fold_positions(dev, per_member):
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    L = PlasmaUnits.box_length(N)
+    m, n_js = poisson_member_mask(N, E_FOLD, seed=3)
+    npad = -(-max(NPAD, m.shape[1]) // 128) * 128
+    masks = torch.zeros((E_FOLD, npad), device=dev)
+    masks[:, :m.shape[1]] = torch.as_tensor(m, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    Rp = (torch.rand((3, E_FOLD, npad), generator=g, device=dev) * L
+          * masks).reshape(3, E_FOLD * npad)
+    if not per_member:
+        masks = torch.zeros((1, npad), device=dev)
+        masks[0, :min(n_js)] = 1.0
+    return Rp, masks, L, PlasmaUnits(2.0, 0.1).debye_length
+
+
+@pytest.mark.parametrize("case", ["per_member", "shared", "inv_ldeb"])
+def test_batched_force_kernel_matches_twin(cuda, case):
+    Rp, masks, L, ldeb = _fold_positions(cuda, case != "shared")
+    il = None
+    if case == "inv_ldeb":
+        il = (1.0 / ldeb) * (1.0 + 0.05 * torch.arange(E_FOLD, device=cuda))
+    before = ty.yukawa_forces_n3l_soa_batched.launches
+    F1 = ty.yukawa_forces_n3l_soa_batched(Rp, masks, E_FOLD, L, ldeb, il)
+    F2 = ty.yukawa_forces_n3l_soa_batched(Rp, masks, E_FOLD, L, ldeb, il)
+    Fr = ty.yukawa_forces_n3l_soa_batched_reference(Rp, masks, E_FOLD, L,
+                                                    ldeb, il)
+    torch.cuda.synchronize()
+    assert ty.yukawa_forces_n3l_soa_batched.launches == before + 2
+    assert torch.equal(F1, F2)           # deterministic run to run
+    assert float((F1 - Fr).abs().max()) < 2e-5 * float(Fr.abs().max())
+    dead = (masks.expand(E_FOLD, -1) == 0).reshape(-1)
+    assert float(F1[:, dead].abs().max()) == 0.0
+
+
+def test_single_member_fold_equals_force_kernel(cuda):
+    Rp, mask, L, ldeb = _positions(cuda)
+    a = ty.yukawa_forces_n3l_soa(Rp, mask, L, ldeb)
+    c = ty.yukawa_forces_n3l_soa_batched(Rp, mask, 1, L, ldeb)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+
+
+def test_fold_kernels_reject_what_they_cannot_take(cuda):
+    Rp, masks, L, ldeb = _fold_positions(cuda, True)
+    with pytest.raises(ValueError, match="float32"):
+        ty.yukawa_forces_n3l_soa_batched(Rp.double(), masks.double(),
+                                         E_FOLD, L, ldeb)
+    with pytest.raises(ValueError, match="mask_row"):
+        ty.yukawa_forces_n3l_soa_batched(Rp, masks[:3], E_FOLD, L, ldeb)
+    cfg = lc.CoolingConfig()
+    sched = lc.build_scheduler(cfg, cuda, rolls_fn=None, per_lane_e0=True)
+    c = sched.soa_init(lc.initial_state(cfg, torch.Generator(
+        device=cuda).manual_seed(0)))
+    rolls = torch.zeros((125, NPAD), device=cuda)
+    args = (c.R, c.V, c.F, c.tp, c.psi_re, c.psi_im, rolls)
+    with pytest.raises(ValueError, match="e0_lanes"):
+        tf.fused_md_substeps(sched.fused_spec, False, *args,
+                             tables=sched.tables)
+    with pytest.raises(ValueError, match="e0_lanes"):
+        tf.fused_md_substeps(sched.fused_spec, False, *args,
+                             tables=sched.tables,
+                             e0_lanes=torch.zeros((16, NPAD), device=cuda,
+                                                  dtype=torch.float64))
+
+
+@pytest.mark.parametrize("variant", ["e0", "om", "e0_om"])
+@pytest.mark.parametrize("excited", [False, True])
+def test_lane_tick_kernels_match_twin(cuda, variant, excited):
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    E = 4
+    cfg = lc.CoolingConfig()
+    pe0, pom = "e0" in variant, "om" in variant
+    sched = lc.build_scheduler(cfg, cuda, rolls_fn=None, per_lane_e0=pe0,
+                               per_lane_om=pom)
+    spec = sched.fused_spec
+    e0 = [lc.build_engine(dataclasses.replace(
+        cfg, detuning=d, detuning_dp=dd)).scheme.e0
+        for d, dd in ((-1.0, 1.0), (-0.5, 1.0), (-1.5, 0.6), (-0.8, 1.4))]
+    om = [(1.0, 1.0), (0.8, 1.2), (1.2, 0.7), (0.5, 1.5)]
+    e0p, omp = fold_sweep_lanes(spec, NPAD, e0 if pe0 else None,
+                                om if pom else None, cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    c = sched.soa_ens_init(lc.member_states(cfg, E, 1, cuda))
+    F = sched.soa_ens_forces_fn(E, N)(c.R)
+    on = torch.zeros((E, NPAD), device=cuda)
+    on[:, :N] = 1.0
+    on = on.reshape(1, E * NPAD)
+    if excited:
+        pre = torch.zeros_like(c.psi_re)
+        pim = torch.zeros_like(c.psi_im)
+        pre[2], pre[0], pim[4] = 0.7 * on[0], 0.51 * on[0], 0.5 * on[0]
+        c = c._replace(V=0.3 * torch.randn((3, E * NPAD), generator=g,
+                                           device=cuda) * on,
+                       tp=torch.rand((1, E * NPAD), generator=g,
+                                     device=cuda) * on,
+                       psi_re=pre, psi_im=pim)
+    rolls = torch.rand((125, E * NPAD), generator=g, device=cuda)
+    args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
+    first, tick0 = (False, 4321) if excited else (True, 0)
+    counts = (tf.fused_md_substeps.launches_per_lane_e0,
+              tf.fused_md_substeps.launches_per_lane_om)
+    out = tf.fused_md_substeps(spec, first, *args, tick0=tick0,
+                               tables=sched.tables, e0_lanes=e0p,
+                               om_lanes=omp)
+    ref = tf.fused_md_substeps_reference(spec, first, *args, sched.tables,
+                                         tick0=tick0, e0_lanes=e0p,
+                                         om_lanes=omp)
+    torch.cuda.synchronize()
+    assert (tf.fused_md_substeps.launches_per_lane_e0 - counts[0],
+            tf.fused_md_substeps.launches_per_lane_om - counts[1]) == (
+        int(pe0), int(pom))
+    bad = torch.zeros(E * NPAD, dtype=torch.bool, device=cuda)
+    for x, y, atol in zip(out, ref, (2e-5, 2e-5, 2e-5, 5e-5, 5e-5)):
+        bad |= ((x - y).abs() > atol + 1e-4 * y.abs()).any(0)
+    assert int((bad & (on[0] > 0)).sum()) <= 2 * E
+    for x in out[3:]:
+        assert float(x[12:].abs().max()) == 0.0
+        assert float(x[:, on[0] == 0].abs().max()) == 0.0
+
+
+def test_ensemble_run_members_finite_and_heating(cuda, tmp_path):
+    """Eight Poissonian members at flagship width for 500 MD steps: one
+    batched force and one tick launch per MD step for the whole fold;
+    every member finite, heating from the frozen start (disorder-induced
+    heating), its S+P+D norm near 1, and its tree sized to its own N."""
+    cfg = lc.CoolingConfig(tmax=1.0, exact_n=False,
+                           save_directory=str(tmp_path))
+    a0 = ty.yukawa_forces_n3l_soa_batched.launches
+    b0 = tf.fused_md_substeps.launches
+    final, outs = lc.run_ensemble(cfg, E_FOLD, device="cuda")
+    assert ty.yukawa_forces_n3l_soa_batched.launches - a0 == 500
+    assert tf.fused_md_substeps.launches - b0 == 12 * 41 + 20
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    _, n_js = poisson_member_mask(N, E_FOLD, 0)
+    for j, nj in enumerate(n_js):
+        assert np.isfinite(final.R[j][:nj]).all()
+        assert np.isfinite(final.psi[j][:nj]).all()
+        ek = outs["ekin"][j].sum(-1)
+        assert 0 < ek[0] < ek[-1]
+        norm = outs["pops"][j][:, :nj].sum(-1).mean(-1)
+        assert float(np.abs(norm - 1.0).max()) < 0.05
