@@ -6,34 +6,54 @@
 Phases (any failure exits non-zero; none is skipped or passed over):
   1. versions and the card (``nvidia-smi`` name and power limit); no CUDA
      device -> exit 2 before printing any result;
-  2. build both hand-written kernels from mdqtplasmasims_torch/csrc;
+  2. build both hand-written kernel libraries from
+     mdqtplasmasims_torch/csrc, one nvcc each, in parallel;
   3. the force kernel against its plain torch twin at the flagship shape
      (3500 ions in 3584 lanes), timed with CUDA events;
-  4. the fused tick kernel against its twin at the flagship shape (ratio
-     25, the sr12 scheme of CoolingConfig()), from the ground-state start
-     and from an excited start where jumps fire, plus the expansion
-     detuning with renormalization; timed with CUDA events;
-  5. the main path: ``laser_cooling.run`` of CoolingConfig(n0=3500,
-     tmax=1.0) on CUDA (500 MD steps: 12 samples + 20 trailing steps),
-     with the kernels' launch counts and physics checks;
-  6. the batched force kernel against its twin: an 8-member fold of 3584
+  4. the fused tick kernel (explicit rolls) against its twin at the
+     flagship shape (ratio 25, the sr12 scheme of CoolingConfig()), from
+     the ground-state start and from an excited start where jumps fire,
+     plus the expansion detuning with renormalization; timed;
+  5. the in-kernel RNG form of the tick kernel against its twin (which
+     draws the same Threefry stream in plain torch) at Np=3584, ratio 25,
+     from the ground and the excited start and late in a flagship run's
+     clock, and its per-lane forms on a 4-member fold; timed;
+  6. the potential kernels against their twin: D (one member, with and
+     without a mask) and G (an 8-member Poissonian fold with per-member
+     masks, and a shared mask), the fold's sample-time potential with
+     and without G; timed;
+  7. the main path: ``laser_cooling.run`` of CoolingConfig(n0=3500,
+     tmax=1.0) on CUDA (500 MD steps: 12 samples + 20 trailing steps)
+     through the in-kernel RNG, with the kernels' launch counts and
+     physics checks;
+  8. the batched force kernel against its twin: an 8-member fold of 3584
      lanes with per-member Poissonian masks, a shared mask, and
      per-member 1/lambda; run-to-run determinism, exact-zero padded
      lanes, and an E=1 launch bitwise equal to the single-member kernel;
-  7. the per-lane (sweep) variants of the tick kernel against their twin
-     on a 4-member fold at the flagship shapes, each member with its own
-     e0 and (om, om_dp), from the ground and the excited start;
-  8. the ensemble path: ``run_ensemble`` of 8 Poissonian members
+  9. the per-lane (sweep) variants of the tick kernel (explicit rolls)
+     against their twin on a 4-member fold at the flagship shapes, each
+     member with its own e0 and (om, om_dp), from the ground and the
+     excited start;
+ 10. the ensemble path: ``run_ensemble`` of 8 Poissonian members
      (n0=3500, tmax=1.0, periodic checkpoints) with launch counts,
      per-member physics and files, then a 2-member fold run to tmax=0.5
      and resumed to 1.0, bitwise equal to an uninterrupted run;
-  9. the sweep path: ``run_sweep`` over 2 detunings x 2 Rabi frequencies
-     (one 4-member fold) through the per-lane kernel.
+ 11. the sweep path: ``run_sweep`` over 2 detunings x 2 Rabi frequencies
+     (one 4-member fold) through the per-lane RNG kernel;
+ 12. explicit rolls on the card: a short flagship-width ``run`` and a
+     2-point ``run_sweep`` with a caller's ``rolls_fn``, so the explicit
+     forms of the tick kernel keep a driven path;
+ 13. the in-kernel stream's contract (tools/verify_seed_streams.py's for
+     the JAX package): the same seed gives bitwise-equal runs, another
+     seed diverges, jumps fire, folded members are independent;
+ 14. the interval diagnostics: a flagship-width ``run`` to tmax=1.0 with
+     ``vaf_intervals`` and ``record_lccf``, checking its VAF, J(k) and
+     VZERO files and the checkpoint's vholder.
 
-Phases 5, 8 and 9 each set the launch counts to 0 just before they drive
-their path and read them just after.  The line before the last is a JSON
-object with one entry per kernel; the last line is ``{"ok": true,
-"device": {...}}``.  Uses no JAX.
+Phases 7, 10, 11 and 12 each set the launch counts to 0 just before they
+drive their path and read them just after.  The line before the last is
+a JSON object with one entry per kernel and form; the last line is
+``{"ok": true, "device": {...}}``.  Uses no JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +76,10 @@ TICK_RTOL = 1e-4
 # lanes allowed to diverge because one jump test r0 < dp0 fell within float
 # rounding of dp0 and was decided differently (expected ~0 of 3500)
 MAX_DIVERGED_LANES = 3
+# the potential: 1e-5 of the largest per-ion sum (f32 sums of 3500
+# positive terms in another order; the twin's 1/r is a division, the
+# kernel's an rsqrt)
+POTENTIAL_TOL = 1e-5
 # |<S+P+D> - 1|, the ion average per sample.  Without renormalization
 # (the reference's default) single ions' norms drift by O(h^2) per tick
 # between jumps and can stray far from 1 (the JAX package's runs do too),
@@ -117,39 +141,72 @@ def check_force_kernel(torch, L, ldeb):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain)
 
 
+def compare_ticks(torch, spec, out, ref, on, allowed, what):
+    """Tick kernel outputs against the twin's: a lane diverges when any
+    plane leaves its bar there (a jump test within rounding of dp0,
+    decided the other way); at most ``allowed`` may.  Elsewhere the worst
+    error per plane; pad rows and padded lanes exactly 0.  Returns the
+    worst error."""
+    bad = torch.zeros(on.shape[0], dtype=torch.bool, device=on.device)
+    for key, x, y in zip(TICK_ATOL, out, ref):
+        bad |= ((x - y).abs() > TICK_ATOL[key] + TICK_RTOL * y.abs()).any(0)
+    bad &= on
+    errs = {k: float((x - y)[:, ~bad].abs().max())
+            for k, x, y in zip(TICK_ATOL, out, ref)}
+    pads = max(max(float(x[spec.S:].abs().max()) for x in out[3:]),
+               max(float(x[:, ~on].abs().max()) for x in out[3:]))
+    jumps = [int((o[2][0][on] < spec.ratio * spec.qdt).sum())
+             for o in (out, ref)]
+    log(f"{what}: ions that jumped {jumps[0]} (twin {jumps[1]}) of "
+        f"{int(on.sum())}, diverged lanes {int(bad.sum())} (allowed "
+        f"{allowed}), max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; max |pad row/lane| {pads:g}")
+    if int(bad.sum()) > allowed:
+        raise SystemExit(f"{what}: the tick kernel disagrees with its twin")
+    if pads != 0.0:
+        raise SystemExit(f"{what}: pad rows/lanes are not exactly 0")
+    return max(errs.values())
+
+
+def excite(torch, carry, on, g):
+    """A start with the P manifold populated (jumps fire on most ticks,
+    tests/test_fused.py:61-65), random velocities and clocks."""
+    dev = carry.R.device
+    pre = torch.zeros_like(carry.psi_re)
+    pim = torch.zeros_like(carry.psi_im)
+    m = on.to(pre.dtype)
+    pre[2], pre[0], pim[4] = 0.7 * m, 0.51 * m, 0.5 * m
+    return carry._replace(
+        V=carry.V + 0.3 * torch.randn(carry.V.shape, generator=g,
+                                      device=dev) * m,
+        tp=torch.rand(carry.tp.shape, generator=g, device=dev) * m,
+        psi_re=pre, psi_im=pim)
+
+
 def check_tick_kernel(torch, cfg, L, ldeb):
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         build_scheduler, initial_state)
     from mdqtplasmasims_torch.ops.yukawa import yukawa_forces_n3l_soa
     dev = torch.device("cuda")
-    # the uniforms are drawn here, so the schedulers need no rolls_fn
-    sched = build_scheduler(cfg, dev, rolls_fn=None)
-    n, npad, SP = cfg.n0, sched._npad(cfg.n0), sched.fused_spec.SP
+    # the uniforms are drawn here: explicit rolls, no rolls_fn
+    sched = build_scheduler(cfg, dev, internal_rng=False)
+    n, npad = cfg.n0, sched._npad(cfg.n0)
     g = torch.Generator(device=dev).manual_seed(12)
     ground = sched.soa_init(initial_state(cfg, g))
-    mask = torch.zeros((1, npad), device=dev)
-    mask[0, :n] = 1.0
-    F = yukawa_forces_n3l_soa(ground.R, mask, L, ldeb)
-    excited = ground._replace(
-        V=ground.V + 0.3 * torch.randn((3, npad), generator=g, device=dev)
-        * mask,
-        tp=torch.rand((1, npad), generator=g, device=dev) * mask,
-        psi_re=torch.zeros((SP, npad), device=dev),
-        psi_im=torch.zeros((SP, npad), device=dev))
-    # populated P manifold: jumps fire (tests/test_fused.py:61-65)
-    excited.psi_re[2, :n] = 0.7
-    excited.psi_re[0, :n] = 0.51
-    excited.psi_im[4, :n] = 0.5
+    on = torch.arange(npad, device=dev) < n
+    F = yukawa_forces_n3l_soa(ground.R, on[None].float(), L, ldeb)
+    excited = excite(torch, ground, on, g)
     sched_exp = build_scheduler(
         dataclasses.replace(cfg, frac_of_sig=0.5, renormalize=True), dev,
-        rolls_fn=None)
-    cases = [("ground start", sched, ground, True, 0),
-             ("excited start", sched, excited, False, 1000),
-             ("excited, expansion + renormalize", sched_exp, excited, False,
-              12000)]
+        internal_rng=False)
     worst = 0.0
-    for name, sc, c, first, tick0 in cases:
+    for name, sc, c, first, tick0 in (
+            ("ground start", sched, ground, True, 0),
+            ("excited start", sched, excited, False, 1000),
+            ("excited, expansion + renormalize", sched_exp, excited, False,
+             12000)):
         spec, tables = sc.fused_spec, sc.tables
         rolls = torch.rand((spec.ratio * 5, npad), generator=g, device=dev)
         args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
@@ -158,27 +215,9 @@ def check_tick_kernel(torch, cfg, L, ldeb):
         ref = tf.fused_md_substeps_reference(spec, first, *args, tables,
                                              tick0=tick0)
         torch.cuda.synchronize()
-        bad = torch.zeros(npad, dtype=torch.bool, device=dev)
-        errs = {}
-        for key, x, y in zip(TICK_ATOL, out, ref):
-            bad |= ((x - y).abs() > TICK_ATOL[key]
-                    + TICK_RTOL * y.abs()).any(0)
-        bad[n:] = False
-        for key, x, y in zip(TICK_ATOL, out, ref):
-            errs[key] = float((x - y)[:, ~bad].abs().max())
-        diverged = int(bad.sum())
-        jumps = int((out[2][0, :n] < spec.ratio * spec.qdt).sum())
-        pads = max(float(x[spec.S:].abs().max()) for x in out[3:])
-        pads = max(pads, max(float(x[:, n:].abs().max()) for x in out[3:]))
-        log(f"[ticks] {name}: ions that jumped {jumps}/{n}, diverged lanes "
-            f"{diverged} (allowed {MAX_DIVERGED_LANES}), max abs err "
-            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f"; max |pad row/lane| {pads:g}")
-        if diverged > MAX_DIVERGED_LANES:
-            raise SystemExit(f"tick kernel disagrees with its twin ({name})")
-        if pads != 0.0:
-            raise SystemExit("tick kernel: pad rows/lanes are not exactly 0")
-        worst = max(worst, *errs.values())
+        worst = max(worst, compare_ticks(torch, spec, out, ref, on,
+                                         MAX_DIVERGED_LANES,
+                                         f"[ticks] {name}"))
     spec, c = sched.fused_spec, excited
     rolls = torch.rand((spec.ratio * 5, npad), generator=g, device=dev)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
@@ -191,11 +230,215 @@ def check_tick_kernel(torch, cfg, L, ldeb):
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain)
 
 
+def check_rng_tick_kernels(torch, cfg, L, ldeb):
+    """The in-kernel RNG form against its twin (the same Threefry stream
+    in plain torch), alone at Np=3584 and in its per-lane forms on a
+    4-member fold.  Agreement to the bars with the same jumps on all but
+    a few lanes means the kernel drew the twin's bits."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    from mdqtplasmasims_torch.experiments import laser_cooling as lc
+    from mdqtplasmasims_torch.ops.yukawa import yukawa_forces_n3l_soa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
+    n = cfg.n0
+    out = {}
+    sched = lc.build_scheduler(cfg, dev)               # the CUDA default
+    if not sched.fused_spec.internal_rng:
+        raise SystemExit("build_scheduler on CUDA did not pick the "
+                         "in-kernel RNG")
+    npad = sched._npad(n)
+    on = torch.arange(npad, device=dev) < n
+    ground = sched.soa_init(lc.initial_state(cfg, g))
+    F = yukawa_forces_n3l_soa(ground.R, on[None].float(), L, ldeb)
+    excited = excite(torch, ground, on, g)
+    sched_exp = lc.build_scheduler(
+        dataclasses.replace(cfg, frac_of_sig=0.5, renormalize=True), dev)
+    worst = 0.0
+    # the last case sits late in a flagship run (375,000 ticks)
+    for name, sc, c, first, tick0 in (
+            ("ground start", sched, ground, True, 0),
+            ("excited start", sched, excited, False, 4321),
+            ("excited, expansion + renormalize, tick 374975", sched_exp,
+             excited, False, 374975)):
+        spec = sc.fused_spec
+        args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im)
+        res = tf.fused_md_substeps(spec, first, *args, tick0=tick0,
+                                   tables=sc.tables, seed=seed)
+        ref = tf.fused_md_substeps_reference(spec, first, *args, None,
+                                             sc.tables, tick0=tick0,
+                                             seed=seed)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_ticks(torch, spec, res, ref, on,
+                                         MAX_DIVERGED_LANES,
+                                         f"[ticks-rng] {name}"))
+    spec, c = sched.fused_spec, excited
+    args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im)
+    ms = cuda_ms(torch, lambda: tf.fused_md_substeps(
+        spec, False, *args, tick0=4321, tables=sched.tables, seed=seed))
+    plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
+        spec, False, *args, None, sched.tables, tick0=4321, seed=seed),
+        reps=20)
+    log(f"[ticks-rng] kernel {ms:.4f} ms, plain torch {plain:.4f} ms per "
+        f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
+    out["fused_ticks_rng"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+
+    E = 4
+    dets = [(-1.0, 1.0), (-0.5, 1.0), (-1.5, 0.6), (-0.8, 1.4)]
+    oms = [(1.0, 1.0), (0.8, 1.2), (1.2, 0.7), (0.5, 1.5)]
+    sweep_e0 = [lc.build_engine(dataclasses.replace(
+        cfg, detuning=a, detuning_dp=b)).scheme.e0 for a, b in dets]
+    for key, pe0, pom in (("fused_ticks_rng_per_lane_e0", True, False),
+                          ("fused_ticks_rng_per_lane_om", False, True),
+                          ("fused_ticks_rng_per_lane_e0+om", True, True)):
+        sc = lc.build_scheduler(cfg, dev, per_lane_e0=pe0, per_lane_om=pom)
+        spec = sc.fused_spec
+        fold = sc.soa_ens_init(lc.member_states(cfg, E, 3, dev))
+        onE = (torch.arange(E * npad, device=dev) % npad) < n
+        FE = sc.soa_ens_forces_fn(E, n)(fold.R)
+        exc = excite(torch, fold, onE, g)
+        e0p, omp = fold_sweep_lanes(spec, npad, sweep_e0 if pe0 else None,
+                                    oms if pom else None, dev)
+        worst = 0.0
+        for name, c, first, tick0 in (("ground", fold, True, 0),
+                                      ("excited", exc, False, 4321)):
+            args = (c.R, c.V, FE, c.tp, c.psi_re, c.psi_im)
+            res = tf.fused_md_substeps(spec, first, *args, tick0=tick0,
+                                       tables=sc.tables, e0_lanes=e0p,
+                                       om_lanes=omp, seed=seed)
+            ref = tf.fused_md_substeps_reference(
+                spec, first, *args, None, sc.tables, tick0=tick0,
+                e0_lanes=e0p, om_lanes=omp, seed=seed)
+            torch.cuda.synchronize()
+            worst = max(worst, compare_ticks(
+                torch, spec, res, ref, onE, E * MAX_DIVERGED_LANES,
+                f"[ticks-rng] {key[12:]}, {name} start, E={E} x {npad}"))
+        args = (exc.R, exc.V, FE, exc.tp, exc.psi_re, exc.psi_im)
+        ms = cuda_ms(torch, lambda: tf.fused_md_substeps(
+            spec, False, *args, tick0=4321, tables=sc.tables, e0_lanes=e0p,
+            om_lanes=omp, seed=seed))
+        plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
+            spec, False, *args, None, sc.tables, tick0=4321, e0_lanes=e0p,
+            om_lanes=omp, seed=seed), reps=10)
+        log(f"[ticks-rng] {key[12:]}: kernel {ms:.4f} ms, plain torch "
+            f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} "
+            f"fold (median of {N_TIMED}/10)")
+        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+    return out
+
+
+def check_potential_kernels(torch, L, ldeb):
+    """Kernels D and G (forces and the per-ion potential) against their
+    twin, the plain ``yukawa_forces_potential``, and the fold's
+    sample-time potential per member (before G) and in one G launch."""
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def held(what, F, pot, Fr, potr, dead):
+        sf, sp = float(Fr.abs().max()), float(potr.abs().max())
+        ef, ep = float((F - Fr).abs().max()), float((pot - potr).abs().max())
+        zero = (max(float(F[dead].abs().max()), float(pot[dead].abs().max()))
+                if dead.any() else 0.0)
+        log(f"[potential] {what}: max|F| {sf:.6g} err {ef:.3g} (tol "
+            f"{FORCE_TOL:g} of it), max pot {sp:.6g} err {ep:.3g} (tol "
+            f"{POTENTIAL_TOL:g} of it), max |masked row| {zero:g}")
+        if not (ef <= FORCE_TOL * sf and ep <= POTENTIAL_TOL * sp):
+            raise SystemExit(f"potential kernel disagrees ({what})")
+        if zero != 0.0:
+            raise SystemExit(f"potential kernel: masked rows not 0 ({what})")
+        return max(ef / sf, ep / sp)
+
+    n = 3500
+    R = torch.rand((n, 3), generator=g, device=dev) * L
+    mask = torch.ones(n, device=dev)
+    mask[::10] = 0.0
+    worst_d = 0.0
+    for what, mk in (("D, no mask", None), ("D, every 10th ion masked",
+                                            mask)):
+        F, pot = ty.yukawa_forces_potential_pallas(R, L, ldeb, mk)
+        Fr, potr = ty.yukawa_forces_potential(R, L, ldeb, mk)
+        e = ty.yukawa_potential_pallas(R, L, ldeb, mk)
+        torch.cuda.synchronize()
+        dead = (torch.zeros(n, dtype=torch.bool, device=dev) if mk is None
+                else mk == 0)
+        worst_d = max(worst_d, held(what, F, pot, Fr, potr, dead))
+        er = float(0.5 * potr.sum() / (n if mk is None else mk.sum()))
+        if abs(float(e) - er) > POTENTIAL_TOL * abs(er):
+            raise SystemExit(f"yukawa_potential_pallas {float(e)} vs twin "
+                             f"{er} ({what})")
+    ms_d = cuda_ms(torch, lambda: ty.yukawa_forces_potential_pallas(
+        R, L, ldeb))
+    plain_d = cuda_ms(torch, lambda: ty.yukawa_forces_potential(R, L, ldeb),
+                      reps=10)
+    log(f"[potential] D at N={n}: kernel {ms_d:.4f} ms, plain torch "
+        f"{plain_d:.4f} ms (median of {N_TIMED}/10)")
+
+    E = 8
+    m, n_js = poisson_member_mask(3500, E, seed=7)
+    masks = torch.as_tensor(m, device=dev)
+    n_arr = m.shape[1]
+    RE = torch.rand((E, n_arr, 3), generator=g, device=dev) * L
+    RE = RE * masks[..., None]
+    shared = torch.zeros(n_arr, device=dev)
+    shared[:min(n_js)] = 1.0
+    worst_g = 0.0
+    for what, mk in (("G, per-member Poissonian masks", masks),
+                     ("G, shared mask", shared)):
+        F, pot = ty.yukawa_forces_potential_pallas_batched(RE, L, ldeb,
+                                                           mask=mk)
+        twin = [ty.yukawa_forces_potential(
+            RE[j], L, ldeb, mk[j] if mk.dim() == 2 else mk)
+            for j in range(E)]
+        Fr = torch.stack([f for f, _ in twin])
+        potr = torch.stack([u for _, u in twin])
+        torch.cuda.synchronize()
+        dead = mk.expand(E, n_arr) == 0
+        worst_g = max(worst_g, held(f"{what}, E={E}, N={n_js}", F, pot, Fr,
+                                    potr, dead))
+    eb = ty.yukawa_potential_pallas_batched(RE, L, ldeb, masks)
+    er = torch.stack([ty.yukawa_potential(RE[j], L, ldeb, masks[j])
+                      for j in range(E)])
+    torch.cuda.synchronize()
+    if float(((eb - er) / er).abs().max()) > POTENTIAL_TOL:
+        raise SystemExit(f"per-member potentials from G {eb.tolist()} vs twin "
+                         f"{er.tolist()}")
+    ms_g = cuda_ms(torch, lambda: ty.yukawa_forces_potential_pallas_batched(
+        RE, L, ldeb, mask=masks))
+    plain_g = cuda_ms(torch, lambda: [ty.yukawa_forces_potential(
+        RE[j], L, ldeb, masks[j]) for j in range(E)], reps=10)
+    log(f"[potential] G at E={E}: kernel {ms_g:.4f} ms, plain torch "
+        f"{plain_g:.4f} ms (median of {N_TIMED}/10)")
+    # the fold's sample-time potential: a per-member loop of the
+    # plain twin against one G launch (host clock, each ends in a sync)
+    walls = {}
+    per_member = lambda: [ty.yukawa_potential(RE[j], L, ldeb, masks[j])
+                          for j in range(E)]
+    one_launch = lambda: ty.yukawa_potential_pallas_batched(RE, L, ldeb,
+                                                            masks)
+    for key, fn in (("per-member twin", per_member),
+                    ("one G launch", one_launch)):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        walls[key] = statistics.median(times)
+    log(f"[potential] the {E}-member fold's sample potential: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in walls.items())
+        + " (host clock to sync, median of 10)")
+    return (dict(max_abs_err=worst_d, ms=ms_d, plain_ms=plain_d),
+            dict(max_abs_err=worst_g, ms=ms_g, plain_ms=plain_g))
+
+
 def main_path(torch, card):
-    from mdqtplasmasims_torch.core.qt_fused import fused_md_substeps
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         CoolingConfig, run)
-    from mdqtplasmasims_torch.ops.yukawa import yukawa_forces_n3l_soa
     with tempfile.TemporaryDirectory() as tmp:
         cfg = CoolingConfig(n0=3500, tmax=1.0, save_directory=tmp)
         n_md = int(round(cfg.tmax / cfg.timestep))
@@ -205,14 +448,16 @@ def main_path(torch, card):
         t0 = time.perf_counter()
         final, res = run(cfg, device="cuda")     # ends in a host fetch
         wall = time.perf_counter() - t0
-        counts = (yukawa_forces_n3l_soa.launches, fused_md_substeps.launches)
+        counts = read_counts()
         log(f"[main] run(CoolingConfig(n0=3500, tmax=1.0), device='cuda'): "
             f"{n_md} MD steps, {ticks} ticks in {wall:.3f} s -> "
             f"{n_md / wall:.1f} MD steps/s, "
             f"{cfg.n0 * ticks / wall:.4g} ion-QT-updates/s ({card})")
-        log(f"[main] launches: force {counts[0]}, ticks {counts[1]}")
-        if counts != (500, 512):
-            raise SystemExit(f"main path launched {counts}, want (500, 512)")
+        log(f"[main] launches: {counts}")
+        want = dict(yukawa_forces=500, fused_ticks_rng=512,
+                    yukawa_forces_potential=13, fused_ticks=0)
+        if any(counts[k] != v for k, v in want.items()):
+            raise SystemExit(f"main path launched {counts}, want {want}")
         outs = res["outs"]
         arrays = [final.R, final.V, final.F, final.psi, final.t_part,
                   *outs.values()]
@@ -241,8 +486,12 @@ def main_path(torch, card):
         if len(rows) != 12 or missing:
             raise SystemExit(f"energies.dat rows {len(rows)} (want 12), "
                              f"missing checkpoint files {missing}")
+        import numpy as np
+        with np.load(os.path.join(job, f"checkpoint_{n_md - 1:06d}.npz")) as z:
+            if "torch_rng_seed" not in z.files:
+                raise SystemExit("the checkpoint lacks the seed word")
         log(f"[main] energies.dat: {len(rows)} rows; terminal checkpoint "
-            f"files present")
+            f"files present, with the seed word")
     return counts
 
 
@@ -304,7 +553,8 @@ def check_batched_force_kernel(torch, L, ldeb):
 
 
 def check_lane_kernels(torch, cfg):
-    """The per-lane tick variants against the twin on a 4-member fold."""
+    """The per-lane tick variants (explicit rolls) against the twin on a
+    4-member fold."""
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
     from mdqtplasmasims_torch.experiments import laser_cooling as lc
@@ -319,22 +569,15 @@ def check_lane_kernels(torch, cfg):
     for key, pe0, pom in (("per_lane_e0", True, False),
                           ("per_lane_om", False, True),
                           ("per_lane_e0+om", True, True)):
-        sched = lc.build_scheduler(cfg, dev, None, per_lane_e0=pe0,
-                                   per_lane_om=pom)
+        sched = lc.build_scheduler(cfg, dev, per_lane_e0=pe0,
+                                   per_lane_om=pom, internal_rng=False)
         spec, n = sched.fused_spec, cfg.n0
-        npad, SP = sched._npad(n), spec.SP
+        npad = sched._npad(n)
         ground = sched.soa_ens_init(lc.member_states(cfg, E, 3, dev))
         F = sched.soa_ens_forces_fn(E, n)(ground.R)
-        on = torch.zeros((1, E, npad), device=dev)
-        on[:, :, :n] = 1.0
-        on = on.reshape(1, E * npad)
-        pre = torch.zeros((SP, E * npad), device=dev)
-        pim = torch.zeros((SP, E * npad), device=dev)
-        pre[2], pre[0], pim[4] = 0.7 * on[0], 0.51 * on[0], 0.5 * on[0]
-        excited = ground._replace(
-            V=0.3 * torch.randn((3, E * npad), generator=g, device=dev) * on,
-            tp=torch.rand((1, E * npad), generator=g, device=dev) * on,
-            psi_re=pre, psi_im=pim)
+        on = (torch.arange(E * npad, device=dev) % npad) < n
+        excited = excite(torch, ground._replace(V=torch.zeros_like(
+            ground.V)), on, g)
         e0p, omp = fold_sweep_lanes(spec, npad, sweep_e0 if pe0 else None,
                                     oms if pom else None, dev)
         worst = 0.0
@@ -350,27 +593,9 @@ def check_lane_kernels(torch, cfg):
                 spec, first, *args, sched.tables, tick0=tick0, e0_lanes=e0p,
                 om_lanes=omp)
             torch.cuda.synchronize()
-            bad = torch.zeros(E * npad, dtype=torch.bool, device=dev)
-            for k, x, y in zip(TICK_ATOL, res, ref):
-                bad |= ((x - y).abs() > TICK_ATOL[k]
-                        + TICK_RTOL * y.abs()).any(0)
-            bad &= on[0] > 0
-            errs = {k: float((x - y)[:, ~bad].abs().max())
-                    for k, x, y in zip(TICK_ATOL, res, ref)}
-            pads = max(max(float(x[spec.S:].abs().max()) for x in res[3:]),
-                       max(float(x[:, on[0] == 0].abs().max())
-                           for x in res[3:]))
-            jumps = int((res[2][0][on[0] > 0] < spec.ratio * spec.qdt).sum())
-            log(f"[ticks-lane] {key}, {name} start: E={E} x {npad} lanes, "
-                f"jumped {jumps}/{E * n}, diverged lanes {int(bad.sum())} "
-                f"(allowed {E * MAX_DIVERGED_LANES}), max abs err "
-                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-                + f"; max |pad row/lane| {pads:g}")
-            if int(bad.sum()) > E * MAX_DIVERGED_LANES:
-                raise SystemExit(f"tick kernel {key} disagrees ({name})")
-            if pads != 0.0:
-                raise SystemExit(f"tick kernel {key}: pad rows/lanes not 0")
-            worst = max(worst, *errs.values())
+            worst = max(worst, compare_ticks(
+                torch, spec, res, ref, on, E * MAX_DIVERGED_LANES,
+                f"[ticks-lane] {key}, {name} start, E={E} x {npad}"))
         c = excited
         rolls = torch.rand((spec.ratio * 5, E * npad), generator=g, device=dev)
         args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
@@ -387,31 +612,37 @@ def check_lane_kernels(torch, cfg):
     return out
 
 
-def reset_counts():
-    from mdqtplasmasims_torch.core.qt_fused import fused_md_substeps
+def counters() -> dict:
+    """Every kernel form's launch counter: name -> (object, attribute)."""
+    from mdqtplasmasims_torch.core.qt_fused import (LAUNCH_COUNTERS,
+                                                    fused_md_substeps)
     from mdqtplasmasims_torch.ops import yukawa as ty
-    ty.yukawa_forces_n3l_soa.launches = 0
-    ty.yukawa_forces_n3l_soa_batched.launches = 0
-    fused_md_substeps.launches = 0
-    fused_md_substeps.launches_per_lane_e0 = 0
-    fused_md_substeps.launches_per_lane_om = 0
+    out = dict(
+        yukawa_forces=(ty.yukawa_forces_n3l_soa, "launches"),
+        yukawa_forces_batched=(ty.yukawa_forces_n3l_soa_batched, "launches"),
+        yukawa_forces_potential=(ty.yukawa_forces_potential_pallas,
+                                 "launches"),
+        yukawa_forces_potential_batched=(
+            ty.yukawa_forces_potential_pallas_batched, "launches"))
+    for attr in LAUNCH_COUNTERS:           # launches[_rng][_per_lane_..]
+        out["fused_ticks" + attr[len("launches"):]] = (fused_md_substeps,
+                                                        attr)
+    return out
+
+
+def reset_counts():
+    for obj, attr in counters().values():
+        setattr(obj, attr, 0)
 
 
 def read_counts() -> dict:
-    from mdqtplasmasims_torch.core.qt_fused import fused_md_substeps
-    from mdqtplasmasims_torch.ops import yukawa as ty
-    return dict(yukawa_forces=ty.yukawa_forces_n3l_soa.launches,
-                yukawa_forces_batched=ty.yukawa_forces_n3l_soa_batched.launches,
-                fused_ticks=fused_md_substeps.launches,
-                fused_ticks_per_lane_e0=fused_md_substeps.launches_per_lane_e0,
-                fused_ticks_per_lane_om=fused_md_substeps.launches_per_lane_om)
+    return {k: getattr(obj, attr) for k, (obj, attr) in counters().items()}
 
 
-def check_members(name, final, outs, n_js, dirs, n_md):
+def check_members(name, final, outs, n_js, dirs, n_md, rows_want=12):
     """Per member: finite values, Ekin rising from the frozen start, the
-    ion-mean S+P+D norm, 12 energies.dat rows and an ions_ file of the
+    ion-mean S+P+D norm, the energies.dat rows and an ions_ file of the
     member's N."""
-    import numpy as np
     from mdqtplasmasims_tpu.io import checkpoint as ckpt
     for j, (nj, d) in enumerate(zip(n_js, dirs)):
         arrays = [final.R[j][:nj], final.V[j][:nj], final.psi[j][:nj],
@@ -431,9 +662,9 @@ def check_members(name, final, outs, n_js, dirs, n_md):
             raise SystemExit(f"{name}: member {j} Ekin did not rise")
         if pop_err > POP_TOL:
             raise SystemExit(f"{name}: member {j} S/P/D do not sum to 1")
-        if len(rows) != 12 or n_file != nj:
+        if len(rows) != rows_want or n_file != nj:
             raise SystemExit(f"{name}: member {j} wrote {len(rows)} rows and "
-                             f"N={n_file} (want 12 and {nj})")
+                             f"N={n_file} (want {rows_want} and {nj})")
 
 
 def ensemble_path(torch, card):
@@ -459,16 +690,18 @@ def ensemble_path(torch, card):
             f"steps in {wall:.3f} s -> {sum(n_js) * ticks / wall:.4g} "
             f"aggregate ion-QT-updates/s ({card})")
         log(f"[ensemble] launches: {counts}")
-        if (counts["yukawa_forces_batched"], counts["fused_ticks"]) != (500,
-                                                                       512):
-            raise SystemExit(f"ensemble path launched {counts}, want 500 "
-                             "batched-force and 512 tick launches")
+        want = dict(yukawa_forces_batched=500, fused_ticks_rng=512,
+                    yukawa_forces_potential_batched=13, fused_ticks=0,
+                    yukawa_forces_potential=0)
+        if any(counts[k] != v for k, v in want.items()):
+            raise SystemExit(f"ensemble path launched {counts}, want {want}")
         dirs = sorted(os.path.dirname(p) for p in glob_all(tmp,
                                                            "energies.dat"))
         if len(dirs) != E:
             raise SystemExit(f"ensemble wrote {len(dirs)} job trees")
         check_members("ensemble", final, outs, n_js, dirs, n_md)
-    # resume: tmax=0.5 then resume to 1.0 == uninterrupted 1.0, bitwise
+    # resume: tmax=0.5 then resume to 1.0 == uninterrupted 1.0, bitwise,
+    # on the in-kernel RNG (the seed word rides the checkpoints)
     finals = []
     with tempfile.TemporaryDirectory() as tmp:
         for tmax, resume, sub in ((0.5, False, "a"), (1.0, True, "a"),
@@ -484,8 +717,9 @@ def ensemble_path(torch, card):
         np.array_equal(getattr(finals[1], k)[j][:nj],
                        getattr(finals[2], k)[j][:nj])
         for k in ("R", "V", "psi", "t_part") for j, nj in enumerate(n2))
-    log(f"[ensemble] E=2 fold (N={n2}), tmax 0.5 then resume to 1.0 vs one "
-        f"run to 1.0: final R/V/psi/t_part bitwise equal: {same}")
+    log(f"[ensemble] E=2 fold (N={n2}), in-kernel RNG, tmax 0.5 then resume "
+        f"to 1.0 vs one run to 1.0: final R/V/psi/t_part bitwise equal: "
+        f"{same}")
     if not same:
         raise SystemExit("resumed ensemble differs from the uninterrupted "
                          "run")
@@ -494,7 +728,7 @@ def ensemble_path(torch, card):
 
 def sweep_path(torch, card):
     from mdqtplasmasims_torch.experiments.laser_cooling import (
-        CoolingConfig, run_sweep)
+        CoolingConfig, _save_dir, run_sweep)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = CoolingConfig(n0=3500, tmax=1.0, save_directory=tmp)
         n_md = int(round(cfg.tmax / cfg.timestep))
@@ -512,16 +746,129 @@ def sweep_path(torch, card):
             f"{E * cfg.n0 * n_md * cfg.ratio / wall:.4g} aggregate "
             f"ion-QT-updates/s ({card})")
         log(f"[sweep] launches: {counts}")
-        if (counts["yukawa_forces_batched"], counts["fused_ticks_per_lane_e0"],
-                counts["fused_ticks_per_lane_om"]) != (500, 512, 512):
-            raise SystemExit(f"sweep path launched {counts}, want 500 "
-                             "batched-force and 512 per-lane tick launches")
-        from mdqtplasmasims_torch.experiments.laser_cooling import _save_dir
+        want = dict(yukawa_forces_batched=500, fused_ticks_rng_per_lane_e0=512,
+                    fused_ticks_rng_per_lane_om=512,
+                    yukawa_forces_potential_batched=13)
+        if any(counts[k] != v for k, v in want.items()):
+            raise SystemExit(f"sweep path launched {counts}, want {want}")
         dirs = [_save_dir(c) for c in mcfgs]
         if len(set(dirs)) != E:
             raise SystemExit("sweep points share a directory")
         check_members("sweep", final, outs, [cfg.n0] * E, dirs, n_md)
     return counts
+
+
+def explicit_rolls_path(torch, card):
+    """A short flagship-width run and a 2-point sweep with a caller's
+    ``rolls_fn``: the explicit-rolls forms of the tick kernel."""
+    from mdqtplasmasims_torch.core.scheduler import uniform_rolls
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, run, run_sweep)
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = CoolingConfig(n0=3500, tmax=0.2, save_directory=tmp)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, res = run(cfg, device="cuda", rolls_fn=uniform_rolls(
+            torch.Generator(device=dev).manual_seed(1)))
+        points = [{"detuning": -1.0, "om": 0.8},
+                  {"detuning": -0.5, "om": 1.2}]
+        fs, outs, _ = run_sweep(cfg, points, device="cuda",
+                                rolls_fn=uniform_rolls(torch.Generator(
+                                    device=dev).manual_seed(2)))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    log(f"[explicit] run + 2-point run_sweep (n0=3500, tmax=0.2) with a "
+        f"rolls_fn in {wall:.3f} s; launches: {counts}")
+    want = dict(yukawa_forces=100, fused_ticks=102, yukawa_forces_batched=100,
+                fused_ticks_per_lane_e0=102, fused_ticks_per_lane_om=102,
+                fused_ticks_rng=0, fused_ticks_rng_per_lane_e0=0)
+    if any(counts[k] != v for k, v in want.items()):
+        raise SystemExit(f"explicit-rolls paths launched {counts}, want "
+                         f"{want}")
+    for what, o, psi in (("run", res["outs"], final.psi),
+                         ("sweep", outs, fs.psi)):
+        norm = float(abs(o["pops"].sum(-1).mean() - 1.0))
+        if not (np_isfinite(psi) and norm < POP_TOL):
+            raise SystemExit(f"explicit-rolls {what}: non-finite or S+P+D "
+                             f"off by {norm}")
+    return counts
+
+
+def stream_contract(torch):
+    """tools/verify_seed_streams.py's checks, on the port's stream."""
+    import numpy as np
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, build_scheduler, run, run_ensemble)
+    cfg = CoolingConfig(n0=256, tmax=2.0)
+    if not build_scheduler(cfg, "cuda").fused_spec.internal_rng:
+        raise SystemExit("the stream contract must run the in-kernel RNG")
+    f1, _ = run(cfg, seed=3, device="cuda")
+    f2, _ = run(cfg, seed=3, device="cuda")
+    f3, _ = run(cfg, seed=4, device="cuda")
+    same = all(np.array_equal(getattr(f1, k), getattr(f2, k))
+               for k in ("R", "V", "psi", "t_part"))
+    diverged = not np.allclose(f1.R, f3.R)
+    # an ion whose clock is below 90 % of the run time jumped after t/10
+    frac = float((f1.t_part < 0.9 * f1.t).mean())
+    fe, oe = run_ensemble(CoolingConfig(n0=256, tmax=1.0), 4, seed=5,
+                          device="cuda")
+    distinct = all(not np.allclose(fe.R[0], fe.R[i]) for i in range(1, 4))
+    last = np.asarray(oe["ekin"], np.float64)[:, -1, 0]
+    spread = float(last.std() / last.mean())
+    log(f"[streams] n0=256 tmax=2.0: seed 3 twice bitwise equal {same}; "
+        f"seed 4 diverges {diverged}; ions that jumped after t/10 "
+        f"{frac:.3f}; 4-member fold distinct {distinct}, EkinX at t=1 "
+        f"{last.round(6).tolist()} (rel spread {spread:.4f})")
+    if not (same and diverged and frac > 0.5 and distinct
+            and spread > 1e-3):
+        raise SystemExit("the in-kernel stream breaks its contract")
+
+
+def interval_path(torch, card):
+    """A flagship-width run with the interval diagnostics."""
+    import numpy as np
+    from mdqtplasmasims_tpu.io.datfiles import read_rows
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, run)
+    iv = (0.2, 0.5)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = CoolingConfig(n0=3500, tmax=1.0, vaf_intervals=iv,
+                            record_lccf=True, save_directory=tmp)
+        n_md = int(round(cfg.tmax / cfg.timestep))
+        t0 = time.perf_counter()
+        final, res = run(cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        outs = res["outs"]
+        t = np.asarray(outs["t"], np.float64)
+        job = next(d for d, _, fs in os.walk(tmp) if "energies.dat" in fs)
+        got = []
+        for k, ts in enumerate(iv):
+            vaf = read_rows(os.path.join(job, f"VAF_interval{k}.dat"), 2)
+            start = int(np.argmin(np.abs(t - ts)))
+            v0 = np.asarray(outs["V"][start], np.float64)
+            ok = (vaf.shape[0] == len(t) - start
+                  and np.allclose(vaf[:, 0], t[start:], rtol=1e-5)
+                  and abs(vaf[0, 1] - np.mean(np.sum(v0 * v0, -1)))
+                  <= 1e-5 * vaf[0, 1] and np.isfinite(vaf).all())
+            vz = read_rows(os.path.join(
+                job, f"VZERO_timestep{n_md - 1:06d}_interval{k}.dat"), 3)
+            ok = ok and np.allclose(vz, v0, rtol=1e-5, atol=1e-7)
+            got.append((vaf.shape[0], ok))
+        J = read_rows(os.path.join(job, "J_interval0.dat"), 10)
+        j_ok = (J.shape[0] == len(t) * 12 ** 3 and np.isfinite(J).all()
+                and np.array_equal(np.unique(J[:, 0]),
+                                   np.arange(len(t)) * cfg.sample_freq))
+        with np.load(os.path.join(job, f"checkpoint_{n_md - 1:06d}.npz")) as z:
+            vh = z["vholder"]
+        vh_ok = vh.shape == (13, cfg.n0, 3) and not vh[2:].any()
+    log(f"[intervals] run(n0=3500, tmax=1.0, vaf_intervals={iv}, "
+        f"record_lccf=True) in {wall:.3f} s ({card}): VAF rows and checks "
+        f"{got}; J_interval0.dat {J.shape} ok {j_ok}; checkpoint vholder "
+        f"{vh.shape} ok {vh_ok}")
+    if not (all(ok for _, ok in got) and j_ok and vh_ok):
+        raise SystemExit("the interval diagnostics' files are wrong")
 
 
 def glob_all(root, name):
@@ -533,16 +880,33 @@ def np_isfinite(a) -> bool:
     return bool(np.isfinite(np.asarray(a)).all())
 
 
+def build_kernels(torch):
+    """Both kernel libraries, one nvcc each, started together."""
+    from mdqtplasmasims_torch import _build
+    from mdqtplasmasims_torch.core import qt_fused
+    from mdqtplasmasims_torch.ops import yukawa
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(yukawa._lib), pool.submit(qt_fused._lib)]:
+            fut.result()
+    log(f"[build] both kernel libraries loaded in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in _build.build_seconds.items())
+        + ")")
+    for name in ("yukawa_forces", "fused_ticks"):
+        for line in _build.build_log(name).splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
+                log(f"[build] {name}: {line.strip()}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    from mdqtplasmasims_torch import _build
-    from mdqtplasmasims_torch.core import qt_fused
     from mdqtplasmasims_torch.experiments import laser_cooling as lc
-    from mdqtplasmasims_torch.ops import yukawa
     from mdqtplasmasims_tpu.units import PlasmaUnits
 
     # IEEE float32 for the plain versions too (the kernels use no TF32)
@@ -556,20 +920,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     log(f"[env] card: {smi}")
-
-    # one nvcc per source, started together
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(yukawa._lib), pool.submit(qt_fused._lib)]:
-            fut.result()
-    log(f"[build] both kernel libraries loaded in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc: " + ", ".join(f"{k} {v:.1f} s"
-                               for k, v in _build.build_seconds.items())
-        + ")")
-    for name in ("yukawa_forces", "fused_ticks"):
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    build_kernels(torch)
 
     cfg = lc.CoolingConfig()
     pu = PlasmaUnits(cfg.density, cfg.ge)
@@ -578,32 +929,56 @@ def main() -> int:
         f"ratio={cfg.ratio} qdt={cfg.qdt:g}")
     force = check_force_kernel(torch, L, pu.debye_length)
     ticks = check_tick_kernel(torch, cfg, L, pu.debye_length)
+    rng = check_rng_tick_kernels(torch, cfg, L, pu.debye_length)
+    pot_d, pot_g = check_potential_kernels(torch, L, pu.debye_length)
     counts = main_path(torch, smi)
     force_e = check_batched_force_kernel(torch, L, pu.debye_length)
     lanes = check_lane_kernels(torch, cfg)
     ens_counts = ensemble_path(torch, smi)
     sweep_counts = sweep_path(torch, smi)
+    expl_counts = explicit_rolls_path(torch, smi)
+    stream_contract(torch)
+    interval_path(torch, smi)
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
     src_t = "mdqtplasmasims_torch/csrc/fused_ticks.cu"
     tpu_t = "mdqtplasmasims_tpu/core/qt_fused.py:93"
+    tpu_rng = "mdqtplasmasims_tpu/core/qt_fused.py:111"
     kernels = [
         dict(name="yukawa_forces", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:302",
-             launches=counts[0], **force),
+             launches=counts["yukawa_forces"], **force),
         dict(name="yukawa_forces_batched", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:411",
              launches=ens_counts["yukawa_forces_batched"], **force_e),
+        dict(name="yukawa_forces_potential", route="cuda", source=src_f,
+             replaces="mdqtplasmasims_tpu/ops/yukawa.py:147",
+             launches=counts["yukawa_forces_potential"], **pot_d),
+        dict(name="yukawa_forces_potential_batched", route="cuda",
+             source=src_f, replaces="mdqtplasmasims_tpu/ops/yukawa.py:166",
+             launches=ens_counts["yukawa_forces_potential_batched"],
+             **pot_g),
+        dict(name="fused_ticks_rng", route="cuda", source=src_t,
+             replaces=tpu_rng, launches=counts["fused_ticks_rng"],
+             **rng["fused_ticks_rng"]),
+        dict(name="fused_ticks_rng_per_lane_e0", route="cuda", source=src_t,
+             replaces=tpu_rng,
+             launches=sweep_counts["fused_ticks_rng_per_lane_e0"],
+             **rng["fused_ticks_rng_per_lane_e0"]),
+        dict(name="fused_ticks_rng_per_lane_om", route="cuda", source=src_t,
+             replaces=tpu_rng,
+             launches=sweep_counts["fused_ticks_rng_per_lane_om"],
+             **rng["fused_ticks_rng_per_lane_om"]),
         dict(name="fused_ticks", route="cuda", source=src_t, replaces=tpu_t,
-             launches=counts[1], **ticks),
+             launches=expl_counts["fused_ticks"], **ticks),
         dict(name="fused_ticks_per_lane_e0", route="cuda", source=src_t,
              replaces=tpu_t,
-             launches=sweep_counts["fused_ticks_per_lane_e0"],
+             launches=expl_counts["fused_ticks_per_lane_e0"],
              **lanes["per_lane_e0"]),
         dict(name="fused_ticks_per_lane_om", route="cuda", source=src_t,
              replaces=tpu_t,
-             launches=sweep_counts["fused_ticks_per_lane_om"],
+             launches=expl_counts["fused_ticks_per_lane_om"],
              **lanes["per_lane_om"]),
     ]
     print(json.dumps({"kernels": kernels}))

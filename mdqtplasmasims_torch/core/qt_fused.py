@@ -1,16 +1,20 @@
 """One MD step's quantum-substepped ticks as one kernel launch.
 
-Counterpart of ``mdqtplasmasims_tpu/core/qt_fused.py`` (explicit-rolls
-variant).  The SpeedUp scheme runs ``ratio`` quantum ticks between force
-refreshes; each tick is a leapfrog substep with fixed forces, then the
-quantum update of every ion: Doppler shift (+ expansion detuning), the
-beat-note phase, the jump test, an RK step of the renormalized
-non-Hermitian propagator, the Ehrenfest kick, the jump collapse with its
-recoil, and optional renormalization.
+Counterpart of ``mdqtplasmasims_tpu/core/qt_fused.py``.  The SpeedUp
+scheme runs ``ratio`` quantum ticks between force refreshes; each tick is
+a leapfrog substep with fixed forces, then the quantum update of every
+ion: Doppler shift (+ expansion detuning), the beat-note phase, the jump
+test, an RK step of the renormalized non-Hermitian propagator, the
+Ehrenfest kick, the jump collapse with its recoil, and optional
+renormalization.
 
 Layout: R/V/F ``[3, Np]``, the per-ion clock ``[1, Np]``, psi as real and
 imaginary ``[SP, Np]`` planes (S padded to a multiple of 8; pad rows and
-padded lanes stay exactly zero), uniforms ``[n_ticks*5, Np]`` in [0, 1).
+padded lanes stay exactly zero), uniforms ``[n_ticks*5, Np]`` in [0, 1)
+(explicit rolls), or none: with ``internal_rng`` the kernel draws them
+itself from a counter-based stream keyed by the run's seed word and the
+absolute tick (core/rng.py; the JAX kernel's ``internal_rng`` uses the
+TPU's hardware PRNG instead, whose bits no other device reproduces).
 The level-scheme tables ride as ``vecs [SP, 8]`` (decay weight, e0, e1,
 jump-source mask) and ``mats [4*SP, SP]`` (coupling | cumulative S-branch
 destinations^T | cumulative D-branch destinations^T | lower-triangular
@@ -42,6 +46,7 @@ import torch
 from mdqtplasmasims_tpu.levels import LevelScheme
 
 from .. import _build
+from .rng import tick_uniforms
 
 # capacity of the kernel's parameter block (csrc/fused_ticks.cu)
 _MAX_TDEP = 4
@@ -73,6 +78,9 @@ class FusedTickSpec:
     exp_c2: float = 0.0
     # explicit norm division after every tick (SpeedUp.cpp:706-712)
     renormalize: bool = False
+    # draw the uniforms in the kernel (core/rng.py's stream) from a seed
+    # word and the absolute tick, instead of reading explicit rolls
+    internal_rng: bool = False
     # diagonal energies from a per-lane [SP, Np] plane (detuning sweeps)
     per_lane_e0: bool = False
     # per-lane Rabi frequencies: H = om*C_sp + om_dp*C_dp + diag exactly
@@ -164,12 +172,17 @@ def fused_tables(spec: FusedTickSpec, device,
 def fused_md_substeps_reference(spec: FusedTickSpec, first: bool,
                                 R, V, F, tp, psi_re, psi_im, rolls,
                                 tables: FusedTables, tick0: int = 0,
-                                e0_lanes=None, om_lanes=None):
+                                e0_lanes=None, om_lanes=None, seed=None):
     """Plain torch twin of the fused kernel: ``spec.ratio`` ticks on the
     planes, with the JAX kernel's arithmetic (core/qt_fused.py:155-343 of
     the JAX package) in the planes' dtype.  ``e0_lanes [SP, Np]`` and
-    ``om_lanes [2, Np]`` feed the per-lane variants.  Returns new
-    ``(R, V, tp, psi_re, psi_im)``."""
+    ``om_lanes [2, Np]`` feed the per-lane variants.  With
+    ``spec.internal_rng`` the uniforms are the kernel's own stream for the
+    seed word ``seed [1]`` (``rolls`` is ignored).  Returns new ``(R, V,
+    tp, psi_re, psi_im)``."""
+    if spec.internal_rng:
+        rolls = tick_uniforms(int(seed[0]), tick0, spec.ratio, R.shape[-1],
+                              R.device).to(R.dtype)
     S, SP = spec.S, spec.SP
     sch = spec.scheme
     tsch = _tdep_scheme(spec)
@@ -315,7 +328,7 @@ class _Params(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_int) for k in (
         "S", "SP", "n_ticks", "n_tdep", "n_force", "apply_kick",
         "apply_recoil", "renormalize", "has_exp", "per_lane_e0",
-        "per_lane_om")]
+        "per_lane_om", "internal_rng")]
         + [(k, ctypes.c_float) for k in (
             "h", "half_h", "h8", "qdt", "half_qdt", "p2q", "g2e", "L",
             "exp_c1", "exp_c2", "tdep_freq", "branch_d", "kick_s",
@@ -350,9 +363,10 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
     if spec.S not in _KERNEL_S:
         raise ValueError(f"the CUDA tick kernel is built for S in "
                          f"{_KERNEL_S}, got {spec.S}")
-    if (spec.per_lane_e0 or spec.per_lane_om) and spec.S != _LANE_S:
-        raise ValueError(f"the per-lane tick kernels are built for S="
-                         f"{_LANE_S} only, got {spec.S}")
+    if (spec.per_lane_e0 or spec.per_lane_om
+            or spec.internal_rng) and spec.S != _LANE_S:
+        raise ValueError(f"the per-lane and in-kernel RNG tick kernels are "
+                         f"built for S={_LANE_S} only, got {spec.S}")
     forces = _force_terms(spec)
     if len(tsch.tdep_rows) > _MAX_TDEP or len(forces) > _MAX_FORCE:
         raise ValueError("scheme exceeds the tick kernel's term capacity")
@@ -363,10 +377,10 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
         apply_recoil=int(sch.apply_recoil),
         renormalize=int(spec.renormalize), has_exp=int(spec.exp_c1 != 0.0),
         per_lane_e0=int(spec.per_lane_e0), per_lane_om=int(spec.per_lane_om),
-        h=spec.h, half_h=0.5 * spec.h, h8=spec.h / 8, qdt=spec.qdt,
-        half_qdt=0.5 * spec.qdt, p2q=spec.plas_to_quant_vel,
-        g2e=spec.gamma_to_einstein, L=spec.L, exp_c1=spec.exp_c1,
-        exp_c2=spec.exp_c2, tdep_freq=tsch.tdep_freq,
+        internal_rng=int(spec.internal_rng), h=spec.h, half_h=0.5 * spec.h,
+        h8=spec.h / 8, qdt=spec.qdt, half_qdt=0.5 * spec.qdt,
+        p2q=spec.plas_to_quant_vel, g2e=spec.gamma_to_einstein, L=spec.L,
+        exp_c1=spec.exp_c1, exp_c2=spec.exp_c2, tdep_freq=tsch.tdep_freq,
         branch_d=sch.branch_d_prob, kick_s=sch.kick_s, kick_d=sch.kick_d)
     for k, (r, c, m) in enumerate(zip(tsch.tdep_rows, tsch.tdep_cols,
                                       tsch.tdep_coefs)):
@@ -380,49 +394,56 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ticks")
     v = ctypes.c_void_p
-    lib.fused_ticks_launch.argtypes = ([v] * 17
+    lib.fused_ticks_launch.argtypes = ([v] * 18
                                        + [ctypes.c_int, ctypes.c_float,
-                                          ctypes.c_float, v])
+                                          ctypes.c_float, ctypes.c_uint, v])
     lib.fused_ticks_launch.restype = ctypes.c_int
     return lib
 
 
 def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
-                      psi_re, psi_im, rolls, tick0: int = 0,
+                      psi_re, psi_im, rolls=None, tick0: int = 0,
                       tables: FusedTables = None, e0_lanes=None,
-                      om_lanes=None):
+                      om_lanes=None, seed=None):
     """One MD step's worth of quantum-substepped ticks.
 
     Shapes: R/V/F [3, Np], tp [1, Np], psi planes [SP, Np], rolls
     [spec.ratio*5, Np] uniforms in [0, 1).  ``first`` selects the
     reference's 2nd-order first drift (tick 0 of the run); ``tick0`` is
-    the run tick counter at entry (the expansion detuning's clock).
-    ``tables`` are :func:`fused_tables` (packed here when omitted).
-    ``e0_lanes [SP, Np]`` is required with ``spec.per_lane_e0`` and
-    ``om_lanes [2, Np]`` with ``spec.per_lane_om`` (and refused without).
+    the absolute run tick at entry (the expansion detuning's clock, and
+    with ``internal_rng`` the stream's counter).  ``tables`` are
+    :func:`fused_tables` (packed here when omitted).  ``e0_lanes [SP,
+    Np]`` is required with ``spec.per_lane_e0`` and ``om_lanes [2, Np]``
+    with ``spec.per_lane_om`` (and refused without).  With
+    ``spec.internal_rng`` the run's seed word ``seed`` (a ``[1]`` int32
+    tensor on R's device, read by the kernel through its pointer: no host
+    sync) replaces ``rolls``; each is refused where the other is due.
     Returns new ``(R, V, tp, psi_re, psi_im)``.
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
-    ``csrc/fused_ticks.cu`` and count the launch: in
-    ``fused_md_substeps.launches`` for the plain variant, and in
-    ``launches_per_lane_e0`` / ``launches_per_lane_om`` for a per-lane
-    one (a launch with both flags counts in both).  CPU tensors run
+    ``csrc/fused_ticks.cu`` and count the launch, per form: explicit rolls
+    in ``fused_md_substeps.launches`` for the plain variant and
+    ``launches_per_lane_e0`` / ``launches_per_lane_om`` for a per-lane one
+    (a launch with both flags counts in both); the in-kernel RNG form in
+    ``launches_rng``, ``launches_rng_per_lane_e0`` and
+    ``launches_rng_per_lane_om`` the same way.  CPU tensors run
     :func:`fused_md_substeps_reference`."""
     check_real_couplings(spec)
     SP = spec.SP
     npad = R.shape[-1]
     want = {"R": (3, npad), "V": (3, npad), "F": (3, npad), "tp": (1, npad),
-            "psi_re": (SP, npad), "psi_im": (SP, npad),
-            "rolls": (spec.ratio * 5, npad)}
+            "psi_re": (SP, npad), "psi_im": (SP, npad)}
     args = {"R": R, "V": V, "F": F, "tp": tp, "psi_re": psi_re,
-            "psi_im": psi_im, "rolls": rolls}
-    for name, flag, x, shape in (("e0_lanes", spec.per_lane_e0, e0_lanes,
-                                  (SP, npad)),
-                                 ("om_lanes", spec.per_lane_om, om_lanes,
-                                  (2, npad))):
+            "psi_im": psi_im}
+    for name, flag, x, shape in (
+            ("rolls", not spec.internal_rng, rolls, (spec.ratio * 5, npad)),
+            ("e0_lanes", spec.per_lane_e0, e0_lanes, (SP, npad)),
+            ("om_lanes", spec.per_lane_om, om_lanes, (2, npad))):
         if flag != (x is not None):
-            raise ValueError(f"{name} must be given exactly when spec."
-                             f"per_lane_{name[:2]} is set (it is {flag})")
+            why = ("spec.internal_rng is unset" if name == "rolls"
+                   else f"spec.per_lane_{name[:2]} is set")
+            raise ValueError(f"{name} must be given exactly when {why} "
+                             f"(the condition is {flag})")
         if flag:
             want[name], args[name] = shape, x
     for k, x in args.items():
@@ -431,18 +452,27 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
                              f"{list(x.shape)}")
         if x.device != R.device or x.dtype != R.dtype:
             raise ValueError(f"{k} must share R's device and dtype")
+    if spec.internal_rng != (seed is not None):
+        raise ValueError("seed must be given exactly when spec.internal_rng "
+                         f"is set (it is {spec.internal_rng})")
+    if seed is not None and (tuple(seed.shape) != (1,)
+                             or seed.dtype != torch.int32
+                             or seed.device != R.device):
+        raise ValueError("seed must be a [1] int32 tensor on R's device")
     if tables is None:
         tables = fused_tables(spec, R.device, R.dtype)
     if R.device.type == "cpu":
         return fused_md_substeps_reference(spec, first, R, V, F, tp, psi_re,
                                            psi_im, rolls, tables, tick0,
-                                           e0_lanes, om_lanes)
+                                           e0_lanes, om_lanes, seed)
     if R.device.type != "cuda":
         raise ValueError(f"no tick kernel for device {R.device}")
     if R.dtype != torch.float32:
         raise ValueError(f"the CUDA tick kernel is float32, got {R.dtype}")
     if npad % 128:
         raise ValueError(f"Np={npad} must be a multiple of 128")
+    if not 0 <= tick0 < 2 ** 32:
+        raise ValueError(f"tick0={tick0} outside the kernel's uint32 clock")
     tabs = (tables.vecs, tables.mats)
     if any(not x.is_contiguous() for x in (*args.values(), *tabs)):
         raise ValueError("fused_md_substeps needs contiguous tensors")
@@ -452,26 +482,28 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
         raise ValueError("tables were packed for another per_lane_om flag")
     params = _kernel_params(spec)
     outs = [torch.empty_like(x) for x in (R, V, tp, psi_re, psi_im)]
-    lane_ptrs = [None if x is None else x.data_ptr()
-                 for x in (e0_lanes, om_lanes)]
+    ptrs = [None if x is None else x.data_ptr()
+            for x in (rolls, seed, e0_lanes, om_lanes)]
     lib = _lib()
     with torch.cuda.device(R.device):
         err = lib.fused_ticks_launch(
             ctypes.addressof(params),
-            *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im, rolls)),
-            *lane_ptrs, *(x.data_ptr() for x in (*tabs, *outs)),
-            npad, 1.0 if first else 0.0, float(tick0),
+            *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im)),
+            *ptrs, *(x.data_ptr() for x in (*tabs, *outs)),
+            npad, 1.0 if first else 0.0, float(tick0), int(tick0),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "fused_ticks_launch")
-    if spec.per_lane_e0:
-        fused_md_substeps.launches_per_lane_e0 += 1
-    if spec.per_lane_om:
-        fused_md_substeps.launches_per_lane_om += 1
-    if not (spec.per_lane_e0 or spec.per_lane_om):
-        fused_md_substeps.launches += 1
+    count = "launches_rng" if spec.internal_rng else "launches"
+    lanes = [f for f, on in (("_per_lane_e0", spec.per_lane_e0),
+                             ("_per_lane_om", spec.per_lane_om)) if on]
+    for name in [count + f for f in lanes] or [count]:
+        setattr(fused_md_substeps, name, getattr(fused_md_substeps, name) + 1)
     return tuple(outs)
 
 
-fused_md_substeps.launches = 0
-fused_md_substeps.launches_per_lane_e0 = 0
-fused_md_substeps.launches_per_lane_om = 0
+#: launch counts per kernel form (see :func:`fused_md_substeps`)
+LAUNCH_COUNTERS = ("launches", "launches_per_lane_e0", "launches_per_lane_om",
+                   "launches_rng", "launches_rng_per_lane_e0",
+                   "launches_rng_per_lane_om")
+for _name in LAUNCH_COUNTERS:
+    setattr(fused_md_substeps, _name, 0)

@@ -14,6 +14,15 @@ An ensemble of E independent trajectories folds into the same layout
 axis of ``[rows, E*Np]`` planes, one batched force launch (kernel C) and
 one tick launch serve the whole fold per MD step, and one ``rolls_fn(nt,
 E*Np)`` draw supplies its uniforms.  The members share one tick.
+
+Uniforms come in one of two forms, fixed by ``fused_spec.internal_rng``:
+explicit rolls drawn by ``rolls_fn`` before every MD step, or the tick
+kernel's own counter-based stream (core/rng.py), for which the carry holds
+the run's seed word and nothing is drawn per MD step.  The JAX package
+draws a fresh word per sampling segment because its hardware seed aliases
+the tick modulo 2**20; the port's counter holds the absolute tick, so one
+word per run suffices, and a resumed run that reuses the word replays the
+uninterrupted run's stream whatever its segment boundaries.
 """
 
 from __future__ import annotations
@@ -77,6 +86,14 @@ def fold_sweep_lanes(fused_spec: FusedTickSpec, npad: int, sweep_e0=None,
     return e0p, omp
 
 
+def draw_seed_word(generator: torch.Generator) -> torch.Tensor:
+    """The run's seed word of the in-kernel stream: one 31-bit draw from
+    ``generator``, kept as a ``[1]`` int32 tensor on its device (no host
+    sync)."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
 def uniform_rolls(generator: torch.Generator) -> Callable:
     """``rolls_fn`` drawing ``[n_ticks*5, npad]`` uniforms in [0, 1) from
     ``generator`` on its device (no host sync)."""
@@ -95,15 +112,18 @@ class SoACarry(NamedTuple):
     psi_re: torch.Tensor   # [SP, Np]
     psi_im: torch.Tensor   # [SP, Np]
     tick: int
+    seed: Optional[torch.Tensor] = None   # [1] int32, in-kernel RNG only
 
 
 @dataclasses.dataclass
 class CoolingScheduler:
     """SpeedUp-scheme stepper: quantum-substepped leapfrog.
 
-    ``rolls_fn(n_ticks, npad)`` supplies each MD step's uniforms; it is
-    the scheduler's only source of randomness, so a test can replay
-    another implementation's draws through it."""
+    Without ``fused_spec.internal_rng``, ``rolls_fn(n_ticks, npad)``
+    supplies each MD step's uniforms; it is then the scheduler's only
+    source of randomness, so a test can replay another implementation's
+    draws through it.  With it, ``seed`` (:func:`draw_seed_word`) is the
+    run's word of the kernel's stream and rides every carry."""
 
     fused_spec: FusedTickSpec
     L: float
@@ -112,8 +132,9 @@ class CoolingScheduler:
     ratio: int           # quantum substeps per MD step
     tile: int
     device: torch.device
-    rolls_fn: Callable[[int, int], torch.Tensor]
+    rolls_fn: Optional[Callable[[int, int], torch.Tensor]]
     dtype: torch.dtype = torch.float32
+    seed: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         self.tables = fused_tables(self.fused_spec, self.device, self.dtype)
@@ -146,7 +167,7 @@ class CoolingScheduler:
                         pad_rows(state.F.T, 3),
                         pad_rows(state.t_part[None, :], 1),
                         pad_rows(psi_sm.real, SP), pad_rows(psi_sm.imag, SP),
-                        state.tick)
+                        state.tick, self.seed)
 
     def soa_restore(self, carry: SoACarry, state: SimState) -> SimState:
         """Lane planes -> SimState (shapes and dtypes from the template)."""
@@ -178,12 +199,20 @@ class CoolingScheduler:
         spec = self._tick_spec(n_ticks)
         npad = carry.R.shape[1]
         Fp = carry.F if reuse_forces else soa_forces_fn(carry.R)
-        rolls = self.rolls_fn(spec.ratio, npad).to(self.dtype)
+        if spec.internal_rng:
+            if carry.seed is None:
+                raise ValueError("the in-kernel RNG needs the run's seed "
+                                 "word (CoolingScheduler.seed)")
+            rolls = None
+        else:
+            rolls = self.rolls_fn(spec.ratio, npad).to(self.dtype)
         R, V, tp, pre, pim = fused_md_substeps(
             spec, carry.tick == 0, carry.R, carry.V, Fp, carry.tp,
             carry.psi_re, carry.psi_im, rolls, tick0=carry.tick,
-            tables=self.tables, e0_lanes=e0_lanes, om_lanes=om_lanes)
-        return SoACarry(R, V, Fp, tp, pre, pim, carry.tick + spec.ratio)
+            tables=self.tables, e0_lanes=e0_lanes, om_lanes=om_lanes,
+            seed=carry.seed if spec.internal_rng else None)
+        return SoACarry(R, V, Fp, tp, pre, pim, carry.tick + spec.ratio,
+                        carry.seed)
 
     # ---- ensemble fold: member blocks side by side on the lane axis ----
 
@@ -228,12 +257,13 @@ class CoolingScheduler:
                         fold(states.F.transpose(1, 2)),
                         fold(states.t_part[:, None, :]),
                         fold(psi_sm.real, SP), fold(psi_sm.imag, SP),
-                        states.tick)
+                        states.tick, self.seed)
 
     #: one ensemble MD step: the fold is one lane axis, so this is
     #: :meth:`soa_md_step` on ``[rows, E*Np]`` planes with one
     #: ``rolls_fn(nt, E*Np)`` draw (the JAX package's default
-    #: ``per_member_rolls=False``)
+    #: ``per_member_rolls=False``), or the in-kernel stream, whose global
+    #: lane index keeps the members' streams apart under one seed word
     soa_ens_md_step = soa_md_step
 
     def soa_ens_restore(self, carry: SoACarry, states: SimState) -> SimState:

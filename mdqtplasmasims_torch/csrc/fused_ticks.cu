@@ -2,7 +2,8 @@
 // (mdqtplasmasims_torch/core/qt_fused.py wraps it).
 //
 // Replaces the TPU kernel mdqtplasmasims_tpu/core/qt_fused.py:
-// _make_kernel (its explicit-rolls variant).  Per ion and tick: leapfrog
+// _make_kernel, in its explicit-rolls form and in its internal_rng form
+// (uniforms drawn inside the kernel, see RNG below).  Per ion and tick: leapfrog
 // substep with fixed forces (2nd-order first drift at tick 0 of the run,
 // single +-L wrap after each half drift); clock tp += qdt; Doppler u (+
 // expansion detuning at (tick0+i)*qdt); beat-note phase from the advanced
@@ -31,7 +32,25 @@
 // (vecs [SP,8], mats [4SP,SP]) are staged in shared memory once per
 // block; the beat-note and force term lists ride in the by-value
 // parameter block.  Uniforms are read from the explicit rolls
-// [n_ticks*5, Np].  IEEE f32 throughout (no fast math).
+// [n_ticks*5, Np], or drawn in the kernel (RNG).  IEEE f32 throughout (no
+// fast math).
+//
+// RNG (template flag; the JAX kernel's internal_rng, which uses the TPU's
+// hardware PRNG, qt_fused.py:111-130, :251-260): the TPU's bits cannot be
+// matched, so the port defines its own counter-based stream
+// (mdqtplasmasims_torch/core/rng.py is its plain twin).  Threefry-2x32-20
+// (Random123) with key (seed word, 0), the word a [1] int32 device tensor
+// drawn once per run and read here through its pointer (no host sync), and
+// counter (global lane n, 3*tick + j), j = 0, 1, 2, tick the absolute run
+// tick tick_base + i: words 0-4 of the three outputs are r0..r4, each the
+// top 24 bits times 2^-24, so u < 1 (the collapse relies on it against the
+// saturated pad rows).  The stream depends on neither THREADS nor the block
+// index.  The draw sits after the RK step and the Ehrenfest sum, so its
+// words are not live across the unrolled state loops; the jump test r0 <
+// h*dp0 still uses the tick's initial amplitudes.  Each tick costs three
+// Threefry calls (60 rounds of add/rotate/xor) and saves the five 4-byte
+// loads per ion of the rolls plus the torch.rand launch that wrote them
+// (125 x Np x 4 B per MD step written and read back).
 //
 // Sweep variants (the JAX kernel's per_lane_e0 / per_lane_om flags), two
 // template flags instantiated for S=12 only (sr12 is the one scheme that
@@ -53,12 +72,16 @@
 // Registers (nvcc 12.8 -O3 -Xptxas -v, sm_90a): S=12 (sr12, the main
 // path) 255 per thread with 208 B spill stores / 352 B spill loads; S=7
 // 128, S=5 96, S=3 72.  Sweep variants (S=12, all at 255 registers):
-// PE0 208 / 316 B, POM 1232 / 2056 B, PE0+POM 1208 / 2036 B of spill
+// PE0 208 / 328 B, POM 1224 / 2048 B, PE0+POM 1200 / 2028 B of spill
 // stores / loads: the second matvec of POM overflows the register file
-// and runs ~1.75x the plain variant's time.  The S=12 spills (likely the
-// loop-invariant coupling loads hoisted into registers across ticks) are
-// the second thing a performance change should look at.
+// and runs ~1.75x the plain variant's time.  The RNG forms (255 registers
+// each) spill a little less than their explicit counterparts: plain 192 /
+// 336 B, PE0 192 / 300 B, POM 1112 / 1972 B, PE0+POM 1172 / 2000 B.  The
+// S=12 spills (likely the loop-invariant coupling loads hoisted into
+// registers across ticks) are the second thing a performance change
+// should look at.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define THREADS 128
 #define MAX_TDEP 4
@@ -67,7 +90,7 @@
 struct FusedParams {
   int S, SP, n_ticks, n_tdep, n_force;
   int apply_kick, apply_recoil, renormalize, has_exp;
-  int per_lane_e0, per_lane_om;
+  int per_lane_e0, per_lane_om, internal_rng;
   float h, half_h, h8, qdt, half_qdt, p2q, g2e, L;
   float exp_c1, exp_c2, tdep_freq, branch_d, kick_s, kick_d;
   int tdep_row[MAX_TDEP], tdep_col[MAX_TDEP];
@@ -89,6 +112,32 @@ template <int S>
 __device__ __forceinline__ void add_at(float (&x)[S], int k, float v) {
 #pragma unroll
   for (int s = 0; s < S; ++s) x[s] = (s == k) ? x[s] + v : x[s];
+}
+
+// Threefry-2x32 with 20 rounds (Random123's threefry2x32_R(20)): the
+// counter (x0, x1) is encrypted in place under the key (k0, k1)
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int r = 0; r < 20; ++r) {
+    x0 += x1;
+    x1 = (x1 << rot[r % 8]) | (x1 >> (32 - rot[r % 8]));
+    x1 ^= x0;
+    if (r % 4 == 3) {          // key injection after every 4 rounds
+      const int s = r / 4 + 1;
+      x0 += ks[s % 3];
+      x1 += ks[(s + 1) % 3] + (uint32_t)s;
+    }
+  }
+}
+
+// top 24 bits of a word as a uniform in [0, 1)
+__device__ __forceinline__ float unit24(uint32_t w) {
+  return (float)(w >> 8) * 5.9604644775390625e-08f;   // 2^-24
 }
 
 __device__ __forceinline__ float wrap(float r, float L) {
@@ -170,7 +219,7 @@ __device__ __forceinline__ void g_slope(const FusedParams& p,
   }
 }
 
-template <int S, bool PE0, bool POM>
+template <int S, bool PE0, bool POM, bool RNG>
 __global__ void __launch_bounds__(THREADS)
 fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    const float* __restrict__ V, const float* __restrict__ F,
@@ -178,13 +227,14 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    const float* __restrict__ pre,
                    const float* __restrict__ pim,
                    const float* __restrict__ rolls,
+                   const int* __restrict__ seed,
                    const float* __restrict__ e0_lanes,
                    const float* __restrict__ om_lanes,
                    const float* __restrict__ vecs,
                    const float* __restrict__ mats, float* __restrict__ Ro,
                    float* __restrict__ Vo, float* __restrict__ tpo,
                    float* __restrict__ preo, float* __restrict__ pimo,
-                   int npad, float first, float tick0) {
+                   int npad, float first, float tick0, uint32_t tick_base) {
   extern __shared__ float smem[];
   const int SP = p.SP;
   const int n_tab = SP * 8 + (POM ? 5 : 4) * SP * SP;
@@ -225,6 +275,7 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
     b[s] = pim[s * npad + n];
   }
   const float hq = p.half_qdt, L = p.L;
+  const uint32_t key = RNG ? (uint32_t)seed[0] : 0u;
 
   for (int i = 0; i < p.n_ticks; ++i) {
     // ---- leapfrog substep (forces fixed) ----
@@ -248,14 +299,19 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
     }
     float cphi = 0.f, sphi = 0.f;
     if (p.n_tdep > 0) sincosf((p.tdep_freq * u) * (tp * p.g2e), &sphi, &cphi);
-    const float* rl = rolls + (size_t)(i * 5) * npad + n;
-    const float r0 = rl[0], r1 = rl[npad], r2 = rl[2 * npad],
-                r3 = rl[3 * npad], r4 = rl[4 * npad];
+    float r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f, r4 = 0.f;
+    if constexpr (!RNG) {
+      const float* rl = rolls + (size_t)(i * 5) * npad + n;
+      r0 = rl[0];
+      r1 = rl[npad];
+      r2 = rl[2 * npad];
+      r3 = rl[3 * npad];
+      r4 = rl[4 * npad];
+    }
 
     float dp0 = 0.f;
 #pragma unroll
     for (int s = 0; s < S; ++s) dp0 += vec[s * 8] * (a[s] * a[s] + b[s] * b[s]);
-    const bool jumped = r0 < p.h * dp0;
 
     // ---- RK step: acc = k1 + 3 k2 + 3 k3 + k4 ----
     float acca[S], accb[S], ka[S], kb[S], sa[S], sb[S];
@@ -310,6 +366,24 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
     }
     if (POM) kick_nj = lv.om * kick_nj + lv.omdp * kick_dp;
     kick_nj = kick_nj * p.h;
+
+    if constexpr (RNG) {   // this tick's uniforms from the counter stream
+      const uint32_t c1 = 3u * (tick_base + (uint32_t)i);
+      uint32_t x0 = (uint32_t)n, x1 = c1;
+      threefry2x32(key, 0u, x0, x1);
+      r0 = unit24(x0);
+      r1 = unit24(x1);
+      x0 = (uint32_t)n;
+      x1 = c1 + 1u;
+      threefry2x32(key, 0u, x0, x1);
+      r2 = unit24(x0);
+      r3 = unit24(x1);
+      x0 = (uint32_t)n;
+      x1 = c1 + 2u;
+      threefry2x32(key, 0u, x0, x1);
+      r4 = unit24(x0);
+    }
+    const bool jumped = r0 < p.h * dp0;       // unclipped dp, strict <
 
     // ---- jump collapse ----
     float cum[S];
@@ -376,17 +450,22 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
 
 extern "C" {
 
+// rolls [n_ticks*5, npad] (explicit form) or seed [1] (internal_rng form;
+// tick_base is then the absolute run tick at entry)
 int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* F, const float* tp, const float* pre,
-                       const float* pim, const float* rolls,
+                       const float* pim, const float* rolls, const int* seed,
                        const float* e0_lanes, const float* om_lanes,
                        const float* vecs, const float* mats, float* Ro,
                        float* Vo, float* tpo, float* preo, float* pimo,
-                       int npad, float first, float tick0, void* stream) {
+                       int npad, float first, float tick0, unsigned tick_base,
+                       void* stream) {
   const int pe0 = p->per_lane_e0 != 0, pom = p->per_lane_om != 0;
+  const int rng = p->internal_rng != 0;
   if (npad <= 0 || npad % THREADS != 0 || p->n_ticks < 1 ||
       p->n_tdep > MAX_TDEP || p->n_force > MAX_FORCE || p->SP < p->S ||
-      (pe0 && !e0_lanes) || (pom && !om_lanes))
+      (pe0 && !e0_lanes) || (pom && !om_lanes) || (rng && !seed) ||
+      (!rng && !rolls))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)(p->SP * 8 + (pom ? 5 : 4) * p->SP * p->SP +
@@ -394,18 +473,23 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
       sizeof(float);
   const dim3 grid(npad / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(SV, E0, OM)                                                  \
-  fused_ticks_kernel<SV, E0, OM><<<grid, THREADS, smem, st>>>(              \
-      *p, R, V, F, tp, pre, pim, rolls, e0_lanes, om_lanes, vecs, mats, Ro, \
-      Vo, tpo, preo, pimo, npad, first, tick0)
-  switch (p->S * 4 + pe0 * 2 + pom) {
-    case 3 * 4: LAUNCH(3, false, false); break;
-    case 5 * 4: LAUNCH(5, false, false); break;
-    case 7 * 4: LAUNCH(7, false, false); break;
-    case 12 * 4: LAUNCH(12, false, false); break;
-    case 12 * 4 + 2: LAUNCH(12, true, false); break;
-    case 12 * 4 + 1: LAUNCH(12, false, true); break;
-    case 12 * 4 + 3: LAUNCH(12, true, true); break;
+#define LAUNCH(SV, E0, OM, RG)                                          \
+  fused_ticks_kernel<SV, E0, OM, RG><<<grid, THREADS, smem, st>>>(      \
+      *p, R, V, F, tp, pre, pim, rolls, seed, e0_lanes, om_lanes, vecs, \
+      mats, Ro, Vo, tpo, preo, pimo, npad, first, tick0, tick_base)
+  // the RNG form is built for sr12 (the cooling family) only
+  switch (p->S * 8 + rng * 4 + pe0 * 2 + pom) {
+    case 3 * 8: LAUNCH(3, false, false, false); break;
+    case 5 * 8: LAUNCH(5, false, false, false); break;
+    case 7 * 8: LAUNCH(7, false, false, false); break;
+    case 12 * 8: LAUNCH(12, false, false, false); break;
+    case 12 * 8 + 2: LAUNCH(12, true, false, false); break;
+    case 12 * 8 + 1: LAUNCH(12, false, true, false); break;
+    case 12 * 8 + 3: LAUNCH(12, true, true, false); break;
+    case 12 * 8 + 4: LAUNCH(12, false, false, true); break;
+    case 12 * 8 + 6: LAUNCH(12, true, false, true); break;
+    case 12 * 8 + 5: LAUNCH(12, false, true, true); break;
+    case 12 * 8 + 7: LAUNCH(12, true, true, true); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH

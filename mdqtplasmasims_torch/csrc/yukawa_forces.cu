@@ -1,16 +1,27 @@
-// Yukawa pair forces in the lane layout, one ion block per ensemble
-// member: F [3, E*Np] from Rp [3, E*Np] and real-ion masks
-// (mdqtplasmasims_torch/ops/yukawa.py wraps it).
+// Yukawa pair forces (and optionally the per-ion potential) in the lane
+// layout, one ion block per ensemble member: F [3, E*Np] (pot [E*Np]) from
+// Rp [3, E*Np] and real-ion masks (mdqtplasmasims_torch/ops/yukawa.py
+// wraps it).
 //
-// Replaces two TPU kernels of mdqtplasmasims_tpu/ops/yukawa.py:
+// Replaces four TPU kernels of mdqtplasmasims_tpu/ops/yukawa.py:
 //   A  _yukawa_n3l_kernel          (one member; yukawa_forces_launch)
 //   C  _yukawa_n3l_kernel_batched  (E members; yukawa_forces_batched_launch)
-// Both were half-pair tiles on a triangle grid with reaction sums
-// scatter-added outside.  This computes the same force
+//   D  _yukawa_kernel              (one member, + potential;
+//                                   yukawa_forces_pot_launch, E = 1)
+//   G  _yukawa_kernel_batched      (E members, + potential;
+//                                   yukawa_forces_pot_launch)
+// A and C were half-pair tiles on a triangle grid with reaction sums
+// scatter-added outside; D and G full tiles (both triangles) that also
+// sum the potential.  This computes the same force
 //     F_i = sum_j (1/r + 1/lambda) exp(-r/lambda) / r^2 * d_ij
 // under the minimum image, over pairs with 0 < r^2 < (L/2)^2 whose i and
 // j are both real ions of the same member (padded lanes come out exactly
-// 0).  Member e's ions are lanes [e*Np, (e+1)*Np) of every row; its mask
+// 0), and with POT the potential pot_i = sum_j exp(-r/lambda) / r over the
+// same pairs (the JAX kernel masks the j side and multiplies rows by the
+// mask afterwards, :228-231; masking both sides here gives the same
+// values, masked rows exactly 0).  D and G are the POT form of this
+// kernel: it already summed both triangles per row, so the potential is
+// one more accumulator and the expf is shared.  Member e's ions are lanes [e*Np, (e+1)*Np) of every row; its mask
 // row is mask[e*mask_stride ...] (stride 0: one [1, Np] row shared by all
 // members); its 1/lambda is inv_ldeb_e[e] when that array is given (the
 // per-member screening of kappa sweeps), else the scalar inv_ldeb.
@@ -33,9 +44,9 @@
 // the half-pair (Newton's third law) schedule, j-splitting across threads
 // for occupancy, and wgmma/TMA staging are later performance work.
 //
-// Registers (nvcc 12.8 -O3 -Xptxas -v, sm_90a): 32 per thread, no spills,
-// 1 KB shared memory per block; at 64 threads that allows 32 resident
-// blocks per SM, so C's 448 blocks fit in one wave.
+// Registers (nvcc 12.8 -O3 -Xptxas -v, sm_90a): 32 per thread (40 with
+// POT), no spills, 1 KB shared memory per block; at 64 threads that allows
+// 32 resident blocks per SM, so C's and G's 448 blocks fit in one wave.
 //
 // Numerics match the JAX kernel's tile math (_half_pair_tile):
 // round-half-even minimum image (rintf, as jnp.round), strict r2 > 0 and
@@ -44,12 +55,14 @@
 
 #define THREADS 64
 
+template <bool POT>
 __global__ void __launch_bounds__(THREADS)
 yukawa_forces_kernel(const float* __restrict__ Rp,
                      const float* __restrict__ mask, int mask_stride,
                      const float* __restrict__ inv_ldeb_e,
-                     float* __restrict__ F, int npad, int n_members,
-                     float L, float inv_L, float rcut2, float inv_ldeb) {
+                     float* __restrict__ F, float* __restrict__ pot,
+                     int npad, int n_members, float L, float inv_L,
+                     float rcut2, float inv_ldeb) {
   __shared__ float sx[THREADS], sy[THREADS], sz[THREADS], sm[THREADS];
   const int t = threadIdx.x;
   const int e = blockIdx.y;
@@ -60,7 +73,7 @@ yukawa_forces_kernel(const float* __restrict__ Rp,
   const int i = blockIdx.x * THREADS + t;   // npad % THREADS == 0
   const float xi = X[i], yi = X[row + i], zi = X[2 * row + i];
   const bool mi = M[i] > 0.f;
-  float fx = 0.f, fy = 0.f, fz = 0.f;
+  float fx = 0.f, fy = 0.f, fz = 0.f, u = 0.f;
   for (int j0 = 0; j0 < npad; j0 += THREADS) {
     __syncthreads();
     sx[t] = X[j0 + t];
@@ -81,36 +94,56 @@ yukawa_forces_kernel(const float* __restrict__ Rp,
       const float r2s = valid ? r2 : 1.f;
       const float inv_r = rsqrtf(r2s);
       const float r = r2s * inv_r;
-      const float ft =
-          valid ? expf(-r * il) * (inv_r + il) * inv_r * inv_r : 0.f;
+      const float ex = valid ? expf(-r * il) : 0.f;
+      const float ft = ex * (inv_r + il) * inv_r * inv_r;
       fx += dx * ft;
       fy += dy * ft;
       fz += dz * ft;
+      if (POT) u += ex * inv_r;
     }
   }
   float* G = F + (size_t)e * npad;
   G[i] = fx;
   G[row + i] = fy;
   G[2 * row + i] = fz;
+  if (POT) pot[(size_t)e * npad + i] = u;
 }
 
 extern "C" {
 
-// E members: Rp/F [3, E*npad]; mask [E, npad] (mask_stride = npad) or
-// [1, npad] (mask_stride = 0); inv_ldeb_e [E] or NULL (scalar inv_ldeb)
+// E members, forces and (pot non-NULL) the potential: Rp/F [3, E*npad],
+// pot [E*npad]; mask [E, npad] (mask_stride = npad) or [1, npad]
+// (mask_stride = 0); inv_ldeb_e [E] or NULL (scalar inv_ldeb)
+int yukawa_forces_pot_launch(const float* Rp, const float* mask,
+                             int mask_stride, const float* inv_ldeb_e,
+                             float* F, float* pot, int npad, int n_members,
+                             float L, float inv_L, float rcut2,
+                             float inv_ldeb, void* stream) {
+  if (npad <= 0 || npad % THREADS != 0 || n_members < 1 ||
+      n_members > 65535 || (mask_stride != 0 && mask_stride != npad))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(npad / THREADS, n_members);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pot)
+    yukawa_forces_kernel<true><<<grid, THREADS, 0, st>>>(
+        Rp, mask, mask_stride, inv_ldeb_e, F, pot, npad, n_members, L, inv_L,
+        rcut2, inv_ldeb);
+  else
+    yukawa_forces_kernel<false><<<grid, THREADS, 0, st>>>(
+        Rp, mask, mask_stride, inv_ldeb_e, F, nullptr, npad, n_members, L,
+        inv_L, rcut2, inv_ldeb);
+  return (int)cudaGetLastError();
+}
+
+// E members, forces only (kernel C)
 int yukawa_forces_batched_launch(const float* Rp, const float* mask,
                                  int mask_stride, const float* inv_ldeb_e,
                                  float* F, int npad, int n_members, float L,
                                  float inv_L, float rcut2, float inv_ldeb,
                                  void* stream) {
-  if (npad <= 0 || npad % THREADS != 0 || n_members < 1 ||
-      n_members > 65535 || (mask_stride != 0 && mask_stride != npad))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(npad / THREADS, n_members);
-  yukawa_forces_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      Rp, mask, mask_stride, inv_ldeb_e, F, npad, n_members, L, inv_L, rcut2,
-      inv_ldeb);
-  return (int)cudaGetLastError();
+  return yukawa_forces_pot_launch(Rp, mask, mask_stride, inv_ldeb_e, F,
+                                  nullptr, npad, n_members, L, inv_L, rcut2,
+                                  inv_ldeb, stream);
 }
 
 // one member (kernel A): Rp/F [3, npad], mask [1, npad]

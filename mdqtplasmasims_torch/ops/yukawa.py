@@ -19,6 +19,15 @@ Counterpart of ``mdqtplasmasims_tpu/ops/yukawa.py``.  Physics:
   shared or per-member real-ion mask and an optional per-member 1/lambda;
   one launch of the same kernel with a member grid axis, or
   :func:`yukawa_forces_n3l_soa_batched_reference` on the CPU.
+* ``yukawa_forces_potential_pallas`` (and ``yukawa_forces_pallas``,
+  ``yukawa_potential_pallas``) / ``yukawa_forces_potential_pallas_batched``
+  (``yukawa_potential_pallas_batched``): the JAX package's entries of its
+  full-tile kernels D and G, forces **and** the per-ion potential, in the
+  ``[N, 3]`` / ``[E, N, 3]`` layout.  On a CUDA tensor they launch the
+  potential form of the same kernel; on a CPU tensor they run
+  :func:`yukawa_forces_potential`, their twin.  The sample-time potential
+  goes through them.
+* ``best_forces_fn``: the JAX package's ``R -> (F, pot | None)`` chooser.
 """
 
 from __future__ import annotations
@@ -126,6 +135,9 @@ def _lib() -> ctypes.CDLL:
     lib.yukawa_forces_batched_launch.argtypes = [p, p, i, p, p, i, i, f, f,
                                                  f, f, p]
     lib.yukawa_forces_batched_launch.restype = ctypes.c_int
+    lib.yukawa_forces_pot_launch.argtypes = [p, p, i, p, p, p, i, i, f, f, f,
+                                             f, p]
+    lib.yukawa_forces_pot_launch.restype = ctypes.c_int
     return lib
 
 
@@ -242,3 +254,180 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
 
 
 yukawa_forces_n3l_soa_batched.launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pack_lanes(R: torch.Tensor, mask: Optional[torch.Tensor], tile: int):
+    """``[E, n, 3]`` positions and an optional ``[n]``/``[E, n]`` mask ->
+    the kernels' lane layout: ``Rp [3, E*Np]`` (member blocks contiguous)
+    and mask rows ``[1, Np]`` (shared) or ``[E, Np]``, Np = n padded to a
+    multiple of ``tile`` (the JAX package's ``pack_soa`` padding)."""
+    e, n, _ = R.shape
+    npad = _round_up(max(n, tile), tile)
+    Rp = torch.zeros((3, e, npad), dtype=R.dtype, device=R.device)
+    Rp[:, :, :n] = R.permute(2, 0, 1)
+    m = (torch.ones((1, n), dtype=R.dtype, device=R.device) if mask is None
+         else mask.reshape(-1, n).to(R.dtype))
+    rows = torch.zeros((m.shape[0], npad), dtype=R.dtype, device=R.device)
+    rows[:, :n] = m
+    return Rp.reshape(3, e * npad), rows, npad
+
+
+def _forces_potential_lanes(R: torch.Tensor, L: float, ldeb: float,
+                            mask: Optional[torch.Tensor], tile: int,
+                            with_pot: bool):
+    """One launch of the potential form of ``csrc/yukawa_forces.cu`` for
+    ``R [E, n, 3]`` on the card: ``(F [E, n, 3], pot [E, n] | None)``."""
+    if R.dtype != torch.float32:
+        raise ValueError(f"the CUDA force kernel is float32, got {R.dtype}")
+    if mask is not None and (mask.device != R.device
+                             or mask.shape[-1] != R.shape[1]):
+        raise ValueError("mask must lie on R's device and have one entry "
+                         "per ion")
+    soa_force_tile(tile)               # a multiple of 128
+    e, n, _ = R.shape
+    Rp, rows, npad = _pack_lanes(R, mask, tile)
+    F = torch.empty_like(Rp)
+    pot = (torch.empty((e * npad,), dtype=torch.float32, device=R.device)
+           if with_pot else None)
+    lib = _lib()
+    with torch.cuda.device(R.device):
+        err = lib.yukawa_forces_pot_launch(
+            Rp.data_ptr(), rows.data_ptr(), npad if rows.shape[0] > 1 else 0,
+            None, F.data_ptr(), None if pot is None else pot.data_ptr(), npad,
+            e, float(L), float(1.0 / L), float((L / 2.0) ** 2),
+            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "yukawa_forces_pot_launch")
+    F = F.reshape(3, e, npad)[:, :, :n].permute(1, 2, 0)
+    return F, None if pot is None else pot.reshape(e, npad)[:, :n]
+
+
+def _check_device(R: torch.Tensor) -> None:
+    if R.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no force kernel for device {R.device}")
+
+
+def yukawa_forces_potential_pallas(R: torch.Tensor, L: float, ldeb: float,
+                                   mask: Optional[torch.Tensor] = None,
+                                   tile: int = 512, with_pot: bool = True):
+    """Forces and (``with_pot``) the per-ion potential sums of ``R [N,
+    3]``: ``(F [N, 3], pot [N] | None)``, the JAX package's entry of kernel
+    D.  ``mask [N]`` marks real ions; masked rows come out exactly 0.
+
+    A CUDA tensor (float32) launches the potential form of
+    ``csrc/yukawa_forces.cu`` (lanes padded to a multiple of ``tile``, a
+    multiple of 128) and adds one to
+    ``yukawa_forces_potential_pallas.launches``; a CPU tensor runs
+    :func:`yukawa_forces_potential`, the twin."""
+    _check_device(R)
+    if R.device.type == "cpu":
+        F, pot = yukawa_forces_potential(R, L, ldeb, mask)
+        return F, pot if with_pot else None
+    F, pot = _forces_potential_lanes(R[None], L, ldeb, mask, tile, with_pot)
+    yukawa_forces_potential_pallas.launches += 1
+    return F[0], None if pot is None else pot[0]
+
+
+yukawa_forces_potential_pallas.launches = 0
+
+
+def yukawa_forces_pallas(R, L, ldeb, mask=None, tile: int = 512):
+    return yukawa_forces_potential_pallas(R, L, ldeb, mask, tile,
+                                          with_pot=False)[0]
+
+
+def yukawa_potential_pallas(R, L, ldeb, mask=None, tile: int = 512):
+    """Potential energy per particle (0-d tensor on R's device, no host
+    sync) through kernel D: ``0.5 * sum(pot) / n_eff``."""
+    _, pot = yukawa_forces_potential_pallas(R, L, ldeb, mask, tile)
+    n_eff = torch.sum(mask) if mask is not None else R.shape[0]
+    return 0.5 * torch.sum(pot) / n_eff
+
+
+def yukawa_forces_potential_pallas_batched(
+        R: torch.Tensor, L: float, ldeb: float, tile: int = 512,
+        mask: Optional[torch.Tensor] = None):
+    """``R [E, N, 3]`` ensemble positions -> ``(F [E, N, 3], pot [E,
+    N])``, the JAX package's entry of kernel G.  ``mask`` (``[N]`` shared,
+    or ``[E, N]`` per member: Poissonian counts) marks real ions; masked
+    rows come out exactly 0.
+
+    A CUDA tensor (float32) launches the potential form of
+    ``csrc/yukawa_forces.cu`` once over an (Np/64, E) grid, the masks read
+    with kernel C's member stride, and adds one to
+    ``yukawa_forces_potential_pallas_batched.launches``; a CPU tensor runs
+    :func:`yukawa_forces_potential` member by member."""
+    _check_device(R)
+    e, n, _ = R.shape
+    if mask is not None and tuple(mask.shape) not in ((n,), (e, n)):
+        raise ValueError(f"want mask [{n}] or [{e}, {n}], got "
+                         f"{tuple(mask.shape)}")
+    if R.device.type == "cpu":
+        per = [yukawa_forces_potential(R[j], L, ldeb, _member_mask(mask, j))
+               for j in range(e)]
+        return (torch.stack([f for f, _ in per]),
+                torch.stack([u for _, u in per]))
+    F, pot = _forces_potential_lanes(R, L, ldeb, mask, tile, True)
+    yukawa_forces_potential_pallas_batched.launches += 1
+    return F, pot
+
+
+yukawa_forces_potential_pallas_batched.launches = 0
+
+
+def _member_mask(mask, j):
+    return None if mask is None else mask[j] if mask.dim() == 2 else mask
+
+
+def yukawa_potential_pallas_batched(R, L, ldeb, mask=None, tile: int = 512):
+    """Each member's potential energy per particle, ``[E]`` on R's device
+    (no host sync), from one launch of kernel G on the card; on the CPU
+    :func:`yukawa_potential` member by member (the same values the
+    unbatched path gives)."""
+    if R.device.type == "cpu":
+        return torch.stack([yukawa_potential(R[j], L, ldeb,
+                                             _member_mask(mask, j))
+                            for j in range(R.shape[0])])
+    _, pot = yukawa_forces_potential_pallas_batched(R, L, ldeb, tile, mask)
+    if mask is None:
+        return 0.5 * torch.sum(pot, dim=1) / R.shape[1]
+    m = mask.to(pot.dtype).expand(pot.shape)
+    return 0.5 * torch.sum(pot, dim=1) / torch.sum(m, dim=1)
+
+
+def yukawa_forces_n3l_pallas(R: torch.Tensor, L: float, ldeb: float,
+                             mask: Optional[torch.Tensor] = None,
+                             tile: int = 512) -> torch.Tensor:
+    """Force-only ``R [N, 3] -> F [N, 3]`` through
+    :func:`yukawa_forces_n3l_soa` (kernel A on the card, its twin on the
+    CPU), the JAX package's entry of the half-pair kernel."""
+    _check_device(R)
+    n = R.shape[0]
+    Rp, rows, _ = _pack_lanes(R[None], mask, tile)
+    return yukawa_forces_n3l_soa(Rp, rows, L, ldeb)[:, :n].T
+
+
+def best_forces_fn(n: int, L: float, ldeb: float, mask=None,
+                   use_pallas: Optional[bool] = None,
+                   tile: Optional[int] = None, n3l: bool = True):
+    """An ``R -> (F, pot_per_ion | None)`` callable, as the JAX package's.
+    ``use_pallas`` (default: whether R lies on a CUDA device, decided per
+    call) selects the kernels' entries: the force-only half-pair path
+    (``n3l``, pot None) or kernel D without the potential (``n3l=False``);
+    otherwise the plain ``yukawa_forces_potential`` with its potential.
+    ``n`` is the ion count the JAX package sizes its tile from; here the
+    tile defaults to 512 whatever ``n``."""
+    tile = 512 if tile is None else tile
+
+    def forces(R):
+        pallas = R.device.type == "cuda" if use_pallas is None else use_pallas
+        if not pallas:
+            return yukawa_forces_potential(R, L, ldeb, mask)
+        if n3l:
+            return yukawa_forces_n3l_pallas(R, L, ldeb, mask, tile), None
+        return yukawa_forces_potential_pallas(R, L, ldeb, mask, tile,
+                                              with_pot=False)
+    return forces

@@ -7,11 +7,14 @@ without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 Tolerances as in tests/test_torch_yukawa.py / test_torch_fused.py: forces
-2e-5 of the largest |F|; ticks R/V/tp 2e-5, psi 5e-5 (+1e-4 relative),
-pad rows and padded lanes exactly 0.  A lane whose jump test r0 < dp0
-falls within float rounding of dp0 may be decided differently by the two
-and then diverges; at most 2 such lanes of 3500 are allowed.  The full
-flagship run is held to the JAX package's production physics bands.
+2e-5 of the largest |F|, the per-ion potential 1e-5 of the largest sum;
+ticks R/V/tp 2e-5, psi 5e-5 (+1e-4 relative), pad rows and padded lanes
+exactly 0.  A lane whose jump test r0 < dp0 falls within float rounding
+of dp0 may be decided differently by the two and then diverges; at most 2
+such lanes of 3500 are allowed (3 per member for the in-kernel RNG, whose
+twin draws the same Threefry stream).  The full flagship run, through
+the in-kernel RNG as every CUDA run without a ``rolls_fn``, is held to
+the JAX package's production physics bands.
 """
 
 import dataclasses
@@ -101,7 +104,7 @@ def test_tick_kernel_matches_twin(cuda, case):
     cfg = lc.CoolingConfig()
     if case.endswith("renormalize"):
         cfg = dataclasses.replace(cfg, frac_of_sig=0.5, renormalize=True)
-    sched = lc.build_scheduler(cfg, cuda, rolls_fn=None)
+    sched = lc.build_scheduler(cfg, cuda, internal_rng=False)
     c, F, rolls = _planes(sched, cuda, case != "ground", seed=1)
     first, tick0 = (True, 0) if case == "ground" else (False, 4321)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
@@ -125,13 +128,19 @@ def test_tick_kernel_matches_twin(cuda, case):
 
 def test_main_path_runs_through_both_kernels(cuda, tmp_path):
     """A short flagship-width run: 100 MD steps = 2 samples of 40 steps
-    (39 full + the split 1|24-tick step each) + 20 trailing steps."""
+    (39 full + the split 1|24-tick step each) + 20 trailing steps, through
+    the in-kernel RNG; the potential of the start and of each sample from
+    kernel D."""
     cfg = lc.CoolingConfig(tmax=0.2, save_directory=str(tmp_path))
     a0 = ty.yukawa_forces_n3l_soa.launches
-    b0 = tf.fused_md_substeps.launches
+    b0 = tf.fused_md_substeps.launches_rng
+    d0 = ty.yukawa_forces_potential_pallas.launches
+    e0 = tf.fused_md_substeps.launches
     final, res = lc.run(cfg, device="cuda")
     assert ty.yukawa_forces_n3l_soa.launches - a0 == 100
-    assert tf.fused_md_substeps.launches - b0 == 2 * 41 + 20
+    assert tf.fused_md_substeps.launches_rng - b0 == 2 * 41 + 20
+    assert ty.yukawa_forces_potential_pallas.launches - d0 == 3
+    assert tf.fused_md_substeps.launches == e0
     outs = res["outs"]
     assert outs["ekin"].shape == (2, 3)
     assert torch.isfinite(torch.as_tensor(final.R)).all()
@@ -235,7 +244,8 @@ def test_fold_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="mask_row"):
         ty.yukawa_forces_n3l_soa_batched(Rp, masks[:3], E_FOLD, L, ldeb)
     cfg = lc.CoolingConfig()
-    sched = lc.build_scheduler(cfg, cuda, rolls_fn=None, per_lane_e0=True)
+    sched = lc.build_scheduler(cfg, cuda, per_lane_e0=True,
+                               internal_rng=False)
     c = sched.soa_init(lc.initial_state(cfg, torch.Generator(
         device=cuda).manual_seed(0)))
     rolls = torch.zeros((125, NPAD), device=cuda)
@@ -257,8 +267,8 @@ def test_lane_tick_kernels_match_twin(cuda, variant, excited):
     E = 4
     cfg = lc.CoolingConfig()
     pe0, pom = "e0" in variant, "om" in variant
-    sched = lc.build_scheduler(cfg, cuda, rolls_fn=None, per_lane_e0=pe0,
-                               per_lane_om=pom)
+    sched = lc.build_scheduler(cfg, cuda, per_lane_e0=pe0, per_lane_om=pom,
+                               internal_rng=False)
     spec = sched.fused_spec
     e0 = [lc.build_engine(dataclasses.replace(
         cfg, detuning=d, detuning_dp=dd)).scheme.e0
@@ -309,14 +319,17 @@ def test_ensemble_run_members_finite_and_heating(cuda, tmp_path):
     """Eight Poissonian members at flagship width for 500 MD steps: one
     batched force and one tick launch per MD step for the whole fold;
     every member finite, heating from the frozen start (disorder-induced
-    heating), its S+P+D norm near 1, and its tree sized to its own N."""
+    heating), its S+P+D norm near 1, and its tree sized to its own N.
+    The start's and each sample's potentials: one launch of kernel G."""
     cfg = lc.CoolingConfig(tmax=1.0, exact_n=False,
                            save_directory=str(tmp_path))
     a0 = ty.yukawa_forces_n3l_soa_batched.launches
-    b0 = tf.fused_md_substeps.launches
+    b0 = tf.fused_md_substeps.launches_rng
+    g0 = ty.yukawa_forces_potential_pallas_batched.launches
     final, outs = lc.run_ensemble(cfg, E_FOLD, device="cuda")
     assert ty.yukawa_forces_n3l_soa_batched.launches - a0 == 500
-    assert tf.fused_md_substeps.launches - b0 == 12 * 41 + 20
+    assert tf.fused_md_substeps.launches_rng - b0 == 12 * 41 + 20
+    assert ty.yukawa_forces_potential_pallas_batched.launches - g0 == 13
     from mdqtplasmasims_torch.core.init import poisson_member_mask
     _, n_js = poisson_member_mask(N, E_FOLD, 0)
     for j, nj in enumerate(n_js):
@@ -326,3 +339,120 @@ def test_ensemble_run_members_finite_and_heating(cuda, tmp_path):
         assert 0 < ek[0] < ek[-1]
         norm = outs["pops"][j][:, :nj].sum(-1).mean(-1)
         assert float(np.abs(norm - 1.0).max()) < 0.05
+
+
+# ---- the in-kernel RNG form of kernel B, and kernels D and G ----
+
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+@pytest.mark.parametrize("excited", [False, True])
+def test_rng_tick_kernels_match_twin(cuda, variant, excited):
+    """Each RNG form against its twin, which draws the same Threefry
+    stream in plain torch: one member (plain) or a 4-member sweep fold."""
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    E = 1 if variant == "plain" else 4
+    cfg = lc.CoolingConfig()
+    pe0, pom = "e0" in variant, "om" in variant
+    sched = lc.build_scheduler(cfg, cuda, per_lane_e0=pe0, per_lane_om=pom)
+    spec = sched.fused_spec
+    assert spec.internal_rng               # the CUDA default
+    e0 = [lc.build_engine(dataclasses.replace(
+        cfg, detuning=d, detuning_dp=dd)).scheme.e0
+        for d, dd in ((-1.0, 1.0), (-0.5, 1.0), (-1.5, 0.6), (-0.8, 1.4))]
+    om = [(1.0, 1.0), (0.8, 1.2), (1.2, 0.7), (0.5, 1.5)]
+    e0p, omp = fold_sweep_lanes(spec, NPAD, e0 if pe0 else None,
+                                om if pom else None, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    c = sched.soa_ens_init(lc.member_states(cfg, E, 1, cuda))
+    F = sched.soa_ens_forces_fn(E, N)(c.R)
+    on = (torch.arange(E * NPAD, device=cuda) % NPAD) < N
+    if excited:
+        pre = torch.zeros_like(c.psi_re)
+        pim = torch.zeros_like(c.psi_im)
+        pre[2], pre[0], pim[4] = 0.7 * on, 0.51 * on, 0.5 * on
+        c = c._replace(V=0.3 * torch.randn((3, E * NPAD), generator=g,
+                                           device=cuda) * on,
+                       tp=torch.rand((1, E * NPAD), generator=g,
+                                     device=cuda) * on,
+                       psi_re=pre, psi_im=pim)
+    seed = torch.tensor([20251016], dtype=torch.int32, device=cuda)
+    first, tick0 = (False, 123457) if excited else (True, 0)
+    args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im)
+    name = "launches_rng" + ("_per_lane_e0" if pe0 else
+                             "_per_lane_om" if pom else "")
+    before = getattr(tf.fused_md_substeps, name)
+    out = tf.fused_md_substeps(spec, first, *args, tick0=tick0,
+                               tables=sched.tables, e0_lanes=e0p,
+                               om_lanes=omp, seed=seed)
+    ref = tf.fused_md_substeps_reference(spec, first, *args, None,
+                                         sched.tables, tick0=tick0,
+                                         e0_lanes=e0p, om_lanes=omp,
+                                         seed=seed)
+    torch.cuda.synchronize()
+    assert getattr(tf.fused_md_substeps, name) == before + 1
+    bad = torch.zeros(E * NPAD, dtype=torch.bool, device=cuda)
+    for x, y, atol in zip(out, ref, (2e-5, 2e-5, 2e-5, 5e-5, 5e-5)):
+        bad |= ((x - y).abs() > atol + 1e-4 * y.abs()).any(0)
+    assert int((bad & on).sum()) <= 3 * E
+    for x in out[3:]:
+        assert float(x[12:].abs().max()) == 0.0
+        assert float(x[:, ~on].abs().max()) == 0.0
+    if excited:                  # jumps fired, and on the same lanes
+        jumped = out[2][0] < 25 * 8e-5
+        assert int((jumped & on).sum()) > 100 * E
+        assert int((jumped != (ref[2][0] < 25 * 8e-5)).sum()) <= 3 * E
+
+
+def _held(F, pot, Fr, potr, dead):
+    assert float((F - Fr).abs().max()) <= 2e-5 * float(Fr.abs().max())
+    assert float((pot - potr).abs().max()) <= 1e-5 * float(potr.abs().max())
+    if dead.any():
+        assert float(F[dead].abs().max()) == 0.0
+        assert float(pot[dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_potential_kernel_d_matches_twin(cuda, masked):
+    L = PlasmaUnits.box_length(N)
+    ldeb = PlasmaUnits(2.0, 0.1).debye_length
+    g = torch.Generator(device=cuda).manual_seed(8)
+    R = torch.rand((N, 3), generator=g, device=cuda) * L
+    mask = torch.ones(N, device=cuda)
+    mask[::10] = 0.0
+    mk = mask if masked else None
+    before = ty.yukawa_forces_potential_pallas.launches
+    F, pot = ty.yukawa_forces_potential_pallas(R, L, ldeb, mk)
+    Fr, potr = ty.yukawa_forces_potential(R, L, ldeb, mk)
+    e = ty.yukawa_potential_pallas(R, L, ldeb, mk)
+    torch.cuda.synchronize()
+    assert ty.yukawa_forces_potential_pallas.launches == before + 2
+    _held(F, pot, Fr, potr, mask == 0 if masked else mask < 0)
+    er = 0.5 * potr.sum() / (mk.sum() if masked else N)
+    assert abs(float(e - er)) <= 1e-5 * abs(float(er))
+
+
+@pytest.mark.parametrize("per_member", [True, False])
+def test_potential_kernel_g_matches_twin(cuda, per_member):
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    L = PlasmaUnits.box_length(N)
+    ldeb = PlasmaUnits(2.0, 0.1).debye_length
+    m, n_js = poisson_member_mask(N, E_FOLD, seed=3)
+    masks = torch.as_tensor(m, device=cuda)
+    n = m.shape[1]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    R = torch.rand((E_FOLD, n, 3), generator=g, device=cuda) * L
+    R = R * masks[..., None]
+    if not per_member:
+        masks = torch.zeros(n, device=cuda)
+        masks[:min(n_js)] = 1.0
+    before = ty.yukawa_forces_potential_pallas_batched.launches
+    F, pot = ty.yukawa_forces_potential_pallas_batched(R, L, ldeb,
+                                                       mask=masks)
+    e = ty.yukawa_potential_pallas_batched(R, L, ldeb, masks)
+    torch.cuda.synchronize()
+    assert ty.yukawa_forces_potential_pallas_batched.launches == before + 2
+    for j in range(E_FOLD):
+        mj = masks[j] if per_member else masks
+        Fr, potr = ty.yukawa_forces_potential(R[j], L, ldeb, mj)
+        _held(F[j], pot[j], Fr, potr, mj == 0)
+        er = ty.yukawa_potential(R[j], L, ldeb, mj)
+        assert abs(float(e[j] - er)) <= 1e-5 * abs(float(er))
