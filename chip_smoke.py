@@ -20,8 +20,8 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      clock, and its per-lane forms on a 4-member fold; timed;
   6. the potential kernels against their twin: D (one member, with and
      without a mask) and G (an 8-member Poissonian fold with per-member
-     masks, and a shared mask), the fold's sample-time potential with
-     and without G; timed;
+     masks, and a shared mask), ``best_forces_fn`` in every mode, the
+     fold's sample-time potential with and without G; timed;
   7. the main path: ``laser_cooling.run`` of CoolingConfig(n0=3500,
      tmax=1.0) on CUDA (500 MD steps: 12 samples + 20 trailing steps)
      through the in-kernel RNG, with the kernels' launch counts and
@@ -39,16 +39,20 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      per-member physics and files, then a 2-member fold run to tmax=0.5
      and resumed to 1.0, bitwise equal to an uninterrupted run;
  11. the sweep path: ``run_sweep`` over 2 detunings x 2 Rabi frequencies
-     (one 4-member fold) through the per-lane RNG kernel;
- 12. explicit rolls on the card: a short flagship-width ``run`` and a
-     2-point ``run_sweep`` with a caller's ``rolls_fn``, so the explicit
-     forms of the tick kernel keep a driven path;
+     (one 4-member fold) through the per-lane RNG kernel's e0+om form,
+     and short 2-point detuning-only and Rabi-only sweeps through its e0
+     and om forms;
+ 12. explicit rolls on the card: a short flagship-width ``run`` and
+     2-point detuning, Rabi and detuning+Rabi ``run_sweep``s with a
+     caller's ``rolls_fn``, so every explicit form of the tick kernel
+     keeps a driven path;
  13. the in-kernel stream's contract (tools/verify_seed_streams.py's for
      the JAX package): the same seed gives bitwise-equal runs, another
      seed diverges, jumps fire, folded members are independent;
  14. the interval diagnostics: a flagship-width ``run`` to tmax=1.0 with
-     ``vaf_intervals`` and ``record_lccf``, checking its VAF, J(k) and
-     VZERO files and the checkpoint's vholder.
+     ``vaf_intervals`` and ``record_lccf``, checking its VAF, J(k) (against
+     a float64 direct sum of the sampled R and V) and VZERO files and the
+     checkpoint's vholder.
 
 Phases 7, 10, 11 and 12 each set the launch counts to 0 just before they
 drive their path and read them just after.  The line before the last is
@@ -85,6 +89,9 @@ POTENTIAL_TOL = 1e-5
 # between jumps and can stray far from 1 (the JAX package's runs do too),
 # so the check is on the ensemble mean; the per-ion maximum is printed
 POP_TOL = 0.05
+# J(k) of a sample against a float64 direct sum over the same sampled R
+# and V: the .dat file's 6 significant digits bound the agreement
+LCCF_TOL = 1e-4
 N_TIMED = 30              # CUDA-event repetitions (median reported)
 
 
@@ -186,21 +193,22 @@ def excite(torch, carry, on, g):
 
 def check_tick_kernel(torch, cfg, L, ldeb):
     from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import uniform_rolls
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         build_scheduler, initial_state)
     from mdqtplasmasims_torch.ops.yukawa import yukawa_forces_n3l_soa
     dev = torch.device("cuda")
-    # the uniforms are drawn here: explicit rolls, no rolls_fn
-    sched = build_scheduler(cfg, dev, internal_rng=False)
-    n, npad = cfg.n0, sched._npad(cfg.n0)
     g = torch.Generator(device=dev).manual_seed(12)
+    # a rolls_fn selects the explicit-rolls form; the rolls are drawn here
+    sched = build_scheduler(cfg, dev, uniform_rolls(g))
+    n, npad = cfg.n0, sched._npad(cfg.n0)
     ground = sched.soa_init(initial_state(cfg, g))
     on = torch.arange(npad, device=dev) < n
     F = yukawa_forces_n3l_soa(ground.R, on[None].float(), L, ldeb)
     excited = excite(torch, ground, on, g)
     sched_exp = build_scheduler(
         dataclasses.replace(cfg, frac_of_sig=0.5, renormalize=True), dev,
-        internal_rng=False)
+        uniform_rolls(g))
     worst = 0.0
     for name, sc, c, first, tick0 in (
             ("ground start", sched, ground, True, 0),
@@ -291,7 +299,7 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
         cfg, detuning=a, detuning_dp=b)).scheme.e0 for a, b in dets]
     for key, pe0, pom in (("fused_ticks_rng_per_lane_e0", True, False),
                           ("fused_ticks_rng_per_lane_om", False, True),
-                          ("fused_ticks_rng_per_lane_e0+om", True, True)):
+                          ("fused_ticks_rng_per_lane_e0_om", True, True)):
         sc = lc.build_scheduler(cfg, dev, per_lane_e0=pe0, per_lane_om=pom)
         spec = sc.fused_spec
         fold = sc.soa_ens_init(lc.member_states(cfg, E, 3, dev))
@@ -369,6 +377,30 @@ def check_potential_kernels(torch, L, ldeb):
         if abs(float(e) - er) > POTENTIAL_TOL * abs(er):
             raise SystemExit(f"yukawa_potential_pallas {float(e)} vs twin "
                              f"{er} ({what})")
+    # best_forces_fn: every mode reaches a kernel on the card (A, or D)
+    Fr, potr = ty.yukawa_forces_potential(R, L, ldeb, mask)
+    modes = []
+    for use_pallas in (None, True, False):
+        for n3l in (True, False):
+            counters = (ty.yukawa_forces_n3l_soa,
+                        ty.yukawa_forces_potential_pallas)
+            before = [c.launches for c in counters]
+            F, pot = ty.best_forces_fn(n, L, ldeb, mask=mask,
+                                       use_pallas=use_pallas, n3l=n3l)(R)
+            torch.cuda.synchronize()
+            got = [c.launches - b for c, b in zip(counters, before)]
+            want = [1, 0] if use_pallas is not False and n3l else [0, 1]
+            ef = float((F - Fr).abs().max()) / float(Fr.abs().max())
+            ep = (0.0 if pot is None else float((pot - potr).abs().max())
+                  / float(potr.abs().max()))
+            modes.append((use_pallas, n3l, got, f"{ef:.3g}", f"{ep:.3g}"))
+            if (got != want or ef > FORCE_TOL or ep > POTENTIAL_TOL
+                    or (pot is None) != (use_pallas is not False)):
+                raise SystemExit(f"best_forces_fn(use_pallas={use_pallas}, "
+                                 f"n3l={n3l}) launched [A, D] {got} (want "
+                                 f"{want}), rel errs F {ef} pot {ep}")
+    log(f"[potential] best_forces_fn (use_pallas, n3l, [A, D] launches, rel "
+        f"err F, rel err pot): {modes}")
     ms_d = cuda_ms(torch, lambda: ty.yukawa_forces_potential_pallas(
         R, L, ldeb))
     plain_d = cuda_ms(torch, lambda: ty.yukawa_forces_potential(R, L, ldeb),
@@ -556,7 +588,8 @@ def check_lane_kernels(torch, cfg):
     """The per-lane tick variants (explicit rolls) against the twin on a
     4-member fold."""
     from mdqtplasmasims_torch.core import qt_fused as tf
-    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    from mdqtplasmasims_torch.core.scheduler import (fold_sweep_lanes,
+                                                     uniform_rolls)
     from mdqtplasmasims_torch.experiments import laser_cooling as lc
     dev = torch.device("cuda")
     E = 4
@@ -568,9 +601,9 @@ def check_lane_kernels(torch, cfg):
     out = {}
     for key, pe0, pom in (("per_lane_e0", True, False),
                           ("per_lane_om", False, True),
-                          ("per_lane_e0+om", True, True)):
-        sched = lc.build_scheduler(cfg, dev, per_lane_e0=pe0,
-                                   per_lane_om=pom, internal_rng=False)
+                          ("per_lane_e0_om", True, True)):
+        sched = lc.build_scheduler(cfg, dev, uniform_rolls(g),
+                                   per_lane_e0=pe0, per_lane_om=pom)
         spec, n = sched.fused_spec, cfg.n0
         npad = sched._npad(n)
         ground = sched.soa_ens_init(lc.member_states(cfg, E, 3, dev))
@@ -734,21 +767,37 @@ def sweep_path(torch, card):
         n_md = int(round(cfg.tmax / cfg.timestep))
         points = [{"detuning": d, "om": o} for d in (-1.0, -0.5)
                   for o in (0.8, 1.2)]
+        # the e0-only and om-only forms: 2-point sweeps to tmax=0.2
+        short = dataclasses.replace(cfg, tmax=0.2)
+        n_short = int(round(short.tmax / short.timestep))
+        singles = ([{"detuning": -1.0}, {"detuning": -0.5}],
+                   [{"om": 0.8}, {"om": 1.2}])
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, outs, mcfgs = run_sweep(cfg, points, device="cuda")
         wall = time.perf_counter() - t0
+        for k, pts in enumerate(singles):
+            sub_cfg = dataclasses.replace(
+                short, save_directory=os.path.join(tmp, f"single{k}"))
+            fs, os_, mc = run_sweep(sub_cfg, pts, device="cuda")
+            check_members(f"sweep-{'e0' if k == 0 else 'om'}", fs, os_,
+                          [cfg.n0] * 2, [_save_dir(c) for c in mc], n_short,
+                          rows_want=2)
         counts = read_counts()
         E = len(points)
         log(f"[sweep] run_sweep(n0=3500, tmax=1.0) over {points}: {E} "
             f"members in one fold, {n_md} MD steps in {wall:.3f} s -> "
             f"{E * cfg.n0 * n_md * cfg.ratio / wall:.4g} aggregate "
-            f"ion-QT-updates/s ({card})")
+            f"ion-QT-updates/s ({card}); then tmax=0.2 sweeps over "
+            f"{list(singles)}")
         log(f"[sweep] launches: {counts}")
-        want = dict(yukawa_forces_batched=500, fused_ticks_rng_per_lane_e0=512,
-                    fused_ticks_rng_per_lane_om=512,
-                    yukawa_forces_potential_batched=13)
+        want = dict(yukawa_forces_batched=700,
+                    fused_ticks_rng_per_lane_e0_om=512,
+                    fused_ticks_rng_per_lane_e0=102,
+                    fused_ticks_rng_per_lane_om=102,
+                    yukawa_forces_potential_batched=19, fused_ticks_rng=0,
+                    fused_ticks_per_lane_e0_om=0)
         if any(counts[k] != v for k, v in want.items()):
             raise SystemExit(f"sweep path launched {counts}, want {want}")
         dirs = [_save_dir(c) for c in mcfgs]
@@ -759,8 +808,9 @@ def sweep_path(torch, card):
 
 
 def explicit_rolls_path(torch, card):
-    """A short flagship-width run and a 2-point sweep with a caller's
-    ``rolls_fn``: the explicit-rolls forms of the tick kernel."""
+    """A short flagship-width run and 2-point detuning, Rabi and
+    detuning+Rabi sweeps with a caller's ``rolls_fn``: every explicit-rolls
+    form of the tick kernel."""
     from mdqtplasmasims_torch.core.scheduler import uniform_rolls
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         CoolingConfig, run, run_sweep)
@@ -772,23 +822,31 @@ def explicit_rolls_path(torch, card):
         t0 = time.perf_counter()
         final, res = run(cfg, device="cuda", rolls_fn=uniform_rolls(
             torch.Generator(device=dev).manual_seed(1)))
-        points = [{"detuning": -1.0, "om": 0.8},
-                  {"detuning": -0.5, "om": 1.2}]
-        fs, outs, _ = run_sweep(cfg, points, device="cuda",
-                                rolls_fn=uniform_rolls(torch.Generator(
-                                    device=dev).manual_seed(2)))
+        sweeps = []
+        for k, points in enumerate((
+                [{"detuning": -1.0}, {"detuning": -0.5}],
+                [{"om": 0.8}, {"om": 1.2}],
+                [{"detuning": -1.0, "om": 0.8},
+                 {"detuning": -0.5, "om": 1.2}])):
+            fs, outs, _ = run_sweep(
+                dataclasses.replace(cfg, save_directory=os.path.join(
+                    tmp, f"sweep{k}")), points, device="cuda",
+                rolls_fn=uniform_rolls(torch.Generator(
+                    device=dev).manual_seed(2 + k)))
+            sweeps.append((f"sweep {points}", outs, fs.psi))
         wall = time.perf_counter() - t0
         counts = read_counts()
-    log(f"[explicit] run + 2-point run_sweep (n0=3500, tmax=0.2) with a "
-        f"rolls_fn in {wall:.3f} s; launches: {counts}")
-    want = dict(yukawa_forces=100, fused_ticks=102, yukawa_forces_batched=100,
+    log(f"[explicit] run + three 2-point run_sweeps (n0=3500, tmax=0.2) "
+        f"with a rolls_fn in {wall:.3f} s; launches: {counts}")
+    want = dict(yukawa_forces=100, fused_ticks=102, yukawa_forces_batched=300,
                 fused_ticks_per_lane_e0=102, fused_ticks_per_lane_om=102,
-                fused_ticks_rng=0, fused_ticks_rng_per_lane_e0=0)
+                fused_ticks_per_lane_e0_om=102, fused_ticks_rng=0,
+                fused_ticks_rng_per_lane_e0=0, fused_ticks_rng_per_lane_om=0,
+                fused_ticks_rng_per_lane_e0_om=0)
     if any(counts[k] != v for k, v in want.items()):
         raise SystemExit(f"explicit-rolls paths launched {counts}, want "
                          f"{want}")
-    for what, o, psi in (("run", res["outs"], final.psi),
-                         ("sweep", outs, fs.psi)):
+    for what, o, psi in [("run", res["outs"], final.psi), *sweeps]:
         norm = float(abs(o["pops"].sum(-1).mean() - 1.0))
         if not (np_isfinite(psi) and norm < POP_TOL):
             raise SystemExit(f"explicit-rolls {what}: non-finite or S+P+D "
@@ -826,8 +884,9 @@ def stream_contract(torch):
         raise SystemExit("the in-kernel stream breaks its contract")
 
 
-def interval_path(torch, card):
-    """A flagship-width run with the interval diagnostics."""
+def interval_path(torch, card, L):
+    """A flagship-width run with the interval diagnostics (``L`` is the
+    box length of its 3500 ions)."""
     import numpy as np
     from mdqtplasmasims_tpu.io.datfiles import read_rows
     from mdqtplasmasims_torch.experiments.laser_cooling import (
@@ -860,12 +919,28 @@ def interval_path(torch, card):
         j_ok = (J.shape[0] == len(t) * 12 ** 3 and np.isfinite(J).all()
                 and np.array_equal(np.unique(J[:, 0]),
                                    np.arange(len(t)) * cfg.sample_freq))
+        # the first and last samples' J(k), taken on the card, against a
+        # float64 direct sum over the sampled R and V on the host
+        K = 12 ** 3
+        kv = (2.0 * np.pi / L) * J[:K, 1:4]
+        j_err = 0.0
+        for s in (0, len(t) - 1):
+            R = np.asarray(outs["R"][s], np.float64)
+            V = np.asarray(outs["V"][s], np.float64)
+            ref = V.T @ np.exp(1j * (R @ kv.T))                 # [3, K]
+            cols = J[s * K:(s + 1) * K, 4:].T                   # [6, K]
+            jk = cols[0::2] + 1j * cols[1::2]
+            j_err = max(j_err, float(np.abs(jk - ref).max()
+                                     / np.abs(ref).max()))
+        j_ok = j_ok and j_err <= LCCF_TOL
         with np.load(os.path.join(job, f"checkpoint_{n_md - 1:06d}.npz")) as z:
             vh = z["vholder"]
         vh_ok = vh.shape == (13, cfg.n0, 3) and not vh[2:].any()
     log(f"[intervals] run(n0=3500, tmax=1.0, vaf_intervals={iv}, "
         f"record_lccf=True) in {wall:.3f} s ({card}): VAF rows and checks "
-        f"{got}; J_interval0.dat {J.shape} ok {j_ok}; checkpoint vholder "
+        f"{got}; J_interval0.dat {J.shape}, max err vs float64 direct sum "
+        f"{j_err:.3g} of max|J| (tol {LCCF_TOL:g}), ok {j_ok}; checkpoint "
+        f"vholder "
         f"{vh.shape} ok {vh_ok}")
     if not (all(ok for _, ok in got) and j_ok and vh_ok):
         raise SystemExit("the interval diagnostics' files are wrong")
@@ -938,7 +1013,7 @@ def main() -> int:
     sweep_counts = sweep_path(torch, smi)
     expl_counts = explicit_rolls_path(torch, smi)
     stream_contract(torch)
-    interval_path(torch, smi)
+    interval_path(torch, smi, L)
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -970,6 +1045,10 @@ def main() -> int:
              replaces=tpu_rng,
              launches=sweep_counts["fused_ticks_rng_per_lane_om"],
              **rng["fused_ticks_rng_per_lane_om"]),
+        dict(name="fused_ticks_rng_per_lane_e0_om", route="cuda",
+             source=src_t, replaces=tpu_rng,
+             launches=sweep_counts["fused_ticks_rng_per_lane_e0_om"],
+             **rng["fused_ticks_rng_per_lane_e0_om"]),
         dict(name="fused_ticks", route="cuda", source=src_t, replaces=tpu_t,
              launches=expl_counts["fused_ticks"], **ticks),
         dict(name="fused_ticks_per_lane_e0", route="cuda", source=src_t,
@@ -980,6 +1059,10 @@ def main() -> int:
              replaces=tpu_t,
              launches=expl_counts["fused_ticks_per_lane_om"],
              **lanes["per_lane_om"]),
+        dict(name="fused_ticks_per_lane_e0_om", route="cuda", source=src_t,
+             replaces=tpu_t,
+             launches=expl_counts["fused_ticks_per_lane_e0_om"],
+             **lanes["per_lane_e0_om"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

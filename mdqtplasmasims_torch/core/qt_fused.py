@@ -421,12 +421,11 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     Returns new ``(R, V, tp, psi_re, psi_im)``.
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
-    ``csrc/fused_ticks.cu`` and count the launch, per form: explicit rolls
-    in ``fused_md_substeps.launches`` for the plain variant and
-    ``launches_per_lane_e0`` / ``launches_per_lane_om`` for a per-lane one
-    (a launch with both flags counts in both); the in-kernel RNG form in
-    ``launches_rng``, ``launches_rng_per_lane_e0`` and
-    ``launches_rng_per_lane_om`` the same way.  CPU tensors run
+    ``csrc/fused_ticks.cu`` and count the launch in the one counter of
+    its form: ``fused_md_substeps.launches`` for explicit rolls and
+    ``launches_rng`` for the in-kernel RNG, each with the suffix
+    ``_per_lane_e0``, ``_per_lane_om`` or ``_per_lane_e0_om`` for a
+    per-lane variant (:data:`LAUNCH_COUNTERS`).  CPU tensors run
     :func:`fused_md_substeps_reference`."""
     check_real_couplings(spec)
     SP = spec.SP
@@ -493,17 +492,23 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
             npad, 1.0 if first else 0.0, float(tick0), int(tick0),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "fused_ticks_launch")
-    count = "launches_rng" if spec.internal_rng else "launches"
-    lanes = [f for f, on in (("_per_lane_e0", spec.per_lane_e0),
-                             ("_per_lane_om", spec.per_lane_om)) if on]
-    for name in [count + f for f in lanes] or [count]:
-        setattr(fused_md_substeps, name, getattr(fused_md_substeps, name) + 1)
+    name = launch_counter(spec)
+    setattr(fused_md_substeps, name, getattr(fused_md_substeps, name) + 1)
     return tuple(outs)
 
 
-#: launch counts per kernel form (see :func:`fused_md_substeps`)
-LAUNCH_COUNTERS = ("launches", "launches_per_lane_e0", "launches_per_lane_om",
-                   "launches_rng", "launches_rng_per_lane_e0",
-                   "launches_rng_per_lane_om")
+def launch_counter(spec: FusedTickSpec) -> str:
+    """The attribute of :func:`fused_md_substeps` counting the launches of
+    ``spec``'s kernel form."""
+    lanes = "".join(f for f, on in (("_e0", spec.per_lane_e0),
+                                    ("_om", spec.per_lane_om)) if on)
+    return ("launches" + ("_rng" if spec.internal_rng else "")
+            + ("_per_lane" + lanes if lanes else ""))
+
+
+#: launch counts, one per kernel form (see :func:`fused_md_substeps`)
+LAUNCH_COUNTERS = tuple(f"launches{r}{f}" for r in ("", "_rng")
+                        for f in ("", "_per_lane_e0", "_per_lane_om",
+                                  "_per_lane_e0_om"))
 for _name in LAUNCH_COUNTERS:
     setattr(fused_md_substeps, _name, 0)

@@ -5,8 +5,9 @@ J(k) (reference LCCF / printJ, laserCoolingPlusExpansionMDQTSpeedUp.cpp:
 Counterpart of ``k_grid`` and ``current_fourier`` in
 ``mdqtplasmasims_tpu/ops/structure.py`` (:58-64, :84-90).  The JAX package
 computes the ``[3, N] x [N, K]`` complex product outside Pallas; here it
-is a plain product in the inputs' precision.  ``pair_correlation`` and
-``static_structure_factor`` come with the Monte-Carlo family.
+is a plain product on the inputs' device, in float64.
+``pair_correlation`` and ``static_structure_factor`` come with the
+Monte-Carlo family.
 """
 
 from __future__ import annotations
@@ -28,15 +29,11 @@ def current_fourier(R: torch.Tensor, V: torch.Tensor,
                     kvecs: torch.Tensor) -> torch.Tensor:
     """J[a, k] = sum_j V[a,j] exp(i k.R_j), ``[3, K]`` complex (the
     reference's O(N*12^3) triple loop, SpeedUp.cpp:1060-1065), as real
-    products of V with cos and sin of the phases.  On a CUDA device the
-    products run in IEEE float32 or float64 (TF32 is switched off for the
-    call: it keeps about three digits)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        phase = R @ kvecs.T                              # [N, K]
-        re = V.T @ torch.cos(phase)
-        im = V.T @ torch.sin(phase)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-    return torch.complex(re, im)
+    products of V with cos and sin of the phases.  The products run in
+    float64 on R's device, which no TF32 setting reaches; J comes back in
+    the complex type of R's precision."""
+    f64 = torch.float64
+    phase = R.to(f64) @ kvecs.to(R.device, f64).T           # [N, K]
+    Vt = V.to(f64).T
+    J = torch.complex(Vt @ torch.cos(phase), Vt @ torch.sin(phase))
+    return J.to(torch.complex128 if R.dtype == f64 else torch.complex64)

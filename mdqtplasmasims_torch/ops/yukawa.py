@@ -27,7 +27,8 @@ Counterpart of ``mdqtplasmasims_tpu/ops/yukawa.py``.  Physics:
   potential form of the same kernel; on a CPU tensor they run
   :func:`yukawa_forces_potential`, their twin.  The sample-time potential
   goes through them.
-* ``best_forces_fn``: the JAX package's ``R -> (F, pot | None)`` chooser.
+* ``best_forces_fn``: the JAX package's ``R -> (F, pot | None)`` chooser
+  over those entries (so a CUDA tensor always reaches a kernel).
 """
 
 from __future__ import annotations
@@ -414,18 +415,23 @@ def best_forces_fn(n: int, L: float, ldeb: float, mask=None,
                    use_pallas: Optional[bool] = None,
                    tile: Optional[int] = None, n3l: bool = True):
     """An ``R -> (F, pot_per_ion | None)`` callable, as the JAX package's.
-    ``use_pallas`` (default: whether R lies on a CUDA device, decided per
-    call) selects the kernels' entries: the force-only half-pair path
-    (``n3l``, pot None) or kernel D without the potential (``n3l=False``);
-    otherwise the plain ``yukawa_forces_potential`` with its potential.
-    ``n`` is the ion count the JAX package sizes its tile from; here the
-    tile defaults to 512 whatever ``n``."""
+    R's device alone picks kernel or twin: a CUDA tensor launches a
+    kernel, a CPU tensor runs its twin.  ``use_pallas`` picks the form of
+    the result, as the JAX package's picks its entry: forces only (pot
+    None) from the half-pair kernel A (``n3l``) or kernel D without its
+    potential (``n3l=False``); or, with ``use_pallas=False`` (the JAX
+    package's XLA entry), forces and the per-ion potential from kernel D.
+    The default is forces only on CUDA and the potential-carrying form on
+    the CPU, as the JAX package's default differs between the TPU and the
+    CPU.  ``n`` is the ion count the JAX package sizes its tile from; here
+    the tile defaults to 512 whatever ``n``."""
     tile = 512 if tile is None else tile
 
     def forces(R):
-        pallas = R.device.type == "cuda" if use_pallas is None else use_pallas
-        if not pallas:
-            return yukawa_forces_potential(R, L, ldeb, mask)
+        with_pot = (R.device.type != "cuda" if use_pallas is None
+                    else not use_pallas)
+        if with_pot:
+            return yukawa_forces_potential_pallas(R, L, ldeb, mask, tile)
         if n3l:
             return yukawa_forces_n3l_pallas(R, L, ldeb, mask, tile), None
         return yukawa_forces_potential_pallas(R, L, ldeb, mask, tile,

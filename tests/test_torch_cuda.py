@@ -77,6 +77,11 @@ def test_force_kernel_rejects_what_it_cannot_take(cuda):
                                  mask[:, :200].contiguous(), L, ldeb)
 
 
+def _rolls(dev):
+    """A ``rolls_fn``: the scheduler then takes the explicit-rolls form."""
+    return uniform_rolls(torch.Generator(device=dev).manual_seed(0))
+
+
 def _planes(sched, dev, excited, seed):
     cfg = lc.CoolingConfig()
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -104,7 +109,7 @@ def test_tick_kernel_matches_twin(cuda, case):
     cfg = lc.CoolingConfig()
     if case.endswith("renormalize"):
         cfg = dataclasses.replace(cfg, frac_of_sig=0.5, renormalize=True)
-    sched = lc.build_scheduler(cfg, cuda, internal_rng=False)
+    sched = lc.build_scheduler(cfg, cuda, _rolls(cuda))
     c, F, rolls = _planes(sched, cuda, case != "ground", seed=1)
     first, tick0 = (True, 0) if case == "ground" else (False, 4321)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
@@ -244,8 +249,7 @@ def test_fold_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="mask_row"):
         ty.yukawa_forces_n3l_soa_batched(Rp, masks[:3], E_FOLD, L, ldeb)
     cfg = lc.CoolingConfig()
-    sched = lc.build_scheduler(cfg, cuda, per_lane_e0=True,
-                               internal_rng=False)
+    sched = lc.build_scheduler(cfg, cuda, _rolls(cuda), per_lane_e0=True)
     c = sched.soa_init(lc.initial_state(cfg, torch.Generator(
         device=cuda).manual_seed(0)))
     rolls = torch.zeros((125, NPAD), device=cuda)
@@ -267,8 +271,8 @@ def test_lane_tick_kernels_match_twin(cuda, variant, excited):
     E = 4
     cfg = lc.CoolingConfig()
     pe0, pom = "e0" in variant, "om" in variant
-    sched = lc.build_scheduler(cfg, cuda, per_lane_e0=pe0, per_lane_om=pom,
-                               internal_rng=False)
+    sched = lc.build_scheduler(cfg, cuda, _rolls(cuda), per_lane_e0=pe0,
+                               per_lane_om=pom)
     spec = sched.fused_spec
     e0 = [lc.build_engine(dataclasses.replace(
         cfg, detuning=d, detuning_dp=dd)).scheme.e0
@@ -294,8 +298,8 @@ def test_lane_tick_kernels_match_twin(cuda, variant, excited):
     rolls = torch.rand((125, E * NPAD), generator=g, device=cuda)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
     first, tick0 = (False, 4321) if excited else (True, 0)
-    counts = (tf.fused_md_substeps.launches_per_lane_e0,
-              tf.fused_md_substeps.launches_per_lane_om)
+    name = tf.launch_counter(spec)
+    before = getattr(tf.fused_md_substeps, name)
     out = tf.fused_md_substeps(spec, first, *args, tick0=tick0,
                                tables=sched.tables, e0_lanes=e0p,
                                om_lanes=omp)
@@ -303,9 +307,8 @@ def test_lane_tick_kernels_match_twin(cuda, variant, excited):
                                          tick0=tick0, e0_lanes=e0p,
                                          om_lanes=omp)
     torch.cuda.synchronize()
-    assert (tf.fused_md_substeps.launches_per_lane_e0 - counts[0],
-            tf.fused_md_substeps.launches_per_lane_om - counts[1]) == (
-        int(pe0), int(pom))
+    assert name == "launches_per_lane_" + variant
+    assert getattr(tf.fused_md_substeps, name) == before + 1
     bad = torch.zeros(E * NPAD, dtype=torch.bool, device=cuda)
     for x, y, atol in zip(out, ref, (2e-5, 2e-5, 2e-5, 5e-5, 5e-5)):
         bad |= ((x - y).abs() > atol + 1e-4 * y.abs()).any(0)
@@ -377,8 +380,8 @@ def test_rng_tick_kernels_match_twin(cuda, variant, excited):
     seed = torch.tensor([20251016], dtype=torch.int32, device=cuda)
     first, tick0 = (False, 123457) if excited else (True, 0)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im)
-    name = "launches_rng" + ("_per_lane_e0" if pe0 else
-                             "_per_lane_om" if pom else "")
+    name = tf.launch_counter(spec)
+    assert name == "launches_rng" + ("" if E == 1 else "_per_lane_" + variant)
     before = getattr(tf.fused_md_substeps, name)
     out = tf.fused_md_substeps(spec, first, *args, tick0=tick0,
                                tables=sched.tables, e0_lanes=e0p,
@@ -456,3 +459,32 @@ def test_potential_kernel_g_matches_twin(cuda, per_member):
         _held(F[j], pot[j], Fr, potr, mj == 0)
         er = ty.yukawa_potential(R[j], L, ldeb, mj)
         assert abs(float(e[j] - er)) <= 1e-5 * abs(float(er))
+
+
+@pytest.mark.parametrize("use_pallas", [None, True, False])
+@pytest.mark.parametrize("n3l", [True, False])
+def test_best_forces_fn_launches_a_kernel_in_every_mode(cuda, use_pallas,
+                                                         n3l):
+    """On the card every mode reaches a kernel: forces only from A (n3l)
+    or D, or with ``use_pallas=False`` forces and the potential from D."""
+    L = PlasmaUnits.box_length(N)
+    ldeb = PlasmaUnits(2.0, 0.1).debye_length
+    g = torch.Generator(device=cuda).manual_seed(10)
+    R = torch.rand((N, 3), generator=g, device=cuda) * L
+    mask = torch.ones(N, device=cuda)
+    mask[::7] = 0.0
+    counters = (ty.yukawa_forces_n3l_soa, ty.yukawa_forces_potential_pallas)
+    before = [c.launches for c in counters]
+    F, pot = ty.best_forces_fn(N, L, ldeb, mask=mask, use_pallas=use_pallas,
+                               n3l=n3l)(R)
+    Fr, potr = ty.yukawa_forces_potential(R, L, ldeb, mask)
+    torch.cuda.synchronize()
+    kernel_a = use_pallas is not False and n3l
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        [1, 0] if kernel_a else [0, 1])
+    assert float((F - Fr).abs().max()) <= 2e-5 * float(Fr.abs().max())
+    assert float(F[mask == 0].abs().max()) == 0.0
+    if use_pallas is False:
+        _held(F, pot, Fr, potr, mask == 0)
+    else:
+        assert pot is None

@@ -20,6 +20,10 @@ csrc/fused_ticks.cu).  Held here:
   distribution: final S/P/D populations and per-axis kinetic energy
   within 4 sigma of the pooled member spread.
 
+The runs here take the in-kernel stream's twin on the CPU through the
+``rng_on_cpu`` fixture, which gives the one place the form is chosen
+(``laser_cooling._use_internal_rng``) the CUDA rule on the CPU.
+
 Tolerances: bitwise (``torch.equal``) wherever both sides run the same
 float32 arithmetic; the statistical bars are stated at each test.
 """
@@ -46,6 +50,14 @@ from test_torch_resume import STATE_KEYS, _assert_chain_equals_straight
 torch.set_num_threads(1)
 
 WORD = 1234567891
+
+
+@pytest.fixture
+def rng_on_cpu(monkeypatch):
+    """CPU runs without a ``rolls_fn`` take the in-kernel stream (its
+    twin), as CUDA runs take the kernel."""
+    monkeypatch.setattr(tlc, "_use_internal_rng",
+                        lambda device, rolls_fn: rolls_fn is None)
 
 
 def test_threefry_known_answer():
@@ -142,9 +154,13 @@ def test_form_arguments_are_checked():
         tf.fused_md_substeps(explicit, False, *args, rolls, seed=seed)
     with pytest.raises(ValueError, match="int32"):
         tf.fused_md_substeps(spec, False, *args, seed=seed.long())
-    with pytest.raises(ValueError, match="rolls_fn replaces"):
-        tlc.build_scheduler(tlc.CoolingConfig(n0=64), "cpu",
-                            rolls_fn=lambda nt, n: None, internal_rng=True)
+    # the form follows the device and the rolls_fn alone
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert tlc._use_internal_rng(cuda, None)
+    assert not tlc._use_internal_rng(cuda, lambda nt, n: None)
+    assert not tlc._use_internal_rng(cpu, None)
+    assert not tlc.build_scheduler(tlc.CoolingConfig(n0=64), "cpu",
+                                   rolls_fn=None).fused_spec.internal_rng
 
 
 def test_uniforms_unit_interval_and_statistics():
@@ -189,14 +205,14 @@ def _native(root):
     return out
 
 
-def test_generator_gives_one_word_per_run(tmp_path):
+def test_generator_gives_one_word_per_run(tmp_path, rng_on_cpu):
     """Every native checkpoint of a 3-group run (and of a 2-member fold)
     holds the word and the generator state right after the start and the
     one word: nothing is drawn per segment or MD step."""
     cfg = tlc.CoolingConfig(n0=64, tmax=0.012, sample_freq=2,
                             checkpoint_every_segments=1,
                             save_directory=str(tmp_path / "run"))
-    tlc.run(cfg, seed=5, device="cpu", internal_rng=True)
+    tlc.run(cfg, seed=5, device="cpu")
     g = torch.Generator().manual_seed(5)
     tlc.initial_state(cfg, g)
     word = draw_seed_word(g)
@@ -207,7 +223,7 @@ def test_generator_gives_one_word_per_run(tmp_path):
         np.testing.assert_array_equal(z["torch_rng_state"],
                                       g.get_state().numpy())
     fold = dataclasses.replace(cfg, save_directory=str(tmp_path / "fold"))
-    tlc.run_ensemble(fold, 2, seed=7, device="cpu", internal_rng=True)
+    tlc.run_ensemble(fold, 2, seed=7, device="cpu")
     g = torch.Generator().manual_seed(tlc.fold_seed(7))
     word = draw_seed_word(g)
     zs = _native(tmp_path / "fold")
@@ -219,7 +235,8 @@ def test_generator_gives_one_word_per_run(tmp_path):
 
 
 @pytest.mark.parametrize("family", ["run", "ensemble"])
-def test_rng_resume_off_grid_equals_uninterrupted(tmp_path, family):
+def test_rng_resume_off_grid_equals_uninterrupted(tmp_path, family,
+                                                  rng_on_cpu):
     """5 + 2 MD steps (the first window ends off the grid) against 7
     straight, on the in-kernel stream: the resume reuses the checkpoint's
     word and the absolute tick."""
@@ -227,11 +244,10 @@ def test_rng_resume_off_grid_equals_uninterrupted(tmp_path, family):
     cfg = tlc.CoolingConfig(tmax=0.01, exact_n=family == "run",
                             save_directory=str(tmp_path / "a"), **base)
     if family == "run":
-        go = lambda c, **kw: tlc.run(c, device="cpu", internal_rng=True,
-                                     **kw)[0]
+        go = lambda c, **kw: tlc.run(c, device="cpu", **kw)[0]
     else:
         go = lambda c, **kw: tlc.run_ensemble(c, 2, seed=6, device="cpu",
-                                              internal_rng=True, **kw)[0]
+                                              **kw)[0]
     go(cfg)
     chain = go(dataclasses.replace(cfg, tmax=0.014), resume=True)
     straight = go(dataclasses.replace(cfg, tmax=0.014,
@@ -249,7 +265,7 @@ def test_rng_resume_off_grid_equals_uninterrupted(tmp_path, family):
                                   6)
 
 
-def test_rng_fold_agrees_with_explicit_rolls_in_distribution():
+def test_rng_fold_agrees_with_explicit_rolls_in_distribution(monkeypatch):
     """Eight N0=64 members from the same starts, 20 MD steps (~5 decay
     times of the P manifold), once on the in-kernel stream and once on explicit
     rolls: per quantity (final S/P/D populations, per-axis kinetic
@@ -258,8 +274,11 @@ def test_rng_fold_agrees_with_explicit_rolls_in_distribution():
     cfg = tlc.CoolingConfig(n0=64, tmax=0.04, sample_freq=20)
     res = {}
     for rng in (True, False):
-        final, outs = tlc.run_ensemble(cfg, 8, seed=11, device="cpu",
-                                       internal_rng=rng)
+        with monkeypatch.context() as m:
+            if rng:
+                m.setattr(tlc, "_use_internal_rng",
+                          lambda device, rolls_fn: rolls_fn is None)
+            final, outs = tlc.run_ensemble(cfg, 8, seed=11, device="cpu")
         pops = np.abs(final.psi) ** 2
         res[rng] = np.concatenate([
             np.stack([pops[..., :2].sum(-1).mean(-1),

@@ -147,9 +147,10 @@ def test_potential_entries_match_jax():
 @pytest.mark.parametrize("use_pallas", [None, True, False])
 @pytest.mark.parametrize("n3l", [True, False])
 def test_best_forces_fn_modes(use_pallas, n3l):
-    """``R -> (F, pot | None)``: the kernels' entries (the CPU default
-    picks the plain path, as the JAX package's does off the TPU), with or
-    without the half-pair force path."""
+    """``R -> (F, pot | None)`` through the kernels' entries (their twins
+    on the CPU): forces only, or with ``use_pallas=False`` (and by default
+    on the CPU, as the JAX package's default off the TPU) forces and the
+    potential, with or without the half-pair force path."""
     n = 150
     R, L = _positions(n, 6)
     mask = np.ones(n, np.float32)
