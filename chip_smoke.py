@@ -52,12 +52,31 @@ Phases (any failure exits non-zero; none is skipped or passed over):
  14. the interval diagnostics: a flagship-width ``run`` to tmax=1.0 with
      ``vaf_intervals`` and ``record_lccf``, checking its VAF, J(k) (against
      a float64 direct sum of the sampled R and V) and VZERO files and the
-     checkpoint's vholder.
+     checkpoint's vholder;
+ 15. kernel E (rows x gathered columns) against its plain version at the
+     shapes phase 17's gather run gives it (one member per slot, rows
+     1792 lanes of 875 ions, columns 4 x 1792), run to run, timed; then 2
+     Poissonian members per slot, and a member's own 3584 lanes as its
+     columns, bitwise against kernel C on real rows;
+ 16. kernel F (cross-block half pairs) against its plain version at the
+     shapes phase 17's ring run gives it (two 1792-lane shards of 875 ions,
+     one member), its rows against E(rows, cols B) and its reactions
+     against E(rows B, cols A); F and G bitwise equal run to run; timed;
+     then blocks of 2 Poissonian members;
+ 17. the mesh path: ``run_ensemble(CoolingConfig(n0=3500, tmax=1.0),
+     n_jobs=2)`` on ``make_mesh(2, 4, devices=[cuda:0]*8)`` with the
+     gather (kernel E) and the ring-N3L (kernels C and F) schedules, each
+     with launch counts, per-member physics and files, start-of-step forces
+     against kernel C on the unsharded fold, and a tmax=0.5 window resumed
+     on the mesh to 1.0 bitwise equal to the uninterrupted run; then an
+     ens-only (2, 1) mesh bitwise equal to the unsharded 2-member fold.
 
-Phases 7, 10, 11 and 12 each set the launch counts to 0 just before they
-drive their path and read them just after.  The line before the last is
-a JSON object with one entry per kernel and form; the last line is
-``{"ok": true, "device": {...}}``.  Uses no JAX.
+Phases 7, 10, 11, 12 and 17 each set the launch counts to 0 just before
+they drive their path and read them just after.  The line before the last
+is a JSON object with one entry per kernel and form, each with its bound
+(the larger of its operations over the card's FP32 peak and its bytes
+over the memory rate, counted from this run's inputs: :func:`bound`);
+the last line is ``{"ok": true, "device": {...}}``.  Uses no JAX.
 """
 
 from __future__ import annotations
@@ -93,6 +112,58 @@ POP_TOL = 0.05
 # and V: the .dat file's 6 significant digits bound the agreement
 LCCF_TOL = 1e-4
 N_TIMED = 30              # CUDA-event repetitions (median reported)
+
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
+# the tensor cores and HBM3 bandwidth; every kernel here is FP32 SIMT
+H100_FP32_OPS = 67e12
+H100_HBM_BYTES = 3.35e12
+# FP32 operations of one pair evaluation of the force kernels, counted on
+# csrc/yukawa_forces.cu's pair math: 3 differences, 3 minimum-image
+# corrections of 3 operations, r^2 5, 1/r and r 2, the exponent 2 (rsqrt
+# and exp counted as one each), the force factor 4, three accumulations 6;
+# the potential adds 2, kernel F's column reaction 6 more
+PAIR_OPS = 31
+POT_OPS = 2
+REACTION_OPS = 6
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of ``ops`` FP32
+    operations at the FP32 peak and ``nbytes`` at the memory rate; and the
+    library yardstick (no single torch call computes any of these
+    kernels' functions, so None)."""
+    t_ops, t_bytes = ops / H100_FP32_OPS, nbytes / H100_HBM_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+def half_pairs(counts) -> int:
+    """Unordered pairs of real ions, the work of a force function over one
+    member's ions (Newton's third law: each pair once)."""
+    return sum(int(n) * (int(n) - 1) // 2 for n in counts)
+
+
+def tick_bound(spec, n_real: int, lanes: int) -> dict:
+    """Bound of one launch of the tick kernel of ``spec`` over ``lanes``
+    lanes of which ``n_real`` hold ions.  Operations per ion and tick,
+    counted on csrc/fused_ticks.cu: each of the 4 RK stages two S x S
+    real matvecs (4 S^2; the per-lane om form a second pair) plus 16 S for
+    the diagonal, decay, dp and slope; 22 S for the stage combinations,
+    collapse and merge; 6 per Ehrenfest term; 24 for the leapfrog; 180
+    integer operations for the in-kernel RNG's three Threefry calls.
+    Bytes: the planes read and written once, plus the explicit rolls and
+    the per-lane tables."""
+    from mdqtplasmasims_torch.core.qt_fused import _force_terms
+    S, SP = spec.S, spec.SP
+    stage = 4 * S * S * (2 if spec.per_lane_om else 1) + 16 * S
+    per_tick = (4 * stage + 22 * S + 6 * len(_force_terms(spec)) + 24
+                + (180 if spec.internal_rng else 0))
+    rows = ((10 + 2 * SP) + (7 + 2 * SP)
+            + (0 if spec.internal_rng else 5 * spec.ratio)
+            + (SP if spec.per_lane_e0 else 0)
+            + (2 if spec.per_lane_om else 0))
+    return bound(n_real * spec.ratio * per_tick, 4 * rows * lanes)
 
 
 def log(msg: str) -> None:
@@ -145,7 +216,8 @@ def check_force_kernel(torch, L, ldeb):
         Rp, mask, L, ldeb))
     log(f"[force] kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
         f"(median of {N_TIMED})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                **bound(half_pairs([n]) * PAIR_OPS, 4 * 7 * npad))
 
 
 def compare_ticks(torch, spec, out, ref, on, allowed, what):
@@ -235,7 +307,8 @@ def check_tick_kernel(torch, cfg, L, ldeb):
         spec, False, *args, sched.tables, tick0=1000), reps=20)
     log(f"[ticks] kernel {ms:.4f} ms, plain torch {plain:.4f} ms per "
         f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                **tick_bound(spec, n, npad))
 
 
 def check_rng_tick_kernels(torch, cfg, L, ldeb):
@@ -290,7 +363,8 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
         reps=20)
     log(f"[ticks-rng] kernel {ms:.4f} ms, plain torch {plain:.4f} ms per "
         f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
-    out["fused_ticks_rng"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+    out["fused_ticks_rng"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                                  **tick_bound(spec, n, npad))
 
     E = 4
     dets = [(-1.0, 1.0), (-0.5, 1.0), (-1.5, 0.6), (-0.8, 1.4)]
@@ -332,7 +406,8 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
         log(f"[ticks-rng] {key[12:]}: kernel {ms:.4f} ms, plain torch "
             f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} "
             f"fold (median of {N_TIMED}/10)")
-        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                        **tick_bound(spec, E * n, E * npad))
     return out
 
 
@@ -464,8 +539,14 @@ def check_potential_kernels(torch, L, ldeb):
     log(f"[potential] the {E}-member fold's sample potential: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in walls.items())
         + " (host clock to sync, median of 10)")
-    return (dict(max_abs_err=worst_d, ms=ms_d, plain_ms=plain_d),
-            dict(max_abs_err=worst_g, ms=ms_g, plain_ms=plain_g))
+    npad_d = -(-n // 512) * 512
+    npad_g = -(-n_arr // 512) * 512
+    return (dict(max_abs_err=worst_d, ms=ms_d, plain_ms=plain_d,
+                 **bound(half_pairs([n]) * (PAIR_OPS + POT_OPS),
+                         4 * 8 * npad_d)),
+            dict(max_abs_err=worst_g, ms=ms_g, plain_ms=plain_g,
+                 **bound(half_pairs(n_js) * (PAIR_OPS + POT_OPS),
+                         4 * 8 * E * npad_g)))
 
 
 def main_path(torch, card):
@@ -581,7 +662,8 @@ def check_batched_force_kernel(torch, L, ldeb):
         Rp, masks, E, L, ldeb), reps=10)
     log(f"[forces-E] kernel {ms:.4f} ms, plain torch {plain:.4f} ms for "
         f"E={E} (median of {N_TIMED}/10)")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                **bound(half_pairs(n_js) * PAIR_OPS, 4 * 7 * E * npad))
 
 
 def check_lane_kernels(torch, cfg):
@@ -641,7 +723,8 @@ def check_lane_kernels(torch, cfg):
         log(f"[ticks-lane] {key}: kernel {ms:.4f} ms, plain torch "
             f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} fold "
             f"(median of {N_TIMED}/10)")
-        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+                        **tick_bound(spec, E * n, E * npad))
     return out
 
 
@@ -656,7 +739,10 @@ def counters() -> dict:
         yukawa_forces_potential=(ty.yukawa_forces_potential_pallas,
                                  "launches"),
         yukawa_forces_potential_batched=(
-            ty.yukawa_forces_potential_pallas_batched, "launches"))
+            ty.yukawa_forces_potential_pallas_batched, "launches"),
+        yukawa_forces_cols=(ty.yukawa_forces_soa_cols_batched, "launches"),
+        yukawa_forces_cross=(ty.yukawa_forces_cross_n3l_soa_batched,
+                             "launches"))
     for attr in LAUNCH_COUNTERS:           # launches[_rng][_per_lane_..]
         out["fused_ticks" + attr[len("launches"):]] = (fused_md_substeps,
                                                         attr)
@@ -676,7 +762,7 @@ def check_members(name, final, outs, n_js, dirs, n_md, rows_want=12):
     """Per member: finite values, Ekin rising from the frozen start, the
     ion-mean S+P+D norm, the energies.dat rows and an ions_ file of the
     member's N."""
-    from mdqtplasmasims_tpu.io import checkpoint as ckpt
+    from mdqtplasmasims_torch.io import checkpoint as ckpt
     for j, (nj, d) in enumerate(zip(n_js, dirs)):
         arrays = [final.R[j][:nj], final.V[j][:nj], final.psi[j][:nj],
                   *(v[j] for v in outs.values())]
@@ -888,7 +974,7 @@ def interval_path(torch, card, L):
     """A flagship-width run with the interval diagnostics (``L`` is the
     box length of its 3500 ions)."""
     import numpy as np
-    from mdqtplasmasims_tpu.io.datfiles import read_rows
+    from mdqtplasmasims_torch.io.datfiles import read_rows
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         CoolingConfig, run)
     iv = (0.2, 0.5)
@@ -946,6 +1032,280 @@ def interval_path(torch, card, L):
         raise SystemExit("the interval diagnostics' files are wrong")
 
 
+def _shard_blocks(torch, g, L, E, I, npad, seed=None):
+    """``I`` ion shards of ``npad`` lanes for ``E`` members of N0=3500 (a
+    mesh slot's shapes): positions ``[E, I*npad, 3]`` (0 on padded lanes)
+    and masks ``[E, I*npad]``, each member's ions split into I contiguous
+    shards of the padded count, as a mesh splits them.  ``seed=None``
+    gives every member 3500 ions (the mesh run's fixed-N members: 3500/I
+    real lanes per shard), a seed Poissonian members."""
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    dev = torch.device("cuda")
+    if seed is None:
+        m, n_js = torch.ones((E, 3500)), [3500] * E
+    else:
+        m, n_js = poisson_member_mask(3500, E, seed, round_to=I)
+    n_loc = m.shape[1] // I
+    cm = torch.zeros((E, I, npad), device=dev)
+    cm[:, :, :n_loc] = torch.as_tensor(m, device=dev).reshape(E, I, n_loc)
+    cm = cm.reshape(E, I * npad)
+    R = torch.rand((E, I * npad, 3), generator=g, device=dev) * L
+    return R * cm[..., None], cm, n_js
+
+
+def _lanes(R):
+    """``[E, npad, 3]`` -> the folded lane layout ``[3, E*npad]``."""
+    return R.permute(2, 0, 1).reshape(3, -1).contiguous()
+
+
+# the mesh run of phase 17: 2 members over 2 ens slots (E_loc = 1 member
+# per slot) and 4 ion shards of 875 real ions in 1792 lanes each
+MESH_K, MESH_I, MESH_E_LOC, MESH_NPAD = 2, 4, 1, 1792
+
+
+def _cols_check(torch, L, ldeb, E, cols, cmask, what):
+    """Kernel E on shard 0's rows against ``cols``: its plain version and
+    run to run.  Returns (max abs err, max|F|, rows)."""
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    rows = _lanes(cols[:, :MESH_NPAD])
+    F = ty.yukawa_forces_soa_cols_batched(rows, cols, cmask, E, L, ldeb)
+    F2 = ty.yukawa_forces_soa_cols_batched(rows, cols, cmask, E, L, ldeb)
+    ref = ty.yukawa_forces_soa_cols_batched_reference(rows, cols, cmask, E,
+                                                      L, ldeb)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((F - ref).abs().max())
+    log(f"[cols] E {what}: rows [3,{E}x{MESH_NPAD}] x cols "
+        f"{list(cols.shape)}, real columns "
+        f"{[int(x) for x in cmask.sum(-1).reshape(-1).tolist()]}: max|F| "
+        f"{scale:.6g} max abs err {err:.3g} (rel {err / scale:.3g}, tol "
+        f"{FORCE_TOL:g}); bitwise equal run to run {torch.equal(F, F2)}")
+    if not err <= FORCE_TOL * scale:
+        raise SystemExit(f"kernel E ({what}) disagrees with its plain "
+                         "version")
+    if not torch.equal(F, F2):
+        raise SystemExit("kernel E is not deterministic run to run")
+    return err, rows
+
+
+def check_cols_kernel(torch, L, ldeb):
+    """Phase 15: kernel E against its plain version at the shapes the mesh
+    run of phase 17 gives it (one member per slot, rows 1792 lanes of 875
+    ions against the 4 x 1792 gathered columns, the column mask in the
+    per-member form the gather schedule passes), run to run, and timed;
+    then 2 Poissonian members per slot against the plain version, and a
+    member's own lanes as columns against kernel C."""
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51)
+    E, I, npad = MESH_E_LOC, MESH_I, MESH_NPAD
+    cols, cmask, _ = _shard_blocks(torch, g, L, E, I, npad)
+    err, rows = _cols_check(torch, L, ldeb, E, cols, cmask,
+                            "at the mesh run's shapes")
+    # two Poissonian members per slot: per-member masks
+    cols2, cmask2, _ = _shard_blocks(torch, g, L, 2, I, npad, seed=8)
+    _cols_check(torch, L, ldeb, 2, cols2, cmask2, "2 Poissonian members")
+    # a member's own lanes as its columns: kernel C's forces bit for bit
+    m, n2 = poisson_member_mask(3500, 2, 9)
+    npad2 = -(-max(3584, m.shape[1]) // 128) * 128
+    masks = torch.zeros((2, npad2), device=dev)
+    masks[:, :m.shape[1]] = torch.as_tensor(m, device=dev)
+    own = torch.rand((2, npad2, 3), generator=g, device=dev) * L
+    own = own * masks[..., None]
+    Fc = ty.yukawa_forces_n3l_soa_batched(_lanes(own), masks, 2, L, ldeb)
+    Fe = ty.yukawa_forces_soa_cols_batched(_lanes(own), own, masks, 2, L,
+                                           ldeb)
+    torch.cuda.synchronize()
+    real = masks.reshape(-1) > 0
+    same = torch.equal(Fc[:, real], Fe[:, real])
+    log(f"[cols] E with the member's own {npad2} lanes as columns vs kernel "
+        f"C on real rows: bitwise equal {same} (max abs diff "
+        f"{float((Fc[:, real] - Fe[:, real]).abs().max()):.3g})")
+    if not same:
+        raise SystemExit("kernel E on a member's own lanes differs from C")
+    ms = cuda_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched(
+        rows, cols, cmask, E, L, ldeb))
+    plain = cuda_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched_reference(
+        rows, cols, cmask, E, L, ldeb), reps=10)
+    log(f"[cols] E kernel {ms:.4f} ms, plain torch {plain:.4f} ms at the "
+        f"mesh run's shapes (median of {N_TIMED}/10)")
+    pairs = sum(float(cmask[j, :npad].sum()) * float(cmask[j].sum())
+                for j in range(E))
+    nbytes = 4 * (3 * E * npad + 4 * E * I * npad + 3 * E * npad)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                **bound(pairs * PAIR_OPS, nbytes))
+
+
+def _cross_check(torch, L, ldeb, E, A, ma, B, mb, what):
+    """Kernel F on blocks A x B against its plain version, against both
+    halves of kernel E, and bitwise run to run.  Returns max abs err."""
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    npad = A.shape[1]
+    rows = _lanes(A)
+    F, G = ty.yukawa_forces_cross_n3l_soa_batched(rows, ma, B, mb, E, L,
+                                                  ldeb)
+    F2, G2 = ty.yukawa_forces_cross_n3l_soa_batched(rows, ma, B, mb, E, L,
+                                                    ldeb)
+    Fr, Gr = ty.yukawa_forces_cross_n3l_soa_batched_reference(
+        rows, ma, B, mb, E, L, ldeb)
+    FE = ty.yukawa_forces_soa_cols_batched(rows, B, mb, E, L, ldeb)
+    GE = ty.yukawa_forces_soa_cols_batched(_lanes(B), A, ma.expand(E, npad)
+                                           .contiguous(), E, L, ldeb)
+    torch.cuda.synchronize()
+    FE = FE * ma.expand(E, npad).reshape(1, -1)
+    GE = GE.reshape(3, E, npad).permute(1, 2, 0) * mb[..., None]
+    scale = max(float(Fr.abs().max()), float(Gr.abs().max()))
+    errs = dict(F=float((F - Fr).abs().max()), G=float((G - Gr).abs().max()),
+                F_vs_E=float((F - FE).abs().max()),
+                G_vs_E=float((G - GE).abs().max()))
+    same = torch.equal(F, F2) and torch.equal(G, G2)
+    log(f"[cross] F {what}: blocks [{E}x{npad}] x [{E}x{npad}], real "
+        f"{[int(x) for x in ma.expand(E, npad).sum(1).tolist()]} x "
+        f"{[int(x) for x in mb.sum(1).tolist()]}: max|F,G| {scale:.6g}, max "
+        f"abs errs {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} (tol "
+        f"{FORCE_TOL:g} of max); F and G bitwise equal run to run: {same}")
+    if max(errs.values()) > FORCE_TOL * scale:
+        raise SystemExit(f"kernel F ({what}) disagrees with its plain "
+                         "version or E")
+    if not same:
+        raise SystemExit("kernel F is not deterministic run to run")
+    return max(errs["F"], errs["G"])
+
+
+def check_cross_kernel(torch, L, ldeb):
+    """Phase 16: kernel F against its plain version at the shapes the ring
+    schedule of phase 17 gives it (one member per slot: two of the 4 ion
+    shards, 875 ions in 1792 lanes each, a ``[1, npad]`` row mask and the
+    column mask the ring carries), against both halves of kernel E, and
+    bitwise run to run; timed; then 2 Poissonian members per block."""
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(61)
+    E, I, npad = MESH_E_LOC, MESH_I, MESH_NPAD
+    R, cm, _ = _shard_blocks(torch, g, L, E, I, npad)
+    A, B = R[:, :npad].contiguous(), R[:, 2 * npad:3 * npad].contiguous()
+    ma, mb = cm[:1, :npad].contiguous(), cm[:, 2 * npad:3 * npad].contiguous()
+    err = _cross_check(torch, L, ldeb, E, A, ma, B, mb,
+                       "at the mesh run's shapes")
+    R2, cm2, _ = _shard_blocks(torch, g, L, 2, 2, npad, seed=10)
+    _cross_check(torch, L, ldeb, 2, R2[:, :npad].contiguous(),
+                 cm2[:, :npad].contiguous(), R2[:, npad:].contiguous(),
+                 cm2[:, npad:].contiguous(), "2 Poissonian members")
+    rows = _lanes(A)
+    ms = cuda_ms(torch, lambda: ty.yukawa_forces_cross_n3l_soa_batched(
+        rows, ma, B, mb, E, L, ldeb))
+    plain = cuda_ms(torch, lambda: (
+        ty.yukawa_forces_cross_n3l_soa_batched_reference(
+            rows, ma, B, mb, E, L, ldeb)), reps=10)
+    log(f"[cross] F kernel {ms:.4f} ms, plain torch {plain:.4f} ms at the "
+        f"mesh run's shapes (median of {N_TIMED}/10)")
+    pairs = float(ma.sum()) * float(mb.sum())
+    nbytes = 4 * (3 * E * npad + npad + 4 * E * npad + 3 * E * npad
+                  + 3 * E * npad)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                **bound(pairs * (PAIR_OPS + REACTION_OPS), nbytes))
+
+
+def mesh_path(torch, card, L, ldeb):
+    """Phase 17: ``run_ensemble`` over a 2 x 4 mesh of slots on the card
+    (the shard shapes of a 2-member, 4-way ion-sharded layout), gather and
+    ring-N3L, then an ens-only mesh against the unsharded fold."""
+    import numpy as np
+    from mdqtplasmasims_torch.bridge import states_from_numpy
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, build_scheduler, run_ensemble)
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    from mdqtplasmasims_torch.parallel.ensemble import (
+        make_sharded_fused_step)
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    K, I = MESH_K, MESH_I
+    mesh = make_mesh(K, I, devices=[dev] * (K * I))
+    E, n_md, slots = K * MESH_E_LOC, 500, K * I
+    counts = {}
+    for ion_forces, want in (
+            ("gather", dict(yukawa_forces_cols=n_md * slots,
+                            yukawa_forces_cross=0, yukawa_forces_batched=0)),
+            # F once per pair of a member row's ion blocks per MD step
+            ("ring_n3l", dict(yukawa_forces_cols=0,
+                              yukawa_forces_cross=n_md * K * I * (I - 1) // 2,
+                              yukawa_forces_batched=n_md * slots))):
+        want.update(fused_ticks_rng=512 * slots, yukawa_forces=0,
+                    yukawa_forces_potential_batched=13, fused_ticks=0)
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = CoolingConfig(n0=3500, tmax=1.0,
+                                checkpoint_every_segments=6,
+                                save_directory=os.path.join(tmp, "a"))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final, outs = run_ensemble(cfg, E, seed=5, mesh=mesh,
+                                       ion_forces=ion_forces)
+            wall = time.perf_counter() - t0
+            c = read_counts()
+            log(f"[mesh] run_ensemble(n0=3500, tmax=1.0, n_jobs=2, "
+                f"mesh=2x4 on {dev}, ion_forces={ion_forces!r}): {n_md} MD "
+                f"steps in {wall:.3f} s -> "
+                f"{E * cfg.n0 * n_md * cfg.ratio / wall:.4g} aggregate "
+                f"ion-QT-updates/s ({card})")
+            log(f"[mesh] launches: {c}")
+            if any(c[k] != v for k, v in want.items()):
+                raise SystemExit(f"mesh path launched {c}, want {want}")
+            dirs = sorted(os.path.dirname(p) for p in glob_all(
+                os.path.join(tmp, "a"), "energies.dat"))
+            check_members(f"mesh-{ion_forces}", final, outs, [cfg.n0] * E,
+                          dirs, n_md)
+            # start-of-step forces of a mesh step against kernel C on the
+            # unsharded fold
+            states = states_from_numpy(final, device=dev)
+            sched = build_scheduler(cfg, dev)
+            sched.seed = torch.tensor([1], dtype=torch.int32, device=dev)
+            out = make_sharded_fused_step(sched, ldeb, mesh, n_steps=1,
+                                          ion_forces=ion_forces)(states)
+            npad = sched._npad(cfg.n0)
+            Rp = torch.zeros((3, E, npad), device=dev)
+            Rp[:, :, :cfg.n0] = states.R.permute(2, 0, 1)
+            mrow = torch.zeros((1, npad), device=dev)
+            mrow[0, :cfg.n0] = 1.0
+            Fc = ty.yukawa_forces_n3l_soa_batched(Rp.reshape(3, -1), mrow, E,
+                                                  L, ldeb)
+            Fc = Fc.reshape(3, E, npad)[:, :, :cfg.n0].permute(1, 2, 0)
+            scale = float(Fc.abs().max())
+            ferr = float((out.F - Fc).abs().max())
+            # a window to tmax=0.5 resumed on the mesh to 1.0
+            cfg_b = dataclasses.replace(
+                cfg, tmax=0.5, save_directory=os.path.join(tmp, "b"))
+            run_ensemble(cfg_b, E, seed=5, mesh=mesh, ion_forces=ion_forces)
+            fin_b, _ = run_ensemble(dataclasses.replace(cfg_b, tmax=1.0), E,
+                                    seed=5, resume=True, mesh=mesh,
+                                    ion_forces=ion_forces)
+            same = all(np.array_equal(getattr(final, k), getattr(fin_b, k))
+                       for k in ("R", "V", "psi", "t_part"))
+        log(f"[mesh] {ion_forces}: start-of-step forces vs kernel C on the "
+            f"unsharded fold: max abs err {ferr:.3g} of max|F| {scale:.6g} "
+            f"(tol {FORCE_TOL:g}); tmax 0.5 resumed on the mesh to 1.0 vs "
+            f"the uninterrupted run: bitwise equal {same}")
+        if not ferr <= FORCE_TOL * scale:
+            raise SystemExit(f"mesh forces ({ion_forces}) disagree with C")
+        if not same:
+            raise SystemExit(f"mesh resume ({ion_forces}) differs from the "
+                             "uninterrupted run")
+        counts[ion_forces] = c
+    cfg = CoolingConfig(n0=3500, tmax=0.5)
+    f0, o0 = run_ensemble(cfg, E, seed=6, device="cuda")
+    f1, o1 = run_ensemble(cfg, E, seed=6,
+                          mesh=make_mesh(2, 1, devices=[dev] * 2))
+    same = (all(np.array_equal(getattr(f0, k), getattr(f1, k))
+                for k in ("R", "V", "psi", "t_part"))
+            and all(np.array_equal(o0[k], o1[k]) for k in o0))
+    log(f"[mesh] ens-only 2x1 mesh vs the unsharded 2-member fold (n0=3500, "
+        f"tmax=0.5, seed 6): final states and samples bitwise equal {same}")
+    if not same:
+        raise SystemExit("the ens-only mesh differs from the unsharded fold")
+    return counts
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -982,7 +1342,7 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     from mdqtplasmasims_torch.experiments import laser_cooling as lc
-    from mdqtplasmasims_tpu.units import PlasmaUnits
+    from mdqtplasmasims_torch.units import PlasmaUnits
 
     # IEEE float32 for the plain versions too (the kernels use no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1014,6 +1374,9 @@ def main() -> int:
     expl_counts = explicit_rolls_path(torch, smi)
     stream_contract(torch)
     interval_path(torch, smi, L)
+    cols = check_cols_kernel(torch, L, pu.debye_length)
+    cross = check_cross_kernel(torch, L, pu.debye_length)
+    mesh_counts = mesh_path(torch, smi, L, pu.debye_length)
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -1063,6 +1426,13 @@ def main() -> int:
              replaces=tpu_t,
              launches=expl_counts["fused_ticks_per_lane_e0_om"],
              **lanes["per_lane_e0_om"]),
+        dict(name="yukawa_forces_cols", route="cuda", source=src_f,
+             replaces="mdqtplasmasims_tpu/ops/yukawa.py:538",
+             launches=mesh_counts["gather"]["yukawa_forces_cols"], **cols),
+        dict(name="yukawa_forces_cross", route="cuda", source=src_f,
+             replaces="mdqtplasmasims_tpu/ops/yukawa.py:616",
+             launches=mesh_counts["ring_n3l"]["yukawa_forces_cross"],
+             **cross),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mdqtplasmasims_tpu.units import PlasmaUnits
-
 from ..state import complex_dtype
+from ..units import PlasmaUnits
 from .qt import random_s_superposition
 
 

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mdqtplasmasims_tpu.levels import LevelScheme
+from ..levels import LevelScheme
 
 
 class QTParams(NamedTuple):

@@ -43,9 +43,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mdqtplasmasims_tpu.levels import LevelScheme
-
 from .. import _build
+from ..levels import LevelScheme
 from .rng import tick_uniforms
 
 # capacity of the kernel's parameter block (csrc/fused_ticks.cu)
@@ -172,17 +171,18 @@ def fused_tables(spec: FusedTickSpec, device,
 def fused_md_substeps_reference(spec: FusedTickSpec, first: bool,
                                 R, V, F, tp, psi_re, psi_im, rolls,
                                 tables: FusedTables, tick0: int = 0,
-                                e0_lanes=None, om_lanes=None, seed=None):
+                                e0_lanes=None, om_lanes=None, seed=None,
+                                lane0: int = 0):
     """Plain torch twin of the fused kernel: ``spec.ratio`` ticks on the
     planes, with the JAX kernel's arithmetic (core/qt_fused.py:155-343 of
     the JAX package) in the planes' dtype.  ``e0_lanes [SP, Np]`` and
     ``om_lanes [2, Np]`` feed the per-lane variants.  With
     ``spec.internal_rng`` the uniforms are the kernel's own stream for the
-    seed word ``seed [1]`` (``rolls`` is ignored).  Returns new ``(R, V,
-    tp, psi_re, psi_im)``."""
+    seed word ``seed [1]`` on global lanes from ``lane0`` (``rolls`` is
+    ignored).  Returns new ``(R, V, tp, psi_re, psi_im)``."""
     if spec.internal_rng:
         rolls = tick_uniforms(int(seed[0]), tick0, spec.ratio, R.shape[-1],
-                              R.device).to(R.dtype)
+                              R.device, lane0).to(R.dtype)
     S, SP = spec.S, spec.SP
     sch = spec.scheme
     tsch = _tdep_scheme(spec)
@@ -396,7 +396,8 @@ def _lib() -> ctypes.CDLL:
     v = ctypes.c_void_p
     lib.fused_ticks_launch.argtypes = ([v] * 18
                                        + [ctypes.c_int, ctypes.c_float,
-                                          ctypes.c_float, ctypes.c_uint, v])
+                                          ctypes.c_float, ctypes.c_uint,
+                                          ctypes.c_uint, v])
     lib.fused_ticks_launch.restype = ctypes.c_int
     return lib
 
@@ -404,7 +405,7 @@ def _lib() -> ctypes.CDLL:
 def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
                       psi_re, psi_im, rolls=None, tick0: int = 0,
                       tables: FusedTables = None, e0_lanes=None,
-                      om_lanes=None, seed=None):
+                      om_lanes=None, seed=None, lane0: int = 0):
     """One MD step's worth of quantum-substepped ticks.
 
     Shapes: R/V/F [3, Np], tp [1, Np], psi planes [SP, Np], rolls
@@ -418,6 +419,8 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     ``spec.internal_rng`` the run's seed word ``seed`` (a ``[1]`` int32
     tensor on R's device, read by the kernel through its pointer: no host
     sync) replaces ``rolls``; each is refused where the other is due.
+    ``lane0`` (RNG form only) is the global lane of lane 0: a mesh slot
+    draws the stream of the lanes it holds in its fold (core/rng.py).
     Returns new ``(R, V, tp, psi_re, psi_im)``.
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
@@ -454,6 +457,11 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     if spec.internal_rng != (seed is not None):
         raise ValueError("seed must be given exactly when spec.internal_rng "
                          f"is set (it is {spec.internal_rng})")
+    if lane0 and not spec.internal_rng:
+        raise ValueError("lane0 numbers the in-kernel RNG's lanes; explicit "
+                         "rolls are sliced by the caller instead")
+    if not 0 <= lane0 < 2 ** 32:
+        raise ValueError(f"lane0={lane0} outside the kernel's uint32 lanes")
     if seed is not None and (tuple(seed.shape) != (1,)
                              or seed.dtype != torch.int32
                              or seed.device != R.device):
@@ -463,7 +471,7 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     if R.device.type == "cpu":
         return fused_md_substeps_reference(spec, first, R, V, F, tp, psi_re,
                                            psi_im, rolls, tables, tick0,
-                                           e0_lanes, om_lanes, seed)
+                                           e0_lanes, om_lanes, seed, lane0)
     if R.device.type != "cuda":
         raise ValueError(f"no tick kernel for device {R.device}")
     if R.dtype != torch.float32:
@@ -490,7 +498,7 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
             *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im)),
             *ptrs, *(x.data_ptr() for x in (*tabs, *outs)),
             npad, 1.0 if first else 0.0, float(tick0), int(tick0),
-            torch.cuda.current_stream().cuda_stream)
+            int(lane0), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "fused_ticks_launch")
     name = launch_counter(spec)
     setattr(fused_md_substeps, name, getattr(fused_md_substeps, name) + 1)

@@ -11,9 +11,12 @@ module computes for the kernel's plain twin and the tests:
   ``threefry_2x32``);
 * key ``(word, 0)`` with ``word`` the run's 31-bit seed word, counter
   ``(n, 3*tick + j)`` for ``j = 0, 1, 2``, where ``n`` is the global lane
-  index and ``tick`` the absolute run tick, so the stream depends on
-  neither the launch geometry nor the block index, and no two (lane,
-  tick) pairs share a counter within a run shorter than 2**32/3 ticks;
+  index (``lane0`` plus the lane within the launch: a mesh slot holds
+  lanes ``lane0 ..`` of its fold's global numbering) and ``tick`` the
+  absolute run tick, so the stream depends on neither the launch geometry,
+  the block index nor the split of a fold between slots, and no two
+  (lane, tick) pairs share a counter within a run shorter than 2**32/3
+  ticks;
 * words 0-4 of the three outputs are the tick's uniforms r0..r4, each
   the top 24 bits of its word times 2**-24 (as the JAX kernel forms them,
   :254-259), so u < 1 always holds: the jump collapse relies on that
@@ -53,12 +56,13 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def tick_uniforms(word: int, tick0: int, n_ticks: int, npad: int,
-                  device=None) -> torch.Tensor:
+                  device=None, lane0: int = 0) -> torch.Tensor:
     """The uniforms the RNG form of the tick kernel draws for ticks
-    ``tick0 .. tick0+n_ticks-1`` on lanes ``0 .. npad-1``, laid out as the
-    explicit rolls are: ``[n_ticks*5, npad]`` float32, row ``i*5 + k`` is
-    tick i's r_k."""
-    n = torch.arange(npad, dtype=torch.int64, device=device)[None, None, :]
+    ``tick0 .. tick0+n_ticks-1`` on global lanes ``lane0 .. lane0+npad-1``,
+    laid out as the explicit rolls are: ``[n_ticks*5, npad]`` float32, row
+    ``i*5 + k`` is tick i's r_k."""
+    n = torch.arange(lane0, lane0 + npad, dtype=torch.int64,
+                     device=device)[None, None, :] & _MASK
     tick = torch.arange(tick0, tick0 + n_ticks, dtype=torch.int64,
                         device=device)[:, None, None]
     j = torch.arange(3, dtype=torch.int64, device=device)[None, :, None]

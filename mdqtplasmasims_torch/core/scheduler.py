@@ -138,6 +138,14 @@ class CoolingScheduler:
 
     def __post_init__(self):
         self.tables = fused_tables(self.fused_spec, self.device, self.dtype)
+        self._tables_on = {self.tables.vecs.device: self.tables}
+
+    def tables_on(self, device: torch.device):
+        """The packed tables on ``device`` (a mesh slot's), made once."""
+        if device not in self._tables_on:
+            self._tables_on[device] = fused_tables(self.fused_spec, device,
+                                                   self.dtype)
+        return self._tables_on[device]
 
     def _npad(self, n: int) -> int:
         return -(-max(n, self.tile) // self.tile) * self.tile
@@ -190,27 +198,34 @@ class CoolingScheduler:
     def soa_md_step(self, carry: SoACarry, soa_forces_fn: Callable,
                     e0_lanes=None, om_lanes=None,
                     n_ticks: Optional[int] = None,
-                    reuse_forces: bool = False) -> SoACarry:
+                    reuse_forces: bool = False, forces=None, rolls=None,
+                    lane0: int = 0) -> SoACarry:
         """One MD step in lane layout: refresh forces (unless
-        ``reuse_forces`` continues a split step with the carried ones),
-        then ``n_ticks`` (default ``ratio``) fused ticks.  ``e0_lanes`` /
-        ``om_lanes`` (:func:`fold_sweep_lanes`) feed the per-lane
-        variants of a sweep fold."""
+        ``reuse_forces`` continues a split step with the carried ones, or
+        the caller gives this step's ``forces``), then ``n_ticks``
+        (default ``ratio``) fused ticks.  ``e0_lanes`` / ``om_lanes``
+        (:func:`fold_sweep_lanes`) feed the per-lane variants of a sweep
+        fold.  A mesh slot (parallel/ensemble.py) gives its slice of the
+        fold's explicit ``rolls``, or with the in-kernel RNG the global
+        lane ``lane0`` of its first lane."""
         spec = self._tick_spec(n_ticks)
         npad = carry.R.shape[1]
-        Fp = carry.F if reuse_forces else soa_forces_fn(carry.R)
+        Fp = (carry.F if reuse_forces else
+              forces if forces is not None else soa_forces_fn(carry.R))
         if spec.internal_rng:
             if carry.seed is None:
                 raise ValueError("the in-kernel RNG needs the run's seed "
                                  "word (CoolingScheduler.seed)")
             rolls = None
-        else:
+        elif rolls is None:
             rolls = self.rolls_fn(spec.ratio, npad).to(self.dtype)
         R, V, tp, pre, pim = fused_md_substeps(
             spec, carry.tick == 0, carry.R, carry.V, Fp, carry.tp,
             carry.psi_re, carry.psi_im, rolls, tick0=carry.tick,
-            tables=self.tables, e0_lanes=e0_lanes, om_lanes=om_lanes,
-            seed=carry.seed if spec.internal_rng else None)
+            tables=self.tables_on(carry.R.device), e0_lanes=e0_lanes,
+            om_lanes=om_lanes,
+            seed=carry.seed if spec.internal_rng else None,
+            lane0=lane0 if spec.internal_rng else 0)
         return SoACarry(R, V, Fp, tp, pre, pim, carry.tick + spec.ratio,
                         carry.seed)
 
@@ -243,11 +258,12 @@ class CoolingScheduler:
         npad = self._npad(n)
         SP = self.fused_spec.SP
 
+        dev = states.R.device        # a mesh slot's, or self.device
+
         def fold(x, rows=None):
             # [E, r, n] -> [rows, E*npad]; extra rows (psi S -> SP) stay 0
             rows = x.shape[1] if rows is None else rows
-            out = torch.zeros((rows, E, npad), dtype=self.dtype,
-                              device=self.device)
+            out = torch.zeros((rows, E, npad), dtype=self.dtype, device=dev)
             out[:x.shape[1], :, :n] = x.transpose(0, 1)
             return out.reshape(rows, E * npad)
 
@@ -257,7 +273,8 @@ class CoolingScheduler:
                         fold(states.F.transpose(1, 2)),
                         fold(states.t_part[:, None, :]),
                         fold(psi_sm.real, SP), fold(psi_sm.imag, SP),
-                        states.tick, self.seed)
+                        states.tick,
+                        None if self.seed is None else self.seed.to(dev))
 
     #: one ensemble MD step: the fold is one lane axis, so this is
     #: :meth:`soa_md_step` on ``[rows, E*Np]`` planes with one

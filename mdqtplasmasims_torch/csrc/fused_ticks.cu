@@ -42,10 +42,13 @@
 // (Random123) with key (seed word, 0), the word a [1] int32 device tensor
 // drawn once per run and read here through its pointer (no host sync), and
 // counter (global lane n, 3*tick + j), j = 0, 1, 2, tick the absolute run
-// tick tick_base + i: words 0-4 of the three outputs are r0..r4, each the
+// tick tick_base + i and n = lane0 + the lane within the launch (lane0 is
+// the first lane a mesh slot holds in its fold's global lane numbering, 0
+// for an unsharded fold, so slots launched apart draw the streams their
+// lanes would draw in one launch): words 0-4 of the three outputs are r0..r4, each the
 // top 24 bits times 2^-24, so u < 1 (the collapse relies on it against the
-// saturated pad rows).  The stream depends on neither THREADS nor the block
-// index.  The draw sits after the RK step and the Ehrenfest sum, so its
+// saturated pad rows).  The stream depends on neither THREADS, the block
+// index nor how a fold's lanes are split between launches.  The draw sits after the RK step and the Ehrenfest sum, so its
 // words are not live across the unrolled state loops; the jump test r0 <
 // h*dp0 still uses the tick's initial amplitudes.  Each tick costs three
 // Threefry calls (60 rounds of add/rotate/xor) and saves the five 4-byte
@@ -234,7 +237,8 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    const float* __restrict__ mats, float* __restrict__ Ro,
                    float* __restrict__ Vo, float* __restrict__ tpo,
                    float* __restrict__ preo, float* __restrict__ pimo,
-                   int npad, float first, float tick0, uint32_t tick_base) {
+                   int npad, float first, float tick0, uint32_t tick_base,
+                   uint32_t lane0) {
   extern __shared__ float smem[];
   const int SP = p.SP;
   const int n_tab = SP * 8 + (POM ? 5 : 4) * SP * SP;
@@ -369,16 +373,17 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
 
     if constexpr (RNG) {   // this tick's uniforms from the counter stream
       const uint32_t c1 = 3u * (tick_base + (uint32_t)i);
-      uint32_t x0 = (uint32_t)n, x1 = c1;
+      const uint32_t gl = lane0 + (uint32_t)n;   // global lane
+      uint32_t x0 = gl, x1 = c1;
       threefry2x32(key, 0u, x0, x1);
       r0 = unit24(x0);
       r1 = unit24(x1);
-      x0 = (uint32_t)n;
+      x0 = gl;
       x1 = c1 + 1u;
       threefry2x32(key, 0u, x0, x1);
       r2 = unit24(x0);
       r3 = unit24(x1);
-      x0 = (uint32_t)n;
+      x0 = gl;
       x1 = c1 + 2u;
       threefry2x32(key, 0u, x0, x1);
       r4 = unit24(x0);
@@ -451,7 +456,8 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
 extern "C" {
 
 // rolls [n_ticks*5, npad] (explicit form) or seed [1] (internal_rng form;
-// tick_base is then the absolute run tick at entry)
+// tick_base is then the absolute run tick at entry and lane0 the global
+// lane of lane 0)
 int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* F, const float* tp, const float* pre,
                        const float* pim, const float* rolls, const int* seed,
@@ -459,7 +465,7 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* vecs, const float* mats, float* Ro,
                        float* Vo, float* tpo, float* preo, float* pimo,
                        int npad, float first, float tick0, unsigned tick_base,
-                       void* stream) {
+                       unsigned lane0, void* stream) {
   const int pe0 = p->per_lane_e0 != 0, pom = p->per_lane_om != 0;
   const int rng = p->internal_rng != 0;
   if (npad <= 0 || npad % THREADS != 0 || p->n_ticks < 1 ||
@@ -476,7 +482,7 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
 #define LAUNCH(SV, E0, OM, RG)                                          \
   fused_ticks_kernel<SV, E0, OM, RG><<<grid, THREADS, smem, st>>>(      \
       *p, R, V, F, tp, pre, pim, rolls, seed, e0_lanes, om_lanes, vecs, \
-      mats, Ro, Vo, tpo, preo, pimo, npad, first, tick0, tick_base)
+      mats, Ro, Vo, tpo, preo, pimo, npad, first, tick0, tick_base, lane0)
   // the RNG form is built for sr12 (the cooling family) only
   switch (p->S * 8 + rng * 4 + pe0 * 2 + pom) {
     case 3 * 8: LAUNCH(3, false, false, false); break;

@@ -50,7 +50,13 @@ LCCF current J(k) at sample time on the run's device, and write
 ``VAF_interval<k>.dat`` and ``J_interval0.dat``; the interval origins
 (``vholder``) ride the VZERO files and native checkpoints.
 
-Not ported yet: multi-device ``mesh`` runs, float64 on CUDA.
+``run_ensemble(mesh=...)`` spreads the fold over a mesh of device slots
+(parallel/mesh.py): members over its ``ens`` axis and, optionally, each
+member's ions over its ``ions`` axis, every slot stepping its block
+through the same kernels (:func:`run_compiled_sharded`); the files,
+checkpoints and resume are the single fold's.
+
+Not ported yet: float64 on CUDA.
 """
 
 from __future__ import annotations
@@ -63,13 +69,6 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from mdqtplasmasims_tpu.io import checkpoint as ckpt
-from mdqtplasmasims_tpu.io.datfiles import DatWriter
-from mdqtplasmasims_tpu.io.dirs import cooling_dir
-from mdqtplasmasims_tpu.levels import sr12_cooling, with_recoil
-from mdqtplasmasims_tpu.units import (PlasmaUnits, QTUnits, VKICK_408_QUANTUM,
-                                      K_RATIO_1033, qt_units_408)
-
 from ..bridge import NumpyState, state_to_numpy, states_from_numpy
 from ..core.init import frozen_gas_init, poisson_member_mask
 from ..core.md import kinetic_energies
@@ -78,11 +77,17 @@ from ..core.qt_fused import FusedTickSpec
 from ..core.scheduler import (CoolingScheduler, auto_qt_tile,
                               check_uniform_tick, draw_seed_word,
                               fold_sweep_lanes, uniform_rolls)
+from ..io import checkpoint as ckpt
+from ..io.datfiles import DatWriter
+from ..io.dirs import cooling_dir
+from ..levels import sr12_cooling, with_recoil
 from ..ops.kde import folded_bins, folded_bins_np, gaussian_kde
 from ..ops.structure import current_fourier, k_grid
 from ..ops.yukawa import (yukawa_potential_pallas,
                           yukawa_potential_pallas_batched)
 from ..state import SimState, make_state
+from ..units import (K_RATIO_1033, VKICK_408_QUANTUM, PlasmaUnits, QTUnits,
+                     qt_units_408)
 
 S_MANIFOLD = (0, 1)
 P_MANIFOLD = (2, 3, 4, 5)
@@ -258,14 +263,14 @@ def member_states(cfg: CoolingConfig, n_jobs: int, seed: int,
 
 
 def _poisson_member_states(cfg: CoolingConfig, n_jobs: int, seed: int,
-                           device):
+                           device, round_to: int = 1):
     """Fold with per-member Poissonian ion counts (the reference draws a
     fresh N per array job, SpeedUp.cpp:289-348): counts from
     :func:`poisson_member_mask` (the JAX package's draws for the same
-    seed), members padded to the largest count; padded lanes start at
-    R=V=psi=0 and stay there.  Returns ``(states, mask [E, n_arr],
-    counts)``."""
-    m, n_js = poisson_member_mask(cfg.n0, n_jobs, seed)
+    seed), members padded to the largest count rounded up to a multiple of
+    ``round_to`` (a mesh's ion shards); padded lanes start at R=V=psi=0
+    and stay there.  Returns ``(states, mask [E, n_arr], counts)``."""
+    m, n_js = poisson_member_mask(cfg.n0, n_jobs, seed, round_to=round_to)
     states = member_states(cfg, n_jobs, seed, device, n=m.shape[1])
     mc = torch.as_tensor(m).to(device=states.R.device)
     return (dataclasses.replace(
@@ -408,6 +413,28 @@ def run_compiled_span(cfg: CoolingConfig, sched: CoolingScheduler,
     return state, _stack_samples([out], [state_mid.t], cfg.torch_dtype)
 
 
+def _sample_fold(mid: SimState, cfg: CoolingConfig, L: float, ldeb: float,
+                 bins, mask_t, kvecs) -> dict:
+    """One sample of every member of a fold, stacked ``[E, ...]``: all
+    members' potentials from one launch of kernel G (on the CPU, its twin
+    member by member)."""
+    epots = yukawa_potential_pallas_batched(mid.R, L, ldeb, mask_t)
+    per = [_sample_outputs(_member(mid, j), cfg, L, ldeb, bins,
+                           None if mask_t is None else mask_t[j],
+                           epot=epots[j], kvecs=kvecs)
+           for j in range(mid.R.shape[0])]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def _check_sweep_flags(sched: CoolingScheduler, sweep_e0, sweep_om) -> None:
+    spec = sched.fused_spec
+    if (spec.per_lane_e0 != (sweep_e0 is not None)
+            or spec.per_lane_om != (sweep_om is not None)):
+        raise ValueError("the scheduler's per-lane flags must match the "
+                         "sweep tables given (build_scheduler(..., "
+                         "per_lane_e0=, per_lane_om=))")
+
+
 def run_compiled_ensemble(cfg: CoolingConfig, sched: CoolingScheduler,
                           states: SimState, n_segments: int, mask=None,
                           sweep_e0=None, sweep_om=None,
@@ -431,11 +458,7 @@ def run_compiled_ensemble(cfg: CoolingConfig, sched: CoolingScheduler,
     (None without segments)."""
     check_uniform_tick(states.tick)
     spec = sched.fused_spec
-    if (spec.per_lane_e0 != (sweep_e0 is not None)
-            or spec.per_lane_om != (sweep_om is not None)):
-        raise ValueError("the scheduler's per-lane flags must match the "
-                         "sweep tables given (build_scheduler(..., "
-                         "per_lane_e0=, per_lane_om=))")
+    _check_sweep_flags(sched, sweep_e0, sweep_om)
     L = PlasmaUnits.box_length(cfg.n0)
     ldeb = PlasmaUnits(cfg.density, cfg.ge).debye_length
     bins = folded_bins(cfg.torch_dtype, sched.device)
@@ -452,18 +475,55 @@ def run_compiled_ensemble(cfg: CoolingConfig, sched: CoolingScheduler,
     samples, times = [], []
     for _ in range(n_segments):
         mid, states = advance_sampled(states, seg_len or cfg.sample_freq)
-        epots = yukawa_potential_pallas_batched(mid.R, L, ldeb, mask_t)
-        per = [_sample_outputs(_member(mid, j), cfg, L, ldeb, bins,
-                               None if mask_t is None else mask_t[j],
-                               epot=epots[j], kvecs=kvecs)
-               for j in range(E)]
-        samples.append({k: torch.stack([p[k] for p in per]) for k in per[0]})
+        samples.append(_sample_fold(mid, cfg, L, ldeb, bins, mask_t, kvecs))
         times.append(mid.t)
     if tail:
         states = advance(states, tail)
     outs = (_stack_samples(samples, times, cfg.torch_dtype, axis=1)
             if samples else None)
     return states, outs
+
+
+def run_compiled_sharded(cfg: CoolingConfig, sched: CoolingScheduler, mesh,
+                         states: SimState, n_segments: int, mask=None,
+                         sweep_e0=None, sweep_om=None,
+                         seg_len: Optional[int] = None, tail: int = 0,
+                         ion_forces: str = "gather"):
+    """:func:`run_compiled_ensemble` over a device mesh: ``states [E, N,
+    ...]`` (on the mesh's home device) split into the mesh's slot blocks,
+    members over ``ens`` and ions over ``ions``, each slot stepping its
+    block on the production kernels (parallel/ensemble.py
+    fused_local_stepper; ``ion_forces`` picks the cross-shard force
+    schedule, ``"gather"`` or ``"ring_n3l"``).  Each sample joins the
+    sampled state on the home device and takes the same observables the
+    single fold takes.  Returns ``(states, outs)`` as
+    :func:`run_compiled_ensemble` does."""
+    from ..parallel.ensemble import fused_local_stepper
+    from ..parallel.mesh import join_state, split_state
+    check_uniform_tick(states.tick)
+    _check_sweep_flags(sched, sweep_e0, sweep_om)
+    L = PlasmaUnits.box_length(cfg.n0)
+    ldeb = PlasmaUnits(cfg.density, cfg.ge).debye_length
+    home = mesh.home
+    bins = folded_bins(cfg.torch_dtype, home)
+    kvecs = _lccf_kvecs(cfg, home)
+    mask_t = (None if mask is None else
+              torch.as_tensor(mask).to(home, cfg.torch_dtype))
+    local = fused_local_stepper(sched, ldeb, mesh, ion_forces=ion_forces)
+    blocks = split_state(states, mesh)
+    kw = dict(mask=mask, sweep_e0=sweep_e0, sweep_om=sweep_om)
+    samples, times = [], []
+    for _ in range(n_segments):
+        mid, blocks = local(blocks, seg_len or cfg.sample_freq,
+                            split_last=True, **kw)
+        mid = join_state(mid, home)
+        samples.append(_sample_fold(mid, cfg, L, ldeb, bins, mask_t, kvecs))
+        times.append(mid.t)
+    if tail:
+        blocks = local(blocks, tail, **kw)
+    outs = (_stack_samples(samples, times, cfg.torch_dtype, axis=1)
+            if samples else None)
+    return join_state(blocks, home), outs
 
 
 def _save_dir(cfg: CoolingConfig) -> str:
@@ -659,14 +719,28 @@ def _pad_rows(a, n_arr: int) -> np.ndarray:
     return out
 
 
-def _stack_fold(members, cfg: CoolingConfig, device, tick: int, t: float):
+def _mesh_ion_round(n_arr: int, mesh) -> int:
+    """Round the fold's lane count up to the mesh's ion-shard multiple
+    (the slots split the ion axis evenly; ``_mesh_ion_round(1, mesh)`` is
+    the multiple itself, :func:`_poisson_member_states`'s ``round_to`` on
+    fresh runs)."""
+    if mesh is None:
+        return n_arr
+    from ..parallel.mesh import ION_AXIS
+    shards = mesh.shape[ION_AXIS]
+    return -(-n_arr // shards) * shards
+
+
+def _stack_fold(members, cfg: CoolingConfig, device, tick: int, t: float,
+                mesh=None):
     """Stack per-member host states ``(R, V, psi, t_part | None)`` into the
-    ``[E, n_arr, ...]`` fold on ``device``, padded to the largest member,
-    and build the Poissonian ion mask.  Returns ``(states, mask, n_js)``,
-    mask and n_js None when every member fills all lanes (shared by the
-    ASCII and native resume rebuilds)."""
+    ``[E, n_arr, ...]`` fold on ``device``, padded to the largest member
+    (rounded up to ``mesh``'s ion-shard multiple), and build the
+    Poissonian ion mask.  Returns ``(states, mask, n_js)``, mask and n_js
+    None when every member fills all lanes (shared by the ASCII and native
+    resume rebuilds)."""
     n_js = [len(m[0]) for m in members]
-    n_arr = max(n_js)
+    n_arr = _mesh_ion_round(max(n_js), mesh)
     R, V, psi, tp = (np.stack(col) for col in zip(*(
         [_pad_rows(np.zeros(len(m[0])) if x is None else x, n_arr)
          for x in m] for m in members)))
@@ -704,7 +778,7 @@ class _ResumedFold(NamedTuple):
     z: Optional[dict]                # member 0's native checkpoint
 
 
-def _resume_fold(cfg, job_cfgs, job_dirs, device, generator):
+def _resume_fold(cfg, job_cfgs, job_dirs, device, generator, mesh=None):
     """Rebuild a fold from the newest checkpoint common to all job
     directories (newest format wins, as in :func:`run`).  Returns None
     when there is none, else a :class:`_ResumedFold`; members at
@@ -741,7 +815,7 @@ def _resume_fold(cfg, job_cfgs, job_dirs, device, generator):
         t0 = ckpt.restore_time(c0, cfg.timestep)
         states, mask, n_js = _stack_fold(hosts, cfg, device,
                                          int(round(t0 / cfg.qdt)),
-                                         _np_float(cfg, t0))
+                                         _np_float(cfg, t0), mesh)
         generator.manual_seed(job_cfgs[0].job * 7919 + c0)
         # reference newRun=0 semantics per job: Epot0 stays 0, and Vholder
         # is re-read from the VZERO files (SpeedUp.cpp:901-909)
@@ -769,7 +843,7 @@ def _resume_fold(cfg, job_cfgs, job_dirs, device, generator):
         tick = (c0 + 1) * cfg.ratio
         states, mask, n_js = _stack_fold(
             [(z["R"], z["V"], z["psi"], z.get("t_part")) for z in zs], cfg,
-            device, tick, _np_float(cfg, tick * cfg.qdt))
+            device, tick, _np_float(cfg, tick * cfg.qdt), mesh)
         _rng_restore(generator, zs[0], job_cfgs[0].job * 7919 + c0)
         epot0 = (np.asarray([float(z["epot0"]) for z in zs])
                  if all("epot0" in z for z in zs) else None)
@@ -789,7 +863,8 @@ def _resume_fold(cfg, job_cfgs, job_dirs, device, generator):
 
 def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
                  resume: bool = False, mesh=None, sweep=None, device="cuda",
-                 states=None, rolls_fn: Optional[Callable] = None):
+                 states=None, rolls_fn: Optional[Callable] = None,
+                 ion_forces: str = "gather"):
     """Batched ensemble of independent trajectories, the replacement of
     the reference's SLURM job array (exampleSlurmFile.slurm).  Returns
     ``(final, outs)``: host numpy states ``[E, ...]`` and per-job stacked
@@ -821,11 +896,28 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
     apart); on the CPU the fold generator draws explicit rolls.
     ``rolls_fn`` replaces the latter (tests replay another
     implementation's draws) and implies explicit rolls, as in :func:`run`.
-    ``mesh`` (multi-device folds) is not ported."""
+
+    ``mesh`` (parallel/mesh.make_mesh) runs the fold over a mesh of
+    device slots (:func:`run_compiled_sharded`): members over its ``ens``
+    axis (``n_jobs`` must divide) and each member's ions over its
+    ``ions`` axis (an exact-N ``n0`` must divide; Poissonian folds pad to
+    the ion-shard multiple), the fold living on the mesh's home device in
+    place of ``device``.  ``ion_forces`` picks the cross-shard force
+    schedule, ``"gather"`` (kernel E) or ``"ring_n3l"`` (kernels C and
+    F).  Files, checkpoints and resume are the single fold's: a mesh
+    checkpoint resumes on the same mesh bit for bit, and resumes across
+    modes (mesh <-> single fold) both ways."""
     if mesh is not None:
-        raise NotImplementedError("multi-device ensemble folds (mesh=) are "
-                                  "not ported yet (ROADMAP.md Queue 1 item "
-                                  "14)")
+        from ..parallel.mesh import ENS_AXIS, ION_AXIS
+        if n_jobs % mesh.shape[ENS_AXIS] or (
+                cfg.exact_n and cfg.n0 % mesh.shape[ION_AXIS]):
+            raise ValueError(
+                f"n_jobs {n_jobs} / n0 {cfg.n0} must divide the mesh axes "
+                f"{mesh.shape}")
+        device = mesh.home
+    if ion_forces not in ("gather", "ring_n3l"):
+        raise ValueError(f"ion_forces must be 'gather' or 'ring_n3l', got "
+                         f"{ion_forces!r}")
     device = torch.device(device)
     if cfg.torch_dtype == torch.float64 and device.type != "cpu":
         raise NotImplementedError("float64 runs on the CPU only; the CUDA "
@@ -862,7 +954,8 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
     done, step_done, mask, n_js, epot0 = 0, None, None, None, None
     fold, z0, vholders = None, None, [None] * n_jobs
     if resume and job_dirs is not None:
-        found = _resume_fold(cfg, job_cfgs, job_dirs, device, generator)
+        found = _resume_fold(cfg, job_cfgs, job_dirs, device, generator,
+                             mesh)
         if found is not None:
             (fold, mask, n_js, done, step_done, epot0, vholders,
              z0) = found
@@ -879,8 +972,8 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
         elif cfg.exact_n:
             fold = member_states(cfg, n_jobs, seed, device)
         else:
-            fold, mask, n_js = _poisson_member_states(cfg, n_jobs, seed,
-                                                      device)
+            fold, mask, n_js = _poisson_member_states(
+                cfg, n_jobs, seed, device, round_to=_mesh_ion_round(1, mesh))
     if fold.R.shape[0] != n_jobs:
         raise ValueError(f"the fold has {fold.R.shape[0]} members for "
                          f"{n_jobs} jobs")
@@ -899,6 +992,13 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
         epot0 = yukawa_potential_pallas_batched(fold.R, L, ldeb,
                                                 mask_t).cpu().numpy()
 
+    def run_fold(fold, g, **kw):
+        kw.update(mask=mask, sweep_e0=sweep_e0, sweep_om=sweep_om)
+        if mesh is None:
+            return run_compiled_ensemble(cfg, sched, fold, g, **kw)
+        return run_compiled_sharded(cfg, sched, mesh, fold, g,
+                                    ion_forces=ion_forces, **kw)
+
     rem = n_md - n_segments * f      # trailing steps past the last gate
     if step_done is None:
         step_done = done * f
@@ -912,10 +1012,7 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
         # the trailing sub-segment rides the final group, so the returned
         # states hold the true tmax state for the terminal checkpoint
         tail = rem if done + g == n_segments else 0
-        fold, outs = run_compiled_ensemble(cfg, sched, fold, g, mask=mask,
-                                           sweep_e0=sweep_e0,
-                                           sweep_om=sweep_om,
-                                           seg_len=seg_len, tail=tail)
+        fold, outs = run_fold(fold, g, seg_len=seg_len, tail=tail)
         outs_np = {k: v.cpu().numpy() for k, v in outs.items()}
         outs_groups.append(outs_np)
         prev_done = done
@@ -946,9 +1043,7 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
     if step_done < n_md:
         # trailing sub-segment with no sampled segment left to carry it:
         # advance to tmax and publish the terminal checkpoints
-        fold, _ = run_compiled_ensemble(cfg, sched, fold, 0, mask=mask,
-                                        sweep_e0=sweep_e0, sweep_om=sweep_om,
-                                        tail=n_md - step_done)
+        fold, _ = run_fold(fold, 0, tail=n_md - step_done)
         if job_dirs is not None:
             st = _ensemble_numpy(fold)
             for j in range(n_jobs):
@@ -967,7 +1062,8 @@ def run_ensemble(cfg: CoolingConfig, n_jobs: int, seed: int = 0,
 
 def run_sweep(cfg: CoolingConfig, points, jobs_per_point: int = 1,
               seed: int = 0, resume: bool = False, mesh=None, device="cuda",
-              states=None, rolls_fn: Optional[Callable] = None):
+              states=None, rolls_fn: Optional[Callable] = None,
+              ion_forces: str = "gather"):
     """A laser-parameter grid as ONE ensemble fold (the reference rebuilds
     its binary per point, SpeedUp.cpp:66-69).  ``points``: ``(det_sp,
     det_dp)`` pairs in units of gamma_SP, or dicts with keys among
@@ -985,7 +1081,8 @@ def run_sweep(cfg: CoolingConfig, points, jobs_per_point: int = 1,
     member_cfgs = [dataclasses.replace(cfg, **s) for s in sweep]
     final, outs = run_ensemble(cfg, len(sweep), seed=seed, resume=resume,
                                mesh=mesh, sweep=sweep, device=device,
-                               states=states, rolls_fn=rolls_fn)
+                               states=states, rolls_fn=rolls_fn,
+                               ion_forces=ion_forces)
     return final, outs, member_cfgs
 
 

@@ -29,6 +29,14 @@ Counterpart of ``mdqtplasmasims_tpu/ops/yukawa.py``.  Physics:
   goes through them.
 * ``best_forces_fn``: the JAX package's ``R -> (F, pot | None)`` chooser
   over those entries (so a CUDA tensor always reaches a kernel).
+* ``yukawa_forces_soa_cols_batched`` (kernel E) and
+  ``yukawa_forces_cross_n3l_soa_batched`` (kernel F): the mesh path's
+  force kernels (parallel/ensemble.py): a shard's rows against the
+  all-gathered columns of its members, and each pair of two different ion
+  blocks once with the column reactions; CUDA tensors launch
+  ``csrc/yukawa_forces.cu``, CPU tensors their ``*_reference`` twins.
+  ``yukawa_forces_potential(cols=)`` is the plain source-set path the
+  XLA-path mesh functions use.
 """
 
 from __future__ import annotations
@@ -44,19 +52,24 @@ from .. import _build
 
 def yukawa_forces_potential(R: torch.Tensor, L: float, ldeb: float,
                             mask: Optional[torch.Tensor] = None,
-                            chunk: int = 512
+                            chunk: int = 512,
+                            cols: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forces [N,3] and per-ion potential sums [N].
 
-    ``sum(pot)/(2*N)`` equals the reference's Epot per particle.  ``mask``
-    marks real ions: it gates the source set and the rows."""
+    ``sum(pot)/(2*N)`` equals the reference's Epot per particle.  ``cols``
+    optionally supplies a different source set (the all-gathered global
+    positions when ``R`` is an ion shard, parallel/ensemble.py);
+    ``mask`` marks real ions of the source set, and without ``cols`` it
+    also gates the rows."""
     n = R.shape[0]
     rcut2 = (L / 2.0) ** 2
+    Rc = R if cols is None else cols
     F = torch.empty_like(R)
     pot = torch.empty(n, dtype=R.dtype, device=R.device)
     for s in range(0, n, chunk):
         Ri = R[s:s + chunk]
-        d = Ri[:, None, :] - R[None, :, :]             # [c, N, 3]
+        d = Ri[:, None, :] - Rc[None, :, :]            # [c, Nc, 3]
         d = d - L * torch.round(d / L)
         r2 = torch.sum(d * d, dim=-1)
         valid = (r2 > 0) & (r2 < rcut2)
@@ -69,7 +82,7 @@ def yukawa_forces_potential(R: torch.Tensor, L: float, ldeb: float,
         F[s:s + chunk] = torch.sum(d * ft[..., None], dim=1)
         pot[s:s + chunk] = torch.sum(
             torch.where(valid, expf / r, torch.zeros_like(r2)), dim=1)
-    if mask is not None:
+    if mask is not None and cols is None:
         F = F * mask[:, None]
         pot = pot * mask
     return F, pot
@@ -139,6 +152,12 @@ def _lib() -> ctypes.CDLL:
     lib.yukawa_forces_pot_launch.argtypes = [p, p, i, p, p, p, i, i, f, f, f,
                                              f, p]
     lib.yukawa_forces_pot_launch.restype = ctypes.c_int
+    lib.yukawa_forces_cols_launch.argtypes = [p, p, p, i, p, i, i, i, f, f, f,
+                                              f, p]
+    lib.yukawa_forces_cols_launch.restype = ctypes.c_int
+    lib.yukawa_cross_launch.argtypes = [p, p, i, p, p, i, p, p, p, i, i, i,
+                                        f, f, f, f, p]
+    lib.yukawa_cross_launch.restype = ctypes.c_int
     return lib
 
 
@@ -255,6 +274,192 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
 
 
 yukawa_forces_n3l_soa_batched.launches = 0
+
+
+def _pair_ft(d: torch.Tensor, valid: torch.Tensor, inv_ldeb):
+    """Force factor of each pair of ``d [3, ...]`` (the kernels' tile math,
+    0 where not ``valid``)."""
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    r2s = torch.where(valid, r2, torch.ones_like(r2))
+    inv_r = torch.rsqrt(r2s)
+    r = r2s * inv_r
+    return torch.where(valid, torch.exp(-r * inv_ldeb)
+                       * (inv_r + inv_ldeb) * inv_r * inv_r,
+                       torch.zeros_like(r2))
+
+
+def _rows_cols_pairs(rows: torch.Tensor, C: torch.Tensor, L: float):
+    """Minimum-image separations ``[3, nr, nc]`` of ``rows [3, nr]`` from
+    ``C [3, nc]`` and their ``0 < r^2 < (L/2)^2`` test."""
+    d = rows[:, :, None] - C[:, None, :]
+    d = d - L * torch.round(d * (1.0 / L))
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    return d, (r2 > 0) & (r2 < (L / 2.0) ** 2)
+
+
+def _cols_operands(Rp, cols, col_mask, e: int, what: str):
+    """Check the rows x cols operands of kernels E and F; returns (npad,
+    ncols, the column masks as ``[E, ncols]``)."""
+    if Rp.dim() != 2 or Rp.shape[0] != 3 or e < 1 or Rp.shape[1] % e:
+        raise ValueError(f"{what}: want Rp [3, E*Np] with E={e}, got "
+                         f"{tuple(Rp.shape)}")
+    if cols.dim() != 3 or cols.shape[0] != e or cols.shape[2] != 3:
+        raise ValueError(f"{what}: want cols [{e}, ncols, 3], got "
+                         f"{tuple(cols.shape)}")
+    ncols = cols.shape[1]
+    if tuple(col_mask.shape) not in ((ncols,), (e, ncols)):
+        raise ValueError(f"{what}: want col_mask [{ncols}] or [{e}, "
+                         f"{ncols}], got {tuple(col_mask.shape)}")
+    if any(x.device != Rp.device or x.dtype != Rp.dtype
+           for x in (cols, col_mask)):
+        raise ValueError(f"{what}: Rp, cols and col_mask must share device "
+                         "and dtype")
+    if Rp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no force kernel for device {Rp.device}")
+    return Rp.shape[1] // e, ncols, col_mask.expand(e, ncols)
+
+
+def _cuda_operands(what: str, *xs) -> None:
+    if xs[0].dtype != torch.float32:
+        raise ValueError(f"the CUDA force kernel is float32, got "
+                         f"{xs[0].dtype}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{what}: operands must be contiguous")
+
+
+def yukawa_forces_soa_cols_batched_reference(
+        Rp: torch.Tensor, cols: torch.Tensor, col_mask: torch.Tensor, e: int,
+        L: float, ldeb: float, chunk: int = 256) -> torch.Tensor:
+    """Plain torch twin of kernel E: every row lane of member k (no row
+    mask) against ``cols[k]`` where ``col_mask`` is set, the tile math of
+    :func:`yukawa_forces_n3l_soa_reference`."""
+    npad, _, cm = _cols_operands(Rp, cols, col_mask, e, "cols reference")
+    F = torch.empty_like(Rp)
+    for k in range(e):
+        C = cols[k].T
+        for s in range(k * npad, (k + 1) * npad, chunk):
+            top = min(s + chunk, (k + 1) * npad)
+            d, valid = _rows_cols_pairs(Rp[:, s:top], C, L)
+            ft = _pair_ft(d, valid & (cm[k][None, :] > 0), 1.0 / ldeb)
+            F[:, s:top] = torch.sum(d * ft[None], dim=2)
+    return F
+
+
+def yukawa_forces_soa_cols_batched(Rp: torch.Tensor, cols: torch.Tensor,
+                                   col_mask: torch.Tensor, e: int, L: float,
+                                   ldeb: float) -> torch.Tensor:
+    """Kernel E: row forces from the folded lane layout against an
+    explicit column set: ``Rp [3, E*Np]`` local ion-shard rows (member
+    blocks contiguous), ``cols [E, ncols, 3]`` the source positions (the
+    all-gathered ion set of each member), ``col_mask`` marking real source
+    ions, ``[ncols]`` shared or ``[E, ncols]`` per member.  Full pairs
+    (the reaction half lives on another shard).  Rows carry no mask:
+    padded row lanes may hold garbage, and a caller whose padded lanes feed
+    back zeroes them with a row mask.  Returns ``F [3, E*Np]``.
+
+    CUDA tensors (float32, contiguous, Np and ncols multiples of 128)
+    launch ``csrc/yukawa_forces.cu`` over an (Np/64, E) grid and add one
+    to ``yukawa_forces_soa_cols_batched.launches``; CPU tensors run
+    :func:`yukawa_forces_soa_cols_batched_reference`."""
+    npad, ncols, _ = _cols_operands(Rp, cols, col_mask, e, "kernel E")
+    if Rp.device.type == "cpu":
+        return yukawa_forces_soa_cols_batched_reference(Rp, cols, col_mask,
+                                                        e, L, ldeb)
+    _cuda_operands("kernel E", Rp, cols, col_mask)
+    soa_force_tile(npad)
+    soa_force_tile(ncols)
+    F = torch.empty_like(Rp)
+    lib = _lib()
+    with torch.cuda.device(Rp.device):
+        err = lib.yukawa_forces_cols_launch(
+            Rp.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
+            ncols if col_mask.dim() == 2 else 0, F.data_ptr(), npad, ncols,
+            e, float(L), float(1.0 / L), float((L / 2.0) ** 2),
+            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "yukawa_forces_cols_launch")
+    yukawa_forces_soa_cols_batched.launches += 1
+    return F
+
+
+yukawa_forces_soa_cols_batched.launches = 0
+
+
+def yukawa_forces_cross_n3l_soa_batched_reference(
+        Rp: torch.Tensor, mask_row: torch.Tensor, cols: torch.Tensor,
+        col_mask: torch.Tensor, e: int, L: float, ldeb: float,
+        chunk: int = 256):
+    """Plain torch twin of kernel F: each (row, col) pair of member k's
+    row block and ``cols[k]`` once, valid where both masks are set; row
+    sums and the negated column sums."""
+    npad, npc, cm = _cols_operands(Rp, cols, col_mask, e, "cross reference")
+    rm = mask_row.expand(e, npad)
+    F = torch.empty_like(Rp)
+    G = torch.zeros((e, npc, 3), dtype=Rp.dtype, device=Rp.device)
+    for k in range(e):
+        C = cols[k].T
+        for s in range(0, npad, chunk):
+            lanes = slice(k * npad + s, k * npad + min(s + chunk, npad))
+            d, valid = _rows_cols_pairs(Rp[:, lanes], C, L)
+            valid = (valid & (cm[k][None, :] > 0)
+                     & (rm[k, s:s + chunk][:, None] > 0))
+            f = d * _pair_ft(d, valid, 1.0 / ldeb)[None]
+            F[:, lanes] = torch.sum(f, dim=2)
+            G[k] -= torch.sum(f, dim=1).T
+    return F, G
+
+
+def yukawa_forces_cross_n3l_soa_batched(Rp: torch.Tensor,
+                                        mask_row: torch.Tensor,
+                                        cols: torch.Tensor,
+                                        col_mask: torch.Tensor, e: int,
+                                        L: float, ldeb: float):
+    """Kernel F: half-pair forces between a folded row block and a
+    different column block of the same members (the ring-N3L schedule's
+    visiting shard): ``Rp [3, E*Np]`` rows, ``mask_row [1|E, Np]``,
+    ``cols [E, npc, 3]`` and ``col_mask [npc]|[E, npc]``.  Each (row, col)
+    pair is evaluated ONCE; returns ``(F [3, E*Np], G [E, npc, 3])``, G
+    the Newton's-third-law reaction on the column ions (negated column
+    sums, to ride back to their owner shard).  Masked lanes on either side
+    contribute nothing.
+
+    CUDA tensors (float32, contiguous, Np and npc multiples of 128) launch
+    ``csrc/yukawa_forces.cu``'s cross kernel and its fixed-order reduction
+    of the per-row-block reaction partials (no atomics: bitwise
+    deterministic) and add one to
+    ``yukawa_forces_cross_n3l_soa_batched.launches``; CPU tensors run
+    :func:`yukawa_forces_cross_n3l_soa_batched_reference`."""
+    npad, npc, _ = _cols_operands(Rp, cols, col_mask, e, "kernel F")
+    if tuple(mask_row.shape) not in ((1, npad), (e, npad)):
+        raise ValueError(f"kernel F: want mask_row [1, {npad}] or [{e}, "
+                         f"{npad}], got {tuple(mask_row.shape)}")
+    if mask_row.device != Rp.device or mask_row.dtype != Rp.dtype:
+        raise ValueError("kernel F: Rp and mask_row must share device and "
+                         "dtype")
+    if Rp.device.type == "cpu":
+        return yukawa_forces_cross_n3l_soa_batched_reference(
+            Rp, mask_row, cols, col_mask, e, L, ldeb)
+    _cuda_operands("kernel F", Rp, mask_row, cols, col_mask)
+    soa_force_tile(npad)
+    soa_force_tile(npc)
+    F = torch.empty_like(Rp)
+    G = torch.empty((e, npc, 3), dtype=torch.float32, device=Rp.device)
+    part = torch.empty((e, npad // 64, npc, 3), dtype=torch.float32,
+                       device=Rp.device)
+    lib = _lib()
+    with torch.cuda.device(Rp.device):
+        err = lib.yukawa_cross_launch(
+            Rp.data_ptr(), mask_row.data_ptr(),
+            npad if mask_row.shape[0] > 1 else 0, cols.data_ptr(),
+            col_mask.data_ptr(), npc if col_mask.dim() == 2 else 0,
+            F.data_ptr(), G.data_ptr(), part.data_ptr(), npad, npc, e,
+            float(L), float(1.0 / L), float((L / 2.0) ** 2),
+            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "yukawa_cross_launch")
+    yukawa_forces_cross_n3l_soa_batched.launches += 1
+    return F, G
+
+
+yukawa_forces_cross_n3l_soa_batched.launches = 0
 
 
 def _round_up(x: int, m: int) -> int:

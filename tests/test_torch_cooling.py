@@ -119,18 +119,24 @@ def test_dat_and_checkpoint_trees_match_jax(both_runs):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: float64 on CUDA, multi-device folds
-    (``mesh=``), and a CUDA run without a card (no fallback to the CPU)."""
+    """What the port still refuses: float64 on CUDA (a fold on CUDA mesh
+    slots too), a mesh the members do not divide over (multi-device folds
+    themselves are ported: tests/test_torch_mesh_run.py), and a CUDA run
+    without a card (no fallback to the CPU)."""
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
     cfg = tlc.CoolingConfig(**SMALL)
     f64 = tlc.CoolingConfig(dtype="float64", **SMALL)
     with pytest.raises(NotImplementedError, match="float64"):
         tlc.run(f64, device="cuda")
     with pytest.raises(NotImplementedError, match="float64"):
         tlc.run_ensemble(f64, 2, device="cuda")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlc.run_ensemble(cfg, 2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlc.run_sweep(cfg, [(-1.0, 1.0)], mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="float64"):
+        tlc.run_ensemble(f64, 2, mesh=make_mesh(2, 1, devices=["cuda"] * 2))
+    mesh = make_mesh(3, 1, devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="divide"):
+        tlc.run_ensemble(cfg, 2, mesh=mesh)
+    with pytest.raises(ValueError, match="divide"):
+        tlc.run_sweep(cfg, [(-1.0, 1.0)], mesh=mesh)
     if not torch.cuda.is_available():
         for call in (lambda: tlc.run(cfg, device="cuda"),
                      lambda: tlc.run_ensemble(cfg, 2, device="cuda")):

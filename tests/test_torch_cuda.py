@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from mdqtplasmasims_tpu.units import PlasmaUnits
+from mdqtplasmasims_torch.units import PlasmaUnits
 from mdqtplasmasims_torch.core import qt_fused as tf
 from mdqtplasmasims_torch.core.scheduler import uniform_rolls
 from mdqtplasmasims_torch.experiments import laser_cooling as lc
@@ -488,3 +488,88 @@ def test_best_forces_fn_launches_a_kernel_in_every_mode(cuda, use_pallas,
         _held(F, pot, Fr, potr, mask == 0)
     else:
         assert pot is None
+
+
+def _fold_lanes(R):
+    return R.permute(2, 0, 1).reshape(3, -1).contiguous()
+
+
+@pytest.mark.parametrize("per_member", [True, False])
+def test_cols_kernel_e_matches_twin_and_c(cuda, per_member):
+    """Kernel E at a mesh slot's shapes (2 members, rows 1792 against 4 x
+    1792 columns) against its twin, run to run, and with a member's own
+    lanes as its columns bitwise against kernel C on real rows."""
+    Rp, masks, L, ldeb = _fold_positions(cuda, True)
+    E, npad = 2, Rp.shape[1] // E_FOLD
+    own = Rp.reshape(3, E_FOLD, npad)[:, :E].permute(1, 2, 0).contiguous()
+    m = masks[:E] if per_member else masks[0]
+    before = ty.yukawa_forces_soa_cols_batched.launches
+    Fe = ty.yukawa_forces_soa_cols_batched(_fold_lanes(own), own, m, E, L,
+                                           ldeb)
+    Fc = ty.yukawa_forces_n3l_soa_batched(
+        _fold_lanes(own), masks[:E] if per_member else masks[:1], E, L, ldeb)
+    rows = _fold_lanes(own[:, :1792])
+    cols = own[:, :1792].repeat(1, 4, 1).contiguous()
+    cm = (m[..., :1792].repeat(*((1, 4) if per_member else (4,)))
+          .contiguous())
+    F1 = ty.yukawa_forces_soa_cols_batched(rows, cols, cm, E, L, ldeb)
+    F2 = ty.yukawa_forces_soa_cols_batched(rows, cols, cm, E, L, ldeb)
+    Fr = ty.yukawa_forces_soa_cols_batched_reference(rows, cols, cm, E, L,
+                                                     ldeb)
+    torch.cuda.synchronize()
+    assert ty.yukawa_forces_soa_cols_batched.launches == before + 3
+    real = (m.expand(E, npad) > 0).reshape(-1)
+    assert torch.equal(Fe[:, real], Fc[:, real])
+    assert torch.equal(F1, F2)
+    assert float((F1 - Fr).abs().max()) < 2e-5 * float(Fr.abs().max())
+
+
+def test_cross_kernel_f_matches_twin(cuda):
+    """Kernel F on two 1792-lane blocks of 2 members: its twin, bitwise
+    run to run, masked lanes exactly 0."""
+    Rp, masks, L, ldeb = _fold_positions(cuda, True)
+    npad = Rp.shape[1] // E_FOLD
+    R = Rp.reshape(3, E_FOLD, npad).permute(1, 2, 0)
+    tail = slice(npad - 1792, npad)          # real and padded lanes
+    A, B = R[:2, tail].contiguous(), R[2:4, tail].contiguous()
+    ma, mb = masks[:2, tail].contiguous(), masks[2:4, tail].contiguous()
+    assert (ma == 0).any() and (mb == 0).any()
+    before = ty.yukawa_forces_cross_n3l_soa_batched.launches
+    F1, G1 = ty.yukawa_forces_cross_n3l_soa_batched(_fold_lanes(A), ma, B,
+                                                    mb, 2, L, ldeb)
+    F2, G2 = ty.yukawa_forces_cross_n3l_soa_batched(_fold_lanes(A), ma, B,
+                                                    mb, 2, L, ldeb)
+    Fr, Gr = ty.yukawa_forces_cross_n3l_soa_batched_reference(
+        _fold_lanes(A), ma, B, mb, 2, L, ldeb)
+    torch.cuda.synchronize()
+    assert ty.yukawa_forces_cross_n3l_soa_batched.launches == before + 2
+    assert torch.equal(F1, F2) and torch.equal(G1, G2)
+    scale = max(float(Fr.abs().max()), float(Gr.abs().max()))
+    assert float((F1 - Fr).abs().max()) < 2e-5 * scale
+    assert float((G1 - Gr).abs().max()) < 2e-5 * scale
+    assert float(F1[:, ma.reshape(-1) == 0].abs().max()) == 0.0
+    assert float(G1[mb == 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("ion_forces", ["gather", "ring_n3l"])
+def test_mesh_run_on_one_card(cuda, ion_forces):
+    """run_ensemble over a 2 x 2 mesh of slots on the card launches its
+    schedule's kernels, and an ens-only mesh equals the unsharded fold
+    bit for bit."""
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    cfg = lc.CoolingConfig(n0=512, tmax=0.1, sample_freq=10)
+    counter = (ty.yukawa_forces_soa_cols_batched if ion_forces == "gather"
+               else ty.yukawa_forces_cross_n3l_soa_batched)
+    before = counter.launches
+    final, outs = lc.run_ensemble(cfg, 2, seed=1, ion_forces=ion_forces,
+                                  mesh=make_mesh(2, 2, devices=[cuda] * 4))
+    # per MD step: E on each of the 4 slots; F once per pair of ion blocks
+    # of each of the 2 member rows (the antipodal hop runs on one shard)
+    assert counter.launches - before == 50 * (4 if ion_forces == "gather"
+                                              else 2)
+    assert np.isfinite(final.R).all() and outs["t"].shape == (2, 5)
+    f0, _ = lc.run_ensemble(cfg, 2, seed=1, device=cuda)
+    f1, _ = lc.run_ensemble(cfg, 2, seed=1,
+                            mesh=make_mesh(2, 1, devices=[cuda] * 2))
+    for k in ("R", "V", "psi", "t_part"):
+        assert np.array_equal(getattr(f0, k), getattr(f1, k))
