@@ -30,6 +30,8 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      lanes with per-member Poissonian masks, a shared mask, and
      per-member 1/lambda; run-to-run determinism, exact-zero padded
      lanes, and an E=1 launch bitwise equal to the single-member kernel;
+     timed there and at the shape phase 17's ring run launches it (one
+     member's shard of 875 ions in 1792 lanes);
   9. the per-lane (sweep) variants of the tick kernel (explicit rolls)
      against their twin on a 4-member fold at the flagship shapes, each
      member with its own e0 and (om, om_dp), from the ground and the
@@ -54,10 +56,12 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      a float64 direct sum of the sampled R and V) and VZERO files and the
      checkpoint's vholder;
  15. kernel E (rows x gathered columns) against its plain version at the
-     shapes phase 17's gather run gives it (one member per slot, rows
-     1792 lanes of 875 ions, columns 4 x 1792), run to run, timed; then 2
-     Poissonian members per slot, and a member's own 3584 lanes as its
-     columns, bitwise against kernel C on real rows;
+     shapes and in the form phase 17's gather run launches it (one member
+     per slot, rows 1792 lanes of 875 ions with the shard's row mask
+     handed to the kernel, columns 4 x 1792), run to run, masked rows
+     exactly 0, timed; the same without the row mask; then 2 Poissonian
+     members per slot, and a member's own 3584 lanes as its columns,
+     bitwise against kernel C on real rows;
  16. kernel F (cross-block half pairs) against its plain version at the
      shapes phase 17's ring run gives it (two 1792-lane shards of 875 ions,
      one member), its rows against E(rows, cols B) and its reactions
@@ -75,8 +79,10 @@ Phases 7, 10, 11, 12 and 17 each set the launch counts to 0 just before
 they drive their path and read them just after.  The line before the last
 is a JSON object with one entry per kernel and form, each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
-over the memory rate, counted from this run's inputs: :func:`bound`);
-the last line is ``{"ok": true, "device": {...}}``.  Uses no JAX.
+over the memory rate, counted from this run's inputs: :func:`bound`)
+and two readings of its time (``ms``: device time; ``idle_card_ms``: from
+an idle card, the wrapper's host time included: :func:`cuda_ms`); the
+last line is ``{"ok": true, "device": {...}}``.  Uses no JAX.
 """
 
 from __future__ import annotations
@@ -170,8 +176,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, reps: int = N_TIMED) -> float:
-    """Median device milliseconds of ``fn()`` over ``reps`` launches."""
+# floats of the buffer whose in-place update (1 GiB read, 1 GiB written:
+# some 0.7 ms of memory traffic) occupies the card ahead of a timed call
+BALLAST_FLOATS = 1 << 28
+_ballast = []
+
+
+def cuda_ms(torch, fn, reps: int = N_TIMED, head_start: bool = True) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` calls, between two CUDA
+    events.  With ``head_start`` a long memory-bound update is queued ahead
+    of the start event, so the host has enqueued the whole call before the
+    card reaches it: device time, also for a call whose kernels take less
+    time than its Python wrapper.  Without it the card is idle when the
+    call begins, and the reading holds whatever of the wrapper's host time
+    the kernels do not cover (what a path pays for the call when nothing
+    else keeps the card busy; the clock of this script's earlier
+    versions)."""
+    if head_start and not _ballast:
+        _ballast.append(torch.zeros(BALLAST_FLOATS, device="cuda"))
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -179,12 +201,24 @@ def cuda_ms(torch, fn, reps: int = N_TIMED) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if head_start:
+            _ballast[0].add_(1.0)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(torch, fn):
+    """Both readings of a kernel's wrapper: (device ms, ms from an idle
+    card), see :func:`cuda_ms`."""
+    return cuda_ms(torch, fn), cuda_ms(torch, fn, head_start=False)
+
+
+def both(ms: float, idle: float) -> str:
+    return f"{ms:.4f} ms ({idle:.4f} from an idle card)"
 
 
 def check_force_kernel(torch, L, ldeb):
@@ -211,12 +245,13 @@ def check_force_kernel(torch, L, ldeb):
         raise SystemExit("force kernel is not deterministic run to run")
     if float(F[:, n:].abs().max()) != 0.0:
         raise SystemExit("force kernel: padded lanes are not exactly zero")
-    ms = cuda_ms(torch, lambda: ty.yukawa_forces_n3l_soa(Rp, mask, L, ldeb))
+    ms, idle = kernel_ms(torch, lambda: ty.yukawa_forces_n3l_soa(
+        Rp, mask, L, ldeb))
     plain = cuda_ms(torch, lambda: ty.yukawa_forces_n3l_soa_reference(
         Rp, mask, L, ldeb))
-    log(f"[force] kernel {ms:.4f} ms, plain torch {plain:.4f} ms "
+    log(f"[force] kernel {both(ms, idle)}, plain torch {plain:.4f} ms "
         f"(median of {N_TIMED})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    return dict(max_abs_err=err, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **bound(half_pairs([n]) * PAIR_OPS, 4 * 7 * npad))
 
 
@@ -301,13 +336,13 @@ def check_tick_kernel(torch, cfg, L, ldeb):
     spec, c = sched.fused_spec, excited
     rolls = torch.rand((spec.ratio * 5, npad), generator=g, device=dev)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
-    ms = cuda_ms(torch, lambda: tf.fused_md_substeps(
+    ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
         spec, False, *args, tick0=1000, tables=sched.tables))
     plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
         spec, False, *args, sched.tables, tick0=1000), reps=20)
-    log(f"[ticks] kernel {ms:.4f} ms, plain torch {plain:.4f} ms per "
+    log(f"[ticks] kernel {both(ms, idle)}, plain torch {plain:.4f} ms per "
         f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+    return dict(max_abs_err=worst, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **tick_bound(spec, n, npad))
 
 
@@ -356,14 +391,15 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
                                          f"[ticks-rng] {name}"))
     spec, c = sched.fused_spec, excited
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im)
-    ms = cuda_ms(torch, lambda: tf.fused_md_substeps(
+    ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
         spec, False, *args, tick0=4321, tables=sched.tables, seed=seed))
     plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
         spec, False, *args, None, sched.tables, tick0=4321, seed=seed),
         reps=20)
-    log(f"[ticks-rng] kernel {ms:.4f} ms, plain torch {plain:.4f} ms per "
+    log(f"[ticks-rng] kernel {both(ms, idle)}, plain torch {plain:.4f} ms per "
         f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
-    out["fused_ticks_rng"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+    out["fused_ticks_rng"] = dict(max_abs_err=worst, ms=ms,
+                                  idle_card_ms=idle, plain_ms=plain,
                                   **tick_bound(spec, n, npad))
 
     E = 4
@@ -397,16 +433,17 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
                 torch, spec, res, ref, onE, E * MAX_DIVERGED_LANES,
                 f"[ticks-rng] {key[12:]}, {name} start, E={E} x {npad}"))
         args = (exc.R, exc.V, FE, exc.tp, exc.psi_re, exc.psi_im)
-        ms = cuda_ms(torch, lambda: tf.fused_md_substeps(
+        ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
             spec, False, *args, tick0=4321, tables=sc.tables, e0_lanes=e0p,
             om_lanes=omp, seed=seed))
         plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
             spec, False, *args, None, sc.tables, tick0=4321, e0_lanes=e0p,
             om_lanes=omp, seed=seed), reps=10)
-        log(f"[ticks-rng] {key[12:]}: kernel {ms:.4f} ms, plain torch "
+        log(f"[ticks-rng] {key[12:]}: kernel {both(ms, idle)}, plain torch "
             f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} "
             f"fold (median of {N_TIMED}/10)")
-        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+        out[key] = dict(max_abs_err=worst, ms=ms, idle_card_ms=idle,
+                        plain_ms=plain,
                         **tick_bound(spec, E * n, E * npad))
     return out
 
@@ -476,11 +513,11 @@ def check_potential_kernels(torch, L, ldeb):
                                  f"{want}), rel errs F {ef} pot {ep}")
     log(f"[potential] best_forces_fn (use_pallas, n3l, [A, D] launches, rel "
         f"err F, rel err pot): {modes}")
-    ms_d = cuda_ms(torch, lambda: ty.yukawa_forces_potential_pallas(
+    ms_d, idle_d = kernel_ms(torch, lambda: ty.yukawa_forces_potential_pallas(
         R, L, ldeb))
     plain_d = cuda_ms(torch, lambda: ty.yukawa_forces_potential(R, L, ldeb),
                       reps=10)
-    log(f"[potential] D at N={n}: kernel {ms_d:.4f} ms, plain torch "
+    log(f"[potential] D at N={n}: kernel {both(ms_d, idle_d)}, plain torch "
         f"{plain_d:.4f} ms (median of {N_TIMED}/10)")
 
     E = 8
@@ -512,11 +549,12 @@ def check_potential_kernels(torch, L, ldeb):
     if float(((eb - er) / er).abs().max()) > POTENTIAL_TOL:
         raise SystemExit(f"per-member potentials from G {eb.tolist()} vs twin "
                          f"{er.tolist()}")
-    ms_g = cuda_ms(torch, lambda: ty.yukawa_forces_potential_pallas_batched(
-        RE, L, ldeb, mask=masks))
+    ms_g, idle_g = kernel_ms(
+        torch, lambda: ty.yukawa_forces_potential_pallas_batched(
+            RE, L, ldeb, mask=masks))
     plain_g = cuda_ms(torch, lambda: [ty.yukawa_forces_potential(
         RE[j], L, ldeb, masks[j]) for j in range(E)], reps=10)
-    log(f"[potential] G at E={E}: kernel {ms_g:.4f} ms, plain torch "
+    log(f"[potential] G at E={E}: kernel {both(ms_g, idle_g)}, plain torch "
         f"{plain_g:.4f} ms (median of {N_TIMED}/10)")
     # the fold's sample-time potential: a per-member loop of the
     # plain twin against one G launch (host clock, each ends in a sync)
@@ -541,10 +579,12 @@ def check_potential_kernels(torch, L, ldeb):
         + " (host clock to sync, median of 10)")
     npad_d = -(-n // 512) * 512
     npad_g = -(-n_arr // 512) * 512
-    return (dict(max_abs_err=worst_d, ms=ms_d, plain_ms=plain_d,
+    return (dict(max_abs_err=worst_d, ms=ms_d, idle_card_ms=idle_d,
+                 plain_ms=plain_d,
                  **bound(half_pairs([n]) * (PAIR_OPS + POT_OPS),
                          4 * 8 * npad_d)),
-            dict(max_abs_err=worst_g, ms=ms_g, plain_ms=plain_g,
+            dict(max_abs_err=worst_g, ms=ms_g, idle_card_ms=idle_g,
+                 plain_ms=plain_g,
                  **bound(half_pairs(n_js) * (PAIR_OPS + POT_OPS),
                          4 * 8 * E * npad_g)))
 
@@ -656,13 +696,23 @@ def check_batched_force_kernel(torch, L, ldeb):
                          "kernel")
     log("[forces-E] E=1 batched launch bitwise equal to the single-member "
         "kernel")
-    ms = cuda_ms(torch, lambda: ty.yukawa_forces_n3l_soa_batched(
+    ms, idle = kernel_ms(torch, lambda: ty.yukawa_forces_n3l_soa_batched(
         Rp, masks, E, L, ldeb))
     plain = cuda_ms(torch, lambda: ty.yukawa_forces_n3l_soa_batched_reference(
         Rp, masks, E, L, ldeb), reps=10)
-    log(f"[forces-E] kernel {ms:.4f} ms, plain torch {plain:.4f} ms for "
+    log(f"[forces-E] kernel {both(ms, idle)}, plain torch {plain:.4f} ms for "
         f"E={E} (median of {N_TIMED}/10)")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+    # kernel C as the ring schedule of phase 17 launches it: one member's
+    # shard of 875 ions in 1792 lanes
+    shard = torch.zeros((1, MESH_NPAD), device=dev)
+    shard[0, :3500 // MESH_I] = 1.0
+    Rs = torch.rand((3, MESH_NPAD), generator=g, device=dev) * L * shard
+    ms_ring = cuda_ms(torch, lambda: ty.yukawa_forces_n3l_soa_batched(
+        Rs, shard, MESH_E_LOC, L, ldeb))
+    log(f"[forces-E] kernel {ms_ring:.4f} ms at the ring run's shape "
+        f"(E_loc={MESH_E_LOC}, {int(shard.sum())} ions in {MESH_NPAD} lanes; "
+        f"median of {N_TIMED})")
+    return dict(max_abs_err=worst, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **bound(half_pairs(n_js) * PAIR_OPS, 4 * 7 * E * npad))
 
 
@@ -714,16 +764,17 @@ def check_lane_kernels(torch, cfg):
         c = excited
         rolls = torch.rand((spec.ratio * 5, E * npad), generator=g, device=dev)
         args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
-        ms = cuda_ms(torch, lambda: tf.fused_md_substeps(
+        ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
             spec, False, *args, tick0=1000, tables=sched.tables, e0_lanes=e0p,
             om_lanes=omp))
         plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
             spec, False, *args, sched.tables, tick0=1000, e0_lanes=e0p,
             om_lanes=omp), reps=10)
-        log(f"[ticks-lane] {key}: kernel {ms:.4f} ms, plain torch "
+        log(f"[ticks-lane] {key}: kernel {both(ms, idle)}, plain torch "
             f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} fold "
             f"(median of {N_TIMED}/10)")
-        out[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain,
+        out[key] = dict(max_abs_err=worst, ms=ms, idle_card_ms=idle,
+                        plain_ms=plain,
                         **tick_bound(spec, E * n, E * npad))
     return out
 
@@ -1063,18 +1114,28 @@ def _lanes(R):
 MESH_K, MESH_I, MESH_E_LOC, MESH_NPAD = 2, 4, 1, 1792
 
 
-def _cols_check(torch, L, ldeb, E, cols, cmask, what):
-    """Kernel E on shard 0's rows against ``cols``: its plain version and
-    run to run.  Returns (max abs err, max|F|, rows)."""
+def _cols_check(torch, L, ldeb, E, cols, cmask, what, row_mask=None):
+    """Kernel E on shard 0's rows against ``cols``, with ``row_mask`` as
+    the gather schedule launches it or without: its plain version, run to
+    run, and the rows the mask clears exactly 0.  Returns (max abs err,
+    rows)."""
     from mdqtplasmasims_torch.ops import yukawa as ty
     rows = _lanes(cols[:, :MESH_NPAD])
-    F = ty.yukawa_forces_soa_cols_batched(rows, cols, cmask, E, L, ldeb)
-    F2 = ty.yukawa_forces_soa_cols_batched(rows, cols, cmask, E, L, ldeb)
-    ref = ty.yukawa_forces_soa_cols_batched_reference(rows, cols, cmask, E,
-                                                      L, ldeb)
+    F = ty.yukawa_forces_soa_cols_batched(rows, cols, cmask, E, L, ldeb,
+                                          row_mask=row_mask)
+    F2 = ty.yukawa_forces_soa_cols_batched(rows, cols, cmask, E, L, ldeb,
+                                           row_mask=row_mask)
+    ref = ty.yukawa_forces_soa_cols_batched_reference(
+        rows, cols, cmask, E, L, ldeb, row_mask=row_mask)
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     err = float((F - ref).abs().max())
+    if row_mask is not None:
+        dead = row_mask.expand(E, MESH_NPAD).reshape(-1) == 0
+        what += (f" with the row mask ({int(dead.sum())} cleared rows, max "
+                 f"|F| there {float(F[:, dead].abs().max()):g})")
+        if float(F[:, dead].abs().max()) != 0.0:
+            raise SystemExit("kernel E: masked rows are not exactly zero")
     log(f"[cols] E {what}: rows [3,{E}x{MESH_NPAD}] x cols "
         f"{list(cols.shape)}, real columns "
         f"{[int(x) for x in cmask.sum(-1).reshape(-1).tolist()]}: max|F| "
@@ -1092,19 +1153,27 @@ def check_cols_kernel(torch, L, ldeb):
     """Phase 15: kernel E against its plain version at the shapes the mesh
     run of phase 17 gives it (one member per slot, rows 1792 lanes of 875
     ions against the 4 x 1792 gathered columns, the column mask in the
-    per-member form the gather schedule passes), run to run, and timed;
-    then 2 Poissonian members per slot against the plain version, and a
-    member's own lanes as columns against kernel C."""
+    per-member form the gather schedule passes and the shard's row mask
+    handed to the kernel as ``_gather_forces`` does), run to run, masked
+    rows exactly 0, and timed in that form; the same without the row mask;
+    then 2 Poissonian members per slot against the plain version, masked
+    and not, and a member's own lanes as columns against kernel C."""
     from mdqtplasmasims_torch.core.init import poisson_member_mask
     from mdqtplasmasims_torch.ops import yukawa as ty
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(51)
     E, I, npad = MESH_E_LOC, MESH_I, MESH_NPAD
     cols, cmask, _ = _shard_blocks(torch, g, L, E, I, npad)
+    # the shard's mask row as the mesh stepper holds it: [1, npad], shared
+    # by the slot's members
+    rmask = cmask[:1, :npad].contiguous()
     err, rows = _cols_check(torch, L, ldeb, E, cols, cmask,
-                            "at the mesh run's shapes")
+                            "at the mesh run's shapes", rmask)
+    _cols_check(torch, L, ldeb, E, cols, cmask, "at the mesh run's shapes")
     # two Poissonian members per slot: per-member masks
     cols2, cmask2, _ = _shard_blocks(torch, g, L, 2, I, npad, seed=8)
+    _cols_check(torch, L, ldeb, 2, cols2, cmask2, "2 Poissonian members",
+                cmask2[:, :npad].contiguous())
     _cols_check(torch, L, ldeb, 2, cols2, cmask2, "2 Poissonian members")
     # a member's own lanes as its columns: kernel C's forces bit for bit
     m, n2 = poisson_member_mask(3500, 2, 9)
@@ -1124,16 +1193,20 @@ def check_cols_kernel(torch, L, ldeb):
         f"{float((Fc[:, real] - Fe[:, real]).abs().max()):.3g})")
     if not same:
         raise SystemExit("kernel E on a member's own lanes differs from C")
-    ms = cuda_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched(
-        rows, cols, cmask, E, L, ldeb))
+    ms, idle = kernel_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched(
+        rows, cols, cmask, E, L, ldeb, row_mask=rmask))
     plain = cuda_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched_reference(
-        rows, cols, cmask, E, L, ldeb), reps=10)
-    log(f"[cols] E kernel {ms:.4f} ms, plain torch {plain:.4f} ms at the "
-        f"mesh run's shapes (median of {N_TIMED}/10)")
+        rows, cols, cmask, E, L, ldeb, row_mask=rmask), reps=10)
+    bare = cuda_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched(
+        rows, cols, cmask, E, L, ldeb))
+    log(f"[cols] E kernel {both(ms, idle)}, plain torch {plain:.4f} ms at the "
+        f"mesh run's shapes with the row mask, as the gather schedule "
+        f"launches it (median of {N_TIMED}/10); without the row mask "
+        f"{bare:.4f} ms")
     pairs = sum(float(cmask[j, :npad].sum()) * float(cmask[j].sum())
                 for j in range(E))
     nbytes = 4 * (3 * E * npad + 4 * E * I * npad + 3 * E * npad)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    return dict(max_abs_err=err, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **bound(pairs * PAIR_OPS, nbytes))
 
 
@@ -1193,17 +1266,17 @@ def check_cross_kernel(torch, L, ldeb):
                  cm2[:, :npad].contiguous(), R2[:, npad:].contiguous(),
                  cm2[:, npad:].contiguous(), "2 Poissonian members")
     rows = _lanes(A)
-    ms = cuda_ms(torch, lambda: ty.yukawa_forces_cross_n3l_soa_batched(
+    ms, idle = kernel_ms(torch, lambda: ty.yukawa_forces_cross_n3l_soa_batched(
         rows, ma, B, mb, E, L, ldeb))
     plain = cuda_ms(torch, lambda: (
         ty.yukawa_forces_cross_n3l_soa_batched_reference(
             rows, ma, B, mb, E, L, ldeb)), reps=10)
-    log(f"[cross] F kernel {ms:.4f} ms, plain torch {plain:.4f} ms at the "
-        f"mesh run's shapes (median of {N_TIMED}/10)")
+    log(f"[cross] F kernel {both(ms, idle)}, plain torch {plain:.4f} ms at "
+        f"the mesh run's shapes (median of {N_TIMED}/10)")
     pairs = float(ma.sum()) * float(mb.sum())
     nbytes = 4 * (3 * E * npad + npad + 4 * E * npad + 3 * E * npad
                   + 3 * E * npad)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    return dict(max_abs_err=err, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **bound(pairs * (PAIR_OPS + REACTION_OPS), nbytes))
 
 

@@ -4,12 +4,12 @@
 // wraps it).
 //
 // Replaces six TPU kernels of mdqtplasmasims_tpu/ops/yukawa.py:
-//   A  _yukawa_n3l_kernel          (one member; yukawa_forces_launch)
-//   C  _yukawa_n3l_kernel_batched  (E members; yukawa_forces_batched_launch)
+//   A  _yukawa_n3l_kernel          (one member; yukawa_forces_launch, E = 1)
+//   C  _yukawa_n3l_kernel_batched  (E members; yukawa_forces_launch)
 //   D  _yukawa_kernel              (one member, + potential;
-//                                   yukawa_forces_pot_launch, E = 1)
+//                                   yukawa_forces_launch with pot, E = 1)
 //   G  _yukawa_kernel_batched      (E members, + potential;
-//                                   yukawa_forces_pot_launch)
+//                                   yukawa_forces_launch with pot)
 //   E  _yukawa_kernel_rows_cols_batched  (rows x a given column set;
 //                                   yukawa_forces_cols_launch)
 //   F  _yukawa_cross_n3l_kernel_batched  (two different ion blocks, each
@@ -34,57 +34,108 @@
 // E (the ion-sharded gather path: a shard's rows against the all-gathered
 // columns of its member) is the same kernel with another column operand:
 // the columns are read through strides (cols [E, ncols, 3] there, the
-// member's own lanes for A/C/D/G) and the rows carry no mask (the caller
-// masks them, as the JAX package's caller does).  The j loop and the
-// arithmetic are one code path, so E with the member's own lanes as its
-// columns gives kernel C's forces on every real row bit for bit.
+// member's own lanes for A/C/D/G).  Its rows carry a mask only when the
+// caller hands one over (the JAX entry has none and its caller multiplies
+// by the row mask afterwards; a masked row comes out exactly 0 either
+// way).  The sweep and the arithmetic are one code path, so E with the
+// member's own lanes as its columns gives kernel C's forces on every real
+// row bit for bit.
 //
 // F (the ring-N3L path: rows of one ion shard against the visiting block
-// of another shard of the same member) evaluates each (row, column) pair
-// ONCE: row sums accumulate per thread; the column reactions of a block's
-// 64 rows are summed in shared memory in a fixed row order and written as
-// one partial per (row block, column) to a buffer, which a second pass
-// sums over the row blocks in order (the JAX kernel's own g buffer,
-// reduced over the row-tile axis).  No float atomics, so F and G are
-// bitwise deterministic run to run (the repo's deterministic-forces
-// property).  G holds the NEGATED column sums: the reaction on the
+// of another shard of the same member) is the REACT form: each (row,
+// column) pair is evaluated ONCE, the row sums as in every form, and the
+// column sums of each row tile (the JAX kernel's own g buffer, reduced
+// over the row-tile axis) come out NEGATED in G: the reaction on the
 // visiting ions.
 //
-// What bounds these on the H100: arithmetic (about 30 FP32 operations, one
-// expf and one rsqrtf per pair; 12.8M ordered pairs per member at the
-// flagship Np=3584) and occupancy: one thread per ion gives Np/64 = 56
-// blocks of 64 threads per member.  One member (A) leaves 76 of the 132
-// SMs idle; E=8 members (C) give 448 blocks, all resident in one wave at
-// 3-4 blocks (6-8 warps of a possible 64) per SM, so every SM works but
-// each runs at about a tenth of its warp slots and latency stays exposed.
-// A mesh slot's E or F launch at 1792 rows per member gives 28 blocks per
-// member: the card is mostly idle.  F adds three shared-memory stores per
-// pair and a 64-term sum per (row block, column).
+// What bounds these on the H100: instruction slots, not arithmetic peak
+// and not bytes.  A pair is some 40-65 instructions (three rintf, an rsqrtf
+// and an expf in one dependent chain), the inputs are a few tens of KB,
+// and the card starts 132 SMs x 4 schedulers = 528 warp instructions per
+// cycle.  The launches are small: one member at the flagship Np=3584 is a
+// 3584 x 3584 rectangle (12.8M lane pairs), a mesh slot's E launch 1792 x
+// 7168, its F launch 1792 x 1792, and on the mesh only 875 of every 1792
+// lanes hold an ion.  So a form is fast when (1) every scheduler holds
+// several warps whatever the shape, (2) each warp has several independent
+// chains in flight, and (3) tiles of padding cost nothing.
 //
-// Design: grid (Np/64, E); one thread per ion i; member e's j positions
-// stream through shared memory in tiles of THREADS; each thread sums over
-// ALL j of its member (both triangles).  No atomics and no reaction
-// buffer, so every output is one fixed-order sum and the forces are
-// bitwise deterministic run to run.  A is the E=1 case of the same kernel,
-// so an E=1 launch with a shared mask is bitwise equal to A.  This
-// evaluates each pair twice; the half-pair (Newton's third law) schedule,
-// j-splitting across threads for occupancy, and wgmma/TMA staging are
-// later performance work.
+// Design, one template for every form (yukawa_pair_kernel<POT, REACT>):
+//  - The work of a member is its rows x columns rectangle, cut both ways:
+//    grid (row tiles, column chunks, members).  A block of 4 warps owns a
+//    ROW_TILE = 64 row tile; each thread carries 2 rows (lane, lane + 32),
+//    so one column read serves two independent pair chains.  The block's
+//    column chunk is swept in tiles of 32 columns, warp w taking tiles w,
+//    w + 4, ...  The chunk length (a multiple of COL_TILE = 128, one tile
+//    per warp) is chosen by the Python wrapper from (npad, ncols, E) alone
+//    (ops/yukawa.py: pair_split), aiming at 32 warps per scheduler, some
+//    three waves of resident blocks, so that the last wave is a small
+//    share: 1568 blocks for A and for E (128-column chunks, the finest),
+//    392 for F and for C at a mesh shard's 1792 lanes, 4480 for an
+//    8-member fold (384-column chunks).
+//  - A warp stages its 32 columns as one float4 (x, y, z, mask) each in
+//    its own 512 B of shared memory (no block barrier in the sweep).  At
+//    step k lane l reads column (l + k) mod 32: one conflict-free 128-bit
+//    load per two pairs.
+//  - Padding is skipped on the masks the kernel is given: a warp votes
+//    (__ballot_sync) on its 32 column masks and skips a tile with none
+//    set; a block whose 64 row masks are all 0 writes zeros and returns.
+//    A mask with holes is handled pair by pair as before.  Skipping is
+//    bitwise neutral (a skipped tile would add exact zeros).
+//  - Row sums: a thread sums its rows over its warp's tiles in sweep order;
+//    warps 1-3 pass their partials through shared memory and warp 0 adds
+//    them in warp order.  With one column chunk the block writes F (and
+//    pot) itself; with several it writes its partial to the wrapper's
+//    scratch part_f [chunks, 3|4, E*npad] and a second pass
+//    (yukawa_reduce_slabs) sums the chunks in order.
+//  - REACT (kernel F): the rotating schedule gives the column reactions
+//    without a tile in shared memory.  Lane l carries the running sum of
+//    column (l + k) mod 32 at step k, adds its two rows' terms, and hands
+//    it to lane l - 1 with one __shfl_sync per component; after 32 steps
+//    the sum of column c has met all 64 rows of the tile, rows c, c - 1,
+//    ... in a fixed order, and sits in lane c.  It goes (negated) to
+//    part_g [E, row tiles, npc, 3], which the same second pass sums over
+//    the row tiles in order.  Skipped tiles write zeros there.
+//  - No float atomics anywhere, and every sum has one fixed order given
+//    (npad, ncols, E): all outputs are bitwise equal run to run
+//    (PARITY.md delta 5), an E=1 launch of C is bitwise A, and E with a
+//    member's own lanes as its columns is bitwise C on real rows (same
+//    split, same sweep).
+// Each pair of A/C/D/G is still evaluated twice (both triangles); the
+// half-pair schedule inside one member is later work.
 //
-// Registers (nvcc 12.8 -O3 -Xptxas -v, sm_90a): 32 per thread in both
-// forms of the force kernel, no spills, 1 KB shared memory per block; at
-// 64 threads that allows 32 resident blocks per SM, so C's and G's 448
-// blocks fit in one wave.  F's pass 1: 49 registers, 25,472 B of shared
-// memory (8 resident blocks per SM); pass 2: 32.  chip_smoke.py prints
-// the counts of each build.
+// Registers and static shared memory (nvcc 12.8 -O3 -Xptxas -v, sm_90a;
+// chip_smoke.py prints them at each build): forces 47 registers and 4352
+// B, forces + potential 46 and 5120 B, the REACT form 46 and 4352 B, the
+// second pass 32 and none; no spills anywhere.  So 10 blocks (40 warps)
+// fit on an SM.
+//
+// Measured (tools/torch_pair_kernel_times.py, device time between two
+// events, median of 30; NVIDIA H100 80GB HBM3, 700.00 W): A 0.036 ms, D
+// 0.047 ms (3500 ions in 3584 lanes); C 0.205 ms, G 0.218 ms (an 8-member
+// Poissonian fold); E 0.024 ms (row-masked), F 0.018 ms, C 0.018 ms at a
+// mesh shard's 875 ions in 1792 lanes.  A member's 12.8M lane pairs take
+// about 25 us, some 65 scheduler cycles per pair and warp: the forms are
+// bound by the instructions of a pair (rintf as magic-number adds moved C
+// by 4 %, so not by the conversion/MUFU pipe), and a single member's
+// launch by its fixed cost besides (two launches, the last wave: about 10
+// us of A).  Rows per thread, in one command in turns on that card: four
+// rows (128-row tiles, 56-72 registers) gave A 0.037, D 0.049, C 0.201, G
+// 0.216, E 0.030, F 0.024, C on a shard 0.022 ms: two rows lose 2 % on the
+// 8-member fold and win 19-23 % at a mesh shard's shapes, where a 64-row
+// tile makes twice the blocks of a small launch and the skipped padding
+// is cut finer.
 //
 // Numerics match the JAX kernel's tile math (_half_pair_tile):
 // round-half-even minimum image (rintf, as jnp.round), strict r2 > 0 and
 // r2 < rcut2, the rsqrt form of 1/r.  Built without --use_fast_math.
 #include <cuda_runtime.h>
 
-#define THREADS 64
-#define CROSS_TJ 32          // F: columns per shared-memory reaction tile
+#define WARPS 4
+#define THREADS (32 * WARPS)
+#define RPT 2                      // rows per thread
+#define ROW_TILE (32 * RPT)        // rows per block
+#define COL_TILE (32 * WARPS)      // columns of one sweep of a block's warps
+#define FULL_WARP 0xffffffffu
 
 // The force factor ft of one pair (0 for an invalid pair) and, with POT,
 // its potential term; dx/dy/dz come back minimum-imaged.
@@ -105,235 +156,296 @@ __device__ __forceinline__ float pair_ft(float& dx, float& dy, float& dz,
   return ex * (inv_r + il) * inv_r * inv_r;
 }
 
-// Rows: member e's lanes of Rp [3, E*npad] (rmask NULL: no row mask).
+// Grid (npad / ROW_TILE, column chunks, E).
+// Rows: member e's lanes of Rp [3, E*npad], masked by rmask[e*rmask_stride
+// + i] (rmask NULL: no row mask).
 // Columns: element j of member e, component c at
 // cols[e*col_member + c*col_comp + j*col_elem], j < ncols, masked by
-// cmask[e*cmask_stride + j].
-template <bool POT>
+// cmask[e*cmask_stride + j]; this block takes j in [blockIdx.y * chunk,
+// + chunk).
+// Row sums go to F / pot with one chunk, else to part_f [chunks, 3|4,
+// E*npad]; with REACT the negated column sums of this row tile go to
+// part_g [E, row tiles, ncols, 3].
+template <bool POT, bool REACT>
 __global__ void __launch_bounds__(THREADS)
-yukawa_forces_kernel(const float* __restrict__ Rp,
-                     const float* __restrict__ rmask, int rmask_stride,
-                     const float* __restrict__ cols, int col_member,
-                     int col_comp, int col_elem, int ncols,
-                     const float* __restrict__ cmask, int cmask_stride,
-                     const float* __restrict__ inv_ldeb_e,
-                     float* __restrict__ F, float* __restrict__ pot,
-                     int npad, int n_members, float L, float inv_L,
-                     float rcut2, float inv_ldeb) {
-  __shared__ float sx[THREADS], sy[THREADS], sz[THREADS], sm[THREADS];
-  const int t = threadIdx.x;
-  const int e = blockIdx.y;
+yukawa_pair_kernel(const float* __restrict__ Rp,
+                   const float* __restrict__ rmask, int rmask_stride,
+                   const float* __restrict__ cols, int col_member,
+                   int col_comp, int col_elem, int ncols, int chunk,
+                   const float* __restrict__ cmask, int cmask_stride,
+                   const float* __restrict__ inv_ldeb_e,
+                   float* __restrict__ F, float* __restrict__ pot,
+                   float* __restrict__ part_f, float* __restrict__ part_g,
+                   int npad, int n_members, float L, float inv_L,
+                   float rcut2, float inv_ldeb) {
+  constexpr int NV = POT ? 4 : 3;
+  __shared__ float4 stage[WARPS][32];
+  __shared__ float red[WARPS - 1][NV][ROW_TILE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.z;
   const size_t row = (size_t)n_members * npad;    // stride between x, y, z
-  const float* X = Rp + (size_t)e * npad;
+  const int i0 = blockIdx.x * ROW_TILE + lane;    // this thread's first row
+  const size_t q0 = (size_t)e * npad + i0;        // its lane in the fold
+  float* out = gridDim.y == 1 ? F : part_f + (size_t)blockIdx.y * NV * row;
+  float* out_u = gridDim.y == 1 ? pot : out + 3 * row;
+  const int j_begin = blockIdx.y * chunk;
+  const int j_end = min(j_begin + chunk, ncols);
+  float* P = REACT ? part_g + ((size_t)e * gridDim.x + blockIdx.x) * ncols * 3
+                   : nullptr;
+
+  float xi[RPT], yi[RPT], zi[RPT];
+  bool mi[RPT];
+  bool any_row = false;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    xi[r] = Rp[q0 + 32 * r];
+    yi[r] = Rp[row + q0 + 32 * r];
+    zi[r] = Rp[2 * row + q0 + 32 * r];
+    mi[r] = rmask ? rmask[(size_t)e * rmask_stride + i0 + 32 * r] > 0.f
+                  : true;
+    any_row |= mi[r];
+  }
+  // every warp of the block holds the same ROW_TILE rows, so all agree
+  if (__ballot_sync(FULL_WARP, any_row) == 0) {
+    if (warp == 0) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        out[q0 + 32 * r] = 0.f;
+        out[row + q0 + 32 * r] = 0.f;
+        out[2 * row + q0 + 32 * r] = 0.f;
+        if (POT) out_u[q0 + 32 * r] = 0.f;
+      }
+    }
+    if (REACT)
+      for (int j = 3 * j_begin + threadIdx.x; j < 3 * j_end; j += THREADS)
+        P[j] = 0.f;
+    return;
+  }
+
+  const float il = inv_ldeb_e ? inv_ldeb_e[e] : inv_ldeb;
   const float* C = cols + (size_t)e * col_member;
   const float* CM = cmask + (size_t)e * cmask_stride;
-  const float il = inv_ldeb_e ? inv_ldeb_e[e] : inv_ldeb;
-  const int i = blockIdx.x * THREADS + t;   // npad % THREADS == 0
-  const float xi = X[i], yi = X[row + i], zi = X[2 * row + i];
-  const bool mi = rmask ? rmask[(size_t)e * rmask_stride + i] > 0.f : true;
-  float fx = 0.f, fy = 0.f, fz = 0.f, u = 0.f;
-  for (int j0 = 0; j0 < ncols; j0 += THREADS) {
-    __syncthreads();
-    const size_t j = (size_t)(j0 + t) * col_elem;
-    sx[t] = C[j];
-    sy[t] = C[col_comp + j];
-    sz[t] = C[2 * (size_t)col_comp + j];
-    sm[t] = CM[j0 + t];
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < THREADS; ++k) {
-      float dx = xi - sx[k];
-      float dy = yi - sy[k];
-      float dz = zi - sz[k];
-      const float ft = pair_ft<POT>(dx, dy, dz, mi && (sm[k] > 0.f), L,
-                                    inv_L, rcut2, il, u);
-      fx += dx * ft;
-      fy += dy * ft;
-      fz += dz * ft;
+  float fx[RPT], fy[RPT], fz[RPT], u[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) fx[r] = fy[r] = fz[r] = u[r] = 0.f;
+
+  for (int j0 = j_begin + 32 * warp; j0 < j_end; j0 += COL_TILE) {
+    const int j = j0 + lane;
+    const float m = CM[j];
+    if (__ballot_sync(FULL_WARP, m > 0.f) == 0) {      // a tile of padding
+      if (REACT) P[3 * j] = P[3 * j + 1] = P[3 * j + 2] = 0.f;
+      continue;
+    }
+    const size_t jc = (size_t)j * col_elem;
+    __syncwarp();                     // the last tile's reads are done
+    stage[warp][lane] = make_float4(C[jc], C[col_comp + jc],
+                                    C[2 * (size_t)col_comp + jc], m);
+    __syncwarp();
+    float gx = 0.f, gy = 0.f, gz = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < 32; ++k) {
+      const float4 c = stage[warp][(lane + k) & 31];
+      const bool mc = c.w > 0.f;
+      float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        float dx = xi[r] - c.x;
+        float dy = yi[r] - c.y;
+        float dz = zi[r] - c.z;
+        const float ft = pair_ft<POT>(dx, dy, dz, mi[r] && mc, L, inv_L,
+                                      rcut2, il, u[r]);
+        const float px = dx * ft, py = dy * ft, pz = dz * ft;
+        fx[r] += px;
+        fy[r] += py;
+        fz[r] += pz;
+        if (REACT) {
+          sx += px;
+          sy += py;
+          sz += pz;
+        }
+      }
+      if (REACT) {       // the column's sum moves on with its column
+        gx = __shfl_sync(FULL_WARP, gx + sx, (lane + 1) & 31);
+        gy = __shfl_sync(FULL_WARP, gy + sy, (lane + 1) & 31);
+        gz = __shfl_sync(FULL_WARP, gz + sz, (lane + 1) & 31);
+      }
+    }
+    if (REACT) {         // after 32 steps lane l holds column l's sum
+      P[3 * j] = -gx;
+      P[3 * j + 1] = -gy;
+      P[3 * j + 2] = -gz;
     }
   }
-  float* G = F + (size_t)e * npad;
-  G[i] = fx;
-  G[row + i] = fy;
-  G[2 * row + i] = fz;
-  if (POT) pot[(size_t)e * npad + i] = u;
-}
 
-// F, pass 1: grid (npad/THREADS, E).  Row sums of member e's rows into F;
-// the block's column reactions -sum_i f_ij, one per (row block, column),
-// into part [E, n_row_blocks, npc, 3].
-__global__ void __launch_bounds__(THREADS)
-yukawa_cross_kernel(const float* __restrict__ Rp,
-                    const float* __restrict__ rmask, int rmask_stride,
-                    const float* __restrict__ cols,
-                    const float* __restrict__ cmask, int cmask_stride,
-                    float* __restrict__ F, float* __restrict__ part,
-                    int npad, int npc, int n_members, float L, float inv_L,
-                    float rcut2, float inv_ldeb) {
-  __shared__ float sx[CROSS_TJ], sy[CROSS_TJ], sz[CROSS_TJ], sm[CROSS_TJ];
-  // [3][CROSS_TJ][THREADS + 1]: row stride 65 keeps both the per-row
-  // stores and the per-column sums free of bank conflicts
-  __shared__ float gs[3 * CROSS_TJ * (THREADS + 1)];
-  const int t = threadIdx.x;
-  const int e = blockIdx.y;
-  const int nrb = gridDim.x;
-  const size_t row = (size_t)n_members * npad;
-  const float* X = Rp + (size_t)e * npad;
-  const float* C = cols + (size_t)e * npc * 3;
-  const float* CM = cmask + (size_t)e * cmask_stride;
-  const int i = blockIdx.x * THREADS + t;
-  const float xi = X[i], yi = X[row + i], zi = X[2 * row + i];
-  const bool mi = rmask[(size_t)e * rmask_stride + i] > 0.f;
-  float* P = part + ((size_t)e * nrb + blockIdx.x) * npc * 3;
-  float fx = 0.f, fy = 0.f, fz = 0.f, u = 0.f;
-  for (int j0 = 0; j0 < npc; j0 += CROSS_TJ) {
-    __syncthreads();
-    if (t < CROSS_TJ) {
-      const size_t j = (size_t)(j0 + t) * 3;
-      sx[t] = C[j];
-      sy[t] = C[j + 1];
-      sz[t] = C[j + 2];
-      sm[t] = CM[j0 + t];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < CROSS_TJ; ++k) {
-      float dx = xi - sx[k];
-      float dy = yi - sy[k];
-      float dz = zi - sz[k];
-      const float ft = pair_ft<false>(dx, dy, dz, mi && (sm[k] > 0.f), L,
-                                      inv_L, rcut2, inv_ldeb, u);
-      const float gx = dx * ft, gy = dy * ft, gz = dz * ft;
-      fx += gx;
-      fy += gy;
-      fz += gz;
-      gs[(0 * CROSS_TJ + k) * (THREADS + 1) + t] = gx;
-      gs[(1 * CROSS_TJ + k) * (THREADS + 1) + t] = gy;
-      gs[(2 * CROSS_TJ + k) * (THREADS + 1) + t] = gz;
-    }
-    __syncthreads();
-    // 3*CROSS_TJ column sums over the block's rows, each in row order
-    for (int q = t; q < 3 * CROSS_TJ; q += THREADS) {
-      const float* g = gs + q * (THREADS + 1);
-      float s = 0.f;
-      for (int r = 0; r < THREADS; ++r) s += g[r];
-      const int c = q / CROSS_TJ, k = q % CROSS_TJ;
-      P[(size_t)(j0 + k) * 3 + c] = -s;
+  // the block's row sums: warp 0's partial plus warps 1, 2, 3 in order
+  if (warp > 0) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      red[warp - 1][0][lane + 32 * r] = fx[r];
+      red[warp - 1][1][lane + 32 * r] = fy[r];
+      red[warp - 1][2][lane + 32 * r] = fz[r];
+      if (POT) red[warp - 1][NV - 1][lane + 32 * r] = u[r];
     }
   }
-  float* Fo = F + (size_t)e * npad;
-  Fo[i] = fx;
-  Fo[row + i] = fy;
-  Fo[2 * row + i] = fz;
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+      for (int w = 0; w < WARPS - 1; ++w) {
+        fx[r] += red[w][0][lane + 32 * r];
+        fy[r] += red[w][1][lane + 32 * r];
+        fz[r] += red[w][2][lane + 32 * r];
+        if (POT) u[r] += red[w][NV - 1][lane + 32 * r];
+      }
+      out[q0 + 32 * r] = fx[r];
+      out[row + q0 + 32 * r] = fy[r];
+      out[2 * row + q0 + 32 * r] = fz[r];
+      if (POT) out_u[q0 + 32 * r] = u[r];
+    }
+  }
 }
 
-// F, pass 2: G[e, j, c] = sum over row blocks b (in order) of part[e, b,
-// j, c]; one thread per output value.
-__global__ void yukawa_cross_reduce(const float* __restrict__ part,
-                                    float* __restrict__ G, int nrb,
-                                    int npc, int n_members) {
+// The second pass: n_outer groups of n_slab slabs of `per` floats each,
+// summed over the slabs in order: out[o * per + i] = sum_b part[(o * n_slab
+// + b) * per + i].  The first n_a outputs go to out_a, the rest to out_b.
+// Rows: one group of the column chunks' partials, F then pot.  Reactions:
+// a group per member of its row tiles' partials.
+struct Slabs {
+  const float* part;
+  float* out_a;
+  float* out_b;
+  size_t n_a, per;
+  int n_slab, n_outer;
+};
+
+__global__ void yukawa_reduce_slabs(Slabs rows, Slabs cols) {
+  const Slabs s = blockIdx.y == 0 ? rows : cols;
   const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t per = (size_t)npc * 3;
-  if (q >= per * n_members) return;
-  const size_t e = q / per, jc = q % per;
-  const float* p = part + e * nrb * per + jc;
-  float s = 0.f;
-  for (int b = 0; b < nrb; ++b) s += p[b * per];
-  G[q] = s;
+  if (q >= s.per * s.n_outer) return;
+  const float* p = s.part + (q / s.per) * s.n_slab * s.per + q % s.per;
+  float sum = 0.f;
+  for (int b = 0; b < s.n_slab; ++b) sum += p[b * s.per];
+  if (q < s.n_a) s.out_a[q] = sum;
+  else s.out_b[q - s.n_a] = sum;
 }
+
+namespace {
+
+struct PairLaunch {
+  const float* Rp;
+  const float* rmask;
+  int rmask_stride;
+  const float* cols;
+  int col_member, col_comp, col_elem, ncols, chunk;
+  const float* cmask;
+  int cmask_stride;
+  const float* inv_ldeb_e;
+  float* F;
+  float* pot;       // non-NULL: the potential form
+  float* part_f;    // [chunks, 3|4, E*npad], needed with several chunks
+  float* G;         // non-NULL: the reaction form (kernel F)
+  float* part_g;    // [E, npad / ROW_TILE, ncols, 3]
+  int npad, n_members;
+  float L, inv_L, rcut2, inv_ldeb;
+};
+
+int launch_pairs(const PairLaunch& a, cudaStream_t st) {
+  if (a.npad <= 0 || a.npad % ROW_TILE != 0 || a.ncols <= 0 ||
+      a.ncols % COL_TILE != 0 || a.chunk <= 0 || a.chunk % COL_TILE != 0 ||
+      a.n_members < 1 || a.n_members > 65535 ||
+      (a.rmask_stride != 0 && a.rmask_stride != a.npad) ||
+      (a.cmask_stride != 0 && a.cmask_stride != a.ncols) ||
+      (a.pot && a.G) || (a.G && !a.part_g))
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (a.ncols + a.chunk - 1) / a.chunk;
+  const int n_tiles = a.npad / ROW_TILE;
+  if (n_chunks > 65535 || (n_chunks > 1 && !a.part_f))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_tiles, n_chunks, a.n_members);
+#define PAIR_ARGS                                                          \
+  a.Rp, a.rmask, a.rmask_stride, a.cols, a.col_member, a.col_comp,        \
+      a.col_elem, a.ncols, a.chunk, a.cmask, a.cmask_stride, a.inv_ldeb_e, \
+      a.F, a.pot, a.part_f, a.part_g, a.npad, a.n_members, a.L, a.inv_L,   \
+      a.rcut2, a.inv_ldeb
+  if (a.pot)
+    yukawa_pair_kernel<true, false><<<grid, THREADS, 0, st>>>(PAIR_ARGS);
+  else if (a.G)
+    yukawa_pair_kernel<false, true><<<grid, THREADS, 0, st>>>(PAIR_ARGS);
+  else
+    yukawa_pair_kernel<false, false><<<grid, THREADS, 0, st>>>(PAIR_ARGS);
+#undef PAIR_ARGS
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || (n_chunks == 1 && !a.G)) return (int)err;
+  const size_t lanes = (size_t)a.n_members * a.npad;
+  const size_t nv = a.pot ? 4 : 3;
+  // with one chunk the rows are written already: an empty job
+  const Slabs rows = {a.part_f, a.F, a.pot, 3 * lanes, nv * lanes,
+                      n_chunks, n_chunks > 1 ? 1 : 0};
+  const size_t per_g = (size_t)a.ncols * 3;
+  const Slabs cols = {a.part_g, a.G, nullptr, per_g * a.n_members, per_g,
+                      n_tiles, a.n_members};
+  const size_t n_rows = rows.per * rows.n_outer;
+  const size_t n_cols = a.G ? cols.per * cols.n_outer : 0;
+  const size_t n_max = n_rows > n_cols ? n_rows : n_cols;
+  yukawa_reduce_slabs<<<dim3((unsigned)((n_max + 255) / 256), a.G ? 2 : 1),
+                        256, 0, st>>>(rows, cols);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
-// E members, forces and (pot non-NULL) the potential: Rp/F [3, E*npad],
-// pot [E*npad]; mask [E, npad] (mask_stride = npad) or [1, npad]
-// (mask_stride = 0); inv_ldeb_e [E] or NULL (scalar inv_ldeb)
-int yukawa_forces_pot_launch(const float* Rp, const float* mask,
-                             int mask_stride, const float* inv_ldeb_e,
-                             float* F, float* pot, int npad, int n_members,
-                             float L, float inv_L, float rcut2,
-                             float inv_ldeb, void* stream) {
-  if (npad <= 0 || npad % THREADS != 0 || n_members < 1 ||
-      n_members > 65535 || (mask_stride != 0 && mask_stride != npad))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(npad / THREADS, n_members);
-  const int comp = n_members * npad;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (pot)
-    yukawa_forces_kernel<true><<<grid, THREADS, 0, st>>>(
-        Rp, mask, mask_stride, Rp, npad, comp, 1, npad, mask, mask_stride,
-        inv_ldeb_e, F, pot, npad, n_members, L, inv_L, rcut2, inv_ldeb);
-  else
-    yukawa_forces_kernel<false><<<grid, THREADS, 0, st>>>(
-        Rp, mask, mask_stride, Rp, npad, comp, 1, npad, mask, mask_stride,
-        inv_ldeb_e, F, nullptr, npad, n_members, L, inv_L, rcut2, inv_ldeb);
-  return (int)cudaGetLastError();
+// Kernels A, C, D, G: E members against their own lanes.  Rp/F [3,
+// E*npad], pot [E*npad] or NULL (forces only); mask [E, npad]
+// (mask_stride = npad) or [1, npad] (mask_stride = 0); inv_ldeb_e [E] or
+// NULL (scalar inv_ldeb); columns in chunks of `chunk`; part_f the
+// caller's scratch [chunks, 3|4, E*npad] (NULL with one chunk)
+int yukawa_forces_launch(const float* Rp, const float* mask, int mask_stride,
+                         const float* inv_ldeb_e, float* F, float* pot,
+                         float* part_f, int npad, int n_members, int chunk,
+                         float L, float inv_L, float rcut2, float inv_ldeb,
+                         void* stream) {
+  const PairLaunch a = {Rp, mask, mask_stride, Rp, npad, n_members * npad, 1,
+                        npad, chunk, mask, mask_stride, inv_ldeb_e, F, pot,
+                        part_f, nullptr, nullptr, npad, n_members, L, inv_L,
+                        rcut2, inv_ldeb};
+  return launch_pairs(a, (cudaStream_t)stream);
 }
 
-// E members, forces only (kernel C)
-int yukawa_forces_batched_launch(const float* Rp, const float* mask,
-                                 int mask_stride, const float* inv_ldeb_e,
-                                 float* F, int npad, int n_members, float L,
-                                 float inv_L, float rcut2, float inv_ldeb,
-                                 void* stream) {
-  return yukawa_forces_pot_launch(Rp, mask, mask_stride, inv_ldeb_e, F,
-                                  nullptr, npad, n_members, L, inv_L, rcut2,
-                                  inv_ldeb, stream);
-}
-
-// one member (kernel A): Rp/F [3, npad], mask [1, npad]
-int yukawa_forces_launch(const float* Rp, const float* mask, float* F,
-                         int npad, float L, float inv_L, float rcut2,
-                         float inv_ldeb, void* stream) {
-  return yukawa_forces_batched_launch(Rp, mask, 0, nullptr, F, npad, 1, L,
-                                      inv_L, rcut2, inv_ldeb, stream);
-}
-
-// kernel E: rows Rp/F [3, E*npad] (no row mask) against cols [E, ncols, 3]
-// masked by col_mask [E, ncols] (col_mask_stride = ncols) or [ncols]
-// (col_mask_stride = 0)
-int yukawa_forces_cols_launch(const float* Rp, const float* cols,
+// Kernel E: rows Rp/F [3, E*npad], masked by row_mask [E|1, npad] unless
+// NULL, against cols [E, ncols, 3] masked by col_mask [E, ncols]
+// (col_mask_stride = ncols) or [ncols] (0)
+int yukawa_forces_cols_launch(const float* Rp, const float* row_mask,
+                              int row_mask_stride, const float* cols,
                               const float* col_mask, int col_mask_stride,
-                              float* F, int npad, int ncols, int n_members,
-                              float L, float inv_L, float rcut2,
-                              float inv_ldeb, void* stream) {
-  if (npad <= 0 || npad % THREADS != 0 || ncols <= 0 ||
-      ncols % THREADS != 0 || n_members < 1 || n_members > 65535 ||
-      (col_mask_stride != 0 && col_mask_stride != ncols))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(npad / THREADS, n_members);
-  yukawa_forces_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      Rp, nullptr, 0, cols, ncols * 3, 1, 3, ncols, col_mask,
-      col_mask_stride, nullptr, F, nullptr, npad, n_members, L, inv_L, rcut2,
-      inv_ldeb);
-  return (int)cudaGetLastError();
+                              float* F, float* part_f, int npad, int ncols,
+                              int n_members, int chunk, float L, float inv_L,
+                              float rcut2, float inv_ldeb, void* stream) {
+  const PairLaunch a = {Rp, row_mask, row_mask_stride, cols, ncols * 3, 1, 3,
+                        ncols, chunk, col_mask, col_mask_stride, nullptr, F,
+                        nullptr, part_f, nullptr, nullptr, npad, n_members,
+                        L, inv_L, rcut2, inv_ldeb};
+  return launch_pairs(a, (cudaStream_t)stream);
 }
 
-// kernel F: rows Rp/F [3, E*npad] masked by mask_row [E|1, npad] against
-// cols [E, npc, 3] masked by col_mask [E, npc] (col_mask_stride = npc) or
-// [npc] (0); G [E, npc, 3] the negated column sums; part [E, npad/64, npc,
-// 3] the caller's scratch
+// Kernel F: rows Rp/F [3, E*npad] masked by mask [E|1, npad] against cols
+// [E, npc, 3] masked by col_mask [E, npc] (col_mask_stride = npc) or [npc]
+// (0); G [E, npc, 3] the negated column sums; part_g [E, npad/64, npc, 3]
+// and part_f the caller's scratch
 int yukawa_cross_launch(const float* Rp, const float* mask, int mask_stride,
                         const float* cols, const float* col_mask,
-                        int col_mask_stride, float* F,
-                        float* G, float* part, int npad, int npc,
-                        int n_members, float L, float inv_L, float rcut2,
-                        float inv_ldeb, void* stream) {
-  if (npad <= 0 || npad % THREADS != 0 || npc <= 0 || npc % CROSS_TJ != 0 ||
-      n_members < 1 || n_members > 65535 ||
-      (mask_stride != 0 && mask_stride != npad) ||
-      (col_mask_stride != 0 && col_mask_stride != npc))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nrb = npad / THREADS;
-  yukawa_cross_kernel<<<dim3(nrb, n_members), THREADS, 0, st>>>(
-      Rp, mask, mask_stride, cols, col_mask, col_mask_stride, F, part, npad,
-      npc, n_members, L, inv_L, rcut2, inv_ldeb);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n_out = (size_t)n_members * npc * 3;
-  yukawa_cross_reduce<<<(unsigned)((n_out + 255) / 256), 256, 0, st>>>(
-      part, G, nrb, npc, n_members);
-  return (int)cudaGetLastError();
+                        int col_mask_stride, float* F, float* G,
+                        float* part_f, float* part_g, int npad, int npc,
+                        int n_members, int chunk, float L, float inv_L,
+                        float rcut2, float inv_ldeb, void* stream) {
+  if (!mask || !G) return (int)cudaErrorInvalidValue;
+  const PairLaunch a = {Rp, mask, mask_stride, cols, npc * 3, 1, 3, npc,
+                        chunk, col_mask, col_mask_stride, nullptr, F, nullptr,
+                        part_f, G, part_g, npad, n_members, L, inv_L, rcut2,
+                        inv_ldeb};
+  return launch_pairs(a, (cudaStream_t)stream);
 }
 
 const char* mdqt_error_string(int err) {

@@ -1240,7 +1240,7 @@ def resume_vholder(directory: str, c0: int,
 
 
 def resume_state(directory: str, c0: int, cfg: CoolingConfig,
-                 device="cpu") -> SimState:
+                 device="cuda") -> SimState:
     """Reference-compatible restart from the ASCII checkpoint at ``c0``
     (readConditions, SpeedUp.cpp:785-916).  The ions_ N pins the
     conditions_/wvFns_ row counts: a truncated or mismatched file raises a

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -139,26 +139,114 @@ def yukawa_forces_n3l_soa_reference(Rp: torch.Tensor, mask_row: torch.Tensor,
     return F
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# The launch geometry of csrc/yukawa_forces.cu (its ROW_TILE, COL_TILE and
+# WARPS): a block of WARPS warps owns ROW_TILE rows and sweeps a chunk of
+# columns, COL_TILE (32 per warp) at a time.
+ROW_TILE = 64
+COL_TILE = 128
+WARPS = 4
+# blocks wanted per launch: 32 warps for each of the H100's 132 x 4 warp
+# schedulers, some three times what an SM holds at once (10 blocks of 46-47
+# registers per thread), so that the last wave of blocks is a small share
+# of the launch
+TARGET_BLOCKS = 132 * 4 * 32 // WARPS
+
+
+class PairSplit(NamedTuple):
+    """How one launch of the pair kernel cuts its rows x columns work."""
+    chunk: int                      # columns per chunk
+    grid: Tuple[int, int, int]      # (row tiles, column chunks, members)
+
+    @property
+    def warps(self) -> int:
+        return WARPS * self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def pair_split(npad: int, ncols: int, e: int) -> PairSplit:
+    """The column chunking of a launch over ``e`` members of ``npad`` rows
+    x ``ncols`` columns: enough chunks (each a multiple of COL_TILE) that
+    the grid reaches TARGET_BLOCKS where the columns allow it.  A function
+    of the launch shape alone, never of the masks: the chunking fixes the
+    order of every row sum, so launches of one shape agree bit for bit
+    (kernel E on a member's own lanes with kernel C, an E=1 fold with
+    kernel A)."""
+    if npad <= 0 or npad % ROW_TILE or ncols <= 0 or ncols % COL_TILE:
+        raise ValueError(f"want npad a positive multiple of {ROW_TILE} and "
+                         f"ncols of {COL_TILE}, got {npad} and {ncols}")
+    if not 1 <= e <= 65535:
+        raise ValueError(f"want 1 <= E <= 65535 members, got {e}")
+    row_blocks = (npad // ROW_TILE) * e
+    want = min(-(-TARGET_BLOCKS // row_blocks), ncols // COL_TILE)
+    chunk = _round_up(-(-ncols // want), COL_TILE)
+    return PairSplit(chunk, (npad // ROW_TILE, -(-ncols // chunk), e))
+
+
+def row_scratch_floats(split: PairSplit, npad: int, nv: int) -> int:
+    """Floats of the row-sum scratch ``part_f [chunks, nv, E*npad]`` (nv =
+    3, or 4 with the potential); none with one chunk, whose blocks write
+    the outputs themselves."""
+    _, chunks, e = split.grid
+    return 0 if chunks == 1 else chunks * nv * e * npad
+
+
+def reaction_scratch_floats(split: PairSplit, npc: int) -> int:
+    """Floats of kernel F's reaction scratch ``part_g [E, row tiles, npc,
+    3]``."""
+    tiles, _, e = split.grid
+    return e * tiles * npc * 3
+
+
+def _row_scratch(split: PairSplit, npad: int, nv: int, device):
+    n = row_scratch_floats(split, npad, nv)
+    return (None if n == 0
+            else torch.empty((n,), dtype=torch.float32, device=device))
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("yukawa_forces")
-    p, f = ctypes.c_void_p, ctypes.c_float
-    lib.yukawa_forces_launch.argtypes = [p, p, p, ctypes.c_int, f, f, f, f, p]
+    p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    lib.yukawa_forces_launch.argtypes = [p, p, i, p, p, p, p, i, i, i, f, f,
+                                         f, f, p]
     lib.yukawa_forces_launch.restype = ctypes.c_int
-    i = ctypes.c_int
-    lib.yukawa_forces_batched_launch.argtypes = [p, p, i, p, p, i, i, f, f,
-                                                 f, f, p]
-    lib.yukawa_forces_batched_launch.restype = ctypes.c_int
-    lib.yukawa_forces_pot_launch.argtypes = [p, p, i, p, p, p, i, i, f, f, f,
-                                             f, p]
-    lib.yukawa_forces_pot_launch.restype = ctypes.c_int
-    lib.yukawa_forces_cols_launch.argtypes = [p, p, p, i, p, i, i, i, f, f, f,
-                                              f, p]
+    lib.yukawa_forces_cols_launch.argtypes = [p, p, i, p, p, i, p, p, i, i, i,
+                                              i, f, f, f, f, p]
     lib.yukawa_forces_cols_launch.restype = ctypes.c_int
-    lib.yukawa_cross_launch.argtypes = [p, p, i, p, p, i, p, p, p, i, i, i,
-                                        f, f, f, f, p]
+    lib.yukawa_cross_launch.argtypes = [p, p, i, p, p, i, p, p, p, p, i, i, i,
+                                        i, f, f, f, f, p]
     lib.yukawa_cross_launch.restype = ctypes.c_int
     return lib
+
+
+def _launch_forces(Rp: torch.Tensor, mask_row: torch.Tensor, e: int,
+                   L: float, ldeb: float, inv_ldeb: Optional[torch.Tensor],
+                   with_pot: bool):
+    """One launch of ``yukawa_forces_launch`` (kernels A, C, D, G) on
+    checked CUDA operands: ``(F [3, E*Np], pot [E*Np] | None)``."""
+    npad = Rp.shape[1] // e
+    split = pair_split(npad, npad, e)
+    F = torch.empty_like(Rp)
+    pot = (torch.empty((e * npad,), dtype=torch.float32, device=Rp.device)
+           if with_pot else None)
+    part = _row_scratch(split, npad, 4 if with_pot else 3, Rp.device)
+    lib = _lib()
+    with torch.cuda.device(Rp.device):
+        err = lib.yukawa_forces_launch(
+            Rp.data_ptr(), mask_row.data_ptr(),
+            npad if mask_row.shape[0] > 1 else 0, _ptr(inv_ldeb),
+            F.data_ptr(), _ptr(pot), _ptr(part), npad, e, split.chunk,
+            float(L), float(1.0 / L), float((L / 2.0) ** 2),
+            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "yukawa_forces_launch")
+    return F, pot
 
 
 def yukawa_forces_n3l_soa(Rp: torch.Tensor, mask_row: torch.Tensor,
@@ -185,14 +273,7 @@ def yukawa_forces_n3l_soa(Rp: torch.Tensor, mask_row: torch.Tensor,
     if not (Rp.is_contiguous() and mask_row.is_contiguous()):
         raise ValueError("Rp and mask_row must be contiguous")
     soa_force_tile(npad)               # Np must be a multiple of 128
-    F = torch.empty((3, npad), dtype=torch.float32, device=Rp.device)
-    lib = _lib()
-    with torch.cuda.device(Rp.device):
-        err = lib.yukawa_forces_launch(
-            Rp.data_ptr(), mask_row.data_ptr(), F.data_ptr(), npad,
-            float(L), float(1.0 / L), float((L / 2.0) ** 2),
-            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "yukawa_forces_launch")
+    F, _ = _launch_forces(Rp, mask_row, 1, L, ldeb, None, False)
     yukawa_forces_n3l_soa.launches += 1
     return F
 
@@ -232,9 +313,9 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
     padded lanes are exactly 0.
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
-    ``csrc/yukawa_forces.cu`` over an (Np/64, E) grid and add one to
-    ``yukawa_forces_n3l_soa_batched.launches``; CPU tensors run the plain
-    twin."""
+    ``csrc/yukawa_forces.cu`` over the grid of :func:`pair_split` and add
+    one to ``yukawa_forces_n3l_soa_batched.launches``; CPU tensors run the
+    plain twin."""
     if Rp.dim() != 2 or Rp.shape[0] != 3 or e < 1 or Rp.shape[1] % e:
         raise ValueError(f"want Rp [3, E*Np] with E={e}, got "
                          f"{tuple(Rp.shape)}")
@@ -258,17 +339,7 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
     if not all(x.is_contiguous() for x in [Rp] + extra):
         raise ValueError("Rp, mask_row and inv_ldeb must be contiguous")
     soa_force_tile(npad)               # Np must be a multiple of 128
-    F = torch.empty_like(Rp)
-    lib = _lib()
-    with torch.cuda.device(Rp.device):
-        err = lib.yukawa_forces_batched_launch(
-            Rp.data_ptr(), mask_row.data_ptr(),
-            npad if mask_row.shape[0] > 1 else 0,
-            None if inv_ldeb is None else inv_ldeb.data_ptr(),
-            F.data_ptr(), npad, e, float(L), float(1.0 / L),
-            float((L / 2.0) ** 2), float(1.0 / ldeb),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "yukawa_forces_batched_launch")
+    F, _ = _launch_forces(Rp, mask_row, e, L, ldeb, inv_ldeb, False)
     yukawa_forces_n3l_soa_batched.launches += 1
     return F
 
@@ -327,12 +398,24 @@ def _cuda_operands(what: str, *xs) -> None:
         raise ValueError(f"{what}: operands must be contiguous")
 
 
+def _row_mask_operand(row_mask, Rp, e: int, npad: int, what: str) -> None:
+    """Check the rows' mask of kernel E or F (``what`` names kernel and
+    argument)."""
+    if tuple(row_mask.shape) not in ((1, npad), (e, npad)):
+        raise ValueError(f"{what}: want [1, {npad}] or [{e}, {npad}], got "
+                         f"{tuple(row_mask.shape)}")
+    if row_mask.device != Rp.device or row_mask.dtype != Rp.dtype:
+        raise ValueError(f"{what} must share Rp's device and dtype")
+
+
 def yukawa_forces_soa_cols_batched_reference(
         Rp: torch.Tensor, cols: torch.Tensor, col_mask: torch.Tensor, e: int,
-        L: float, ldeb: float, chunk: int = 256) -> torch.Tensor:
-    """Plain torch twin of kernel E: every row lane of member k (no row
-    mask) against ``cols[k]`` where ``col_mask`` is set, the tile math of
-    :func:`yukawa_forces_n3l_soa_reference`."""
+        L: float, ldeb: float, chunk: int = 256,
+        row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain torch twin of kernel E: every row lane of member k against
+    ``cols[k]`` where ``col_mask`` is set, the tile math of
+    :func:`yukawa_forces_n3l_soa_reference`; with ``row_mask [1|E, Np]``
+    the rows it clears come out 0."""
     npad, _, cm = _cols_operands(Rp, cols, col_mask, e, "cols reference")
     F = torch.empty_like(Rp)
     for k in range(e):
@@ -342,40 +425,55 @@ def yukawa_forces_soa_cols_batched_reference(
             d, valid = _rows_cols_pairs(Rp[:, s:top], C, L)
             ft = _pair_ft(d, valid & (cm[k][None, :] > 0), 1.0 / ldeb)
             F[:, s:top] = torch.sum(d * ft[None], dim=2)
+    if row_mask is not None:
+        F = F * row_mask.expand(e, npad).reshape(1, e * npad)
     return F
 
 
 def yukawa_forces_soa_cols_batched(Rp: torch.Tensor, cols: torch.Tensor,
                                    col_mask: torch.Tensor, e: int, L: float,
-                                   ldeb: float) -> torch.Tensor:
+                                   ldeb: float,
+                                   row_mask: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """Kernel E: row forces from the folded lane layout against an
     explicit column set: ``Rp [3, E*Np]`` local ion-shard rows (member
     blocks contiguous), ``cols [E, ncols, 3]`` the source positions (the
     all-gathered ion set of each member), ``col_mask`` marking real source
     ions, ``[ncols]`` shared or ``[E, ncols]`` per member.  Full pairs
-    (the reaction half lives on another shard).  Rows carry no mask:
-    padded row lanes may hold garbage, and a caller whose padded lanes feed
-    back zeroes them with a row mask.  Returns ``F [3, E*Np]``.
+    (the reaction half lives on another shard).  Without ``row_mask`` the
+    rows carry no mask, as in the JAX package's entry: padded row lanes
+    may hold garbage, and a caller whose padded lanes feed back zeroes them
+    afterwards.  ``row_mask [1|E, Np]`` does that here: the result is the
+    unmasked one times the mask, and the kernel skips row tiles the mask
+    clears.  Returns ``F [3, E*Np]``.
 
     CUDA tensors (float32, contiguous, Np and ncols multiples of 128)
-    launch ``csrc/yukawa_forces.cu`` over an (Np/64, E) grid and add one
-    to ``yukawa_forces_soa_cols_batched.launches``; CPU tensors run
-    :func:`yukawa_forces_soa_cols_batched_reference`."""
+    launch ``csrc/yukawa_forces.cu`` over the grid of :func:`pair_split`
+    and add one to ``yukawa_forces_soa_cols_batched.launches``; CPU
+    tensors run :func:`yukawa_forces_soa_cols_batched_reference`."""
     npad, ncols, _ = _cols_operands(Rp, cols, col_mask, e, "kernel E")
+    if row_mask is not None:
+        _row_mask_operand(row_mask, Rp, e, npad, "kernel E row_mask")
     if Rp.device.type == "cpu":
-        return yukawa_forces_soa_cols_batched_reference(Rp, cols, col_mask,
-                                                        e, L, ldeb)
-    _cuda_operands("kernel E", Rp, cols, col_mask)
+        return yukawa_forces_soa_cols_batched_reference(
+            Rp, cols, col_mask, e, L, ldeb, row_mask=row_mask)
+    _cuda_operands("kernel E", Rp, cols, col_mask,
+                   *(() if row_mask is None else (row_mask,)))
     soa_force_tile(npad)
     soa_force_tile(ncols)
+    split = pair_split(npad, ncols, e)
     F = torch.empty_like(Rp)
+    part = _row_scratch(split, npad, 3, Rp.device)
     lib = _lib()
     with torch.cuda.device(Rp.device):
         err = lib.yukawa_forces_cols_launch(
-            Rp.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
-            ncols if col_mask.dim() == 2 else 0, F.data_ptr(), npad, ncols,
-            e, float(L), float(1.0 / L), float((L / 2.0) ** 2),
-            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+            Rp.data_ptr(), _ptr(row_mask),
+            npad if row_mask is not None and row_mask.shape[0] > 1 else 0,
+            cols.data_ptr(), col_mask.data_ptr(),
+            ncols if col_mask.dim() == 2 else 0, F.data_ptr(), _ptr(part),
+            npad, ncols, e, split.chunk, float(L), float(1.0 / L),
+            float((L / 2.0) ** 2), float(1.0 / ldeb),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "yukawa_forces_cols_launch")
     yukawa_forces_soa_cols_batched.launches += 1
     return F
@@ -423,47 +521,42 @@ def yukawa_forces_cross_n3l_soa_batched(Rp: torch.Tensor,
     contribute nothing.
 
     CUDA tensors (float32, contiguous, Np and npc multiples of 128) launch
-    ``csrc/yukawa_forces.cu``'s cross kernel and its fixed-order reduction
-    of the per-row-block reaction partials (no atomics: bitwise
-    deterministic) and add one to
+    the reaction form of ``csrc/yukawa_forces.cu`` over the grid of
+    :func:`pair_split` and its fixed-order second pass over the per-chunk
+    row partials and the per-row-tile reaction partials (no atomics:
+    bitwise deterministic) and add one to
     ``yukawa_forces_cross_n3l_soa_batched.launches``; CPU tensors run
     :func:`yukawa_forces_cross_n3l_soa_batched_reference`."""
     npad, npc, _ = _cols_operands(Rp, cols, col_mask, e, "kernel F")
-    if tuple(mask_row.shape) not in ((1, npad), (e, npad)):
-        raise ValueError(f"kernel F: want mask_row [1, {npad}] or [{e}, "
-                         f"{npad}], got {tuple(mask_row.shape)}")
-    if mask_row.device != Rp.device or mask_row.dtype != Rp.dtype:
-        raise ValueError("kernel F: Rp and mask_row must share device and "
-                         "dtype")
+    _row_mask_operand(mask_row, Rp, e, npad, "kernel F mask_row")
     if Rp.device.type == "cpu":
         return yukawa_forces_cross_n3l_soa_batched_reference(
             Rp, mask_row, cols, col_mask, e, L, ldeb)
     _cuda_operands("kernel F", Rp, mask_row, cols, col_mask)
     soa_force_tile(npad)
     soa_force_tile(npc)
+    split = pair_split(npad, npc, e)
     F = torch.empty_like(Rp)
     G = torch.empty((e, npc, 3), dtype=torch.float32, device=Rp.device)
-    part = torch.empty((e, npad // 64, npc, 3), dtype=torch.float32,
-                       device=Rp.device)
+    part_f = _row_scratch(split, npad, 3, Rp.device)
+    part_g = torch.empty((reaction_scratch_floats(split, npc),),
+                         dtype=torch.float32, device=Rp.device)
     lib = _lib()
     with torch.cuda.device(Rp.device):
         err = lib.yukawa_cross_launch(
             Rp.data_ptr(), mask_row.data_ptr(),
             npad if mask_row.shape[0] > 1 else 0, cols.data_ptr(),
             col_mask.data_ptr(), npc if col_mask.dim() == 2 else 0,
-            F.data_ptr(), G.data_ptr(), part.data_ptr(), npad, npc, e,
-            float(L), float(1.0 / L), float((L / 2.0) ** 2),
-            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+            F.data_ptr(), G.data_ptr(), _ptr(part_f), part_g.data_ptr(),
+            npad, npc, e, split.chunk, float(L), float(1.0 / L),
+            float((L / 2.0) ** 2), float(1.0 / ldeb),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "yukawa_cross_launch")
     yukawa_forces_cross_n3l_soa_batched.launches += 1
     return F, G
 
 
 yukawa_forces_cross_n3l_soa_batched.launches = 0
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _pack_lanes(R: torch.Tensor, mask: Optional[torch.Tensor], tile: int):
@@ -496,17 +589,7 @@ def _forces_potential_lanes(R: torch.Tensor, L: float, ldeb: float,
     soa_force_tile(tile)               # a multiple of 128
     e, n, _ = R.shape
     Rp, rows, npad = _pack_lanes(R, mask, tile)
-    F = torch.empty_like(Rp)
-    pot = (torch.empty((e * npad,), dtype=torch.float32, device=R.device)
-           if with_pot else None)
-    lib = _lib()
-    with torch.cuda.device(R.device):
-        err = lib.yukawa_forces_pot_launch(
-            Rp.data_ptr(), rows.data_ptr(), npad if rows.shape[0] > 1 else 0,
-            None, F.data_ptr(), None if pot is None else pot.data_ptr(), npad,
-            e, float(L), float(1.0 / L), float((L / 2.0) ** 2),
-            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "yukawa_forces_pot_launch")
+    F, pot = _launch_forces(Rp, rows, e, L, ldeb, None, with_pot)
     F = F.reshape(3, e, npad)[:, :, :n].permute(1, 2, 0)
     return F, None if pot is None else pot.reshape(e, npad)[:, :n]
 
@@ -562,8 +645,8 @@ def yukawa_forces_potential_pallas_batched(
     rows come out exactly 0.
 
     A CUDA tensor (float32) launches the potential form of
-    ``csrc/yukawa_forces.cu`` once over an (Np/64, E) grid, the masks read
-    with kernel C's member stride, and adds one to
+    ``csrc/yukawa_forces.cu`` once over the grid of :func:`pair_split`,
+    the masks read with kernel C's member stride, and adds one to
     ``yukawa_forces_potential_pallas_batched.launches``; a CPU tensor runs
     :func:`yukawa_forces_potential` member by member."""
     _check_device(R)

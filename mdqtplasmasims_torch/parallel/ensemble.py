@@ -169,19 +169,19 @@ def ring_n3l_fused_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
 def _gather_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
                    npad: int, mrows: List[torch.Tensor]):
     """The gather schedule of one member block: every shard's rows against
-    the all-gathered positions of its members (kernel E), row-masked (the
-    full-tile kernel has no row mask: padded and masked row lanes must
-    stay inert as they feed back)."""
+    the all-gathered positions of its members (kernel E), row-masked by
+    the kernel (the JAX package's full-tile kernel has no row mask and its
+    caller multiplies by it: padded and masked row lanes must stay inert
+    as they feed back)."""
     cms = [mr.expand(e_loc, npad).contiguous() for mr in mrows]
     col_masks = all_gather(cms, 1)                 # [E, I*npad] per slot
-    row_masks = [cm.reshape(1, e_loc * npad) for cm in cms]
 
     def soa_forces(Rps):
         cols = all_gather([R.reshape(3, e_loc, npad).permute(1, 2, 0)
                            for R in Rps], 1)       # [E, I*npad, 3]
         return [yukawa_forces_soa_cols_batched(R, c.contiguous(), cm, e_loc,
-                                               sched.L, ldeb) * rm
-                for R, c, cm, rm in zip(Rps, cols, col_masks, row_masks)]
+                                               sched.L, ldeb, row_mask=mr)
+                for R, c, cm, mr in zip(Rps, cols, col_masks, mrows)]
     return soa_forces
 
 

@@ -573,3 +573,119 @@ def test_mesh_run_on_one_card(cuda, ion_forces):
                             mesh=make_mesh(2, 1, devices=[cuda] * 2))
     for k in ("R", "V", "psi", "t_part"):
         assert np.array_equal(getattr(f0, k), getattr(f1, k))
+
+
+# ---- the pair kernel at the edges of its tiling: every form (A, C, D, G,
+# E, F) against its plain version, bitwise run to run, masked lanes 0 ----
+
+EDGE_SHAPES = {                 # E members, row lanes, columns (E and F)
+    "one_tile": (1, 128, 128),              # fewer columns than one chunk
+    "empty_and_single_member": (3, 256, 384),
+    "holes": (2, 512, 1024),
+}
+
+
+def _edge_mask(case, e, n, seed):
+    """``[e, n]`` real-lane masks: a 100-ion prefix; a member of padding
+    only, one with a single ion and one with 200; or real lanes that are
+    no prefix (every other lane at random, a whole 128-lane tile and an
+    unaligned stretch cleared)."""
+    m = torch.zeros((e, n))
+    if case == "one_tile":
+        m[:, :100] = 1.0
+    elif case == "empty_and_single_member":
+        m[1, 77] = 1.0
+        m[2, :200] = 1.0
+    else:
+        g = torch.Generator().manual_seed(seed)
+        m = (torch.rand((e, n), generator=g) < 0.5).float()
+        m[:, 128:256] = 0.0
+        m[:, 300:345] = 0.0
+    return m
+
+
+def _edge_inputs(dev, case):
+    e, npad, ncols = EDGE_SHAPES[case]
+    L = PlasmaUnits.box_length(npad)
+    g = torch.Generator(device=dev).manual_seed(17)
+    # masked lanes hold positions too: the kernel must ignore them
+    Rp = torch.rand((3, e * npad), generator=g, device=dev) * L
+    cols = torch.rand((e, ncols, 3), generator=g, device=dev) * L
+    rm = _edge_mask(case, e, npad, 1).to(dev)
+    cm = _edge_mask(case, e, ncols, 2).to(dev)
+    return e, npad, Rp, rm, cols, cm, L, PlasmaUnits(2.0, 0.1).debye_length
+
+
+def _close(x, ref, tol):
+    return float((x - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("case", list(EDGE_SHAPES))
+@pytest.mark.parametrize("form", ["A", "C", "C_inv_ldeb", "D", "G", "E",
+                                  "E_row_mask", "F"])
+def test_pair_kernel_edge_shapes(cuda, form, case):
+    e, npad, Rp, rm, cols, cm, L, ldeb = _edge_inputs(cuda, case)
+    dead = (rm == 0).reshape(-1)
+    R = Rp.reshape(3, e, npad).permute(1, 2, 0).contiguous()   # [e, npad, 3]
+    if form == "A":
+        for k in range(e):
+            one, mk = R[k].T.contiguous(), rm[k:k + 1].contiguous()
+            F1 = ty.yukawa_forces_n3l_soa(one, mk, L, ldeb)
+            F2 = ty.yukawa_forces_n3l_soa(one, mk, L, ldeb)
+            Fr = ty.yukawa_forces_n3l_soa_reference(one, mk, L, ldeb)
+            assert torch.equal(F1, F2) and _close(F1, Fr, 2e-5)
+            assert not F1[:, mk[0] == 0].any()
+            Fc = ty.yukawa_forces_n3l_soa_batched(one, mk, 1, L, ldeb)
+            assert torch.equal(F1, Fc)         # an E=1 fold is kernel A
+    elif form in ("C", "C_inv_ldeb"):
+        il = None
+        if form == "C_inv_ldeb":
+            il = (1.0 / ldeb) * (1.0 + 0.3 * torch.arange(e, device=cuda))
+        F1 = ty.yukawa_forces_n3l_soa_batched(Rp, rm, e, L, ldeb, il)
+        F2 = ty.yukawa_forces_n3l_soa_batched(Rp, rm, e, L, ldeb, il)
+        Fr = ty.yukawa_forces_n3l_soa_batched_reference(Rp, rm, e, L, ldeb,
+                                                        il)
+        assert torch.equal(F1, F2) and _close(F1, Fr, 2e-5)
+        assert not F1[:, dead].any()
+        # kernel E on the members' own lanes: kernel C on real rows
+        Fe = ty.yukawa_forces_soa_cols_batched(Rp, R, rm, e, L, ldeb)
+        if il is None:
+            assert torch.equal(Fe[:, ~dead], F1[:, ~dead])
+    elif form == "D":
+        for k in range(e):
+            out1 = ty.yukawa_forces_potential_pallas(R[k], L, ldeb, rm[k],
+                                                     tile=128)
+            out2 = ty.yukawa_forces_potential_pallas(R[k], L, ldeb, rm[k],
+                                                     tile=128)
+            Fr, potr = ty.yukawa_forces_potential(R[k], L, ldeb, rm[k])
+            assert all(torch.equal(a, b) for a, b in zip(out1, out2))
+            _held(*out1, Fr, potr, rm[k] == 0)
+    elif form == "G":
+        out1 = ty.yukawa_forces_potential_pallas_batched(R, L, ldeb, 128, rm)
+        out2 = ty.yukawa_forces_potential_pallas_batched(R, L, ldeb, 128, rm)
+        assert all(torch.equal(a, b) for a, b in zip(out1, out2))
+        for k in range(e):
+            Fr, potr = ty.yukawa_forces_potential(R[k], L, ldeb, rm[k])
+            _held(out1[0][k], out1[1][k], Fr, potr, rm[k] == 0)
+    elif form in ("E", "E_row_mask"):
+        kw = dict(row_mask=rm) if form == "E_row_mask" else {}
+        F1 = ty.yukawa_forces_soa_cols_batched(Rp, cols, cm, e, L, ldeb, **kw)
+        F2 = ty.yukawa_forces_soa_cols_batched(Rp, cols, cm, e, L, ldeb, **kw)
+        Fr = ty.yukawa_forces_soa_cols_batched_reference(Rp, cols, cm, e, L,
+                                                         ldeb, **kw)
+        assert torch.equal(F1, F2) and _close(F1, Fr, 2e-5)
+        if kw:
+            assert not F1[:, dead].any()
+    else:
+        F1, G1 = ty.yukawa_forces_cross_n3l_soa_batched(Rp, rm, cols, cm, e,
+                                                        L, ldeb)
+        F2, G2 = ty.yukawa_forces_cross_n3l_soa_batched(Rp, rm, cols, cm, e,
+                                                        L, ldeb)
+        Fr, Gr = ty.yukawa_forces_cross_n3l_soa_batched_reference(
+            Rp, rm, cols, cm, e, L, ldeb)
+        assert torch.equal(F1, F2) and torch.equal(G1, G2)
+        scale = max(float(Fr.abs().max()), float(Gr.abs().max()))
+        assert float((F1 - Fr).abs().max()) <= 2e-5 * scale
+        assert float((G1 - Gr).abs().max()) <= 2e-5 * scale
+        assert not F1[:, dead].any() and not G1[cm == 0].any()
+    torch.cuda.synchronize()
