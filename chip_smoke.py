@@ -13,11 +13,18 @@ Phases (any failure exits non-zero; none is skipped or passed over):
   4. the fused tick kernel (explicit rolls) against its twin at the
      flagship shape (ratio 25, the sr12 scheme of CoolingConfig()), from
      the ground-state start and from an excited start where jumps fire,
-     plus the expansion detuning with renormalization; timed;
+     plus the expansion detuning with renormalization; timed, with the
+     form's registers, spills and shared memory from the nvcc log; then
+     (:func:`check_tick_shapes`) at a mesh shard's shape (875 ions in 1792
+     lanes), at 1 and 24 ticks (the split sampling step) and on an 8-member
+     fold, each also bitwise run to run and bitwise equal to the same
+     lanes launched in two parts;
   5. the in-kernel RNG form of the tick kernel against its twin (which
      draws the same Threefry stream in plain torch) at Np=3584, ratio 25,
      from the ground and the excited start and late in a flagship run's
-     clock, and its per-lane forms on a 4-member fold; timed;
+     clock, and its per-lane forms on a 4-member fold; timed; the shapes
+     of phase 4 again (the shard with ``lane0`` 1792, the parts with the
+     ``lane0`` of their first lane), the per-lane forms on an 8-member fold;
   6. the potential kernels against their twin: D (one member, with and
      without a mask) and G (an 8-member Poissonian fold with per-member
      masks, and a shared mask), ``best_forces_fn`` in every mode, the
@@ -35,7 +42,7 @@ Phases (any failure exits non-zero; none is skipped or passed over):
   9. the per-lane (sweep) variants of the tick kernel (explicit rolls)
      against their twin on a 4-member fold at the flagship shapes, each
      member with its own e0 and (om, om_dp), from the ground and the
-     excited start;
+     excited start, and on an 8-member fold;
  10. the ensemble path: ``run_ensemble`` of 8 Poissonian members
      (n0=3500, tmax=1.0, periodic checkpoints) with launch counts,
      per-member physics and files, then a 2-member fold run to tmax=0.5
@@ -298,6 +305,124 @@ def excite(torch, carry, on, g):
         psi_re=pre, psi_im=pim)
 
 
+def kernel_resources() -> dict:
+    """Registers, stack, spill bytes of every instantiation of the tick
+    kernel, from the nvcc log (``-Xptxas -v``) of the library in use:
+    ``(S, per_lane_e0, per_lane_om, internal_rng, long_rows) -> dict``."""
+    import re
+    from mdqtplasmasims_torch import _build
+    entry = re.compile(r"fused_ticks_kernelILi(\d+)ELi\d+ELb([01])ELb([01])"
+                       r"ELb([01])ELb([01])EE")
+    out, key = {}, None
+    for line in _build.build_log("fused_ticks").splitlines():
+        m = entry.search(line)
+        if m and "Compiling entry" in line:
+            key = (int(m.group(1)), *(g == "1" for g in m.groups()[1:]))
+            out[key] = {}
+        elif key is not None and "spill stores" in line:
+            out[key].update(zip(("stack", "spill_stores", "spill_loads"),
+                                map(int, re.findall(r"(\d+) bytes", line))))
+        elif key is not None and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+    return out
+
+
+def resources(spec) -> str:
+    """The registers, spills and shared memory of ``spec``'s kernel form."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    K = tf._kernel_plan(spec).K
+    res = kernel_resources().get((spec.S, spec.per_lane_e0, spec.per_lane_om,
+                                  spec.internal_rng, K > tf._KREG))
+    if not res:
+        raise SystemExit("the nvcc log does not list this form of the tick "
+                         "kernel")
+    geo = tf.launch_geometry(3584, spec.S, K)
+    return (f"{res['registers']} registers, {res['spill_stores']} / "
+            f"{res['spill_loads']} B spill stores / loads, {res['stack']} B "
+            f"stack, {geo.shared_bytes} B shared, {geo.lanes_per_ion} lanes "
+            f"per ion")
+
+
+def excited_planes(torch, g, SP, members, npad, n_real):
+    """``(on, (R, V, F, tp, psi_re, psi_im))`` of ``members`` blocks of
+    ``npad`` lanes with ``n_real`` ions each, the P manifold populated so
+    that jumps fire (the start of :func:`excite`, without a scheduler)."""
+    dev = g.device
+    lanes = members * npad
+    on = (torch.arange(lanes, device=dev) % npad) < n_real
+    m = on.float()
+    rand = lambda rows: torch.rand((rows, lanes), generator=g, device=dev)
+    pre = torch.zeros((SP, lanes), device=dev)
+    pim = torch.zeros((SP, lanes), device=dev)
+    pre[2], pre[0], pim[4] = 0.7 * m, 0.51 * m, 0.5 * m
+    return on, (rand(3) * 5.0 * m, (rand(3) - 0.5) * m, (rand(3) - 0.5) * m,
+                rand(1) * m, pre, pim)
+
+
+def check_tick_shapes(torch, spec, tables, g, what, folds=(1, 8),
+                      sweep=(None, None)):
+    """The tick kernel of ``spec`` against its twin away from the flagship
+    launch: a mesh shard's shape (875 ions in 1792 lanes; the RNG form with
+    ``lane0`` 1792), 1 and 24 ticks, and a fold of ``folds[-1]`` members.
+    Each launch twice (bitwise equal) and as two launches of half the lanes
+    (the RNG form with the ``lane0`` of each part's first lane; bitwise
+    equal to the whole).  ``sweep`` holds the per-member e0 rows and (om,
+    om_dp) pairs of a per-lane form.  Returns the worst error."""
+    import itertools
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    dev = torch.device("cuda")
+    seed = torch.tensor([192837465], dtype=torch.int32, device=dev)
+    cases = []
+    if 1 in folds:
+        cases += [("a mesh shard", 1, MESH_NPAD, 3500 // MESH_I, spec.ratio),
+                  ("1 tick", 1, 3584, 3500, 1),
+                  ("24 ticks", 1, 3584, 3500, 24)]
+    if folds[-1] > 1:
+        cases.append((f"an E={folds[-1]} fold", folds[-1], 3584, 3500,
+                      spec.ratio))
+    worst = 0.0
+    for name, members, npad, n_real, ticks in cases:
+        sp = dataclasses.replace(spec, ratio=ticks)
+        lanes = members * npad
+        on, args = excited_planes(torch, g, sp.SP, members, npad, n_real)
+        e0p, omp = fold_sweep_lanes(
+            sp, npad, *(None if x is None else list(itertools.islice(
+                itertools.cycle(x), members)) for x in sweep), dev)
+        rolls = (None if sp.internal_rng
+                 else torch.rand((ticks * 5, lanes), generator=g, device=dev))
+        lane0 = MESH_NPAD if sp.internal_rng and npad == MESH_NPAD else 0
+
+        def launch(lo, hi, fn=tf.fused_md_substeps):
+            cut = lambda x: None if x is None else x[:, lo:hi].contiguous()
+            kw = dict(tick0=4321, e0_lanes=cut(e0p), om_lanes=cut(omp))
+            if sp.internal_rng:
+                kw.update(seed=seed, lane0=lane0 + lo)
+            if fn is tf.fused_md_substeps:
+                return fn(sp, False, *map(cut, args), cut(rolls),
+                          tables=tables, **kw)
+            return fn(sp, False, *map(cut, args), cut(rolls), tables, **kw)
+
+        out, again = launch(0, lanes), launch(0, lanes)
+        ref = launch(0, lanes, tf.fused_md_substeps_reference)
+        parts = [launch(0, lanes // 2), launch(lanes // 2, lanes)]
+        torch.cuda.synchronize()
+        worst = max(worst, compare_ticks(
+            torch, sp, out, ref, on, members * MAX_DIVERGED_LANES,
+            f"{what} {name} ({n_real} ions in {npad} lanes x {members}, "
+            f"{ticks} ticks, lane0 {lane0})"))
+        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+            raise SystemExit(f"{what} {name}: not bitwise equal run to run")
+        if not all(torch.equal(x, torch.cat([a, b], 1))
+                   for x, a, b in zip(out, *parts)):
+            raise SystemExit(f"{what} {name}: a whole launch differs from the "
+                             "same lanes launched in two parts")
+    log(f"{what}: every shape bitwise equal run to run and to its two-part "
+        f"launch")
+    return worst
+
+
 def check_tick_kernel(torch, cfg, L, ldeb):
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.core.scheduler import uniform_rolls
@@ -334,6 +459,8 @@ def check_tick_kernel(torch, cfg, L, ldeb):
                                          MAX_DIVERGED_LANES,
                                          f"[ticks] {name}"))
     spec, c = sched.fused_spec, excited
+    worst = max(worst, check_tick_shapes(torch, spec, sched.tables, g,
+                                         "[ticks]"))
     rolls = torch.rand((spec.ratio * 5, npad), generator=g, device=dev)
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
     ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
@@ -341,7 +468,8 @@ def check_tick_kernel(torch, cfg, L, ldeb):
     plain = cuda_ms(torch, lambda: tf.fused_md_substeps_reference(
         spec, False, *args, sched.tables, tick0=1000), reps=20)
     log(f"[ticks] kernel {both(ms, idle)}, plain torch {plain:.4f} ms per "
-        f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
+        f"{spec.ratio}-tick MD step (median of {N_TIMED}/20); "
+        f"{resources(spec)}")
     return dict(max_abs_err=worst, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **tick_bound(spec, n, npad))
 
@@ -390,6 +518,8 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
                                          MAX_DIVERGED_LANES,
                                          f"[ticks-rng] {name}"))
     spec, c = sched.fused_spec, excited
+    worst = max(worst, check_tick_shapes(torch, spec, sched.tables, g,
+                                         "[ticks-rng]"))
     args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im)
     ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
         spec, False, *args, tick0=4321, tables=sched.tables, seed=seed))
@@ -397,7 +527,8 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
         spec, False, *args, None, sched.tables, tick0=4321, seed=seed),
         reps=20)
     log(f"[ticks-rng] kernel {both(ms, idle)}, plain torch {plain:.4f} ms per "
-        f"{spec.ratio}-tick MD step (median of {N_TIMED}/20)")
+        f"{spec.ratio}-tick MD step (median of {N_TIMED}/20); "
+        f"{resources(spec)}")
     out["fused_ticks_rng"] = dict(max_abs_err=worst, ms=ms,
                                   idle_card_ms=idle, plain_ms=plain,
                                   **tick_bound(spec, n, npad))
@@ -432,6 +563,9 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
             worst = max(worst, compare_ticks(
                 torch, spec, res, ref, onE, E * MAX_DIVERGED_LANES,
                 f"[ticks-rng] {key[12:]}, {name} start, E={E} x {npad}"))
+        worst = max(worst, check_tick_shapes(
+            torch, spec, sc.tables, g, f"[ticks-rng] {key[12:]}", folds=(8,),
+            sweep=(sweep_e0 if pe0 else None, oms if pom else None)))
         args = (exc.R, exc.V, FE, exc.tp, exc.psi_re, exc.psi_im)
         ms, idle = kernel_ms(torch, lambda: tf.fused_md_substeps(
             spec, False, *args, tick0=4321, tables=sc.tables, e0_lanes=e0p,
@@ -441,7 +575,7 @@ def check_rng_tick_kernels(torch, cfg, L, ldeb):
             om_lanes=omp, seed=seed), reps=10)
         log(f"[ticks-rng] {key[12:]}: kernel {both(ms, idle)}, plain torch "
             f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} "
-            f"fold (median of {N_TIMED}/10)")
+            f"fold (median of {N_TIMED}/10); {resources(spec)}")
         out[key] = dict(max_abs_err=worst, ms=ms, idle_card_ms=idle,
                         plain_ms=plain,
                         **tick_bound(spec, E * n, E * npad))
@@ -761,6 +895,9 @@ def check_lane_kernels(torch, cfg):
             worst = max(worst, compare_ticks(
                 torch, spec, res, ref, on, E * MAX_DIVERGED_LANES,
                 f"[ticks-lane] {key}, {name} start, E={E} x {npad}"))
+        worst = max(worst, check_tick_shapes(
+            torch, spec, sched.tables, g, f"[ticks-lane] {key}", folds=(8,),
+            sweep=(sweep_e0 if pe0 else None, oms if pom else None)))
         c = excited
         rolls = torch.rand((spec.ratio * 5, E * npad), generator=g, device=dev)
         args = (c.R, c.V, F, c.tp, c.psi_re, c.psi_im, rolls)
@@ -772,7 +909,7 @@ def check_lane_kernels(torch, cfg):
             om_lanes=omp), reps=10)
         log(f"[ticks-lane] {key}: kernel {both(ms, idle)}, plain torch "
             f"{plain:.4f} ms per {spec.ratio}-tick MD step of the E={E} fold "
-            f"(median of {N_TIMED}/10)")
+            f"(median of {N_TIMED}/10); {resources(spec)}")
         out[key] = dict(max_abs_err=worst, ms=ms, idle_card_ms=idle,
                         plain_ms=plain,
                         **tick_bound(spec, E * n, E * npad))
@@ -1401,11 +1538,22 @@ def build_kernels(torch):
         f"{time.perf_counter() - t0:.1f} s (nvcc: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in _build.build_seconds.items())
         + ")")
-    for name in ("yukawa_forces", "fused_ticks"):
-        for line in _build.build_log(name).splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                log(f"[build] {name}: {line.strip()}")
+    for line in _build.build_log("yukawa_forces").splitlines():
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
+            log(f"[build] yukawa_forces: {line.strip()}")
+    forms = kernel_resources()
+    for (S, pe0, pom, rng, long_rows), res in sorted(forms.items()):
+        log(f"[build] fused_ticks S={S} per_lane_e0={pe0:d} per_lane_om="
+            f"{pom:d} internal_rng={rng:d} long_rows={long_rows:d}: "
+            f"{res['registers']} registers, {res['spill_stores']} / "
+            f"{res['spill_loads']} B spill stores / loads, {res['stack']} B "
+            f"stack")
+    spilled = {k: v for k, v in forms.items()
+               if v["spill_stores"] or v["spill_loads"]}
+    if len(forms) != 22 or spilled:
+        raise SystemExit(f"the tick kernel's nvcc log lists {len(forms)} of "
+                         f"22 forms; forms that spill: {spilled}")
 
 
 def main() -> int:

@@ -13,6 +13,7 @@ never reach a build.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -79,6 +80,31 @@ def build_log(name: str) -> str:
         return ""
     with open(log) as f:
         return f.read()
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_guard(device):
+    """Context in which ``device`` (a CUDA ``torch.device``) is the current
+    one, as a launch on its stream needs; nothing to enter when it already
+    is (``torch.cuda.device`` costs the host some 20 us a launch)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current stream, for a launcher's stream
+    argument (the Stream object ``torch.cuda.current_stream`` builds costs
+    the host some 25 us a launch)."""
+    import torch
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return (get(index) if get is not None
+            else torch.cuda.current_stream(index).cuda_stream)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

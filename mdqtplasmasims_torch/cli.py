@@ -2,6 +2,10 @@
 
     python -m mdqtplasmasims_torch.cli cooling --n0 3500 --tmax 30 \
         --save-directory dataLaserCool/ --job 1 --device cuda
+    python -m mdqtplasmasims_torch.cli cooling --tmax 60 --resume \
+        --save-directory dataLaserCool/ --job 1
+    python -m mdqtplasmasims_torch.cli cooling --jobs 4 \
+        --save-directory dataLaserCool/
     python -m mdqtplasmasims_torch.cli cooling-ensemble --jobs 8 \
         --save-directory dataLaserCool/ --device cuda
     python -m mdqtplasmasims_torch.cli cooling-sweep --det-sp-values=-1,-0.5 \
@@ -13,6 +17,9 @@ Flags are generated from :class:`CoolingConfig` exactly as the JAX
 package's ``mdqt cooling``/``cooling-ensemble``/``cooling-sweep`` generate
 them; ``--device`` picks the torch device (``cuda`` launches the
 hand-written kernels, ``cpu`` runs their plain torch versions).
+``cooling --resume`` continues from the job directory's newest checkpoint
+and ``cooling --jobs K`` runs jobs 1..K one after the other in this
+process, as the JAX CLI does.
 ``--mesh-ens K`` (and ``--mesh-ions I``) spread an ensemble or sweep over
 a K x I mesh of device slots (parallel/mesh.py): distinct cards with
 ``--device cuda``, CPU slots with ``--device cpu``.
@@ -114,13 +121,30 @@ def _mesh_from_flags(ns: argparse.Namespace):
     return make_mesh(k, i, devices=devices)
 
 
+def _version_string() -> str:
+    from . import __version__
+    try:
+        from importlib.metadata import version
+        return version("mdqtplasmasims_tpu")      # the distribution's name
+    except Exception:          # running from a source tree, not installed
+        return __version__ + "+src"
+
+
 def main(argv=None) -> int:
     from .experiments import laser_cooling as lc
 
     parser = argparse.ArgumentParser(prog="mdqt-torch")
+    parser.add_argument("--version", action="version",
+                        version=f"%(prog)s {_version_string()}")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    _common(sub.add_parser("cooling", help="flagship laser-cooling run"),
-            lc.CoolingConfig)
+    pc = sub.add_parser("cooling", help="flagship laser-cooling run")
+    _common(pc, lc.CoolingConfig)
+    pc.add_argument("--jobs", type=int, default=0, metavar="K",
+                    help="run jobs 1..K one after the other in this process "
+                         "(the SLURM-array replacement)")
+    pc.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint (the "
+                         "reference's newRun=0 walltime chaining)")
     pe = sub.add_parser("cooling-ensemble",
                         help="E independent cooling trajectories in one fold")
     _common(pe, lc.CoolingConfig)
@@ -150,8 +174,15 @@ def main(argv=None) -> int:
     cfg = _build_cfg(lc.CoolingConfig, ns)
     t0 = time.perf_counter()
     if ns.cmd == "cooling":
-        lc.run(cfg, device=ns.device)
-        what = "1 run"
+        # --resume applies to each job of --jobs
+        jobs = ([dataclasses.replace(cfg, job=j)
+                 for j in range(1, ns.jobs + 1)] if ns.jobs > 1 else [cfg])
+        for k, job_cfg in enumerate(jobs, 1):
+            lc.run(job_cfg, resume=ns.resume, device=ns.device)
+            if len(jobs) > 1:
+                print(f"[cooling] job {k}/{len(jobs)} at "
+                      f"{time.perf_counter() - t0:.1f}s")
+        what = f"{len(jobs)} run" + ("s" if len(jobs) > 1 else "")
     elif ns.cmd == "cooling-ensemble":
         lc.run_ensemble(cfg, ns.jobs, ns.seed, resume=ns.resume,
                         mesh=_mesh_from_flags(ns), device=ns.device)

@@ -107,18 +107,27 @@ class QTEngine:
     def step_sm(self, psi: torch.Tensor, vx: torch.Tensor,
                 t_part: torch.Tensor, rolls: Optional[torch.Tensor] = None,
                 exp_det: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                params: Optional[QTParams] = None, force_scale=None):
         """Advance every ion one quantum tick.  psi: [S,N] (state-major).
 
         Returns ``(psi, vx, t_part)``.  ``exp_det`` is the expansion-frame
         detuning (units of gamma) added to the Doppler shift.  Exactly one
         of ``rolls`` (the [5, N] uniforms in [0, 1)) and ``generator`` must
-        be given."""
+        be given.
+
+        ``params`` overrides the scheme-derived :class:`QTParams` (a sweep
+        member's own detuning and Rabi frequency: ``e0`` and ``coupling``
+        scaled from a unit scheme); ``force_scale`` scales the Ehrenfest
+        kick by a scalar (a toy scheme's ``force_w`` is linear in om, so an
+        om sweep passes om/om_base).  Jump recoils are a fixed photon
+        momentum and are never scaled."""
         if (rolls is None) == (generator is None):
             raise ValueError("step_sm needs exactly one of rolls= or "
                              "generator=")
         rdtype = vx.dtype
-        p = _params(self.scheme, rdtype, psi.dtype, psi.device)
+        p = (_params(self.scheme, rdtype, psi.dtype, psi.device)
+             if params is None else params)
         h = self.h
         S, n = psi.shape
 
@@ -156,6 +165,8 @@ class QTEngine:
             kick_nojump = kick_nojump + w * torch.imag(
                 psi[a] * torch.conj(psi[b]))
         kick_nojump = kick_nojump * h
+        if force_scale is not None:
+            kick_nojump = kick_nojump * force_scale
 
         # ---- jump branch: collapse ----
         pop = psi.real ** 2 + psi.imag ** 2
@@ -191,10 +202,11 @@ class QTEngine:
         return psi_new, vx, t_part
 
     def step(self, psi, vx, t_part, rolls=None, exp_det: float = 0.0,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, params=None,
+             force_scale=None):
         """[N,S]-layout wrapper around :meth:`step_sm`."""
         psi_sm, vx, t_part = self.step_sm(psi.T, vx, t_part, rolls, exp_det,
-                                          generator)
+                                          generator, params, force_scale)
         return psi_sm.T, vx, t_part
 
 

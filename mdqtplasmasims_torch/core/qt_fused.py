@@ -29,7 +29,12 @@ plane; its tables gain a fifth ``[SP, SP]`` block (the DP pattern).
 
 :func:`fused_md_substeps` launches ``csrc/fused_ticks.cu`` for CUDA
 tensors and runs :func:`fused_md_substeps_reference`, the plain torch
-twin, for CPU tensors.
+twin, for CPU tensors.  The kernel gives each state of an ion to one lane
+of a warp and reads H row by row: the host turns the packed coupling
+block, the beat-note terms and the Ehrenfest terms into one sparse row
+per state (:func:`coupling_rows`, the lane table of :func:`_kernel_plan`),
+once per spec, and :func:`launch_geometry` says how the lanes are laid
+out.
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ _MAX_TDEP = 4
 _MAX_FORCE = 16
 _KERNEL_S = (3, 5, 7, 12)      # state counts csrc/fused_ticks.cu is built for
 _LANE_S = 12                   # the per-lane variants are built for sr12 only
+_THREADS = 128                 # threads of a block of the kernel
+_KREG = 3                      # row entries a lane of the kernel keeps in
+#                                registers; longer rows stay in shared memory
 
 
 def _round_up(x: int, m: int) -> int:
@@ -390,14 +398,147 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
     return p
 
 
+def coupling_rows(*blocks, extra=()):
+    """Sparse rows of real coupling blocks that share one pattern.
+
+    ``blocks`` are ``[rows, cols]`` arrays (one block, or the om split's
+    C_sp and C_dp).  Returns ``(cols [rows, K] int32, coefs [len(blocks),
+    rows, K])``: for row s the columns where any block is nonzero, in
+    ascending order, and each block's entries there; K is the largest row
+    count (at least 1) and shorter rows are padded with ``(s, 0.0)``.
+    ``extra`` lists ``(row, column)`` places that belong to the pattern
+    whatever the blocks hold there.  Summing ``coefs[j, s, k] * x[cols[s,
+    k]]`` over k is block j's dense row sum with its zero terms left out.
+    A block with a nonzero imaginary part is refused."""
+    real = []
+    for blk in blocks:
+        blk = np.asarray(blk)
+        if np.iscomplexobj(blk):
+            if np.abs(blk.imag).max(initial=0.0) != 0.0:
+                raise ValueError("the tick kernel needs a real coupling "
+                                 "table; got complex entries")
+            blk = blk.real
+        real.append(blk)
+    n_rows = real[0].shape[0]
+    pattern = np.zeros(real[0].shape, bool)
+    for blk in real:
+        pattern |= blk != 0
+    for r, c in extra:
+        pattern[r, c] = True
+    K = max(1, int(pattern.sum(1).max(initial=0)))
+    cols = np.repeat(np.arange(n_rows, dtype=np.int32)[:, None], K, 1)
+    coefs = np.zeros((len(real), n_rows, K), real[0].dtype)
+    for s in range(n_rows):
+        nz = np.flatnonzero(pattern[s])
+        cols[s, :len(nz)] = nz
+        for j, blk in enumerate(real):
+            coefs[j, s, :len(nz)] = blk[s, nz]
+    return cols, coefs
+
+
+# planes of a lane-table row, K floats each (csrc/fused_ticks.cu)
+ROW_PLANES = ("col", "c_sp", "c_dp", "tdep_m", "tdep_m_signed", "force_w",
+              "force_group")
+
+
+def lane_table_width(K: int) -> int:
+    """Floats of a lane-table row: :data:`ROW_PLANES` of K entries."""
+    return len(ROW_PLANES) * K
+
+
+class LaunchGeometry(NamedTuple):
+    lanes_per_ion: int       # lanes of a warp that own one ion
+    threads: int             # per block
+    blocks: int
+    shared_bytes: int        # dynamic shared memory per block
+
+
+def launch_geometry(npad: int, S: int, K: int) -> LaunchGeometry:
+    """How csrc/fused_ticks.cu is launched over ``npad`` lanes of an
+    ``S``-state scheme whose longest coupling row has ``K`` entries: a
+    group of 4, 8 or 16 lanes per ion (one state a lane), 128 threads a
+    block, and shared memory for the two ``[SP, SP]`` destination tables
+    plus, for rows too long for a lane's registers, the lane table."""
+    G = 4 if S <= 4 else 8 if S <= 8 else 16
+    SP = _round_up(S, 8)
+    rows = SP * lane_table_width(K) if K > _KREG else 0
+    return LaunchGeometry(G, _THREADS, npad // (_THREADS // G),
+                          4 * (2 * SP * SP + rows))
+
+
+class KernelPlan(NamedTuple):
+    """What a launch needs of a spec, made once per spec."""
+    params: _Params
+    K: int                   # entries of the longest coupling row
+    lane_table: np.ndarray   # [SP, lane_table_width(K)] float32
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_plan(spec: FusedTickSpec) -> KernelPlan:
+    """The parameter block and the lane table of ``spec``.  Row s of the
+    table is state s's row of H as K entries (:data:`ROW_PLANES`): the
+    column c and the static coupling there (:func:`coupling_rows` of the
+    packed table; with ``per_lane_om`` the SP and DP patterns on their
+    merged columns); for a beat-note term on the pair, its coefficient m
+    and m times the sign of the phase (H[r,c] = m e^{i phi}, H[c,r] = m
+    e^{-i phi}); and the weight and group of an Ehrenfest term w Im(psi_a
+    conj(psi_b)) on the pair, held by lane a against column b, or by lane
+    b against column a with -w where only that place is in the pattern."""
+    check_real_couplings(spec)
+    params = _kernel_params(spec)
+    SP = spec.SP
+    _, mats = pack_tables(spec)
+    blocks = [mats[:SP]]
+    if spec.per_lane_om:
+        blocks.append(mats[4 * SP:5 * SP])
+    tdep = [(params.tdep_row[t], params.tdep_col[t], params.tdep_coef[t])
+            for t in range(params.n_tdep)]
+    forces = [(params.force_a[k], params.force_b[k], params.force_w[k],
+               params.force_g[k]) for k in range(params.n_force)]
+    places = {(int(r), int(c)) for blk in blocks
+              for r, c in zip(*np.nonzero(blk))}
+    places |= {pair for r, c, _ in tdep for pair in ((r, c), (c, r))}
+    places |= {(a, b) for a, b, _, _ in forces
+               if (a, b) not in places and (b, a) not in places}
+    cols, coefs = coupling_rows(*blocks, extra=places)
+    K = cols.shape[1]
+    tab = np.zeros((SP, len(ROW_PLANES), K), np.float32)
+    tab[:, 0] = cols
+    tab[:, 1:1 + len(coefs)] = coefs.transpose(1, 0, 2)
+
+    def entry(row, col):
+        return row, slice(None), int(np.flatnonzero(cols[row] == col)[0])
+    for r, c, m in tdep:
+        tab[entry(r, c)][3:5] += (m, m)
+        tab[entry(c, r)][3:5] += (m, -m)
+    for a, b, w, g in forces:
+        at, w = (entry(a, b), w) if b in cols[a] else (entry(b, a), -w)
+        if tab[at][5] != 0.0 and tab[at][6] != g:
+            raise ValueError("two Ehrenfest terms of different groups on "
+                             f"the states ({a}, {b})")
+        tab[at][5] += w
+        tab[at][6] = g
+    return KernelPlan(params, K, tab.reshape(SP, -1))
+
+
+@functools.lru_cache(maxsize=64)
+def _lane_table_on(spec: FusedTickSpec, device: torch.device):
+    """The spec's lane table on ``device`` (one copy per spec and card)."""
+    return torch.as_tensor(_kernel_plan(spec).lane_table).to(device)
+
+
+# a spec is checked once: a failed check raises every time (lru_cache keeps
+# no exception), a passed one is remembered
+_checked = functools.lru_cache(maxsize=64)(check_real_couplings)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ticks")
-    v = ctypes.c_void_p
-    lib.fused_ticks_launch.argtypes = ([v] * 18
-                                       + [ctypes.c_int, ctypes.c_float,
-                                          ctypes.c_float, ctypes.c_uint,
-                                          ctypes.c_uint, v])
+    v, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_uint)
+    lib.fused_ticks_launch.argtypes = ([v] * 14 + [i] + [v] * 5
+                                       + [i, f, f, u, u, i, i, v])
     lib.fused_ticks_launch.restype = ctypes.c_int
     return lib
 
@@ -428,9 +569,11 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     its form: ``fused_md_substeps.launches`` for explicit rolls and
     ``launches_rng`` for the in-kernel RNG, each with the suffix
     ``_per_lane_e0``, ``_per_lane_om`` or ``_per_lane_e0_om`` for a
-    per-lane variant (:data:`LAUNCH_COUNTERS`).  CPU tensors run
-    :func:`fused_md_substeps_reference`."""
-    check_real_couplings(spec)
+    per-lane variant (:data:`LAUNCH_COUNTERS`).  The kernel's five
+    outputs are row blocks of one allocation.  The spec's coupling check,
+    parameter block and lane table are made once per spec (and card).  CPU
+    tensors run :func:`fused_md_substeps_reference`."""
+    _checked(spec)
     SP = spec.SP
     npad = R.shape[-1]
     want = {"R": (3, npad), "V": (3, npad), "F": (3, npad), "tp": (1, npad),
@@ -487,22 +630,27 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
         raise ValueError("tables must be float32 on R's device")
     if tables.mats.shape[0] != (5 if spec.per_lane_om else 4) * SP:
         raise ValueError("tables were packed for another per_lane_om flag")
-    params = _kernel_params(spec)
-    outs = [torch.empty_like(x) for x in (R, V, tp, psi_re, psi_im)]
+    plan = _kernel_plan(spec)
+    lane_table = _lane_table_on(spec, R.device)
+    geo = launch_geometry(npad, spec.S, plan.K)
+    out = torch.empty((7 + 2 * SP, npad), dtype=R.dtype, device=R.device)
+    outs = (out[0:3], out[3:6], out[6:7], out[7:7 + SP], out[7 + SP:])
     ptrs = [None if x is None else x.data_ptr()
             for x in (rolls, seed, e0_lanes, om_lanes)]
     lib = _lib()
-    with torch.cuda.device(R.device):
+    with _build.device_guard(R.device):
         err = lib.fused_ticks_launch(
-            ctypes.addressof(params),
+            ctypes.addressof(plan.params),
             *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im)),
-            *ptrs, *(x.data_ptr() for x in (*tabs, *outs)),
+            *ptrs, *(x.data_ptr() for x in tabs), lane_table.data_ptr(),
+            plan.K, *(x.data_ptr() for x in outs),
             npad, 1.0 if first else 0.0, float(tick0), int(tick0),
-            int(lane0), torch.cuda.current_stream().cuda_stream)
+            int(lane0), geo.blocks, geo.shared_bytes,
+            _build.raw_stream(R.device))
     _build.check(lib, err, "fused_ticks_launch")
     name = launch_counter(spec)
     setattr(fused_md_substeps, name, getattr(fused_md_substeps, name) + 1)
-    return tuple(outs)
+    return outs
 
 
 def launch_counter(spec: FusedTickSpec) -> str:

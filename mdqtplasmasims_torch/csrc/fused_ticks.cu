@@ -15,25 +15,71 @@
 // categorical destination over tables whose pad rows are saturated to 1,
 // +-recoil, tp = 0); optional renormalization guarded for zero norms.
 //
-// What bounds it on the H100: per ion and tick about 4000 dependent FP32
-// operations (four 12x12 real matvecs per RK stage pair, the beat-note and
-// force terms) with only a few bytes of state traffic, so it is bound by
-// each thread's chain of dependent FP32 instructions.  At the flagship
-// Np=3584 one thread per ion is 28 blocks of 128 threads on 132 SMs: the
-// card is mostly idle.
-// Spreading one ion's states over several lanes (or batching ensembles
-// along the lane axis) to fill the SMs is the first thing a performance
-// change should attack.
+// What bounds it on the H100: neither bytes nor the FP32 peak.  A launch
+// moves ~0.5 MB and an ion's tick is a chain of some 2000 cycles of
+// dependent FP32, shuffle and integer instructions (four RK slopes, each a
+// reduction over the states and a reciprocal square root; twenty Threefry
+// rounds; a sincosf).  The TPU kernel runs that chain over (8,
+// 128) tiles of ions with dense S x S products on the vector unit; one
+// thread per ion, its first translation, left 104 of the card's 132 SMs
+// empty at 3584 ions, one warp on each busy scheduler, 255 registers and
+// spills.  So the time is set by how many warps each scheduler can switch
+// between and by how many instructions a tick takes.
 //
-// Design: one thread per ion keeps R, V, F, tp and its S (re, im)
-// amplitudes plus the RK stage vectors in registers (S is a template
-// parameter, so the state loops unroll; runtime-indexed terms use
-// select loops rather than indexing register arrays).  The level tables
-// (vecs [SP,8], mats [4SP,SP]) are staged in shared memory once per
-// block; the beat-note and force term lists ride in the by-value
-// parameter block.  Uniforms are read from the explicit rolls
-// [n_ticks*5, Np], or drawn in the kernel (RNG).  IEEE f32 throughout (no
-// fast math).
+// Design: G lanes of a warp own one ion and lane s of the group owns state
+// s (G = 16 at S = 12: two ions a warp; 8 at S = 5 and 7; 4 at S = 3;
+// lanes s >= S idle on zeros).  3584 ions are 1792 warps, 3.4 on each of
+// the card's 528 schedulers.  A lane keeps its own amplitude, slope,
+// stage and accumulator: a dozen floats where a thread kept seven arrays
+// of 24.
+//   * Sparse rows.  H reaches the kernel as per-row lists (the lane
+//     table, built by the host from the packed table: K (column,
+//     coefficient) entries in ascending column order, padded with (s, 0)).
+//     Lane s loads its row once, before the tick loop, into registers, and
+//     a slope's H phi is K x 2 shuffles and K x 4 FMAs (K = 3 for every
+//     reference scheme).  Skipping the table's zeros in column order
+//     leaves the dense sum's value.  A denser table (K > 3) takes the WIDE
+//     instantiation, which keeps the lists in shared memory and loops over
+//     them.
+//   * The beat-note terms H[r,c] = m e^{i phi}, H[c,r] = m e^{-i phi} are
+//     entries of rows r and c too: once a tick each lane forms its row's
+//     complex coefficients (static + m cos phi, +-m sin phi), so a slope
+//     fetches no amplitude twice.  The Ehrenfest terms sit on the same
+//     pairs: lane s weights Im(psi_s conj(psi_c)) with the neighbours the
+//     first slope fetched anyway, then one sum over the group.  The card
+//     moves one warp shuffle per clock and SM, a quarter of the rate of
+//     its other instructions, so a wide fold pays for shuffles before
+//     FP32 operations: 46 a tick here (66 with the terms fetched apart;
+//     every form 7-9 % faster for it).
+//   * Sums over states (dp of each slope, the norm, the Ehrenfest sum) are
+//     xor butterflies over the group, the cumulative source sum a scan,
+//     the categorical counts ballots.  Every order depends on the lane's
+//     index in its group only, so an ion's result depends on neither its
+//     block, the half of the warp that holds it, lane0, nor how a fold is
+//     cut into launches.
+//   * Work that differs between lanes is dealt out: the leapfrog's three
+//     axes to lanes 0-2, the three Threefry calls of a tick to lanes 0-2,
+//     the explicit rolls r0-r3 to lanes 0-3.  Work that is the same for a
+//     group (clock, phase, sincosf) every lane does: it costs a warp one
+//     instruction stream either way.
+//   * The collapse (scan, two table lookups, ballots) sits behind a warp
+//     vote: it runs only in ticks in which an ion of the warp jumped.
+//   * The per-lane forms need no shared planes: e0 is one register of lane
+//     s, and the om forms' two patterns (C_sp, C_dp: disjoint parts of the
+//     scheme's coupling) are one merged list whose coefficients om * c_sp +
+//     om_dp * c_dp are formed once before the tick loop, so an om form
+//     runs the plain form's instructions.
+//   * Shared memory holds the two destination tables (transposed to [src]
+//     [dest], so the lanes of a group read neighbouring words): 2 SP^2
+//     floats, 2 KiB for sr12.  The planes are read and written directly:
+//     a block's 8 ions fill one 32-byte sector per row.
+//   * The slopes' division by the constant h is a multiplication by 1/h,
+//     rounded once on the host: the eight IEEE divisions of a tick (each a
+//     reciprocal, refinement steps and a range check) were half of all the
+//     kernel executed (B'rng at 3584 lanes 0.079 ms with them, 0.044 ms
+//     without, NVIDIA H100 80GB HBM3, 700 W).  A slope then differs from
+//     the plain version's by at most one more rounding (1 ulp).
+// IEEE f32 otherwise (no fast math).
 //
 // RNG (template flag; the JAX kernel's internal_rng, which uses the TPU's
 // hardware PRNG, qt_fused.py:111-130, :251-260): the TPU's bits cannot be
@@ -42,18 +88,15 @@
 // (Random123) with key (seed word, 0), the word a [1] int32 device tensor
 // drawn once per run and read here through its pointer (no host sync), and
 // counter (global lane n, 3*tick + j), j = 0, 1, 2, tick the absolute run
-// tick tick_base + i and n = lane0 + the lane within the launch (lane0 is
-// the first lane a mesh slot holds in its fold's global lane numbering, 0
-// for an unsharded fold, so slots launched apart draw the streams their
-// lanes would draw in one launch): words 0-4 of the three outputs are r0..r4, each the
-// top 24 bits times 2^-24, so u < 1 (the collapse relies on it against the
-// saturated pad rows).  The stream depends on neither THREADS, the block
-// index nor how a fold's lanes are split between launches.  The draw sits after the RK step and the Ehrenfest sum, so its
-// words are not live across the unrolled state loops; the jump test r0 <
-// h*dp0 still uses the tick's initial amplitudes.  Each tick costs three
-// Threefry calls (60 rounds of add/rotate/xor) and saves the five 4-byte
-// loads per ion of the rolls plus the torch.rand launch that wrote them
-// (125 x Np x 4 B per MD step written and read back).
+// tick tick_base + i and n = lane0 + the ion's lane within the launch's
+// planes (lane0 is the first lane a mesh slot holds in its fold's global
+// lane numbering, 0 for an unsharded fold, so slots launched apart draw the
+// streams their lanes would draw in one launch): words 0-4 of the three
+// outputs are r0..r4, each the top 24 bits times 2^-24, so u < 1 (the
+// collapse relies on it against the saturated pad rows).  Lane j of the
+// group computes call j; the words travel by shuffle.  The stream depends
+// on neither the block size, the block index nor how a fold's lanes are
+// split between launches.
 //
 // Sweep variants (the JAX kernel's per_lane_e0 / per_lane_om flags), two
 // template flags instantiated for S=12 only (sr12 is the one scheme that
@@ -61,35 +104,24 @@
 //   PE0  the diagonal energies come from an [SP, Np] lane plane (each
 //        ensemble member's detunings) instead of the vecs column;
 //   POM  H = om*C_sp + om_dp*C_dp + diag with (om, om_dp) from an [2, Np]
-//        lane plane: C_sp is table block 0, C_dp a fifth [SP, SP] block;
-//        the beat-note terms are the DP pattern's, scaled by om_dp; the
-//        Ehrenfest terms carry a group tag (0: SP, scaled by om; 1: DP,
-//        scaled by om_dp; sr12 has 4 + 8 of them) and are summed per group.
-// The lane values are constant across the ticks.  Each block stages them
-// once in shared memory ([S][THREADS] e0 and [2][THREADS] om planes); the
-// tick loop reads e0 from there rather than holding 12 more values per
-// thread in the already full register file, and om, om_dp ride in two
-// registers.  Shared memory is (SP*8 + 5*SP*SP + (S+2)*THREADS) floats at
-// most: 12.5 KiB for sr12.
+//        lane plane; the beat-note terms are the DP pattern's, scaled by
+//        om_dp; the Ehrenfest terms carry a group tag (0: SP, scaled by
+//        om; 1: DP, scaled by om_dp).
+// The lane values are constant across the ticks.
 //
-// Registers (nvcc 12.8 -O3 -Xptxas -v, sm_90a): S=12 (sr12, the main
-// path) 255 per thread with 208 B spill stores / 352 B spill loads; S=7
-// 128, S=5 96, S=3 72.  Sweep variants (S=12, all at 255 registers):
-// PE0 208 / 328 B, POM 1224 / 2048 B, PE0+POM 1200 / 2028 B of spill
-// stores / loads: the second matvec of POM overflows the register file
-// and runs ~1.75x the plain variant's time.  The RNG forms (255 registers
-// each) spill a little less than their explicit counterparts: plain 192 /
-// 336 B, PE0 192 / 300 B, POM 1112 / 1972 B, PE0+POM 1172 / 2000 B.  The
-// S=12 spills (likely the loop-invariant coupling loads hoisted into
-// registers across ticks) are the second thing a performance change
-// should look at.
+// Registers, spills and shared memory of every form: nvcc -Xptxas -v, in
+// the build log beside the library (chip_smoke.py prints them).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define THREADS 128
 #define MAX_TDEP 4
 #define MAX_FORCE 16
+#define KREG 3            // row entries a lane keeps in registers
+#define FULL 0xffffffffu
 
+// The spec's constants (qt_fused.py's _Params mirrors it).  The term lists
+// reach the kernel through the lane table.
 struct FusedParams {
   int S, SP, n_ticks, n_tdep, n_force;
   int apply_kick, apply_recoil, renormalize, has_exp;
@@ -102,20 +134,28 @@ struct FusedParams {
   float force_w[MAX_FORCE];
 };
 
-// x[k] for a runtime k without indexing a register array
-template <int S>
-__device__ __forceinline__ float pick(const float (&x)[S], int k) {
-  float v = 0.f;
-#pragma unroll
-  for (int s = 0; s < S; ++s) v = (s == k) ? x[s] : v;
-  return v;
+// What the kernel reads of them, by value
+struct TickConsts {
+  int SP, n_ticks, n_tdep, K, W;
+  int apply_kick, apply_recoil, renormalize, has_exp;
+  float h, half_h, h8, qdt, half_qdt, p2q, g2e, L;
+  float exp_c1, exp_c2, tdep_freq, branch_d, kick_s, kick_d;
+  float inv_h;            // 1/h, rounded to f32 on the host
+};
+
+// A lane-table row holds K entries of lane s's row of H, as seven planes of
+// K floats: the column c; the static coupling (c_sp | c_dp; without POM the
+// scheme's own in c_sp); the beat-note coefficient m of H[s,c] = m e^{+-i
+// phi} and m times the sign of its phase; the weight of the Ehrenfest term
+// on the pair (s, c) and its group
+#define ROW_PLANES 7
+__host__ __device__ constexpr int lane_table_width(int K) {
+  return ROW_PLANES * K;
 }
 
-template <int S>
-__device__ __forceinline__ void add_at(float (&x)[S], int k, float v) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) x[s] = (s == k) ? x[s] + v : x[s];
-}
+// compile-time flags for the slope lambda
+struct FirstSlope { static constexpr bool value = true; };
+struct LaterSlope { static constexpr bool value = false; };
 
 // Threefry-2x32 with 20 rounds (Random123's threefry2x32_R(20)): the
 // counter (x0, x1) is encrypted in place under the key (k0, k1)
@@ -148,83 +188,25 @@ __device__ __forceinline__ float wrap(float r, float L) {
   return (r > L) ? r - L : r;
 }
 
-// The per-lane planes of a thread: e0[s * THREADS] (PE0), om/omdp (POM)
-struct LaneVals {
-  const float* e0;
-  float om, omdp;
-};
-
-// One RK slope of the renormalized propagator at stage input (sa, sb):
-// k = (pref * (phi - i h H phi) - phi) / h, pref = rsqrt(1 - clip(dp)).
-template <int S, bool PE0, bool POM>
-__device__ __forceinline__ void g_slope(const FusedParams& p,
-                                        const float* __restrict__ vec,
-                                        const float* __restrict__ C,
-                                        const float* __restrict__ Cdp, int SP,
-                                        const LaneVals& lv,
-                                        const float (&sa)[S],
-                                        const float (&sb)[S], float u,
-                                        float cphi, float sphi, float (&ka)[S],
-                                        float (&kb)[S]) {
-  float dp = 0.f;
+// Sum over the G lanes of a group, the same bits on every lane: an xor
+// butterfly (a + b == b + a exactly, so both partners of a step agree)
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) dp += vec[s * 8] * (sa[s] * sa[s] + sb[s] * sb[s]);
-  dp = p.h * dp;
-  const float pref = rsqrtf(1.f - fminf(fmaxf(dp, 0.f), 0.9f));
-  // H phi = (C + diag(e0 + e1 u) - i/2 diag(w)) phi  (+ beat-note terms)
-  float re[S], im[S];
-#pragma unroll
-  for (int r = 0; r < S; ++r) {
-    float hra = 0.f, hrb = 0.f;
-#pragma unroll
-    for (int c = 0; c < S; ++c) {
-      const float m = C[r * SP + c];
-      hra += m * sa[c];
-      hrb += m * sb[c];
-    }
-    if (POM) {   // om * (C_sp phi) + om_dp * (C_dp phi)
-      float dra = 0.f, drb = 0.f;
-#pragma unroll
-      for (int c = 0; c < S; ++c) {
-        const float m = Cdp[r * SP + c];
-        dra += m * sa[c];
-        drb += m * sb[c];
-      }
-      hra = lv.om * hra + lv.omdp * dra;
-      hrb = lv.om * hrb + lv.omdp * drb;
-    }
-    const float e0 = PE0 ? lv.e0[r * THREADS] : vec[r * 8 + 1];
-    const float diag = e0 + vec[r * 8 + 2] * u;
-    hra += diag * sa[r];
-    hrb += diag * sb[r];
-    const float hw = -0.5f * vec[r * 8];
-    re[r] = hra - hw * sb[r];
-    im[r] = hrb + hw * sa[r];
-  }
-  // H[r,c] = m e^{i phi}, H[c,r] = m e^{-i phi}
-  // (constant trip counts keep the parameter-block reads at fixed offsets)
-#pragma unroll
-  for (int k = 0; k < MAX_TDEP; ++k) {
-    if (k >= p.n_tdep) break;
-    const int r = p.tdep_row[k], c = p.tdep_col[k];
-    const float m = POM ? lv.omdp * p.tdep_coef[k] : p.tdep_coef[k];
-    const float ar = pick(sa, r), br = pick(sb, r);
-    const float ac = pick(sa, c), bc = pick(sb, c);
-    add_at(re, r, m * (cphi * ac - sphi * bc));
-    add_at(im, r, m * (cphi * bc + sphi * ac));
-    add_at(re, c, m * (cphi * ar + sphi * br));
-    add_at(im, c, m * (cphi * br - sphi * ar));
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    ka[s] = (pref * (sa[s] + p.h * im[s]) - sa[s]) / p.h;
-    kb[s] = (pref * (sb[s] - p.h * re[s]) - sb[s]) / p.h;
-  }
+  for (int m = G / 2; m >= 1; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+  return v;
 }
 
-template <int S, bool PE0, bool POM, bool RNG>
+// How many of a group's lanes (the G lanes from `base`) voted yes
+template <int G>
+__device__ __forceinline__ int group_count(bool yes, int base) {
+  const unsigned all = __ballot_sync(FULL, yes);
+  return __popc((all >> base) & ((G == 32) ? FULL : ((1u << G) - 1u)));
+}
+
+template <int S, int G, bool PE0, bool POM, bool RNG, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
+fused_ticks_kernel(const TickConsts p, const float* __restrict__ R,
                    const float* __restrict__ V, const float* __restrict__ F,
                    const float* __restrict__ tp_in,
                    const float* __restrict__ pre,
@@ -234,271 +216,328 @@ fused_ticks_kernel(const FusedParams p, const float* __restrict__ R,
                    const float* __restrict__ e0_lanes,
                    const float* __restrict__ om_lanes,
                    const float* __restrict__ vecs,
-                   const float* __restrict__ mats, float* __restrict__ Ro,
-                   float* __restrict__ Vo, float* __restrict__ tpo,
-                   float* __restrict__ preo, float* __restrict__ pimo,
-                   int npad, float first, float tick0, uint32_t tick_base,
-                   uint32_t lane0) {
+                   const float* __restrict__ mats,
+                   const float* __restrict__ lane_tab,
+                   float* __restrict__ Ro, float* __restrict__ Vo,
+                   float* __restrict__ tpo, float* __restrict__ preo,
+                   float* __restrict__ pimo, int npad, float first,
+                   float tick0, uint32_t tick_base, uint32_t lane0) {
+  static_assert(G >= S && G >= 4 && G <= 32 && (G & (G - 1)) == 0 &&
+                    THREADS % G == 0,
+                "a group holds one state per lane and at least r0..r3");
   extern __shared__ float smem[];
-  const int SP = p.SP;
-  const int n_tab = SP * 8 + (POM ? 5 : 4) * SP * SP;
-  for (int k = threadIdx.x; k < n_tab; k += THREADS)
-    smem[k] = (k < SP * 8) ? vecs[k] : mats[k - SP * 8];
-  const float* vec = smem;                       // [SP, 8]
-  const float* C = smem + SP * 8;                // [SP, SP]
-  const float* cumS = C + SP * SP;               // [dest, src]
-  const float* cumD = cumS + SP * SP;
-  const float* Cdp = C + 4 * SP * SP;            // [SP, SP] (POM only)
-
-  const int n = blockIdx.x * THREADS + threadIdx.x;   // npad % THREADS == 0
-  // this block's lane planes: e0 [S][THREADS], then (om, om_dp) [2][THREADS]
-  float* lanes = smem + n_tab;
-  if (PE0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      lanes[s * THREADS + threadIdx.x] = e0_lanes[(size_t)s * npad + n];
+  const int SP = p.SP, K = p.K, W = p.W;
+  float* cumS = smem;                    // [src, dest]
+  float* cumD = smem + SP * SP;
+  float* srow = cumD + SP * SP;          // the lane table (WIDE only)
+  for (int k = threadIdx.x; k < SP * SP; k += THREADS) {
+    const int src = k / SP, d = k % SP;  // mats blocks 1, 2 are [dest, src]
+    cumS[k] = mats[(SP + d) * SP + src];
+    cumD[k] = mats[(2 * SP + d) * SP + src];
   }
-  float* oml = lanes + (PE0 ? S * THREADS : 0);
-  if (POM) {
-    oml[threadIdx.x] = om_lanes[n];
-    oml[THREADS + threadIdx.x] = om_lanes[npad + n];
-  }
+  if (WIDE)       // rows longer than KREG stay in shared memory
+    for (int k = threadIdx.x; k < SP * W; k += THREADS) srow[k] = lane_tab[k];
   __syncthreads();
-  LaneVals lv;
-  lv.e0 = lanes + threadIdx.x;
-  lv.om = POM ? oml[threadIdx.x] : 1.f;
-  lv.omdp = POM ? oml[THREADS + threadIdx.x] : 1.f;
-  float x = R[n], y = R[npad + n], z = R[2 * npad + n];
-  float vx = V[n], vy = V[npad + n], vz = V[2 * npad + n];
-  const float fx = F[n], fy = F[npad + n], fz = F[2 * npad + n];
-  float tp = tp_in[n];
-  float a[S], b[S];
+
+  const int lane = threadIdx.x & 31;
+  const int s = lane & (G - 1);                    // this lane's state
+  const int base = lane & ~(G - 1);                // the group's first lane
+  const int n = blockIdx.x * (THREADS / G) + threadIdx.x / G;   // the ion
+  const bool live = s < S;
+
+  // ---- this lane's constants (s < G <= SP: pad rows hold zeros) ----
+  const float w = vecs[s * 8], e1 = vecs[s * 8 + 2], msk = vecs[s * 8 + 3];
+  const float e0 = PE0 ? e0_lanes[(size_t)s * npad + n] : vecs[s * 8 + 1];
+  const float hw = -0.5f * w;
+  const float om = POM ? om_lanes[n] : 1.f;
+  const float omdp = POM ? om_lanes[npad + n] : 1.f;
+  const bool beat = p.n_tdep > 0;
+  // Entry k of this lane's row, scaled for this ion (POM: SP parts x om, DP
+  // parts x om_dp; the beat notes are the DP pattern's)
+  auto entry = [&](const float* q, int k, int& c, float& m, float& t,
+                   float& ts, float& fw) {
+    c = base + (int)q[k];
+    m = POM ? om * q[K + k] + omdp * q[2 * K + k] : q[K + k];
+    t = POM ? omdp * q[3 * K + k] : q[3 * K + k];
+    ts = POM ? omdp * q[4 * K + k] : q[4 * K + k];
+    fw = POM ? ((q[6 * K + k] != 0.f) ? omdp : om) * q[5 * K + k]
+             : q[5 * K + k];
+  };
+  int col[KREG];
+  float coef[KREG], tm[KREG], tms[KREG], fwk[KREG];
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    a[s] = pre[s * npad + n];
-    b[s] = pim[s * npad + n];
+  for (int k = 0; k < KREG; ++k) {
+    col[k] = lane;
+    coef[k] = tm[k] = tms[k] = fwk[k] = 0.f;
+    if (!WIDE && k < K)
+      entry(lane_tab + s * W, k, col[k], coef[k], tm[k], tms[k], fwk[k]);
   }
+
+  // ---- state: lane s < 3 holds axis s of R, V, F; every lane the clock
+  // and its own amplitude ----
+  const bool axis = s < 3;
+  const size_t ax = (size_t)min(s, 2) * npad + n;
+  float r = axis ? R[ax] : 0.f;
+  float v = axis ? V[ax] : 0.f;
+  const float f = axis ? F[ax] : 0.f;
+  float tp = tp_in[n];
+  float a = live ? pre[(size_t)s * npad + n] : 0.f;
+  float b = live ? pim[(size_t)s * npad + n] : 0.f;
   const float hq = p.half_qdt, L = p.L;
   const uint32_t key = RNG ? (uint32_t)seed[0] : 0u;
 
   for (int i = 0; i < p.n_ticks; ++i) {
-    // ---- leapfrog substep (forces fixed) ----
+    // explicit rolls: lanes 0-3 fetch r0-r3, every lane r4
+    float roll_s = 0.f, roll_4 = 0.f;
+    if constexpr (!RNG) {
+      const float* rl = rolls + (size_t)(i * 5) * npad + n;
+      roll_s = rl[(size_t)min(s, 3) * npad];
+      roll_4 = rl[(size_t)4 * npad];
+    }
+
+    // ---- leapfrog substep (forces fixed), one axis a lane ----
     const float fsq = (((first > 0.f && i == 0) ? 1.f : 0.f) * hq) * hq;
-    x = wrap(x + hq * vx + fsq * fx, L);
-    y = wrap(y + hq * vy + fsq * fy, L);
-    z = wrap(z + hq * vz + fsq * fz, L);
-    vx = vx + p.qdt * fx;
-    vy = vy + p.qdt * fy;
-    vz = vz + p.qdt * fz;
-    x = wrap(x + hq * vx + fsq * fx, L);
-    y = wrap(y + hq * vy + fsq * fy, L);
-    z = wrap(z + hq * vz + fsq * fz, L);
+    r = wrap(r + hq * v + fsq * f, L);
+    v = v + p.qdt * f;
+    r = wrap(r + hq * v + fsq * f, L);
 
     // ---- quantum tick: the clock advances before the beat note ----
     tp = tp + p.qdt;
-    float u = vx * p.p2q;
+    float u = __shfl_sync(FULL, v, base) * p.p2q;
     if (p.has_exp) {
       const float tpl = (tick0 + (float)i) * p.qdt;
       u = u + (p.exp_c1 * tpl) * rsqrtf(1.f + p.exp_c2 * tpl * tpl);
     }
     float cphi = 0.f, sphi = 0.f;
     if (p.n_tdep > 0) sincosf((p.tdep_freq * u) * (tp * p.g2e), &sphi, &cphi);
-    float r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f, r4 = 0.f;
-    if constexpr (!RNG) {
-      const float* rl = rolls + (size_t)(i * 5) * npad + n;
-      r0 = rl[0];
-      r1 = rl[npad];
-      r2 = rl[2 * npad];
-      r3 = rl[3 * npad];
-      r4 = rl[4 * npad];
+    const float diag = e0 + e1 * u;
+    // this tick's row of H: static part + m e^{+-i phi}
+    float cr[KREG], ci[KREG];
+#pragma unroll
+    for (int k = 0; k < KREG; ++k) {
+      cr[k] = coef[k] + tm[k] * cphi;
+      ci[k] = tms[k] * sphi;
     }
 
-    float dp0 = 0.f;
+    // One RK slope of the renormalized propagator at stage input (sa, sb):
+    // k = (pref * (phi - i h H phi) - phi) * (1/h), pref = rsqrt(1 - clip(dp)),
+    // H phi = (C + diag(e0 + e1 u) - i/2 diag(w)) phi with the beat notes
+    // in C.  Returns sum_s w_s |phi_s|^2.  The first slope's input is the
+    // tick's initial amplitudes, so its fetched neighbours also give the
+    // lane's share of the Ehrenfest sum, Im(psi_s conj(psi_c)) = b_s a_c -
+    // a_s b_c per weighted pair (s, c).
+    float kick_part = 0.f;
+    auto slope = [&](auto which, float sa, float sb, float& ka,
+                     float& kb) -> float {
+      constexpr bool FIRST = decltype(which)::value;
+      const float dps = group_sum<G>(w * (sa * sa + sb * sb));
+      const float dp = p.h * dps;
+      const float pref = rsqrtf(1.f - fminf(fmaxf(dp, 0.f), 0.9f));
+      float re = 0.f, im = 0.f;
+      if constexpr (!WIDE) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) dp0 += vec[s * 8] * (a[s] * a[s] + b[s] * b[s]);
+        for (int k = 0; k < KREG; ++k) {
+          const float pa = __shfl_sync(FULL, sa, col[k]);
+          const float pb = __shfl_sync(FULL, sb, col[k]);
+          if (beat) {
+            re += cr[k] * pa - ci[k] * pb;
+            im += cr[k] * pb + ci[k] * pa;
+          } else {
+            re += coef[k] * pa;
+            im += coef[k] * pb;
+          }
+          if constexpr (FIRST) kick_part += fwk[k] * (sb * pa - sa * pb);
+        }
+      } else {
+        for (int k = 0; k < K; ++k) {
+          int c;
+          float m, t, ts, fw;
+          entry(srow + s * W, k, c, m, t, ts, fw);
+          const float pa = __shfl_sync(FULL, sa, c);
+          const float pb = __shfl_sync(FULL, sb, c);
+          const float crk = m + t * cphi, cik = ts * sphi;
+          re += crk * pa - cik * pb;
+          im += crk * pb + cik * pa;
+          if constexpr (FIRST) kick_part += fw * (sb * pa - sa * pb);
+        }
+      }
+      re += diag * sa;
+      im += diag * sb;
+      re = re - hw * sb;
+      im = im + hw * sa;
+      ka = (pref * (sa + p.h * im) - sa) * p.inv_h;
+      kb = (pref * (sb - p.h * re) - sb) * p.inv_h;
+      return dps;
+    };
 
     // ---- RK step: acc = k1 + 3 k2 + 3 k3 + k4 ----
-    float acca[S], accb[S], ka[S], kb[S], sa[S], sb[S];
-    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, a, b, u, cphi, sphi, ka, kb);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      acca[s] = ka[s];
-      accb[s] = kb[s];
-      sa[s] = a[s] + p.half_h * ka[s];
-      sb[s] = b[s] + p.half_h * kb[s];
-    }
-    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, sa, sb, u, cphi, sphi, ka,
-                         kb);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      acca[s] = acca[s] + 3.f * ka[s];
-      accb[s] = accb[s] + 3.f * kb[s];
-      sa[s] = a[s] + p.half_h * ka[s];
-      sb[s] = b[s] + p.half_h * kb[s];
-    }
-    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, sa, sb, u, cphi, sphi, ka,
-                         kb);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      acca[s] = acca[s] + 3.f * ka[s];
-      accb[s] = accb[s] + 3.f * kb[s];
-      sa[s] = a[s] + p.h * ka[s];
-      sb[s] = b[s] + p.h * kb[s];
-    }
-    g_slope<S, PE0, POM>(p, vec, C, Cdp, SP, lv, sa, sb, u, cphi, sphi, ka,
-                         kb);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      acca[s] = acca[s] + ka[s];
-      accb[s] = accb[s] + kb[s];
-    }
+    float ka, kb;
+    const float dp0 = slope(FirstSlope{}, a, b, ka, kb);
+    float acca = ka, accb = kb;
+    float sa = a + p.half_h * ka, sb = b + p.half_h * kb;
+    slope(LaterSlope{}, sa, sb, ka, kb);
+    acca = acca + 3.f * ka;
+    accb = accb + 3.f * kb;
+    sa = a + p.half_h * ka;
+    sb = b + p.half_h * kb;
+    slope(LaterSlope{}, sa, sb, ka, kb);
+    acca = acca + 3.f * ka;
+    accb = accb + 3.f * kb;
+    sa = a + p.h * ka;
+    sb = b + p.h * kb;
+    slope(LaterSlope{}, sa, sb, ka, kb);
+    acca = acca + ka;
+    accb = accb + kb;
 
-    // ---- Ehrenfest kick from the initial amplitudes:
-    // Im(psi_a conj(psi_b)) = b_a a_b - a_a b_b
-    // (POM: summed per group, SP terms x om and DP terms x om_dp)
-    float kick_nj = 0.f, kick_dp = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAX_FORCE; ++k) {
-      if (k >= p.n_force) break;
-      const int fa = p.force_a[k], fb = p.force_b[k];
-      const float term = p.force_w[k] * (pick(b, fa) * pick(a, fb) -
-                                         pick(a, fa) * pick(b, fb));
-      if (POM && p.force_g[k])
-        kick_dp = kick_dp + term;
-      else
-        kick_nj = kick_nj + term;
-    }
-    if (POM) kick_nj = lv.om * kick_nj + lv.omdp * kick_dp;
-    kick_nj = kick_nj * p.h;
+    // ---- Ehrenfest kick from the tick's initial amplitudes ----
+    const float kick_nj =
+        p.apply_kick ? group_sum<G>(kick_part) * p.h : 0.f;
 
-    if constexpr (RNG) {   // this tick's uniforms from the counter stream
-      const uint32_t c1 = 3u * (tick_base + (uint32_t)i);
-      const uint32_t gl = lane0 + (uint32_t)n;   // global lane
-      uint32_t x0 = gl, x1 = c1;
+    // ---- this tick's uniforms: lane j of the group runs Threefry call j
+    uint32_t x0 = 0u, x1 = 0u;
+    float r0;
+    if constexpr (RNG) {
+      x0 = lane0 + (uint32_t)n;                    // global lane
+      x1 = 3u * (tick_base + (uint32_t)i) + (uint32_t)min(s, 2);
       threefry2x32(key, 0u, x0, x1);
-      r0 = unit24(x0);
-      r1 = unit24(x1);
-      x0 = gl;
-      x1 = c1 + 1u;
-      threefry2x32(key, 0u, x0, x1);
-      r2 = unit24(x0);
-      r3 = unit24(x1);
-      x0 = gl;
-      x1 = c1 + 2u;
-      threefry2x32(key, 0u, x0, x1);
-      r4 = unit24(x0);
+      r0 = unit24(__shfl_sync(FULL, x0, base));
+    } else {
+      r0 = __shfl_sync(FULL, roll_s, base);
     }
     const bool jumped = r0 < p.h * dp0;       // unclipped dp, strict <
 
-    // ---- jump collapse ----
-    float cum[S];
-    float run = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      run = run + (a[s] * a[s] + b[s] * b[s]) * vec[s * 8 + 3];
-      cum[s] = run;
-    }
-    const float tot = fmaxf(cum[S - 1], 1e-30f);
-    int src = 0;
-#pragma unroll
-    for (int s = 0; s < S; ++s) src += (r1 * tot >= cum[s]) ? 1 : 0;
-    src = min(src, S - 1);
-    const bool d_branch = r2 < p.branch_d;
-    const float* dc = d_branch ? cumD : cumS;
+    // ---- jump collapse, in the ticks an ion of this warp jumps ----
     int dest = 0;
-    for (int d = 0; d < S; ++d) dest += (r4 >= dc[d * SP + src]) ? 1 : 0;
-    dest = min(dest, S - 1);
-    const float kick_j =
-        p.apply_recoil
-            ? ((r3 < 0.5f) ? 1.f : -1.f) * (d_branch ? p.kick_d : p.kick_s)
-            : 0.f;
+    float kick_j = 0.f;
+    if (__any_sync(FULL, jumped)) {
+      float r1, r2, r3, r4;
+      if constexpr (RNG) {
+        r1 = unit24(__shfl_sync(FULL, x1, base));
+        r2 = unit24(__shfl_sync(FULL, x0, base + 1));
+        r3 = unit24(__shfl_sync(FULL, x1, base + 1));
+        r4 = unit24(__shfl_sync(FULL, x0, base + 2));
+      } else {
+        r1 = __shfl_sync(FULL, roll_s, base + 1);
+        r2 = __shfl_sync(FULL, roll_s, base + 2);
+        r3 = __shfl_sync(FULL, roll_s, base + 3);
+        r4 = roll_4;
+      }
+      float cum = (a * a + b * b) * msk;           // inclusive scan over s
+#pragma unroll
+      for (int d = 1; d < G; d <<= 1) {
+        const float below = __shfl_up_sync(FULL, cum, d, G);
+        cum = (s >= d) ? cum + below : cum;
+      }
+      const float tot =
+          fmaxf(__shfl_sync(FULL, cum, base + S - 1), 1e-30f);
+      const int src =
+          min(group_count<G>(live && r1 * tot >= cum, base), S - 1);
+      const bool d_branch = r2 < p.branch_d;
+      const float* dc = d_branch ? cumD : cumS;
+      dest = min(group_count<G>(live && r4 >= dc[src * SP + s], base), S - 1);
+      kick_j = p.apply_recoil
+                   ? ((r3 < 0.5f) ? 1.f : -1.f) *
+                         (d_branch ? p.kick_d : p.kick_s)
+                   : 0.f;
+    }
 
     // ---- merge ----
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      a[s] = jumped ? ((s == dest) ? 1.f : 0.f) : a[s] + acca[s] * p.h8;
-      b[s] = jumped ? 0.f : b[s] + accb[s] * p.h8;
-    }
+    a = jumped ? ((s == dest) ? 1.f : 0.f) : a + acca * p.h8;
+    b = jumped ? 0.f : b + accb * p.h8;
     tp = jumped ? 0.f : tp;
     if (p.renormalize) {
-      float nn = 0.f;
-#pragma unroll
-      for (int s = 0; s < S; ++s) nn += a[s] * a[s] + b[s] * b[s];
-      const float nrm = sqrtf(nn);
+      const float nrm = sqrtf(group_sum<G>(a * a + b * b));
       const float inv = (nrm > 0.f) ? 1.f / nrm : 0.f;   // pad lanes stay 0
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        a[s] = a[s] * inv;
-        b[s] = b[s] * inv;
-      }
+      a = a * inv;
+      b = b * inv;
     }
-    if (p.apply_kick) vx = vx + (jumped ? kick_j : kick_nj);
+    if (p.apply_kick) v = (s == 0) ? v + (jumped ? kick_j : kick_nj) : v;
   }
 
-  Ro[n] = x;
-  Ro[npad + n] = y;
-  Ro[2 * npad + n] = z;
-  Vo[n] = vx;
-  Vo[npad + n] = vy;
-  Vo[2 * npad + n] = vz;
-  tpo[n] = tp;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    preo[s * npad + n] = a[s];
-    pimo[s * npad + n] = b[s];
+  if (axis) {
+    Ro[ax] = r;
+    Vo[ax] = v;
   }
-  for (int s = S; s < SP; ++s) {     // pad rows stay exactly zero
-    preo[s * npad + n] = 0.f;
-    pimo[s * npad + n] = 0.f;
+  if (s == 0) tpo[n] = tp;
+  for (int row = s; row < SP; row += G) {     // pad rows stay exactly zero
+    const bool mine = live && row == s;
+    preo[(size_t)row * npad + n] = mine ? a : 0.f;
+    pimo[(size_t)row * npad + n] = mine ? b : 0.f;
   }
 }
+
+// lanes of a warp that own one ion
+static int lanes_per_ion(int S) { return S <= 4 ? 4 : S <= 8 ? 8 : 16; }
 
 extern "C" {
 
 // rolls [n_ticks*5, npad] (explicit form) or seed [1] (internal_rng form;
 // tick_base is then the absolute run tick at entry and lane0 the global
-// lane of lane 0)
+// lane of lane 0).  lane_tab [SP, lane_table_width(K)] holds each lane's
+// row of H (K entries; the beat-note and Ehrenfest terms ride on them);
+// blocks and smem_bytes are the caller's launch geometry, checked against
+// the kernel's own.
 int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* F, const float* tp, const float* pre,
                        const float* pim, const float* rolls, const int* seed,
                        const float* e0_lanes, const float* om_lanes,
-                       const float* vecs, const float* mats, float* Ro,
-                       float* Vo, float* tpo, float* preo, float* pimo,
-                       int npad, float first, float tick0, unsigned tick_base,
-                       unsigned lane0, void* stream) {
+                       const float* vecs, const float* mats,
+                       const float* lane_tab, int K, float* Ro, float* Vo,
+                       float* tpo, float* preo, float* pimo, int npad,
+                       float first, float tick0, unsigned tick_base,
+                       unsigned lane0, int blocks, int smem_bytes,
+                       void* stream) {
   const int pe0 = p->per_lane_e0 != 0, pom = p->per_lane_om != 0;
   const int rng = p->internal_rng != 0;
+  const int G = lanes_per_ion(p->S), SP = p->SP;
   if (npad <= 0 || npad % THREADS != 0 || p->n_ticks < 1 ||
-      p->n_tdep > MAX_TDEP || p->n_force > MAX_FORCE || p->SP < p->S ||
-      (pe0 && !e0_lanes) || (pom && !om_lanes) || (rng && !seed) ||
-      (!rng && !rolls))
+      p->n_tdep > MAX_TDEP || SP < p->S || SP < G ||
+      K < 1 || K > SP || !lane_tab || (pe0 && !e0_lanes) ||
+      (pom && !om_lanes) || (rng && !seed) || (!rng && !rolls))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(p->SP * 8 + (pom ? 5 : 4) * p->SP * p->SP +
-               ((pe0 ? p->S : 0) + (pom ? 2 : 0)) * THREADS) *
-      sizeof(float);
-  const dim3 grid(npad / THREADS);
+  const int W = lane_table_width(K);
+  const int need =
+      (int)sizeof(float) * (2 * SP * SP + (K > KREG ? SP * W : 0));
+  if (blocks != npad / (THREADS / G) || smem_bytes != need)
+    return (int)cudaErrorInvalidValue;
+  TickConsts c;
+  c.SP = SP; c.n_ticks = p->n_ticks; c.n_tdep = p->n_tdep; c.K = K; c.W = W;
+  c.apply_kick = p->apply_kick; c.apply_recoil = p->apply_recoil;
+  c.renormalize = p->renormalize; c.has_exp = p->has_exp;
+  c.inv_h = 1.0f / p->h;
+  c.h = p->h; c.half_h = p->half_h; c.h8 = p->h8; c.qdt = p->qdt;
+  c.half_qdt = p->half_qdt; c.p2q = p->p2q; c.g2e = p->g2e; c.L = p->L;
+  c.exp_c1 = p->exp_c1; c.exp_c2 = p->exp_c2; c.tdep_freq = p->tdep_freq;
+  c.branch_d = p->branch_d; c.kick_s = p->kick_s; c.kick_d = p->kick_d;
   cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH(SV, E0, OM, RG)                                          \
-  fused_ticks_kernel<SV, E0, OM, RG><<<grid, THREADS, smem, st>>>(      \
-      *p, R, V, F, tp, pre, pim, rolls, seed, e0_lanes, om_lanes, vecs, \
-      mats, Ro, Vo, tpo, preo, pimo, npad, first, tick0, tick_base, lane0)
-  // the RNG form is built for sr12 (the cooling family) only
+#define ARGS                                                              \
+  c, R, V, F, tp, pre, pim, rolls, seed, e0_lanes, om_lanes, vecs, mats,  \
+      lane_tab, Ro, Vo, tpo, preo, pimo, npad, first, tick0, tick_base,   \
+      lane0
+#define LAUNCH(SV, GV, E0, OM, RG)                                        \
+  if (K > KREG)                                                           \
+    fused_ticks_kernel<SV, GV, E0, OM, RG, true>                          \
+        <<<blocks, THREADS, smem_bytes, st>>>(ARGS);                      \
+  else                                                                    \
+    fused_ticks_kernel<SV, GV, E0, OM, RG, false>                         \
+        <<<blocks, THREADS, smem_bytes, st>>>(ARGS)
+  // the per-lane and RNG forms are built for sr12 (the cooling family) only
   switch (p->S * 8 + rng * 4 + pe0 * 2 + pom) {
-    case 3 * 8: LAUNCH(3, false, false, false); break;
-    case 5 * 8: LAUNCH(5, false, false, false); break;
-    case 7 * 8: LAUNCH(7, false, false, false); break;
-    case 12 * 8: LAUNCH(12, false, false, false); break;
-    case 12 * 8 + 2: LAUNCH(12, true, false, false); break;
-    case 12 * 8 + 1: LAUNCH(12, false, true, false); break;
-    case 12 * 8 + 3: LAUNCH(12, true, true, false); break;
-    case 12 * 8 + 4: LAUNCH(12, false, false, true); break;
-    case 12 * 8 + 6: LAUNCH(12, true, false, true); break;
-    case 12 * 8 + 5: LAUNCH(12, false, true, true); break;
-    case 12 * 8 + 7: LAUNCH(12, true, true, true); break;
+    case 3 * 8: LAUNCH(3, 4, false, false, false); break;
+    case 5 * 8: LAUNCH(5, 8, false, false, false); break;
+    case 7 * 8: LAUNCH(7, 8, false, false, false); break;
+    case 12 * 8: LAUNCH(12, 16, false, false, false); break;
+    case 12 * 8 + 2: LAUNCH(12, 16, true, false, false); break;
+    case 12 * 8 + 1: LAUNCH(12, 16, false, true, false); break;
+    case 12 * 8 + 3: LAUNCH(12, 16, true, true, false); break;
+    case 12 * 8 + 4: LAUNCH(12, 16, false, false, true); break;
+    case 12 * 8 + 6: LAUNCH(12, 16, true, false, true); break;
+    case 12 * 8 + 5: LAUNCH(12, 16, false, true, true); break;
+    case 12 * 8 + 7: LAUNCH(12, 16, true, true, true); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH
+#undef ARGS
   return (int)cudaGetLastError();
 }
 

@@ -238,13 +238,13 @@ def _launch_forces(Rp: torch.Tensor, mask_row: torch.Tensor, e: int,
            if with_pot else None)
     part = _row_scratch(split, npad, 4 if with_pot else 3, Rp.device)
     lib = _lib()
-    with torch.cuda.device(Rp.device):
+    with _build.device_guard(Rp.device):
         err = lib.yukawa_forces_launch(
             Rp.data_ptr(), mask_row.data_ptr(),
             npad if mask_row.shape[0] > 1 else 0, _ptr(inv_ldeb),
             F.data_ptr(), _ptr(pot), _ptr(part), npad, e, split.chunk,
             float(L), float(1.0 / L), float((L / 2.0) ** 2),
-            float(1.0 / ldeb), torch.cuda.current_stream().cuda_stream)
+            float(1.0 / ldeb), _build.raw_stream(Rp.device))
     _build.check(lib, err, "yukawa_forces_launch")
     return F, pot
 
@@ -465,7 +465,7 @@ def yukawa_forces_soa_cols_batched(Rp: torch.Tensor, cols: torch.Tensor,
     F = torch.empty_like(Rp)
     part = _row_scratch(split, npad, 3, Rp.device)
     lib = _lib()
-    with torch.cuda.device(Rp.device):
+    with _build.device_guard(Rp.device):
         err = lib.yukawa_forces_cols_launch(
             Rp.data_ptr(), _ptr(row_mask),
             npad if row_mask is not None and row_mask.shape[0] > 1 else 0,
@@ -473,7 +473,7 @@ def yukawa_forces_soa_cols_batched(Rp: torch.Tensor, cols: torch.Tensor,
             ncols if col_mask.dim() == 2 else 0, F.data_ptr(), _ptr(part),
             npad, ncols, e, split.chunk, float(L), float(1.0 / L),
             float((L / 2.0) ** 2), float(1.0 / ldeb),
-            torch.cuda.current_stream().cuda_stream)
+            _build.raw_stream(Rp.device))
     _build.check(lib, err, "yukawa_forces_cols_launch")
     yukawa_forces_soa_cols_batched.launches += 1
     return F
@@ -542,7 +542,7 @@ def yukawa_forces_cross_n3l_soa_batched(Rp: torch.Tensor,
     part_g = torch.empty((reaction_scratch_floats(split, npc),),
                          dtype=torch.float32, device=Rp.device)
     lib = _lib()
-    with torch.cuda.device(Rp.device):
+    with _build.device_guard(Rp.device):
         err = lib.yukawa_cross_launch(
             Rp.data_ptr(), mask_row.data_ptr(),
             npad if mask_row.shape[0] > 1 else 0, cols.data_ptr(),
@@ -550,7 +550,7 @@ def yukawa_forces_cross_n3l_soa_batched(Rp: torch.Tensor,
             F.data_ptr(), G.data_ptr(), _ptr(part_f), part_g.data_ptr(),
             npad, npc, e, split.chunk, float(L), float(1.0 / L),
             float((L / 2.0) ** 2), float(1.0 / ldeb),
-            torch.cuda.current_stream().cuda_stream)
+            _build.raw_stream(Rp.device))
     _build.check(lib, err, "yukawa_cross_launch")
     yukawa_forces_cross_n3l_soa_batched.launches += 1
     return F, G
@@ -697,6 +697,28 @@ def yukawa_forces_n3l_pallas(R: torch.Tensor, L: float, ldeb: float,
     n = R.shape[0]
     Rp, rows, _ = _pack_lanes(R[None], mask, tile)
     return yukawa_forces_n3l_soa(Rp, rows, L, ldeb)[:, :n].T
+
+
+def yukawa_forces_n3l_pallas_batched(R: torch.Tensor, L: float, ldeb,
+                                     tile: int = 512) -> torch.Tensor:
+    """Force-only ``R [E, N, 3] -> F [E, N, 3]``: one launch of
+    :func:`yukawa_forces_n3l_soa_batched` (kernel C on the card, its twin
+    on the CPU) over the members' lanes, the JAX package's ensemble entry
+    of the half-pair kernel.  ``ldeb`` is a float, or a per-member ``[E]``
+    tensor of screening lengths (kappa sweeps): the kernel then reads each
+    member's own 1/ldeb."""
+    _check_device(R)
+    e, n, _ = R.shape
+    Rp, rows, npad = _pack_lanes(R, None, tile)
+    if isinstance(ldeb, torch.Tensor):
+        if tuple(ldeb.shape) != (e,):
+            raise ValueError(f"want ldeb a float or [{e}], got "
+                             f"{tuple(ldeb.shape)}")
+        inv = (1.0 / ldeb).to(dtype=R.dtype, device=R.device)
+        F = yukawa_forces_n3l_soa_batched(Rp, rows, e, L, 1.0, inv)
+    else:
+        F = yukawa_forces_n3l_soa_batched(Rp, rows, e, L, ldeb)
+    return F.reshape(3, e, npad)[:, :, :n].permute(1, 2, 0)
 
 
 def best_forces_fn(n: int, L: float, ldeb: float, mask=None,

@@ -689,3 +689,163 @@ def test_pair_kernel_edge_shapes(cuda, form, case):
         assert float((G1 - Gr).abs().max()) <= 2e-5 * scale
         assert not F1[:, dead].any() and not G1[cm == 0].any()
     torch.cuda.synchronize()
+
+
+# ---- the tick kernel (one ion across the lanes of a group): every form at
+# every launch shape against its twin, bitwise run to run, and a whole
+# launch against the same lanes launched in two parts ----
+
+TICK_SHAPES = {                 # members, lanes per member, ions per member
+    "np128": (1, 128, 100),
+    "shard1792": (1, 1792, 875),
+    "np3584": (1, NPAD, N),
+    "fold8": (8, NPAD, N),
+}
+SWEEP_DETS = ((-1.0, 1.0), (-0.5, 1.0), (-1.5, 0.6), (-0.8, 1.4))
+SWEEP_OMS = ((1.0, 1.0), (0.8, 1.2), (1.2, 0.7), (0.5, 1.5))
+
+
+def _tick_inputs(dev, spec, members, npad, n_real, excited, seed):
+    """Planes of ``members`` blocks of ``npad`` lanes, ``n_real`` ions each:
+    a ground-state start, or a normalized excited one where jumps fire."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lanes = members * npad
+    on = (torch.arange(lanes, device=dev) % npad) < n_real
+    m = on.float()
+    rand = lambda rows: torch.rand((rows, lanes), generator=g, device=dev)
+    pre = torch.zeros((spec.SP, lanes), device=dev)
+    pim = torch.zeros((spec.SP, lanes), device=dev)
+    if excited:
+        amp = torch.randn((2, spec.S, lanes), generator=g, device=dev)
+        amp = amp / amp.pow(2).sum((0, 1)).sqrt()
+        pre[:spec.S], pim[:spec.S] = amp[0] * m, amp[1] * m
+    else:
+        pre[0] = m
+    planes = (rand(3) * 5.0 * m, (rand(3) - 0.5) * m, (rand(3) - 0.5) * m,
+              rand(1) * m * float(excited), pre, pim)
+    rolls = (None if spec.internal_rng else
+             torch.rand((spec.ratio * 5, lanes), generator=g, device=dev))
+    return on, planes, rolls
+
+
+def _hold_tick_kernel(dev, spec, tables, members, npad, n_real, excited,
+                      e0p=None, omp=None, seed=3):
+    """Kernel against twin at the bars, pads exactly 0, bitwise repeat, and
+    whole == two parts (the RNG form numbering each part with ``lane0``)."""
+    on, planes, rolls = _tick_inputs(dev, spec, members, npad, n_real,
+                                     excited, seed)
+    lanes = members * npad
+    word = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    lane0 = 1792 if spec.internal_rng and npad == 1792 else 0
+    first, tick0 = (not excited), (7001 if excited else 0)
+
+    def launch(lo, hi, fn=tf.fused_md_substeps):
+        cut = lambda x: None if x is None else x[:, lo:hi].contiguous()
+        kw = dict(tick0=tick0, e0_lanes=cut(e0p), om_lanes=cut(omp))
+        if spec.internal_rng:
+            kw.update(seed=word, lane0=lane0 + lo)
+        if fn is tf.fused_md_substeps:
+            return fn(spec, first, *map(cut, planes), cut(rolls),
+                      tables=tables, **kw)
+        return fn(spec, first, *map(cut, planes), cut(rolls), tables, **kw)
+
+    name = tf.launch_counter(spec)
+    before = getattr(tf.fused_md_substeps, name)
+    out, again = launch(0, lanes), launch(0, lanes)
+    assert getattr(tf.fused_md_substeps, name) == before + 2
+    ref = launch(0, lanes, tf.fused_md_substeps_reference)
+    torch.cuda.synchronize()
+    bad = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    for x, y, atol in zip(out, ref, (2e-5, 2e-5, 2e-5, 5e-5, 5e-5)):
+        bad |= ((x - y).abs() > atol + 1e-4 * y.abs()).any(0)
+    assert int((bad & on).sum()) <= 3 * members
+    for x in out[3:]:
+        assert float(x[spec.S:].abs().max()) == 0.0
+        assert float(x[:, ~on].abs().sum()) == 0.0
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    if lanes % 256 == 0:
+        parts = [launch(0, lanes // 2), launch(lanes // 2, lanes)]
+        assert all(torch.equal(x, torch.cat([a, b], 1))
+                   for x, a, b in zip(out, *parts))
+    if excited and spec.ratio >= 24:       # jumps fired, on the twin's lanes
+        jumped = out[2][0] < spec.ratio * spec.qdt
+        assert int((jumped & on).sum()) > n_real * members // 50
+        assert int((jumped != (ref[2][0] < spec.ratio * spec.qdt)).sum()) \
+            <= 3 * members
+
+
+@pytest.mark.parametrize("shape", list(TICK_SHAPES))
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+@pytest.mark.parametrize("rng", [False, True])
+def test_tick_kernel_every_form_and_shape(cuda, rng, variant, shape):
+    """Each of the eight S=12 forms at 128, 1792 and 3584 lanes and on an
+    8-member fold: ground start with the first drift and excited starts, at
+    25, 24 and 1 ticks."""
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    members, npad, n_real = TICK_SHAPES[shape]
+    cfg = lc.CoolingConfig()
+    pe0, pom = "e0" in variant, "om" in variant
+    sched = lc.build_scheduler(cfg, cuda, None if rng else _rolls(cuda),
+                               per_lane_e0=pe0, per_lane_om=pom)
+    assert sched.fused_spec.internal_rng == rng
+    e0 = [lc.build_engine(dataclasses.replace(
+        cfg, detuning=SWEEP_DETS[k % 4][0],
+        detuning_dp=SWEEP_DETS[k % 4][1])).scheme.e0 for k in range(members)]
+    om = [SWEEP_OMS[k % 4] for k in range(members)]
+    e0p, omp = fold_sweep_lanes(sched.fused_spec, npad, e0 if pe0 else None,
+                                om if pom else None, cuda)
+    for excited, ticks in ((False, 25), (True, 25), (True, 24), (True, 1)):
+        spec = dataclasses.replace(sched.fused_spec, ratio=ticks)
+        _hold_tick_kernel(cuda, spec, sched.tables, members, npad, n_real,
+                          excited, e0p, omp)
+
+
+def _small_spec(scheme, ratio=25, **kw):
+    return tf.FusedTickSpec(scheme=scheme, h=0.00985, qdt=8e-5,
+                            plas_to_quant_vel=1.327, gamma_to_einstein=123.1,
+                            ratio=ratio, L=7.5, apply_force=scheme.has_force,
+                            **kw)
+
+
+@pytest.mark.parametrize("excited", [False, True])
+@pytest.mark.parametrize("scheme_name", ["three_state", "tag422",
+                                         "tag408_linear", "tag408_circular"])
+def test_tick_kernel_small_schemes(cuda, scheme_name, excited):
+    """The explicit S = 3, 5 and 7 forms (groups of 4 and 8 lanes)."""
+    from mdqtplasmasims_torch import levels
+    scheme = dict(three_state=levels.three_state, tag422=levels.tag422,
+                  tag408_linear=lambda: levels.tag408(-1.0, 0.5, True),
+                  tag408_circular=lambda: levels.tag408(-1.0, 0.5, False)
+                  )[scheme_name]()
+    for ticks in (25, 1):
+        spec = _small_spec(scheme, ticks)
+        tables = tf.fused_tables(spec, cuda)
+        _hold_tick_kernel(cuda, spec, tables, 1, 256, 200, excited)
+        _hold_tick_kernel(cuda, spec, tables, 1, 3584, 3500, excited)
+
+
+@pytest.mark.parametrize("rng", [False, True])
+def test_tick_kernel_dense_coupling_table(cuda, rng):
+    """A coupling table with full rows (12 entries a row) takes the
+    kernel's long-row path and still matches the twin."""
+    from mdqtplasmasims_torch import levels
+    gen = np.random.default_rng(3)
+    sch = levels.with_recoil(levels.sr12_cooling(), 9.1e-4, 3.6e-4)
+    extra = 0.05 * gen.normal(size=(12, 12))
+    dense = dataclasses.replace(sch, coupling=sch.coupling + extra + extra.T)
+    spec = _small_spec(dense, internal_rng=rng)
+    assert tf._kernel_plan(spec).K == 12
+    tables = tf.fused_tables(spec, cuda)
+    for excited in (False, True):
+        _hold_tick_kernel(cuda, spec, tables, 1, 1792, 875, excited)
+
+
+def test_tick_kernel_refuses_complex_tables(cuda):
+    from mdqtplasmasims_torch import levels
+    sch = levels.sr12_cooling()
+    bad = dataclasses.replace(sch, coupling=sch.coupling * (1 + 0.5j))
+    spec = _small_spec(bad)
+    z = lambda rows: torch.zeros((rows, 128), device=cuda)
+    with pytest.raises(ValueError, match="real coupling"):
+        tf.fused_md_substeps(spec, False, z(3), z(3), z(3), z(1), z(16),
+                             z(16), z(125))

@@ -86,22 +86,70 @@ def test_scratch_holds_what_the_launcher_indexes(npad, ncols, e, nv):
     assert ty.reaction_scratch_floats(split, ncols) == want_react
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, so that a wrapper takes
+    its CUDA branch as far as ``pair_split``."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _Split(Exception):
+    """Raised in place of ``pair_split``: carries its three integers."""
+
+
+def _split_args(monkeypatch, entry, *operands):
+    """The integers ``entry`` hands ``pair_split`` for ``operands``."""
+    def record(npad, ncols, e):
+        raise _Split(npad, ncols, e)
+    monkeypatch.setattr(ty, "pair_split", record)
+    with pytest.raises(_Split) as seen:
+        entry(*(torch.Tensor._make_subclass(_OnCard, x)
+                if isinstance(x, torch.Tensor) else x for x in operands))
+    return seen.value.args
+
+
 @pytest.mark.parametrize("npad,ncols,e", SHAPES)
-def test_split_depends_on_the_launch_shape_only(npad, ncols, e):
-    """One shape, one chunking: it is what keeps kernel E on a member's
-    own lanes bitwise equal to kernel C, and an E=1 fold to kernel A.
-    ``pair_split`` sees three integers, reads nothing but the kernel's
-    geometry constants, and keeps no state between calls."""
+def test_split_depends_on_the_launch_shape_only(monkeypatch, npad, ncols, e):
+    """One shape, one chunking, whatever the masks: it is what keeps kernel
+    E on a member's own lanes bitwise equal to kernel C, and an E=1 fold
+    to kernel A.  ``pair_split`` sees three integers and reads nothing but
+    the kernel's geometry constants; the wrappers of A, C and E hand it
+    (rows, columns, members) of their operands for a full mask, a mask
+    with holes and an empty one."""
     fn = ty.pair_split
     assert list(inspect.signature(fn).parameters) == ["npad", "ncols", "e"]
     assert fn.__closure__ is None and not hasattr(fn, "cache_info")
     assert set(fn.__code__.co_names) <= {
         "ROW_TILE", "COL_TILE", "TARGET_BLOCKS", "_round_up", "PairSplit",
         "ValueError", "min"}
-    first = fn(npad, ncols, e)
-    for other in SHAPES:
-        fn(*other)
-    assert fn(npad, ncols, e) == first
+    g = torch.Generator().manual_seed(npad + ncols + e)
+    Rp = torch.rand((3, e * npad), generator=g)
+    cols = torch.rand((e, ncols, 3), generator=g)
+    own = Rp.reshape(3, e, npad).permute(1, 2, 0).contiguous()
+    L, ldeb = 5.0, 0.3
+    for fill in ("full", "holes", "empty"):
+        rm, cm = (dict(full=torch.ones, empty=torch.zeros)[fill](shape)
+                  if fill != "holes" else
+                  (torch.rand(shape, generator=g) < 0.5).float()
+                  for shape in ((e, npad), (e, ncols)))
+        # C, and E on the members' own lanes: the same three integers
+        c = _split_args(monkeypatch, ty.yukawa_forces_n3l_soa_batched, Rp,
+                        rm, e, L, ldeb)
+        assert c == (npad, npad, e)
+        assert _split_args(monkeypatch, ty.yukawa_forces_soa_cols_batched,
+                           Rp, own, rm, e, L, ldeb) == c
+        # E on its gathered columns, with and without the row mask
+        for kw_mask in (None, rm):
+            assert _split_args(
+                monkeypatch, lambda *a: ty.yukawa_forces_soa_cols_batched(
+                    *a, row_mask=kw_mask if kw_mask is None else
+                    torch.Tensor._make_subclass(_OnCard, kw_mask)),
+                Rp, cols, cm, e, L, ldeb) == (npad, ncols, e)
+        if e == 1:      # A is the E=1 launch of C
+            assert _split_args(monkeypatch, ty.yukawa_forces_n3l_soa, Rp,
+                               rm, L, ldeb) == c
 
 
 def _calls(func_name, callee):

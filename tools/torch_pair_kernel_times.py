@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the PyTorch + CUDA port's Yukawa pair kernels (A, C, D, G, E, F of
-mdqtplasmasims_torch/csrc/yukawa_forces.cu) and the runs that launch them,
-on one NVIDIA GPU, for one or several source trees in turns.
+"""Time the PyTorch + CUDA port's kernels (the Yukawa pair kernels A, C, D,
+G, E, F of mdqtplasmasims_torch/csrc/yukawa_forces.cu and every form of the
+tick kernel B of csrc/fused_ticks.cu) and the runs that launch them, on one
+NVIDIA GPU, for one or several source trees in turns.
 
     python tools/torch_pair_kernel_times.py
     python tools/torch_pair_kernel_times.py --trees OTHER . . OTHER \\
-        [--kernels-only] [--out times.json]
+        [--kernels-only] [--flagship] [--out times.json]
 
 Each tree is a checkout of this repository (for another commit:
 ``mkdir OTHER && git archive <commit> | tar -x -C OTHER``).  Every turn is
@@ -14,8 +15,10 @@ loads that tree's kernels; two versions are compared inside one command on
 one card, in turns (other, this, this, other), never across commands.
 
 A turn calls only the measured tree's public entries (the wrappers of
-``ops/yukawa.py``, ``laser_cooling.run`` and ``run_ensemble``,
-``make_mesh``), on inputs this script makes, and times them with this
+``ops/yukawa.py``, ``fused_md_substeps`` with the spec and tables of
+``build_scheduler``, ``laser_cooling.run``, ``run_ensemble`` and
+``run_sweep``, ``make_mesh``), on inputs this script makes, and times them
+with this
 script's tree's clock (``chip_smoke.cuda_ms``: the median of 30 CUDA-event
 timings, the host kept ahead of the card), so a tree measured here needs
 nothing but those entries.  It reports
@@ -24,12 +27,22 @@ nothing but those entries.  It reports
     mesh slot's shapes, 875 ions in 1792 lanes per shard, E row-masked as
     the tree's gather schedule does it: by the kernel where the entry has
     ``row_mask``, else by a multiply after it; ``C_ring``: kernel C on one
-    such shard, as the ring schedule launches it);
+    such shard, as the ring schedule launches it); the tick kernel from
+    an excited start, 25 ticks: ``B`` (explicit rolls) and ``B_rng`` (the
+    in-kernel stream) at 3584 lanes, ``B_rng_1792`` on a mesh shard (875
+    ions in 1792 lanes, ``lane0`` 1792), the six per-lane forms on a
+    4-member fold (``B_e0_E4`` .. ``B_rng_e0_om_E4``), ``B_rng_E8`` and
+    ``B_rng_E16`` on folds of 8 and 16 members;
+  * ``idle_ms``: ``B`` and ``B_rng`` at 3584 lanes from an idle card (the
+    wrapper's host time included, ``chip_smoke.cuda_ms(head_start=False)``);
   * ``wall_s`` (unless ``--kernels-only``): the host-clock seconds of
     ``run(CoolingConfig(n0=3500, tmax=2.0))`` without a .dat tree (best
-    and median of 3) and of chip_smoke.py's two 2 x 4 mesh runs
-    (``run_ensemble`` of 2 members, tmax=1.0, with trees; gather and
-    ring-N3L).
+    and median of 3), of the 8-member Poissonian ``run_ensemble`` to
+    tmax=1.0 without trees (best and median of 3), of the 2 x 2
+    ``run_sweep`` to tmax=1.0 with trees, and of chip_smoke.py's two 2 x 4
+    mesh runs (``run_ensemble`` of 2 members, tmax=1.0, with trees; gather
+    and ring-N3L); with ``--flagship`` also ``CoolingConfig()`` (tmax=30)
+    once without and once with the .dat tree.
 
 The last line is one JSON object with the card and every turn (``--out``
 writes it to a file as well).  Exits non-zero without a CUDA device.
@@ -51,7 +64,53 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def one_turn(kernels_only: bool) -> dict:
+def tick_kernel_ms(torch, cs, lc, dev, g) -> tuple:
+    """Device ms of every form of the tick kernel (and the idle-card ms of
+    the two single-member forms), through ``fused_md_substeps``."""
+    import dataclasses
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import (fold_sweep_lanes,
+                                                     uniform_rolls)
+    cfg = lc.CoolingConfig()
+    seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
+    dets = [(-1.0, 1.0), (-0.5, 1.0), (-1.5, 0.6), (-0.8, 1.4)]
+    oms = [(1.0, 1.0), (0.8, 1.2), (1.2, 0.7), (0.5, 1.5)]
+    sweep_e0 = [lc.build_engine(dataclasses.replace(
+        cfg, detuning=a, detuning_dp=b)).scheme.e0 for a, b in dets]
+
+    ms, idle = {}, {}
+    forms = [("B", False, False, False, 1, 3584, 3500),
+             ("B_rng", True, False, False, 1, 3584, 3500),
+             ("B_rng_1792", True, False, False, 1, 1792, 875),
+             ("B_rng_E8", True, False, False, 8, 3584, 3500),
+             ("B_rng_E16", True, False, False, 16, 3584, 3500)]
+    for rng in (False, True):
+        for tag, pe0, pom in (("e0", True, False), ("om", False, True),
+                              ("e0_om", True, True)):
+            forms.append((f"B_{'rng_' if rng else ''}{tag}_E4", rng, pe0, pom,
+                          4, 3584, 3500))
+    for key, rng, pe0, pom, members, npad, n_real in forms:
+        sched = lc.build_scheduler(cfg, dev, None if rng else uniform_rolls(g),
+                                   per_lane_e0=pe0, per_lane_om=pom)
+        spec = sched.fused_spec
+        assert spec.internal_rng == rng
+        _, args = cs.excited_planes(torch, g, spec.SP, members, npad, n_real)
+        e0p, omp = fold_sweep_lanes(spec, npad, sweep_e0 if pe0 else None,
+                                    oms if pom else None, dev)
+        kw = dict(tick0=4321, tables=sched.tables, e0_lanes=e0p, om_lanes=omp)
+        if rng:
+            kw.update(seed=seed, lane0=1792 if npad == 1792 else 0)
+        else:
+            kw.update(rolls=torch.rand((spec.ratio * 5, members * npad),
+                                       generator=g, device=dev))
+        fn = lambda: tf.fused_md_substeps(spec, False, *args, **kw)
+        ms[key] = cs.cuda_ms(torch, fn)
+        if key in ("B", "B_rng"):
+            idle[key] = cs.cuda_ms(torch, fn, head_start=False)
+    return ms, idle
+
+
+def one_turn(kernels_only: bool, flagship: bool = False) -> dict:
     """Measure the tree in the working directory."""
     sys.path.insert(0, os.getcwd())
     import torch
@@ -117,7 +176,9 @@ def one_turn(kernels_only: bool) -> dict:
         rows, ma, B, mb, e_loc, L, ldeb))
     ms["C_ring"] = clock(lambda: ty.yukawa_forces_n3l_soa_batched(
         rows, ma, e_loc, L, ldeb))
-    out = dict(ms=ms)
+    tick_ms, idle = tick_kernel_ms(torch, cs, lc, dev, g)
+    ms.update(tick_ms)
+    out = dict(ms=ms, idle_ms=idle)
     if kernels_only:
         return out
 
@@ -131,6 +192,23 @@ def one_turn(kernels_only: bool) -> dict:
         times.append(time.perf_counter() - t0)    # run ends in a host fetch
     wall["run_tmax2_best"] = min(times)
     wall["run_tmax2_median"] = statistics.median(times)
+    ens = lc.CoolingConfig(n0=3500, tmax=1.0, exact_n=False)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lc.run_ensemble(ens, 8, device="cuda")
+        times.append(time.perf_counter() - t0)
+    wall["ensemble8_best"] = min(times)
+    wall["ensemble8_median"] = statistics.median(times)
+    points = [{"detuning": d, "om": o} for d in (-1.0, -0.5)
+              for o in (0.8, 1.2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lc.run_sweep(lc.CoolingConfig(n0=3500, tmax=1.0, save_directory=tmp),
+                     points, device="cuda")
+        wall["sweep_2x2_trees"] = time.perf_counter() - t0
     mesh = make_mesh(cs.MESH_K, cs.MESH_I,
                      devices=[torch.device("cuda", 0)] * 8)
     for ion_forces in ("gather", "ring_n3l"):
@@ -143,6 +221,14 @@ def one_turn(kernels_only: bool) -> dict:
             lc.run_ensemble(mcfg, 2, seed=5, mesh=mesh,
                             ion_forces=ion_forces)
             wall["mesh_" + ion_forces] = time.perf_counter() - t0
+    if flagship:
+        with tempfile.TemporaryDirectory() as tmp:
+            for key, where in (("flagship_no_tree", None),
+                               ("flagship_tree", tmp)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lc.run(lc.CoolingConfig(save_directory=where), device="cuda")
+                wall[key] = time.perf_counter() - t0
     out["wall_s"] = wall
     return out
 
@@ -152,12 +238,16 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", default=["."],
                     help="source trees to measure, in this order")
     ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--flagship", action="store_true",
+                    help="also time CoolingConfig() (tmax=30) without and "
+                         "with the .dat tree")
     ap.add_argument("--out", help="also write the result to this file")
     ap.add_argument("--turn", action="store_true",
                     help="measure the working directory's tree (internal)")
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(one_turn(args.kernels_only)), flush=True)
+        print(json.dumps(one_turn(args.kernels_only, args.flagship)),
+              flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -166,8 +256,8 @@ def main() -> int:
     turns = []
     for tree in args.trees:
         cmd = [sys.executable, os.path.abspath(__file__), "--turn"]
-        if args.kernels_only:
-            cmd.append("--kernels-only")
+        cmd += [f for f, on in (("--kernels-only", args.kernels_only),
+                                ("--flagship", args.flagship)) if on]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
