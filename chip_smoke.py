@@ -80,10 +80,37 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      with launch counts, per-member physics and files, start-of-step forces
      against kernel C on the unsharded fold, and a tmax=0.5 window resumed
      on the mesh to 1.0 bitwise equal to the uninterrupted run; then an
-     ens-only (2, 1) mesh bitwise equal to the unsharded 2-member fold.
+     ens-only (2, 1) mesh bitwise equal to the unsharded 2-member fold;
+ 18. the ``[E, N, 3]`` force entry (kernel C) with a holed per-member
+     ``[E, N]`` mask against its plain version, and the force and potential
+     entries timed at the shapes the frozen-start tagging family gives
+     them;
+ 19. the frozen-start tagging family, one job at full width:
+     ``frozen_tagging.run(FrozenTagConfig(tstart=0.3, tmax=1.0))``
+     (422linear, N0=3500, 500 MD steps with the pump window inside, 7
+     output blocks), with the launch counts (kernel A once per MD step + 1
+     for the seed of F, kernel D once per block + the tag block + epot0,
+     nothing else), the energy audit, the tag fraction, the files and
+     labels of the tree, then ``run(resume=True)`` to tmax=1.2 appending
+     rows on the same grid;
+ 20. its fold: ``run_ensemble(n_jobs=8, exact_n=False)`` at the same cut
+     (kernel C once per MD step + 1 and kernel G once per block + 2 for
+     all members, no launch of A or D), padded lanes exactly 0 at the end,
+     members that differ, trees sized to each member's N; then a 2-point
+     ``run_sweep`` whose member at the config's own (detuning, om) equals
+     the 2-member ensemble's bit for bit;
+ 21. the 408quad variant at N0=3500 to tmax=0.4 (the 7-state engine, the
+     full output row at the tag instant, vSquareAutoCorr.dat);
+ 22. the three-state family at full width: ``three_state.run``, an 8-job
+     ``run_ensemble`` and a 2 x 2 ``run_sweep`` of ThreeStateConfig()
+     (n0=1000) to tmax=30 (3000 ticks; the folds to 20), x kinetic energy
+     falling, ticks/s
+     and host ms per tick printed, no kernel launched; then the 8-job fold
+     through ``member_sharded`` over 2 slots on cuda:0, bitwise equal to
+     the unsharded fold.
 
-Phases 7, 10, 11, 12 and 17 each set the launch counts to 0 just before
-they drive their path and read them just after.  The line before the last
+Phases 7, 10, 11, 12, 17 and 19-22 each set the launch counts to 0 just
+before they drive their path and read them just after.  The line before the last
 is a JSON object with one entry per kernel and form, each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
@@ -1516,6 +1543,379 @@ def mesh_path(torch, card, L, ldeb):
     return counts
 
 
+# ---- the frozen-start tagging and three-state families (phases 18-22)
+
+TAG_CUT = dict(tstart=0.3, tmax=1.0)     # 500 MD steps, the pump inside
+
+
+def want_counts(counts: dict, what: str, **nonzero) -> None:
+    """Fail unless exactly the counters ``nonzero`` moved, by the numbers
+    given (every other kernel form stayed at 0)."""
+    want = {k: nonzero.get(k, 0) for k in counts}
+    if counts != want:
+        raise SystemExit(f"{what} launched {counts}, want {want}")
+
+
+def check_fold_force_entry(torch, L, ldeb):
+    """Phase 18: kernel C through ``yukawa_forces_n3l_pallas_batched``
+    with a holed ``[E, N]`` mask against its plain version, and the
+    entries the tagging family calls, timed at its shapes."""
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    dev = torch.device("cuda")
+    E = 8
+    m, n_js = poisson_member_mask(3500, E, seed=0)
+    g = torch.Generator(device=dev).manual_seed(23)
+    mask = torch.as_tensor(m, device=dev).clone()
+    holes = torch.rand(mask.shape, generator=g, device=dev) < 0.02
+    mask[holes] = 0.0                      # holes inside, not only a tail
+    n = mask.shape[1]
+    R = torch.rand((E, n, 3), generator=g, device=dev) * L * mask[..., None]
+    F = ty.yukawa_forces_n3l_pallas_batched(R, L, ldeb, mask=mask)
+    F2 = ty.yukawa_forces_n3l_pallas_batched(R, L, ldeb, mask=mask)
+    Rp, rows, npad = ty._pack_lanes(R, mask, 512)
+    ref = ty.yukawa_forces_n3l_soa_batched_reference(Rp, rows, E, L, ldeb)
+    ref = ref.reshape(3, E, npad)[:, :, :n].permute(1, 2, 0)
+    torch.cuda.synchronize()
+    scale, err = float(ref.abs().max()), float((F - ref).abs().max())
+    dead = float(F[mask == 0].abs().max())
+    log(f"[fold-entry] yukawa_forces_n3l_pallas_batched, R [{E}, {n}, 3], "
+        f"holed [E, N] mask ({int(holes.sum())} holes, counts "
+        f"{[int(x) for x in mask.sum(1)]}): max|F|={scale:.6g} max abs err="
+        f"{err:.3g} (tol {FORCE_TOL:g} of max|F|); max |F| on masked ions "
+        f"{dead:g}")
+    if not err <= FORCE_TOL * scale:
+        raise SystemExit("the [E, N, 3] force entry disagrees with its "
+                         "plain version under a per-member mask")
+    if not torch.equal(F, F2) or dead != 0.0:
+        raise SystemExit("the [E, N, 3] force entry: not deterministic, or "
+                         "masked ions not exactly 0")
+    R1 = torch.rand((3500, 3), generator=g, device=dev) * L
+    times = dict(
+        A=cuda_ms(torch, lambda: ty.yukawa_forces_n3l_pallas(R1, L, ldeb)),
+        C=cuda_ms(torch, lambda: ty.yukawa_forces_n3l_pallas_batched(
+            R, L, ldeb, mask=mask)),
+        D=cuda_ms(torch, lambda: ty.yukawa_potential_pallas(R1, L, ldeb)),
+        G=cuda_ms(torch, lambda: ty.yukawa_potential_pallas_batched(
+            R, L, ldeb, mask)))
+    log("[fold-entry] device ms per call of the entries the tagging family "
+        "uses (pack, kernel, unpack; median of "
+        f"{N_TIMED}): A [3500, 3] {times['A']:.4f}, C [{E}, {n}, 3] "
+        f"{times['C']:.4f}, D {times['D']:.4f}, G {times['G']:.4f}")
+    return times
+
+
+def _tag_tree(job_dir, ac_name, n_rows, ac_rows, labels, c0_tag, c0_end):
+    """Check the files and labels ``write_outputs`` promises."""
+    def rows(name):
+        with open(os.path.join(job_dir, name)) as f:
+            return [r for r in f.read().splitlines() if r.strip()]
+    got = dict(energies=len(rows("energies.dat")),
+               moments=len(rows("taggedMoments.dat")), ac=len(rows(ac_name)))
+    names = set(os.listdir(job_dir))
+    have = sorted(int(f[len("vel_distX_timestep"):-4]) for f in names
+                  if f.startswith("vel_distX_timestep"))
+    want = {f"spinUpIons_timestep{c0_tag:06d}.dat",
+            f"checkpoint_{c0_end:06d}.npz",
+            f"ions_timestep{c0_end:06d}.dat",
+            f"conditions_timestep{c0_end:06d}.dat",
+            f"spinUpIonsList_timestep{c0_end:06d}.dat"}
+    if (got != dict(energies=n_rows, moments=n_rows, ac=ac_rows)
+            or have != labels or not want <= names):
+        raise SystemExit(f"{job_dir}: rows {got} (want {n_rows}/{ac_rows}), "
+                         f"vel_distX labels {have} (want {labels}), missing "
+                         f"{sorted(want - names)}")
+
+
+def frozen_tag_path(torch, card):
+    """Phase 19: one frozen-start tagging job at full width, then its
+    resume."""
+    import numpy as np
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ft.FrozenTagConfig(save_directory=tmp, **TAG_CUT)
+        n_md_a, n_md, segs, tail = ft._phase_b_plan(cfg)
+        blocks = len(segs)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, res = ft.run(cfg, device="cuda")      # ends in a host fetch
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        pump_ticks = sum(ft.build_scheduler(cfg).in_window(k, torch.float32)
+                         for k in range(n_md_a * cfg.ratio))
+        log(f"[frozen-tag] run(FrozenTagConfig(tstart=0.3, tmax=1.0), "
+            f"device='cuda'): 422linear, N0={cfg.n0}, {n_md} MD steps "
+            f"({n_md_a} to the tag, {pump_ticks} pump ticks of the plain "
+            f"engine), {blocks} output blocks in {wall:.3f} s -> "
+            f"{n_md / wall:.1f} MD steps/s ({card})")
+        log(f"[frozen-tag] launches: {counts}")
+        want_counts(counts, "the frozen-tag run", yukawa_forces=n_md + 1,
+                    yukawa_forces_potential=blocks + 2)
+        e = res["outs"]["energies"]
+        frac = float(res["spin_up"].mean())
+        audit = float(np.abs(e[:, 4]).max())
+        ek = e[:, :3].sum(-1)
+        log(f"[frozen-tag] tag fraction {frac:.4f}, n_up "
+            f"{int(res['out_tag']['n_up'])}; Ekin {ek[0]:.4g} .. {ek[-1]:.4g}, "
+            f"Epot {e[0, 3]:.6g} .. {e[-1, 3]:.6g}, max |Ekin+Epot-Epot0| "
+            f"{audit:.3g}; t = {res['out_tag']['t']:.6g} (tag), "
+            f"{res['outs']['t'][0]:.6g} .. {res['outs']['t'][-1]:.6g}")
+        arrays = [final.R, final.V, final.psi, *res["outs"].values()]
+        if not all(np_isfinite(a) for a in arrays):
+            raise SystemExit("frozen-tag: non-finite outputs")
+        if not 0.0 < frac < 1.0:
+            raise SystemExit("frozen-tag: tag fraction outside (0, 1)")
+        if not (ek[-1] > ek[0] > 0.0 and audit < 0.1 * ek[-1]):
+            raise SystemExit("frozen-tag: no DIH, or the energy audit column "
+                             "is not small against the kinetic energy")
+        if not (np.abs(final.psi) ** 2)[:, 2:].sum() > 0:
+            raise SystemExit("frozen-tag: the pump moved no population")
+        f = cfg.sample_freq
+        l0 = n_md_a + (f - n_md_a % f) - 1
+        labels = [l0 + k * f for k in range(blocks)]
+        _tag_tree(cfg.job_dir(), "VAF.dat", blocks, blocks + 1, labels,
+                  n_md_a - 1, n_md - 1)
+        # resume to a longer tmax: rows append on the same grid
+        cfg2 = dataclasses.replace(cfg, tmax=1.2)
+        reset_counts()
+        final2, res2 = ft.run(cfg2, resume=True, device="cuda")
+        counts2 = read_counts()
+        n_md2 = int(round(cfg2.tmax / cfg2.timestep))
+        more = res2["labels"]
+        want_counts(counts2, "the frozen-tag resume",
+                    yukawa_forces=n_md2 - n_md,
+                    yukawa_forces_potential=len(more))
+        _tag_tree(cfg.job_dir(), "VAF.dat", blocks + len(more),
+                  blocks + 1 + len(more), labels + more, n_md_a - 1,
+                  n_md2 - 1)
+        t = np.loadtxt(os.path.join(cfg.job_dir(), "energies.dat"))[:, 0]
+        step = np.diff(t)
+        log(f"[frozen-tag] resume to tmax=1.2: {len(more)} more blocks at MD "
+            f"steps {more}, launches {counts2['yukawa_forces']} A / "
+            f"{counts2['yukawa_forces_potential']} D; energies.dat t "
+            f"{t[0]:.6g} .. {t[-1]:.6g}, spacing {step.min():.6g} .. "
+            f"{step.max():.6g}")
+        if len(more) != 3 or not np.allclose(step, f * cfg.timestep,
+                                             rtol=1e-4):
+            raise SystemExit("frozen-tag resume: rows left the sample grid")
+        if not np.array_equal(res2["spin_up"], res["spin_up"]):
+            raise SystemExit("frozen-tag resume lost the spin-up list")
+    return counts, dict(wall=wall, steps_per_s=n_md / wall)
+
+
+class raw_fold:
+    """Keeps the device state a fold ends with (``frozen_tagging._phases``'s
+    result, padded lanes included: the results are cut to each member's
+    N)."""
+
+    def __enter__(self):
+        from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+        self.ft, self.orig, self.kept = ft, ft._phases, []
+
+        def keeping(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.kept.append(out)
+            return out
+        ft._phases = keeping
+        return self.kept
+
+    def __exit__(self, *exc):
+        self.ft._phases = self.orig
+
+
+def frozen_fold_path(torch, card):
+    """Phase 20: the Poissonian fold of 8 and the 2-point sweep."""
+    import numpy as np
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    from mdqtplasmasims_torch.io import checkpoint as ckpt
+    E = 8
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ft.FrozenTagConfig(exact_n=False, save_directory=tmp, **TAG_CUT)
+        n_md_a, n_md, segs, _ = ft._phase_b_plan(cfg)
+        mask, n_js = poisson_member_mask(cfg.n0, E, 0)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with raw_fold() as kept:
+            results = ft.run_ensemble(cfg, E, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"[frozen-fold] run_ensemble(FrozenTagConfig(tstart=0.3, "
+            f"tmax=1.0, exact_n=False), n_jobs={E}), N={n_js} in "
+            f"{mask.shape[1]} lanes: {n_md} MD steps, {len(segs)} blocks in "
+            f"{wall:.3f} s -> {n_md / wall:.1f} fold MD steps/s, "
+            f"{E * n_md / wall:.1f} member MD steps/s ({card})")
+        log(f"[frozen-fold] launches: {counts}")
+        want_counts(counts, "the frozen-tag fold",
+                    yukawa_forces_batched=n_md + 1,
+                    yukawa_forces_potential_batched=len(segs) + 2)
+        state, spin_up, _, _, _, vholder = kept[0]
+        pad = torch.as_tensor(mask == 0, device=state.R.device)
+        worst = max(float(x[pad].abs().max()) for x in
+                    (state.R, state.V, state.F, state.psi, vholder))
+        ups = int(spin_up[pad].sum())
+        log(f"[frozen-fold] padded lanes at the end: max |R|,|V|,|F|,|psi|,"
+            f"|vholder| = {worst:g}, tagged {ups}")
+        if worst != 0.0 or ups:
+            raise SystemExit("frozen-tag fold: padded lanes did not stay "
+                             "inert")
+        dirs = sorted(os.path.dirname(q) for q in glob_all(tmp,
+                                                           "energies.dat"))
+        if len(dirs) != E:
+            raise SystemExit(f"frozen-tag fold wrote {len(dirs)} job trees")
+        for j, (r, d) in enumerate(zip(results, dirs)):
+            e = r["outs"]["energies"]
+            ek = e[:, :3].sum(-1)
+            frac = float(r["spin_up"].mean())
+            n_file, rows = ckpt.read_ions(d, n_md - 1)
+            log(f"[frozen-fold] member {j}: N={r['n_ions']}, tag fraction "
+                f"{frac:.4f}, Ekin {ek[0]:.4g} .. {ek[-1]:.4g}, max |audit| "
+                f"{float(np.abs(e[:, 4]).max()):.3g}, ions_ N {n_file}, "
+                f"{rows} rows")
+            ok = (r["n_ions"] == n_js[j] == n_file
+                  and r["final"].R.shape[0] == n_js[j]
+                  and all(np_isfinite(v) for v in r["outs"].values())
+                  and 0.0 < frac < 1.0 and ek[-1] > ek[0] > 0.0
+                  and float(np.abs(e[:, 4]).max()) < 0.1 * ek[-1]
+                  and rows == len(segs))
+            if not ok:
+                raise SystemExit(f"frozen-tag fold: member {j} fails its "
+                                 "checks")
+        if np.array_equal(results[0]["spin_up"][:100],
+                          results[1]["spin_up"][:100]):
+            raise SystemExit("frozen-tag fold: members 0 and 1 are the same")
+    # a 2-point sweep: the member at cfg's own (detuning, om) is the
+    # 2-member ensemble's, bit for bit
+    cfg = ft.FrozenTagConfig(exact_n=False, **TAG_CUT)
+    reset_counts()
+    t0 = time.perf_counter()
+    swept, mcfgs = ft.run_sweep(cfg, [{"detuning": cfg.detuning,
+                                       "om": cfg.om}, {"detuning": -4.0}],
+                                device="cuda")
+    wall_s = time.perf_counter() - t0
+    c_sweep = read_counts()
+    want_counts(c_sweep, "the frozen-tag sweep",
+                yukawa_forces_batched=n_md + 1,
+                yukawa_forces_potential_batched=len(segs) + 2)
+    ens = ft.run_ensemble(cfg, 2, device="cuda")
+    same = (np.array_equal(swept[0]["spin_up"], ens[0]["spin_up"])
+            and np.array_equal(swept[0]["final"].psi, ens[0]["final"].psi)
+            and np.array_equal(swept[0]["final"].R, ens[0]["final"].R)
+            and all(np.array_equal(swept[0]["outs"][k], ens[0]["outs"][k])
+                    for k in ens[0]["outs"]))
+    fr = [float(r["spin_up"].mean()) for r in swept]
+    log(f"[frozen-fold] run_sweep over detuning {[m.detuning for m in mcfgs]} "
+        f"in {wall_s:.3f} s, launches {c_sweep['yukawa_forces_batched']} C / "
+        f"{c_sweep['yukawa_forces_potential_batched']} G; tag fractions "
+        f"{fr[0]:.4f} / {fr[1]:.4f}; the identity member equals the "
+        f"2-member ensemble's bit for bit: {same}")
+    if not same:
+        raise SystemExit("the identity sweep member differs from the "
+                         "ensemble member")
+    if np.array_equal(swept[1]["final"].psi[:100], swept[0]["final"].psi[:100]):
+        raise SystemExit("the detuned sweep member pumped like the other")
+    return counts, dict(wall=wall, steps_per_s=n_md / wall)
+
+
+def frozen_408_path(torch, card):
+    """Phase 21: the 408quad variant (7 states, the full tag-instant
+    row)."""
+    import numpy as np
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ft.FrozenTagConfig(variant="408quad", tstart=0.1, tmax=0.4,
+                                 save_directory=tmp)
+        n_md_a, n_md, segs, _ = ft._phase_b_plan(cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        final, res = ft.run(cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want_counts(counts, "the 408quad run", yukawa_forces=n_md + 1,
+                    yukawa_forces_potential=len(segs) + 2)
+        frac = float(res["spin_up"].mean())
+        f = cfg.sample_freq
+        l0 = n_md_a + (f - n_md_a % f) - 1
+        labels = [n_md_a - 1] + [l0 + k * f for k in range(len(segs))]
+        # the tag-instant row leads every stream of the 408 variants
+        _tag_tree(cfg.job_dir(), "vSquareAutoCorr.dat", len(segs) + 1,
+                  len(segs) + 1, labels, n_md_a - 1, n_md - 1)
+        t = np.loadtxt(os.path.join(cfg.job_dir(), "energies.dat"))[:, 0]
+        log(f"[frozen-408quad] run(variant='408quad', tstart=0.1, tmax=0.4), "
+            f"N0={cfg.n0}, S={final.psi.shape[1]}, ratio {cfg.ratio}: {n_md} "
+            f"MD steps in {wall:.3f} s ({card}); tag fraction {frac:.4f}; "
+            f"rows at t = {t[0]:.6g} (tag instant, {res['out_tag']['t']:.6g})"
+            f" .. {t[-1]:.6g}; vel_distX labels {labels}")
+        if not (final.psi.shape[1] == 7 and frac < 0.3
+                and abs(t[0] - float(res["out_tag"]["t"])) < 1e-5
+                and np_isfinite(res["outs"]["long_kin"])):
+            raise SystemExit("408quad: wrong state count, tag fraction or "
+                             "tag-instant row")
+    return counts
+
+
+def three_state_path(torch, card):
+    """Phase 22: the three-state family at full width, and the fold over
+    two mesh slots of the card."""
+    import numpy as np
+    from mdqtplasmasims_torch.experiments import three_state as ts
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    cfg = ts.ThreeStateConfig(tmax=30.0)
+    reset_counts()
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_w = dataclasses.replace(cfg, save_directory=tmp)
+        cfg_f = dataclasses.replace(cfg_w, tmax=20.0)    # the folds: 2000
+        runs = (
+            ("run", 1, cfg_w, lambda: ts.run(cfg_w, device="cuda")),
+            ("run_ensemble(8)", 8, cfg_f,
+             lambda: ts.run_ensemble(cfg_f, 8, device="cuda")),
+            ("run_sweep(2x2)", 4, cfg_f, lambda: ts.run_sweep(
+                cfg_f, [{"detuning": d, "om": o} for d in (-0.5, -1.0)
+                        for o in (0.5, 1.0)], device="cuda")[0]))
+        for name, members, c, call in runs:
+            ticks = c.n_segments * c.sample_freq
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call()                          # ends in a host fetch
+            wall = time.perf_counter() - t0
+            ek = np.atleast_2d(res["ekin_x"])
+            rates[name] = ticks / wall
+            log(f"[three-state] {name}: ThreeStateConfig(tmax={c.tmax:g}), n0="
+                f"{cfg.n0}, {members} member(s), {ticks} ticks in {wall:.3f} "
+                f"s -> {ticks / wall:.1f} ticks/s, {1e3 * wall / ticks:.4f} "
+                f"host ms per tick, {members * cfg.n0 * ticks / wall:.4g} "
+                f"ion-QT-updates/s ({card}); <Ekin_x> "
+                f"{ek[:, 0].mean():.6g} -> {ek[:, -1].mean():.6g}, ground "
+                f"population {np.atleast_2d(res['ground_pop'])[:, -1].mean():.4f}")
+            if not (np_isfinite(res["ekin_x"]) and np_isfinite(res["V"])
+                    and ek.shape == (members, c.n_segments)
+                    and ek[:, -1].mean() < ek[:, 0].mean()):
+                raise SystemExit(f"three-state {name}: x kinetic energy did "
+                                 "not fall")
+        files = glob_all(tmp, "energies.dat")
+        if len(files) != 1 + 8 + 4 - 2:      # sweep point 1 reuses job1's dir
+            raise SystemExit(f"three-state wrote {len(files)} energies.dat")
+    counts = read_counts()
+    want_counts(counts, "the three-state family")
+    short = dataclasses.replace(cfg, tmax=10.0)
+    dev = torch.device("cuda", 0)
+    a = ts.run_ensemble(short, 8, seed=3, device="cuda")
+    b = ts.run_ensemble(short, 8, seed=3,
+                        mesh=make_mesh(2, 1, devices=[dev] * 2))
+    same = (np.array_equal(a["ekin_x"], b["ekin_x"])
+            and np.array_equal(a["V"], b["V"])
+            and np.array_equal(a["ground_pop"], b["ground_pop"]))
+    log(f"[three-state] 8-job fold (tmax=10) through member_sharded over 2 "
+        f"slots on {dev} vs the unsharded fold: bitwise equal {same}")
+    if not same:
+        raise SystemExit("the member-sharded three-state fold differs from "
+                         "the unsharded one")
+    return counts, rates
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -1598,6 +1998,11 @@ def main() -> int:
     cols = check_cols_kernel(torch, L, pu.debye_length)
     cross = check_cross_kernel(torch, L, pu.debye_length)
     mesh_counts = mesh_path(torch, smi, L, pu.debye_length)
+    check_fold_force_entry(torch, L, pu.debye_length)
+    tag_counts, _ = frozen_tag_path(torch, smi)
+    fold_counts, _ = frozen_fold_path(torch, smi)
+    frozen_408_path(torch, smi)
+    three_state_path(torch, smi)
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -1607,17 +2012,23 @@ def main() -> int:
     kernels = [
         dict(name="yukawa_forces", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:302",
-             launches=counts["yukawa_forces"], **force),
+             launches=counts["yukawa_forces"],
+             launches_frozen_tag=tag_counts["yukawa_forces"], **force),
         dict(name="yukawa_forces_batched", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:411",
-             launches=ens_counts["yukawa_forces_batched"], **force_e),
+             launches=ens_counts["yukawa_forces_batched"],
+             launches_frozen_tag_fold=fold_counts["yukawa_forces_batched"],
+             **force_e),
         dict(name="yukawa_forces_potential", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:147",
-             launches=counts["yukawa_forces_potential"], **pot_d),
+             launches=counts["yukawa_forces_potential"],
+             launches_frozen_tag=tag_counts["yukawa_forces_potential"],
+             **pot_d),
         dict(name="yukawa_forces_potential_batched", route="cuda",
              source=src_f, replaces="mdqtplasmasims_tpu/ops/yukawa.py:166",
              launches=ens_counts["yukawa_forces_potential_batched"],
-             **pot_g),
+             launches_frozen_tag_fold=fold_counts[
+                 "yukawa_forces_potential_batched"], **pot_g),
         dict(name="fused_ticks_rng", route="cuda", source=src_t,
              replaces=tpu_rng, launches=counts["fused_ticks_rng"],
              **rng["fused_ticks_rng"]),

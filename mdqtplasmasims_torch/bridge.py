@@ -6,7 +6,8 @@ a chosen device, and back.  Only numpy crosses the boundary, so this
 module needs neither framework's other side: ``np.asarray`` reads a JAX
 array without importing JAX here.  The PRNG key of a JAX state has no
 counterpart (the port draws from explicit ``torch.Generator`` objects)
-and is dropped.
+and is dropped.  :func:`qt_params_from_numpy` carries a sweep fold's
+per-member engine tables the same way.
 """
 
 from __future__ import annotations
@@ -66,3 +67,32 @@ def state_to_numpy(state: SimState) -> NumpyState:
                       F=state.F.cpu().numpy(), psi=state.psi.cpu().numpy(),
                       t_part=state.t_part.cpu().numpy(), tick=state.tick,
                       t=state.t)
+
+
+def qt_params_from_numpy(src, *, device, dtype=torch.float32):
+    """Port ``QTParams`` from the JAX package's (any object with the same
+    six array fields), on ``device`` in ``dtype`` and its complex
+    counterpart.  An ``[E]``-batched source (core/qt.sweep_member_params
+    there, every leaf with the member axis leading) keeps the axis on
+    ``e0 [E, S]`` and ``coupling [E, S, S]``, the two tables a sweep
+    varies; the decay rates and jump tables, which no sweep touches, must
+    agree across the members and come out unbatched, as the port's
+    ``step_sm`` reads them."""
+    from .core.qt import QTParams
+    from .state import complex_dtype
+    batched = np.asarray(src.e0).ndim == 2
+
+    def leaf(name, dt, varies=False):
+        a = np.array(getattr(src, name))
+        if batched and not varies:
+            if (a != a[:1]).any():
+                raise ValueError(f"QTParams.{name} differs between the "
+                                 "members; only e0 and coupling may")
+            a = a[0]
+        return torch.as_tensor(a).to(device=device, dtype=dt)
+    cdt = complex_dtype(dtype)
+    return QTParams(decay_w=leaf("decay_w", dtype),
+                    e0=leaf("e0", dtype, True), e1=leaf("e1", dtype),
+                    coupling=leaf("coupling", cdt, True),
+                    jump_src_mask=leaf("jump_src_mask", dtype),
+                    jump_dest_cum=leaf("jump_dest_cum", dtype))

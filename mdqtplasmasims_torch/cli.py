@@ -1,4 +1,5 @@
-"""Command-line runner of the port (the cooling family so far).
+"""Command-line runner of the port: the cooling, three-state and
+frozen-start tagging families.
 
     python -m mdqtplasmasims_torch.cli cooling --n0 3500 --tmax 30 \
         --save-directory dataLaserCool/ --job 1 --device cuda
@@ -12,10 +13,21 @@
         --om-values 0.8,1.2 --cross --save-directory sweep/ --device cuda
     python -m mdqtplasmasims_torch.cli cooling-ensemble --jobs 4 \
         --mesh-ens 2 --mesh-ions 2 --device cpu
+    python -m mdqtplasmasims_torch.cli three-state --n0 1000 --tmax 450 \
+        --save-directory dataThreeState/
+    python -m mdqtplasmasims_torch.cli frozen-tag --variant 422linear \
+        --batch-jobs 8 --exact-n false --save-directory dataFrozenTag/
+    python -m mdqtplasmasims_torch.cli frozen-tag --tmax 30 --resume \
+        --save-directory dataFrozenTag/ --job 1
+    python -m mdqtplasmasims_torch.cli frozen-tag-sweep --det-values=-3,-1 \
+        --om-values 1.3 --jobs-per-point 4 --save-directory sweepTag/
+    python -m mdqtplasmasims_torch.cli three-state-sweep \
+        --det-values=-2,-1,-0.5 --om-values 0.5,1 --cross --mesh-ens 2
 
-Flags are generated from :class:`CoolingConfig` exactly as the JAX
-package's ``mdqt cooling``/``cooling-ensemble``/``cooling-sweep`` generate
-them; ``--device`` picks the torch device (``cuda`` launches the
+Flags are generated from each family's config dataclass exactly as the JAX
+package's ``mdqt`` commands of the same names generate them (``--jobs``,
+``--batch-jobs``, ``--resume``, ``--det-values``, ``--om-values``,
+``--cross``, ``--jobs-per-point``, ``--seed``, the mesh flags); ``--device`` picks the torch device (``cuda`` launches the
 hand-written kernels, ``cpu`` runs their plain torch versions).
 ``cooling --resume`` continues from the job directory's newest checkpoint
 and ``cooling --jobs K`` runs jobs 1..K one after the other in this
@@ -100,13 +112,17 @@ def _common(p, cls) -> None:
                    help="torch device to run on (default: cuda)")
 
 
-def _add_mesh_args(parser: argparse.ArgumentParser) -> None:
+def _add_mesh_args(parser: argparse.ArgumentParser,
+                   ions: bool = False) -> None:
+    """``--mesh-ens`` and, for the cooling fold (``ions``), ``--mesh-ions``;
+    the other families keep whole members on a slot."""
     parser.add_argument("--mesh-ens", type=int, default=0, metavar="K",
                         help="spread members over the K slots of a mesh "
                              "ens axis (members must divide evenly)")
-    parser.add_argument("--mesh-ions", type=int, default=1, metavar="I",
-                        help="additionally shard each member's ion axis "
-                             "over I slots (the mesh has K*I slots)")
+    if ions:
+        parser.add_argument("--mesh-ions", type=int, default=1, metavar="I",
+                            help="additionally shard each member's ion axis "
+                                 "over I slots (the mesh has K*I slots)")
 
 
 def _mesh_from_flags(ns: argparse.Namespace):
@@ -116,7 +132,7 @@ def _mesh_from_flags(ns: argparse.Namespace):
     if not ns.mesh_ens:
         return None
     from .parallel.mesh import make_mesh
-    k, i = ns.mesh_ens, ns.mesh_ions
+    k, i = ns.mesh_ens, getattr(ns, "mesh_ions", 1)
     devices = None if ns.device.startswith("cuda") else [ns.device] * (k * i)
     return make_mesh(k, i, devices=devices)
 
@@ -130,13 +146,7 @@ def _version_string() -> str:
         return __version__ + "+src"
 
 
-def main(argv=None) -> int:
-    from .experiments import laser_cooling as lc
-
-    parser = argparse.ArgumentParser(prog="mdqt-torch")
-    parser.add_argument("--version", action="version",
-                        version=f"%(prog)s {_version_string()}")
-    sub = parser.add_subparsers(dest="cmd", required=True)
+def _add_cooling_commands(sub, lc) -> None:
     pc = sub.add_parser("cooling", help="flagship laser-cooling run")
     _common(pc, lc.CoolingConfig)
     pc.add_argument("--jobs", type=int, default=0, metavar="K",
@@ -153,7 +163,7 @@ def main(argv=None) -> int:
     pe.add_argument("--resume", action="store_true",
                     help="rebuild the fold from the newest checkpoint "
                          "common to all job directories")
-    _add_mesh_args(pe)
+    _add_mesh_args(pe, ions=True)
     ps = sub.add_parser(
         "cooling-sweep",
         help="a laser-parameter grid (detSP/detDP/OmSP/OmDP) as ONE fold")
@@ -169,10 +179,57 @@ def main(argv=None) -> int:
     ps.add_argument("--jobs-per-point", type=int, default=1)
     ps.add_argument("--seed", type=int, default=0)
     ps.add_argument("--resume", action="store_true")
-    _add_mesh_args(ps)
-    ns = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+    _add_mesh_args(ps, ions=True)
+
+
+def _add_family_commands(sub, name: str, cls, resume: bool) -> None:
+    """``<name>`` (one job, ``--jobs`` one after the other, ``--batch-jobs``
+    as one fold) and ``<name>-sweep`` (a (detuning, om) grid as one fold)
+    of a tagging family or the three-state toy, with the JAX CLI's flags."""
+    p = sub.add_parser(name)
+    _common(p, cls)
+    p.add_argument("--jobs", type=int, default=0, metavar="K",
+                   help="run jobs 1..K one after the other in this process "
+                        "(the SLURM-array replacement)")
+    if resume:
+        p.add_argument("--resume", action="store_true",
+                       help="continue from the newest checkpoint (the "
+                            "reference's newRun=0 walltime chaining; "
+                            "frozen-tag resumes post-tag recording)")
+    p.add_argument("--batch-jobs", type=int, default=0, metavar="K",
+                   help="run K jobs as one fold on the device (vs --jobs "
+                        "one after the other)")
+    _add_mesh_args(p)
+    pq = sub.add_parser(
+        name + "-sweep",
+        help="run a (detuning, om) laser grid as ONE fold; the reference "
+             "rebuilds the binary per point")
+    _common(pq, cls)
+    pq.add_argument("--det-values", type=str, default=None, metavar="CSV",
+                    help="detuning grid, e.g. -3,-1,0")
+    pq.add_argument("--om-values", type=str, default=None, metavar="CSV",
+                    help="Rabi grid, same length (zipped) or crossed with "
+                         "--cross")
+    pq.add_argument("--cross", action="store_true",
+                    help="full cartesian product of the given grids")
+    pq.add_argument("--jobs-per-point", type=int, default=1)
+    pq.add_argument("--seed", type=int, default=0)
+    _add_mesh_args(pq)
+
+
+def _grids(parser, ns, flags):
+    """The sweep points of the ``(config key, namespace attribute)`` pairs
+    ``flags`` that were given."""
+    grids = {key: [float(x) for x in getattr(ns, attr).split(",") if x]
+             for key, attr in flags if getattr(ns, attr) is not None}
+    if not grids:
+        parser.error("give at least one of " + "/".join(
+            "--" + attr.replace("_", "-") for _, attr in flags))
+    return _sweep_points(parser, grids, ns.cross)
+
+
+def _run_cooling(parser, ns, lc, t0) -> str:
     cfg = _build_cfg(lc.CoolingConfig, ns)
-    t0 = time.perf_counter()
     if ns.cmd == "cooling":
         # --resume applies to each job of --jobs
         jobs = ([dataclasses.replace(cfg, job=j)
@@ -182,31 +239,80 @@ def main(argv=None) -> int:
             if len(jobs) > 1:
                 print(f"[cooling] job {k}/{len(jobs)} at "
                       f"{time.perf_counter() - t0:.1f}s")
-        what = f"{len(jobs)} run" + ("s" if len(jobs) > 1 else "")
-    elif ns.cmd == "cooling-ensemble":
+        return f"{len(jobs)} run" + ("s" if len(jobs) > 1 else "")
+    if ns.cmd == "cooling-ensemble":
         lc.run_ensemble(cfg, ns.jobs, ns.seed, resume=ns.resume,
                         mesh=_mesh_from_flags(ns), device=ns.device)
-        what = f"{ns.jobs} trajectories in one fold"
+        return f"{ns.jobs} trajectories in one fold"
+    points = _grids(parser, ns, (("detuning", "det_sp_values"),
+                                 ("detuning_dp", "det_dp_values"),
+                                 ("om", "om_values"),
+                                 ("om_dp", "om_dp_values")))
+    lc.run_sweep(cfg, points, jobs_per_point=ns.jobs_per_point,
+                 seed=ns.seed, resume=ns.resume,
+                 mesh=_mesh_from_flags(ns), device=ns.device)
+    return f"{len(points)} points x {ns.jobs_per_point} jobs in one fold"
+
+
+def _run_family(parser, ns, module, cfg, t0) -> str:
+    """``module`` is experiments.three_state or experiments.
+    frozen_tagging: ``run``, ``run_ensemble`` and ``run_sweep`` take the
+    same arguments in both."""
+    if ns.cmd.endswith("-sweep"):
+        points = _grids(parser, ns, (("detuning", "det_values"),
+                                     ("om", "om_values")))
+        module.run_sweep(cfg, points, jobs_per_point=ns.jobs_per_point,
+                         seed=ns.seed, mesh=_mesh_from_flags(ns),
+                         device=ns.device)
+        return f"{len(points)} points x {ns.jobs_per_point} jobs in one fold"
+    kw = {"resume": True} if getattr(ns, "resume", False) else {}
+    if ns.batch_jobs > 1:
+        module.run_ensemble(cfg, ns.batch_jobs, mesh=_mesh_from_flags(ns),
+                            device=ns.device, **kw)
+        return f"{ns.batch_jobs} batched trajectories"
+    if ns.jobs > 1:
+        # --resume applies per job where the family supports it
+        for j in range(1, ns.jobs + 1):
+            module.run(dataclasses.replace(cfg, job=j), device=ns.device,
+                       **kw)
+            print(f"[{ns.cmd}] job {j}/{ns.jobs} at "
+                  f"{time.perf_counter() - t0:.1f}s")
+        return f"{ns.jobs} runs"
+    module.run(cfg, device=ns.device, **kw)
+    return "1 run"
+
+
+def main(argv=None) -> int:
+    from .experiments import frozen_tagging, laser_cooling, three_state
+
+    # command prefix -> (module, config class, has --resume)
+    families = {
+        "three-state": (three_state, three_state.ThreeStateConfig, False),
+        "frozen-tag": (frozen_tagging, frozen_tagging.FrozenTagConfig, True),
+    }
+    parser = argparse.ArgumentParser(prog="mdqt-torch")
+    parser.add_argument("--version", action="version",
+                        version=f"%(prog)s {_version_string()}")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_cooling_commands(sub, laser_cooling)
+    for name, (_, cls, resume) in families.items():
+        _add_family_commands(sub, name, cls, resume)
+    ns = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+    t0 = time.perf_counter()
+    if ns.cmd.startswith("cooling"):
+        what = _run_cooling(parser, ns, laser_cooling, t0)
+        save_directory = ns.save_directory
     else:
-        grids = {}
-        for key, csv in (("detuning", ns.det_sp_values),
-                         ("detuning_dp", ns.det_dp_values),
-                         ("om", ns.om_values), ("om_dp", ns.om_dp_values)):
-            if csv is not None:
-                grids[key] = [float(x) for x in csv.split(",") if x]
-        if not grids:
-            parser.error("give at least one of --det-sp-values/"
-                         "--det-dp-values/--om-values/--om-dp-values")
-        points = _sweep_points(parser, grids, ns.cross)
-        lc.run_sweep(cfg, points, jobs_per_point=ns.jobs_per_point,
-                     seed=ns.seed, resume=ns.resume,
-                     mesh=_mesh_from_flags(ns), device=ns.device)
-        what = f"{len(points)} points x {ns.jobs_per_point} jobs in one fold"
+        module, cls, _ = families[ns.cmd.removesuffix("-sweep")]
+        cfg = _build_cfg(cls, ns)
+        what = _run_family(parser, ns, module, cfg, t0)
+        save_directory = cfg.save_directory
     mesh = getattr(ns, "mesh_ens", 0)
     print(f"[{ns.cmd}] {what} on {ns.device}"
-          + (f" (mesh {mesh} x {ns.mesh_ions})" if mesh else "")
+          + (f" (mesh {mesh} x {getattr(ns, 'mesh_ions', 1)})" if mesh
+             else "")
           + f" in {time.perf_counter() - t0:.1f}s"
-          + (f" -> {cfg.save_directory}" if cfg.save_directory else ""))
+          + (f" -> {save_directory}" if save_directory else ""))
     return 0
 
 

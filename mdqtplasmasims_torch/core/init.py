@@ -28,6 +28,14 @@ def sample_cell_count(rng: np.random.Generator, n0: int) -> int:
     return int(rng.binomial(n9l, 1.0 / 729.0))            # p = L^3/(9L)^3
 
 
+def frozen_gas_positions(generator: torch.Generator, n: int, L: float,
+                         dtype=torch.float32) -> torch.Tensor:
+    """n uniform positions in (0, L)^3, drawn from ``generator`` on its
+    device."""
+    return torch.rand((n, 3), generator=generator, dtype=dtype,
+                      device=generator.device) * L
+
+
 def poisson_member_mask(n0: int, n_members: int, seed: int,
                         round_to: int = 1):
     """``[E, n_arr]`` real-ion mask with per-member Poissonian counts, the
@@ -59,8 +67,7 @@ def frozen_gas_init(generator: torch.Generator, n0: int, *,
         n = (n0 if exact_n else
              sample_cell_count(np.random.default_rng(seed_for_count), n0))
     device = generator.device
-    R = torch.rand((n, 3), generator=generator, dtype=dtype,
-                   device=device) * L
+    R = frozen_gas_positions(generator, n, L, dtype)
     V = torch.zeros((n, 3), dtype=dtype, device=device)
     psi = (random_s_superposition(generator, n, n_states,
                                   complex_dtype(dtype))

@@ -1,8 +1,12 @@
-"""SpeedUp multirate scheduler of the cooling family: forces once per MD
-step, drift/kick and the quantum update at the quantum substep
+"""Multirate schedulers.  :class:`CoolingScheduler` is the SpeedUp scheme
+of the cooling family: forces once per MD step, drift/kick and the quantum
+update at the quantum substep
 (laserCoolingPlusExpansionMDQTSpeedUp.cpp:1365-1378).
+:class:`FrozenTagScheduler` (at the end of the module) is the frozen-start
+tagging family's: full-dt leapfrog MD with the pump's quantum ticks inside
+a time window.
 
-Counterpart of ``mdqtplasmasims_tpu/core/scheduler.py:40-365``.  The port
+Counterpart of ``mdqtplasmasims_tpu/core/scheduler.py:40-494``.  The port
 has one stepping path on every device: the state stays in the kernels'
 lane layout for a whole sampling segment (``soa_init -> soa_md_step x k ->
 soa_restore``), and each MD step is one force launch plus one fused tick
@@ -35,6 +39,8 @@ import torch
 
 from ..state import SimState, complex_dtype, tick_time
 from ..ops.yukawa import yukawa_forces_n3l_soa, yukawa_forces_n3l_soa_batched
+from .md import step_R
+from .qt import QTEngine, QTParams
 from .qt_fused import FusedTickSpec, fused_md_substeps, fused_tables
 
 #: Candidate ion-lane paddings (multiples of 128; 3584 covers the flagship
@@ -316,3 +322,98 @@ class CoolingScheduler:
         carry = self.soa_md_step(self.soa_init(state),
                                  self.soa_forces_fn(state.n_ions))
         return self.soa_restore(carry, state)
+
+
+def lane_major_rolls(generator: torch.Generator) -> Callable:
+    """``rolls_fn`` of :class:`FrozenTagScheduler` drawing from
+    ``generator`` on its device (no host sync): ``rolls_fn(ratio, lanes)
+    -> [ratio, 5, *lanes]`` uniforms in [0, 1) for the ``ratio`` ticks of
+    one MD step, ``lanes`` being ``(n,)`` or ``(E, n)``.  The draw is
+    lane-major, ``[*lanes, ratio*5]`` transposed, as the JAX package's
+    (scheduler.py:466-468 there): each ion's rolls of a step are
+    neighbours in the stream."""
+    def rolls_fn(ratio: int, lanes) -> torch.Tensor:
+        u = torch.rand(tuple(lanes) + (ratio * 5,), generator=generator,
+                       dtype=torch.float32, device=generator.device)
+        return u.movedim(-1, 0).reshape((ratio, 5) + tuple(lanes))
+    return rolls_fn
+
+
+@dataclasses.dataclass
+class FrozenTagScheduler:
+    """Frozen-start tagging stepper: full-dt leapfrog MD + windowed pumping.
+
+    The reference order per ``ratio``-tick block is [step(); ratio x
+    (qstep-or-advance)] with forces recomputed inside step_V
+    (randomFrozenStartTag422Linear.cpp:352-382,1015-1026).
+
+    A state is one trajectory (``R [N, 3]``, ``psi [N, S]``) or a fold of E
+    (``[E, N, 3]``, ``[E, N, S]``): every op but ``forces_fn`` is
+    elementwise over the leading axes, and ``forces_fn`` (``R -> (F, pot |
+    None)``, ops/yukawa.best_forces_fn or best_forces_fn_batched) is given
+    for the state's shape.  ``rolls_fn(ratio, lanes)`` supplies the pump
+    ticks' uniforms (:func:`lane_major_rolls` of a seeded generator) and
+    is the stepper's only source of randomness, so a test can replay
+    another implementation's draws through it.  ``qt_params`` overrides
+    the engine's scheme-derived tables (a sweep's per-member detuning and
+    Rabi frequency, core/qt.sweep_qt_params)."""
+
+    engine: QTEngine
+    forces_fn: Callable
+    L: float
+    qdt: float
+    ratio: int
+    t_pump_start: float
+    t_pump_end: float
+    rolls_fn: Optional[Callable] = None
+    qt_params: Optional[QTParams] = None
+
+    def _leapfrog(self, state: SimState):
+        """step(): step_R(dt/2); forces(); step_V(dt); step_R(dt/2).  The
+        first step of a run (tick 0) takes the 2nd-order first drift."""
+        dt = self.qdt * self.ratio
+        first = state.tick <= 0
+        R = step_R(state.R, state.V, state.F, 0.5 * dt, self.L, first)
+        F, _ = self.forces_fn(R)
+        V = state.V + dt * F
+        R = step_R(R, V, F, 0.5 * dt, self.L, first)
+        return R, V, F
+
+    def md_step_pure(self, state: SimState) -> SimState:
+        """MD step whose ticks all lie OUTSIDE the pump window: the same
+        leapfrog and forces, and the clock advances by ``ratio`` ticks with
+        no quantum work (the reference's else-branch,
+        randomFrozenStartTag422Linear.cpp:1020-1025).  The window is known
+        ahead, so a run is [pure | windowed | pure]."""
+        R, V, F = self._leapfrog(state)
+        tick = state.tick + self.ratio
+        return dataclasses.replace(state, R=R, V=V, F=F, tick=tick,
+                                   t=tick_time(tick, self.qdt, state.dtype))
+
+    def in_window(self, tick: int, dtype: torch.dtype) -> bool:
+        """Whether the tick at ``tick * qdt`` pumps: strictly inside
+        (t_pump_start, t_pump_end), the comparison made in ``dtype`` as
+        the JAX package makes it.  Decided on the host: ``tick`` is a
+        Python int."""
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        t = np_dtype(tick_time(tick, self.qdt, dtype))
+        return bool(np_dtype(self.t_pump_start) < t < np_dtype(self.t_pump_end))
+
+    def md_step(self, state: SimState) -> SimState:
+        """MD step with the pump: the leapfrog, then ``ratio`` ticks of
+        which those inside the window run the quantum update on the new
+        vx (the pump applies no force, so V is the leapfrog's)."""
+        R, V, F = self._leapfrog(state)
+        lanes = tuple(state.R.shape[:-1])
+        rolls = self.rolls_fn(self.ratio, lanes).to(state.dtype)
+        vx = V[..., 0]
+        psi_sm, tp = state.psi.transpose(-1, -2), state.t_part
+        for k in range(self.ratio):
+            if self.in_window(state.tick + k, state.dtype):
+                psi_sm, _, tp = self.engine.step_sm(psi_sm, vx, tp,
+                                                    rolls=rolls[k],
+                                                    params=self.qt_params)
+        tick = state.tick + self.ratio
+        return dataclasses.replace(
+            state, R=R, V=V, F=F, psi=psi_sm.transpose(-1, -2).contiguous(),
+            t_part=tp, tick=tick, t=tick_time(tick, self.qdt, state.dtype))

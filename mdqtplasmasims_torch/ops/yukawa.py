@@ -28,7 +28,9 @@ Counterpart of ``mdqtplasmasims_tpu/ops/yukawa.py``.  Physics:
   :func:`yukawa_forces_potential`, their twin.  The sample-time potential
   goes through them.
 * ``best_forces_fn``: the JAX package's ``R -> (F, pot | None)`` chooser
-  over those entries (so a CUDA tensor always reaches a kernel).
+  over those entries (so a CUDA tensor always reaches a kernel);
+  ``best_forces_fn_batched`` the same for a fold ``[E, N, 3]`` with
+  per-member masks (kernels C and G, one launch for all members).
 * ``yukawa_forces_soa_cols_batched`` (kernel E) and
   ``yukawa_forces_cross_n3l_soa_batched`` (kernel F): the mesh path's
   force kernels (parallel/ensemble.py): a shard's rows against the
@@ -700,16 +702,25 @@ def yukawa_forces_n3l_pallas(R: torch.Tensor, L: float, ldeb: float,
 
 
 def yukawa_forces_n3l_pallas_batched(R: torch.Tensor, L: float, ldeb,
-                                     tile: int = 512) -> torch.Tensor:
+                                     tile: int = 512,
+                                     mask: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
     """Force-only ``R [E, N, 3] -> F [E, N, 3]``: one launch of
     :func:`yukawa_forces_n3l_soa_batched` (kernel C on the card, its twin
     on the CPU) over the members' lanes, the JAX package's ensemble entry
-    of the half-pair kernel.  ``ldeb`` is a float, or a per-member ``[E]``
-    tensor of screening lengths (kappa sweeps): the kernel then reads each
-    member's own 1/ldeb."""
+    of the half-pair kernel (which it reaches by lifting the ``[N, 3]``
+    entry over the member axis).  ``mask`` (``[N]`` shared, or ``[E, N]``
+    per member: Poissonian counts) marks real ions; masked ions neither
+    feel nor exert a force, and their rows come out exactly 0.  ``ldeb``
+    is a float, or a per-member ``[E]`` tensor of screening lengths (kappa
+    sweeps): the kernel then reads each member's own 1/ldeb."""
     _check_device(R)
     e, n, _ = R.shape
-    Rp, rows, npad = _pack_lanes(R, None, tile)
+    if mask is not None and (tuple(mask.shape) not in ((n,), (e, n))
+                             or mask.device != R.device):
+        raise ValueError(f"want mask [{n}] or [{e}, {n}] on R's device, got "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    Rp, rows, npad = _pack_lanes(R, mask, tile)
     if isinstance(ldeb, torch.Tensor):
         if tuple(ldeb.shape) != (e,):
             raise ValueError(f"want ldeb a float or [{e}], got "
@@ -746,4 +757,27 @@ def best_forces_fn(n: int, L: float, ldeb: float, mask=None,
             return yukawa_forces_n3l_pallas(R, L, ldeb, mask, tile), None
         return yukawa_forces_potential_pallas(R, L, ldeb, mask, tile,
                                               with_pot=False)
+    return forces
+
+
+def best_forces_fn_batched(n: int, L: float, ldeb: float, mask=None,
+                           use_pallas: Optional[bool] = None,
+                           tile: Optional[int] = None):
+    """:func:`best_forces_fn` for a fold: an ``R [E, N, 3] -> (F [E, N,
+    3], pot [E, N] | None)`` callable that serves all members with one
+    launch, as the JAX package gets by lifting its ``[N, 3]`` chooser over
+    the member axis.  ``mask`` is ``[N]`` or per member ``[E, N]``.
+    Forces only come from kernel C, forces with the per-ion potential from
+    kernel G; the choice between the two forms and between kernel and twin
+    is :func:`best_forces_fn`'s, so on a CPU tensor every member gets
+    exactly what its own ``[N, 3]`` call gives."""
+    tile = 512 if tile is None else tile
+
+    def forces(R):
+        with_pot = (R.device.type != "cuda" if use_pallas is None
+                    else not use_pallas)
+        if with_pot:
+            return yukawa_forces_potential_pallas_batched(R, L, ldeb, tile,
+                                                          mask)
+        return yukawa_forces_n3l_pallas_batched(R, L, ldeb, tile, mask), None
     return forces

@@ -1,10 +1,12 @@
-"""The port's ``cooling`` subcommand against the JAX package's (CPU):
+"""The port's subcommands against the JAX package's (CPU).  ``cooling``:
 ``--resume`` and ``--jobs K`` as mdqtplasmasims_tpu/cli.py:227-236 and
 :408-418 give them, and ``--version``.  A chain resumed through
 ``main([...])`` equals the uninterrupted run bit for bit; the two CLIs
 accept the same flags and leave trees with the same file names (the
 uniforms differ between the packages, so contents are held in
-tests/test_torch_cooling.py with replayed uniforms)."""
+tests/test_torch_cooling.py with replayed uniforms).  ``three-state``,
+``three-state-sweep``, ``frozen-tag`` and ``frozen-tag-sweep``: the flags
+of their ``mdqt`` namesakes, run through ``main([...])`` on the CPU."""
 
 import glob
 import os
@@ -103,3 +105,125 @@ def test_version_flag(main, prog, capsys):
     assert done.value.code == 0
     out = capsys.readouterr().out.split()
     assert out[0] == prog and out[1][0].isdigit()
+
+
+# ---- the three-state and frozen-start tagging commands
+# (tests/test_misc.py TestSweepCLI, run on the port's CLI)
+
+TOY = ["--n0", "16", "--tmax", "2", "--sample-freq", "100",
+       "--dispatch-segments", "5", "--device", "cpu"]
+TAG = ["--n0", "24", "--tstart", "0.02", "--tmax", "0.1", "--sample-freq",
+       "4", "--tpump-seconds", "5e-8", "--device", "cpu"]
+
+
+def test_three_state_sweep_end_to_end(tmp_path, capsys):
+    """Grid parsing, run_sweep dispatch, per-point directory writes."""
+    assert tcli.main(["three-state-sweep", *TOY, "--det-values=-0.5,-2.0",
+                      "--om-values", "1.0", "--save-directory",
+                      str(tmp_path)]) == 0
+    files = glob.glob(str(tmp_path / "Om*" / "Det*" / "job1"
+                          / "energies.dat"))
+    assert len(files) == 2, files
+    assert "2 points x 1 jobs in one fold on cpu" in capsys.readouterr().out
+
+
+def test_three_state_mesh_flag_end_to_end(tmp_path):
+    """--mesh-ens routes the sweep through member_sharded: the same rows
+    as the single fold, bit for bit."""
+    argv = ["three-state-sweep", *TOY, "--det-values=-0.5,-2.0",
+            "--om-values", "1.0"]
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert tcli.main(argv + ["--save-directory", str(a)]) == 0
+    assert tcli.main(argv + ["--save-directory", str(b), "--mesh-ens",
+                             "2"]) == 0
+    fa = sorted(glob.glob(str(a / "Om*" / "Det*" / "job1" / "energies.dat")))
+    fb = sorted(glob.glob(str(b / "Om*" / "Det*" / "job1" / "energies.dat")))
+    assert len(fa) == len(fb) == 2
+    for x, y in zip(fa, fb):
+        np.testing.assert_array_equal(np.loadtxt(x), np.loadtxt(y))
+
+
+@pytest.mark.parametrize("flags,jobs", [([], 1), (["--jobs", "2"], 2),
+                                        (["--batch-jobs", "2"], 2),
+                                        (["--batch-jobs", "2", "--mesh-ens",
+                                          "2"], 2)])
+def test_three_state_command(flags, jobs, tmp_path, capsys):
+    assert tcli.main(["three-state", *TOY, *flags, "--save-directory",
+                      str(tmp_path)]) == 0
+    files = glob.glob(str(tmp_path / "Om50" / "Det*" / "job*"
+                          / "energies.dat"))
+    assert len(files) == jobs
+    assert np.loadtxt(files[0]).shape == (2, 2)
+    assert "[three-state]" in capsys.readouterr().out
+
+
+def test_frozen_tag_command_jobs_batch_and_resume(tmp_path, capsys):
+    """``frozen-tag``: ``--jobs`` one after the other, ``--resume`` per
+    job to a longer tmax, ``--batch-jobs`` as one Poissonian fold."""
+    root = str(tmp_path / "seq")
+    assert tcli.main(["frozen-tag", *TAG, "--jobs", "2", "--save-directory",
+                      root]) == 0
+    rows = [np.loadtxt(p).shape[0] for p in sorted(glob.glob(
+        os.path.join(root, "*", "job*", "energies.dat")))]
+    assert rows == [3, 3]
+    argv = ["frozen-tag", *TAG, "--jobs", "2", "--resume",
+            "--save-directory", root]
+    argv[argv.index("--tmax") + 1] = "0.13"
+    assert tcli.main(argv) == 0
+    rows = [np.loadtxt(p).shape[0] for p in sorted(glob.glob(
+        os.path.join(root, "*", "job*", "energies.dat")))]
+    assert rows == [7, 7]
+    assert len(glob.glob(os.path.join(root, "*", "job*",
+                                      "checkpoint_000064.npz"))) == 2
+    fold = str(tmp_path / "fold")
+    assert tcli.main(["frozen-tag", *TAG, "--batch-jobs", "3", "--exact-n",
+                      "false", "--variant", "408quad", "--save-directory",
+                      fold]) == 0
+    assert len(glob.glob(os.path.join(fold, "*", "job*",
+                                      "vSquareAutoCorr.dat"))) == 3
+    out = capsys.readouterr().out
+    assert "[frozen-tag] job 2/2" in out and "3 batched trajectories" in out
+
+
+def test_frozen_tag_sweep_command(tmp_path):
+    assert tcli.main(["frozen-tag-sweep", *TAG, "--det-values=-1,-3",
+                      "--om-values", "1.3,0.7", "--cross",
+                      "--jobs-per-point", "2", "--seed", "5", "--mesh-ens",
+                      "2", "--save-directory", str(tmp_path)]) == 0
+    dirs = sorted(os.path.basename(d) for d in glob.glob(str(tmp_path / "*")))
+    assert len(dirs) == 4 and all("Det" in d and "Om" in d for d in dirs)
+    assert len(glob.glob(str(tmp_path / "*" / "job[12]" / "VAF.dat"))) == 8
+    with pytest.raises(SystemExit):
+        tcli.main(["frozen-tag-sweep", *TAG])          # no grid given
+
+
+def _flags(main, argv):
+    """The option strings a CLI's subcommand accepts (from its --help)."""
+    import contextlib
+    import io
+    import re
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+        main(argv + ["--help"])
+    return set(re.findall(r"--[a-z0-9-]+", buf.getvalue()))
+
+
+@pytest.mark.parametrize("cmd", ["three-state", "three-state-sweep",
+                                 "frozen-tag", "frozen-tag-sweep"])
+def test_new_commands_accept_the_jax_clis_flags(cmd):
+    """Every flag of the ``mdqt`` namesake is a flag of ``mdqt-torch``,
+    which adds ``--device`` (default cuda)."""
+    ours, theirs = _flags(tcli.main, [cmd]), _flags(jcli.main, [cmd])
+    assert theirs <= ours, sorted(theirs - ours)
+    assert ours - theirs == {"--device"}
+    wanted = {"three-state": {"--jobs", "--batch-jobs", "--mesh-ens"},
+              "frozen-tag": {"--jobs", "--batch-jobs", "--resume",
+                             "--mesh-ens"}}.get(
+        cmd, {"--det-values", "--om-values", "--cross", "--jobs-per-point",
+              "--seed", "--mesh-ens"})
+    assert wanted <= ours
+    if not torch.cuda.is_available():          # the default device is cuda
+        with pytest.raises((RuntimeError, AssertionError)):
+            tcli.main([cmd, "--n0", "8", "--tmax", "1"]
+                      + (["--det-values=-1"] if cmd.endswith("sweep")
+                         else []))

@@ -849,3 +849,111 @@ def test_tick_kernel_refuses_complex_tables(cuda):
     with pytest.raises(ValueError, match="real coupling"):
         tf.fused_md_substeps(spec, False, z(3), z(3), z(3), z(1), z(16),
                              z(16), z(125))
+
+
+# ---- the frozen-start tagging and three-state families on the card
+
+def _counts():
+    from mdqtplasmasims_torch.core.qt_fused import LAUNCH_COUNTERS
+    fns = dict(A=ty.yukawa_forces_n3l_soa, C=ty.yukawa_forces_n3l_soa_batched,
+               D=ty.yukawa_forces_potential_pallas,
+               G=ty.yukawa_forces_potential_pallas_batched,
+               E=ty.yukawa_forces_soa_cols_batched,
+               F=ty.yukawa_forces_cross_n3l_soa_batched)
+    out = {k: f.launches for k, f in fns.items()}
+    out["B"] = sum(getattr(tf.fused_md_substeps, a) for a in LAUNCH_COUNTERS)
+    return out
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def test_fold_force_entry_with_per_member_mask_matches_twin(cuda):
+    """Kernel C through the ``[E, N, 3]`` entry with a holed ``[E, N]``
+    mask: one launch, the plain version's values, masked ions exactly 0."""
+    E, n = 4, 1500
+    L = PlasmaUnits.box_length(n)
+    ldeb = PlasmaUnits(2.0, 0.1).debye_length
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mask = (torch.rand((E, n), generator=g, device=cuda) > 0.05).float()
+    mask[1, 1200:] = 0.0
+    R = torch.rand((E, n, 3), generator=g, device=cuda) * L * mask[..., None]
+    before = _counts()
+    F = ty.yukawa_forces_n3l_pallas_batched(R, L, ldeb, mask=mask)
+    assert _moved(before) == {"C": 1}
+    ref = ty.yukawa_forces_n3l_pallas_batched(R.cpu(), L, ldeb,
+                                              mask=mask.cpu())
+    np.testing.assert_allclose(F.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=2e-5 * float(ref.abs().max()))
+    assert not F[mask == 0].any()
+    Fb, pot = ty.best_forces_fn_batched(n, L, ldeb, mask=mask)(R)
+    assert pot is None and torch.equal(Fb, F)
+
+
+@pytest.mark.parametrize("variant", ["422linear", "408linear"])
+def test_frozen_tag_run_and_fold_on_the_card(cuda, variant, tmp_path):
+    """A short job and a Poissonian fold of 3 at N0=600: the launch counts
+    (A per MD step + 1 and D per block + 2; C and G likewise for the whole
+    fold; no tick kernel, no E or F), inert padded lanes through the
+    results' shapes, the tree, and a resume."""
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    cfg = ft.FrozenTagConfig(variant=variant, n0=600, tstart=0.02, tmax=0.1,
+                             sample_freq=4, tpump_seconds=5e-8,
+                             save_directory=str(tmp_path))
+    _, n_md, segs, _ = ft._phase_b_plan(cfg)
+    before = _counts()
+    final, res = ft.run(cfg, device="cuda")
+    assert _moved(before) == {"A": n_md + 1, "D": len(segs) + 2}
+    assert 0.0 < res["spin_up"].mean() < 1.0
+    assert np.isfinite(res["outs"]["energies"]).all()
+    e = res["outs"]["energies"]
+    assert np.abs(e[:, 4]).max() < 0.1 * e[-1, :3].sum()
+    before = _counts()
+    _, res2 = ft.run(dataclasses.replace(cfg, tmax=0.12), resume=True,
+                     device="cuda")
+    assert _moved(before) == {"A": 10, "D": len(res2["labels"])}
+    fold_cfg = dataclasses.replace(cfg, exact_n=False, save_directory=None)
+    before = _counts()
+    results = ft.run_ensemble(fold_cfg, 3, seed=2, device="cuda")
+    assert _moved(before) == {"C": n_md + 1, "G": len(segs) + 2}
+    assert len({r["n_ions"] for r in results}) > 1
+    for r in results:
+        assert r["final"].R.shape[0] == r["n_ions"]
+        assert np.isfinite(r["outs"]["moments"]).all()
+    # the same fold over two mesh slots of the card, bit for bit
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    four = ft.run_ensemble(fold_cfg, 4, seed=2, device="cuda")
+    mesh = ft.run_ensemble(fold_cfg, 4, seed=2,
+                           mesh=make_mesh(2, 1, devices=[cuda] * 2))
+    for a, b in zip(four, mesh):
+        np.testing.assert_array_equal(a["spin_up"], b["spin_up"])
+        np.testing.assert_array_equal(a["final"].psi, b["final"].psi)
+    with pytest.raises(NotImplementedError, match="float64"):
+        ft.run(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+
+
+def test_three_state_on_the_card(cuda):
+    """The toy launches no kernel; its identity sweep member equals the
+    ensemble member bit for bit on the card too, float64 runs there, and
+    the tick does not depend on the TF32 switch."""
+    from mdqtplasmasims_torch.experiments import three_state as ts
+    cfg = ts.ThreeStateConfig(n0=500, tmax=4.0, sample_freq=200)
+    before = _counts()
+    res = ts.run(cfg, device="cuda")
+    swept, _ = ts.run_sweep(cfg, [{"detuning": cfg.detuning, "om": cfg.om},
+                                  {"detuning": -2.0, "om": 1.0}], seed=4,
+                            device="cuda")
+    ens = ts.run_ensemble(cfg, 1, seed=4, device="cuda")
+    assert _moved(before) == {}
+    assert np.isfinite(res["ekin_x"]).all() and res["ekin_x"].shape == (2,)
+    np.testing.assert_array_equal(swept["ekin_x"][0], ens["ekin_x"][0])
+    np.testing.assert_array_equal(swept["V"][0], ens["V"][0])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        again = ts.run_ensemble(cfg, 1, seed=4, device="cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_array_equal(again["V"], ens["V"])
+    f64 = ts.run(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+    assert f64["V"].dtype == np.float64 and np.isfinite(f64["ekin_x"]).all()

@@ -2,13 +2,14 @@
 
 * A fresh interpreter whose import system refuses ``jax`` and
   ``mdqtplasmasims_tpu`` imports every module of ``mdqtplasmasims_torch``
-  and ``chip_smoke``, then runs a tiny cooling ``run()`` and ensemble on
-  the CPU.
+  and ``chip_smoke``, then runs a tiny ``run()`` and fold of every ported
+  family (cooling, three-state, frozen-start tagging) on the CPU.
 * No source file of the port (nor chip_smoke.py) has an import statement
   naming either.
 * The port's own copies of the level tables, the unit constants, the
-  ``%g`` writer and the CLI helpers equal the JAX package's originals
-  (exactly: they are copies).
+  ``%g`` writer, the directory encoders, the CLI helpers and the families'
+  config defaults equal the JAX package's originals (exactly: they are
+  copies).
 """
 
 import dataclasses
@@ -59,6 +60,36 @@ with tempfile.TemporaryDirectory() as tmp:
     final, res = run(cfg, device="cpu")
     assert res["outs"]["t"].shape == (2,)
     run_ensemble(cfg, 2, device="cpu")
+# every module the tagging families added is among ``names``; drive them too
+new = {"core.tagging", "ops.correlations", "experiments.three_state",
+       "experiments.frozen_tagging"}
+assert {"mdqtplasmasims_torch." + m for m in new} <= set(names), names
+from mdqtplasmasims_torch.experiments import frozen_tagging, three_state
+from mdqtplasmasims_torch.ops.correlations import autocorr_suite
+from mdqtplasmasims_torch.core.tagging import tag_classical
+from mdqtplasmasims_torch.cli import main
+import torch
+with tempfile.TemporaryDirectory() as tmp:
+    toy = three_state.ThreeStateConfig(n0=16, tmax=1.0, sample_freq=50,
+                                       save_directory=tmp)
+    assert three_state.run(toy, device="cpu")["ekin_x"].shape == (2,)
+    three_state.run_sweep(toy, [{"detuning": -1.0}, {"om": 1.0}],
+                          device="cpu")
+    tag = frozen_tagging.FrozenTagConfig(
+        n0=16, tstart=0.02, tmax=0.1, sample_freq=4, tpump_seconds=5e-8,
+        exact_n=False, save_directory=tmp)
+    final, res = frozen_tagging.run(tag, device="cpu")
+    assert res["outs"]["t"].shape == (3,)
+    frozen_tagging.run_ensemble(tag, 2, device="cpu")
+    frozen_tagging.run_sweep(tag, [{"detuning": -2.0}], jobs_per_point=2,
+                             device="cpu")
+    assert main(["frozen-tag", "--n0", "16", "--tstart", "0.02", "--tmax",
+                 "0.12", "--sample-freq", "4", "--tpump-seconds", "5e-8",
+                 "--exact-n", "false", "--resume", "--device", "cpu",
+                 "--save-directory", tmp]) == 0
+assert len(autocorr_suite(torch.randn(8, 5, 3))) == 4
+assert len(tag_classical(torch.randn(9), torch.Generator().manual_seed(0),
+                         2.0)) == 4
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad
@@ -72,7 +103,7 @@ def test_port_runs_with_jax_refused():
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 24      # every module imported
 
 
 def _sources():
@@ -183,3 +214,38 @@ def test_cli_helpers_equal(argv):
             grids = {"detuning": [-1.0, -0.5], "om": [0.8]}
         assert tcli._sweep_points(None, dict(grids), cross) == \
             jcli._sweep_points(None, dict(grids), cross)
+
+
+def test_three_state_and_frozen_tag_dirs_equal():
+    kw = dict(om=0.5, detuning=-0.5, n0=1000, temperature_k=0.01, job=2)
+    assert (tdirs.three_state_dir("base", **kw)
+            == jdirs.three_state_dir("base", **kw))
+    kw = dict(tpump_seconds=1e-7, tstart=15.0, detuning=-1.0, om=1.3,
+              density=2.0, ge=0.1, n0=3500, job=4)
+    assert (tdirs.frozen_tag_dir("base", **kw)
+            == jdirs.frozen_tag_dir("base", **kw))
+
+
+@pytest.mark.parametrize("family", ["three_state", "frozen_tagging"])
+def test_family_config_defaults_equal(family):
+    """The families' config dataclasses are copies: the same fields in the
+    same order with the same defaults (so the CLIs generate the same
+    flags), and the same derived scalars."""
+    import importlib
+    j = importlib.import_module(f"mdqtplasmasims_tpu.experiments.{family}")
+    t = importlib.import_module(f"mdqtplasmasims_torch.experiments.{family}")
+    name = ("ThreeStateConfig" if family == "three_state"
+            else "FrozenTagConfig")
+    fj = [(f.name, f.default) for f in dataclasses.fields(getattr(j, name))]
+    ft = [(f.name, f.default) for f in dataclasses.fields(getattr(t, name))]
+    assert fj == ft
+    if family == "frozen_tagging":
+        assert t.VARIANTS == j.VARIANTS
+        assert t.FROZEN_VARIANT_DEFAULTS == j.FROZEN_VARIANT_DEFAULTS
+    else:
+        assert t.doppler_limit_ekin(-0.5) == j.doppler_limit_ekin(-0.5)
+        cj, ct = j.ThreeStateConfig(), t.ThreeStateConfig()
+        sj, st = j.build_engine(cj), t.build_engine(ct)
+        assert (sj.h, sj.dt_plasma, sj.apply_force) == (st.h, st.dt_plasma,
+                                                        st.apply_force)
+        np.testing.assert_array_equal(sj.scheme.coupling, st.scheme.coupling)
