@@ -107,9 +107,31 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      falling, ticks/s
      and host ms per tick printed, no kernel launched; then the 8-job fold
      through ``member_sharded`` over 2 slots on cuda:0, bitwise equal to
-     the unsharded fold.
+     the unsharded fold;
+ 23. the Metropolis chain at full width (n = 4096, plain torch, no
+     kernel): 2000 steps of one job and of an 8-member fold with
+     per-member generators from the lattice start, ms per MC step, the
+     acceptance band of tests/test_classical.py:187, the correlation hole
+     of g(r); 200 float64 steps on the card against the same draws on the
+     CPU (accept count exact, R within 1e-12);
+ 24. the transport family: ``mc_md_anisotropy.run`` at n = 4096 cut to
+     2000 MC and 751 MD steps (:data:`TRANSPORT_CUT`), with checkpoints:
+     kernel A once per MD step + 1, nothing else; VAF(0), the
+     instantaneous anisotropy (x hot by the applied 15 %) relaxing, the
+     tree; a crash mid-record resumed bit for bit; host ms per MD step of
+     a job and of a fold of 8;
+ 25. the MC-tagging family: ``mc_qt_tagging.run`` (408quad, n = 4096,
+     2000 MC steps, the production pump window of 23 MD steps = 1426
+     ticks, 200 recorded steps): kernel A counts exact, tag fraction in
+     (0, 1), the tree; an 8-member fold (kernel C counts exact, A none);
+     a 2-point detuning sweep whose identity member equals the 2-member
+     ensemble's bit for bit; host ms per pump MD step, and the production
+     times the measured rates imply;
+ 26. a 2 x 2 (Gamma, kappa) transport sweep through kernel C with a
+     per-member ``ldeb [E]``: counts exact, the MD's start forces of each
+     member against the plain version at that member's ldeb.
 
-Phases 7, 10, 11, 12, 17 and 19-22 each set the launch counts to 0 just
+Phases 7, 10, 11, 12, 17 and 19-26 each set the launch counts to 0 just
 before they drive their path and read them just after.  The line before the last
 is a JSON object with one entry per kernel and form, each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
@@ -122,6 +144,7 @@ last line is ``{"ok": true, "device": {...}}``.  Uses no JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -1916,6 +1939,355 @@ def three_state_path(torch, card):
     return counts, rates
 
 
+# ---- the Monte-Carlo families (phases 23-26)
+
+# the transport cut of phases 24 and 26: 2000 MC steps in 2 chunks, 751
+# MD steps (100 + 200 recorded + 200 + 100 + 51 under the laser + 100)
+TRANSPORT_CUT = dict(mc_steps=2000, gr_every_mc=1000, pre_record_md_steps=100,
+                     record_steps=200, gr_every_record=100,
+                     instant_aniso_steps=200, reequil_steps=100,
+                     aniso_time_us=0.5, aniso_relax_steps=100)
+# the MC-tagging cut of phase 25: 2000 MC steps, 200 collisional MD steps,
+# the production pump window, 200 recorded steps
+MC_TAG_CUT = dict(mc_steps=2000, record_steps=200)
+# the identity check of phase 25 at a shorter depth: a 5-step pump window
+MC_TAG_SHORT = dict(mc_steps=500, pre_record_md_steps=20, record_steps=100,
+                    tpump_seconds=2e-8)
+MC_ACCEPT_BAND = (0.05, 0.99)          # tests/test_classical.py:187
+MC_R_TOL = 1e-12                       # float64 chain, card against CPU
+
+
+def _synced_wall(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def metropolis_path(torch, card):
+    """Phase 23: the Metropolis chain at full width (n = 4096, the
+    transport config's Gamma and kappa) from the lattice start: 2000 steps
+    of one job and of an 8-member fold with per-member generators, timed;
+    the acceptance band and the correlation hole; 200 float64 steps on the
+    card against the same draws on the CPU."""
+    from mdqtplasmasims_torch.core.init import lattice_init
+    from mdqtplasmasims_torch.core.mc import McDraws, MetropolisMC, draw_mc
+    from mdqtplasmasims_torch.experiments import mc_md_anisotropy as tr
+    from mdqtplasmasims_torch.ops.structure import pair_correlation
+    cfg = tr.MCTransportConfig()
+    dev = torch.device("cuda")
+    R0, _ = lattice_init(torch.Generator(device=dev).manual_seed(1), cfg.n,
+                         cfg.gamma, cfg.L)
+    mc = MetropolisMC(L=cfg.L, ldeb=cfg.ldeb, gamma=cfg.gamma,
+                      max_r_step=cfg.max_r_step)
+    steps = 2000
+    rates = {}
+    reset_counts()
+    for E in (1, 8):
+        gens = [torch.Generator(device=dev).manual_seed(10 + j)
+                for j in range(E)]
+        R = R0[None].expand(E, -1, -1).contiguous()
+        mc.run(R, draws=draw_mc(gens, 20, cfg.n))       # warm-up, untimed
+        (R, acc), wall = _synced_wall(torch, lambda: mc.run(
+            R, draws=draw_mc(gens, steps, cfg.n)))
+        rates[E] = 1e3 * wall / steps
+        frac = (acc.float() / steps).cpu().numpy()
+        g = pair_correlation(R[0], cfg.L).cpu().numpy()
+        log(f"[metropolis] E={E}: {steps} steps of n={cfg.n} (Gamma "
+            f"{cfg.gamma:g}, kappa {cfg.kappa:g}) in {wall:.3f} s -> "
+            f"{rates[E]:.4f} ms per MC step ({card}); acceptance "
+            f"{frac.min():.4f} .. {frac.max():.4f}; g(r<0.4) max "
+            f"{g[:8].max():.3g}, g peak {g.max():.4g} at r="
+            f"{0.05 * g.argmax():.3g}")
+        if not (MC_ACCEPT_BAND[0] < frac.min() <= frac.max()
+                < MC_ACCEPT_BAND[1]):
+            raise SystemExit(f"metropolis E={E}: acceptance outside "
+                             f"{MC_ACCEPT_BAND}")
+        if not (np_isfinite(R.cpu()) and g[:8].max() < 0.5 and g.max() > 1.0):
+            raise SystemExit(f"metropolis E={E}: no correlation hole")
+    want_counts(read_counts(), "the Metropolis chain")   # plain torch only
+    # 200 float64 steps: the card and the CPU from the same draws
+    cpu = torch.Generator().manual_seed(3)
+    Rr = (torch.rand((cfg.n, 3), generator=cpu, dtype=torch.float64)
+          * cfg.L)
+    d = draw_mc([cpu], 200, cfg.n, torch.float64)
+    R_c, a_c = mc.run(Rr.to(dev), draws=McDraws(*(x.to(dev) for x in d)))
+    R_h, a_h = mc.run(Rr, draws=d)
+    err = float((R_c.cpu() - R_h).abs().max())
+    log(f"[metropolis] float64, 200 steps from a random start: accepted "
+        f"{int(a_c)} on the card, {int(a_h)} on the CPU; max |R| difference "
+        f"{err:.3g} (tol {MC_R_TOL:g})")
+    if int(a_c) != int(a_h) or not err <= MC_R_TOL:
+        raise SystemExit("the float64 chain on the card differs from the "
+                         "CPU's")
+    return rates
+
+
+@contextlib.contextmanager
+def first_forces():
+    """Keep ``(R, F)`` of the first force call that a staged-family run
+    started inside the context makes (core/pipeline._forces wrapped; the
+    call is the run's own kernel launch, counted as usual)."""
+    from mdqtplasmasims_torch.core import pipeline
+    first = []
+    orig = pipeline._forces
+
+    def keeping(*a, **kw):
+        fn = orig(*a, **kw)
+
+        def forces(R):
+            F = fn(R)
+            if not first:
+                first.append((R.clone(), F.clone()))
+            return F
+        return forces
+    pipeline._forces = keeping
+    try:
+        yield first
+    finally:
+        pipeline._forces = orig
+
+
+def check_first_forces(torch, first, L, ldebs, what):
+    """Hold a run's captured start forces ``F [E, N, 3]`` against the plain
+    version on the same card tensors at each member's ldeb, FORCE_TOL of
+    max|F|; fails the run on a miss."""
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    R, F = first[0]
+    errs = []
+    for j, ld in enumerate(ldebs):
+        ref = ty.yukawa_forces_potential(R[j], L, ld)[0]
+        errs.append((float((F[j] - ref).abs().max()),
+                     float(ref.abs().max())))
+    log(f"[{what}] start forces {tuple(F.shape)} (L {L:.4f}) against the "
+        "plain version at each member's ldeb: " + ", ".join(
+            f"member {j} ldeb {ld:g}: max|F| {s:.4g}, max abs err {e:.3g}"
+            for j, (ld, (e, s)) in enumerate(zip(ldebs, errs)))
+        + f" (tol {FORCE_TOL:g} of max|F|)")
+    if not all(e <= FORCE_TOL * s for e, s in errs):
+        raise SystemExit(f"{what}: the start forces disagree with the plain "
+                         "version")
+
+
+def _md_ms(torch, cfg, E, single):
+    """Host-clock ms per collisional velocity-Verlet MD step of E members
+    at cfg's width (a job: kernel A; a fold: kernel C), 50 steps from a
+    lattice start."""
+    from mdqtplasmasims_torch.core import pipeline as pl
+    from mdqtplasmasims_torch.core.draws import MemberDraws
+    dev = torch.device("cuda")
+    m = pl.members_of(cfg, [cfg.gamma] * E, [cfg.ldeb] * E, MemberDraws(
+        [torch.Generator(device=dev).manual_seed(j) for j in range(E)]),
+        single=single)
+    R, V = pl.lattice_start(cfg, m, dev)
+    A = m.forces(R)
+    pl.md_stage(cfg, m, R, V, A, 5, collision_freq=cfg.collision_freq)
+    _, wall = _synced_wall(torch, lambda: pl.md_stage(
+        cfg, m, R, V, A, 50, collision_freq=cfg.collision_freq))
+    return 1e3 * wall / 50
+
+
+def _arrays_equal(a, b) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def transport_path(torch, card):
+    """Phase 24: ``mc_md_anisotropy.run`` at full width (n = 4096) at the
+    cut depths, with checkpoints: exact launch counts, the run's start
+    forces (kernel A on [1, 4096, 3], no padding) against the plain
+    version, VAF(0), the instantaneous anisotropy relaxing, the tree; then
+    a crash mid-record resumed bit for bit."""
+    import numpy as np
+    from mdqtplasmasims_torch.experiments import mc_md_anisotropy as tr
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = tr.MCTransportConfig(save_directory=os.path.join(tmp, "a"),
+                                   checkpoint_every_chunks=1, **TRANSPORT_CUT)
+        n_md = cfg.md_steps
+        reset_counts()
+        with first_forces() as first:
+            res, wall = _synced_wall(torch, lambda: tr.run(cfg,
+                                                           device="cuda"))
+        counts = read_counts()
+        log(f"[transport] run(MCTransportConfig(n={cfg.n}, "
+            f"{', '.join(f'{k}={v}' for k, v in TRANSPORT_CUT.items())}, "
+            f"checkpoint_every_chunks=1), device='cuda'): {cfg.mc_steps} MC "
+            f"+ {n_md} MD steps in {wall:.3f} s ({card})")
+        log(f"[transport] launches: {counts}")
+        want_counts(counts, "the transport run", yukawa_forces=n_md + 1)
+        check_first_forces(torch, first, cfg.L, [cfg.ldeb], "transport")
+        ti = res["temps_inst"]
+        aniso = ti[:, 0] - 0.5 * (ti[:, 1] + ti[:, 2])
+        log(f"[transport] accepted {int(res['mc_accepted'])} of "
+            f"{cfg.mc_steps}; VAF(0) {res['vaf'][0]:.4g}; temps_inst x/y/z "
+            f"{ti[0, 0]:.4g}/{ti[0, 1]:.4g}/{ti[0, 2]:.4g} -> "
+            f"{ti[-1, 0]:.4g}/{ti[-1, 1]:.4g}/{ti[-1, 2]:.4g} (x - <y,z> "
+            f"{aniso[0]:.4g} -> {aniso[-1]:.4g}); temps_force x/y "
+            f"{res['temps_force'][-1, 0]:.4g}/{res['temps_force'][-1, 1]:.4g}")
+        if not all(np_isfinite(v) for v in res.values()):
+            raise SystemExit("transport: non-finite outputs")
+        if not 0.3 < res["vaf"][0] < 3.0:
+            raise SystemExit("transport: VAF(0) outside 0.3-3.0")
+        # x hot by the applied rescale, 1.15/0.925 of y and z; at n = 4096
+        # an axis's temperature fluctuates by ~2 %
+        x_hot = ti[0, 0] / (0.5 * (ti[0, 1] + ti[0, 2]))
+        if not (1.1 < x_hot < 1.4
+                and aniso[-20:].mean() < aniso[:20].mean()):
+            raise SystemExit(f"transport: the rescale heated x by {x_hot:.3f}"
+                             " (want ~1.15/0.925) or did not relax")
+        names = {os.path.basename(p) for p in glob_all(tmp, "VAF.dat")
+                 + glob_all(tmp, "TemperaturesAlongAxesAfterForcePeriod.dat")
+                 + glob_all(tmp, "pairPairCorrStepNum1000.dat")}
+        if len(names) != 3:
+            raise SystemExit(f"transport: tree incomplete ({names})")
+        # a crash after the 4th checkpoint (mid-record: the stored
+        # velocities ride it), resumed
+        cfg_b = dataclasses.replace(cfg, save_directory=os.path.join(tmp,
+                                                                     "b"))
+        try:
+            tr.run(cfg_b, device="cuda", _crash_after_checkpoints=4)
+            raise SystemExit("transport: the crash hook did not fire")
+        except RuntimeError:
+            pass
+        resumed = tr.run(cfg_b, device="cuda", resume=True)
+        same = _arrays_equal(res, resumed)
+        log(f"[transport] crash after checkpoint 4 (stage 2, chunk 1), "
+            f"resumed: bitwise equal to the uninterrupted run {same}")
+        if not same:
+            raise SystemExit("transport: the resumed run differs")
+    md1 = _md_ms(torch, cfg, 1, True)
+    md8 = _md_ms(torch, cfg, 8, False)
+    log(f"[transport] collisional MD step at n={cfg.n}: {md1:.4f} ms (job, "
+        f"kernel A), {md8:.4f} ms (fold of 8, kernel C), host clock ({card})")
+    return counts, dict(wall=wall, md_ms={1: md1, 8: md8})
+
+
+def mc_tag_path(torch, card):
+    """Phase 25: ``mc_qt_tagging.run`` (408quad) at full width with the
+    production pump window; a fold of 8 (its start forces, kernel C on [8,
+    4096, 3], against the plain version); a 2-point detuning sweep whose
+    identity member equals the 2-member ensemble's bit for bit."""
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = mt.MCTagConfig(variant="408quad", save_directory=tmp,
+                             **MC_TAG_CUT)
+        n_md, ticks = cfg.md_steps, cfg.pump_md_steps * cfg.ratio
+        reset_counts()
+        res, wall = _synced_wall(torch, lambda: mt.run(cfg, device="cuda"))
+        counts = read_counts()
+        frac = float(res["tags"].mean())
+        log(f"[mc-tag] run(MCTagConfig(variant='408quad', n={cfg.n}, "
+            f"mc_steps={cfg.mc_steps}, record_steps={cfg.record_steps}), "
+            f"device='cuda'): {cfg.mc_steps} MC + {n_md} MD steps ("
+            f"{cfg.pump_md_steps} pump steps of {cfg.ratio} ticks = {ticks} "
+            f"ticks) in {wall:.3f} s ({card}); tag fraction {frac:.4f}; "
+            f"VAF(0) {res['vaf'][0]:.4g}")
+        log(f"[mc-tag] launches: {counts}")
+        want_counts(counts, "the mc-tag run", yukawa_forces=n_md + 1)
+        if not (all(np_isfinite(v) for v in res.values()) and 0 < frac < 1):
+            raise SystemExit("mc-tag: non-finite outputs or tag fraction "
+                             "outside (0, 1)")
+        if len(glob_all(tmp, "vel_distX_timestep000199.dat")) != 1:
+            raise SystemExit("mc-tag: tree incomplete")
+    E = 8
+    reset_counts()
+    with first_forces() as first:
+        fold, wall8 = _synced_wall(torch, lambda: mt.run_ensemble(
+            dataclasses.replace(cfg, save_directory=None), E, device="cuda"))
+    c_fold = read_counts()
+    fr = [float(r["tags"].mean()) for r in fold]
+    log(f"[mc-tag] run_ensemble(n_jobs={E}) at the same cut in {wall8:.3f} s "
+        f"({card}); tag fractions {min(fr):.4f} .. {max(fr):.4f}")
+    log(f"[mc-tag] fold launches: {c_fold}")
+    want_counts(c_fold, "the mc-tag fold", yukawa_forces_batched=n_md + 1)
+    check_first_forces(torch, first, cfg.L, [1.0 / cfg.kappa] * E,
+                       "mc-tag fold")
+    if not all(0 < f < 1 for f in fr) or _arrays_equal(fold[0], fold[1]):
+        raise SystemExit("mc-tag fold: members fail their checks")
+    short = mt.MCTagConfig(variant="408quad", **MC_TAG_SHORT)
+    swept, mcfgs = mt.run_sweep(short, [{}, {"detuning": -3.0}],
+                                device="cuda")
+    ens = mt.run_ensemble(short, 2, device="cuda")
+    same = _arrays_equal(swept[0], ens[0])
+    log(f"[mc-tag] 2-point sweep over detuning "
+        f"{[m.detuning for m in mcfgs]} (mc_steps={short.mc_steps}, "
+        f"{short.pump_md_steps} pump steps): the identity member equals the "
+        f"2-member ensemble's bit for bit: {same}")
+    if not same or _arrays_equal(swept[1], ens[1]):
+        raise SystemExit("mc-tag sweep: the identity member differs, or the "
+                         "detuned member does not")
+    return counts, c_fold, dict(wall=wall, wall8=wall8)
+
+
+def pump_step_ms(torch, E):
+    """Host-clock ms per pump MD step (408quad: 62 plain-engine ticks and a
+    velocity-Verlet step) of E members at n = 4096, 3 steps."""
+    from mdqtplasmasims_torch.core.draws import MemberDraws
+    from mdqtplasmasims_torch.core.pipeline import lattice_start
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    from mdqtplasmasims_torch.state import SimState, complex_dtype
+    dev = torch.device("cuda")
+    cfg = mt.MCTagConfig(variant="408quad")
+    draws = MemberDraws([torch.Generator(device=dev).manual_seed(j)
+                         for j in range(E)])
+    m = mt._members(cfg, E, draws, single=E == 1)
+    R, V = lattice_start(cfg, m, dev)
+    st = SimState(R=R, V=V, F=m.forces(R),
+                  psi=draws.psi(cfg.n, cfg.n_states,
+                                complex_dtype(torch.float32)),
+                  t_part=torch.zeros((E, cfg.n), device=dev))
+    sched = mt._make_scheduler(cfg, m)
+    st = mt._pump_chunk(sched, st, 1)
+    _, wall = _synced_wall(torch, lambda: mt._pump_chunk(sched, st, 3))
+    return 1e3 * wall / 3
+
+
+def transport_sweep_path(torch, card):
+    """Phase 26: a 2 x 2 (Gamma, kappa) transport sweep at full width
+    through kernel C with a per-member ``ldeb [E]``: exact launch counts,
+    and the forces of the MD's start against the plain version at each
+    member's ldeb."""
+    from mdqtplasmasims_torch.experiments import mc_md_anisotropy as tr
+    cfg = tr.MCTransportConfig(**TRANSPORT_CUT)
+    pts = [{"gamma": g, "kappa": k} for g in (3.0, 10.0) for k in (0.5, 1.0)]
+    reset_counts()
+    with first_forces() as first:
+        (res, mcfgs), wall = _synced_wall(torch, lambda: tr.run_sweep(
+            cfg, pts, device="cuda"))
+    counts = read_counts()
+    log(f"[transport-sweep] run_sweep over (Gamma, kappa) "
+        f"{[(m.gamma, m.kappa) for m in mcfgs]} at the phase-24 cut in "
+        f"{wall:.3f} s ({card})")
+    log(f"[transport-sweep] launches: {counts}")
+    want_counts(counts, "the transport sweep",
+                yukawa_forces_batched=cfg.md_steps + 1)
+    check_first_forces(torch, first, cfg.L, [m.ldeb for m in mcfgs],
+                       "transport-sweep")
+    vaf0 = [float(r["vaf"][0]) for r in res]
+    if not (all(np_isfinite(v) for r in res for v in r.values())
+            and vaf0[0] > vaf0[2] and vaf0[1] > vaf0[3]):
+        raise SystemExit(f"transport sweep: VAF(0) {vaf0} does not fall "
+                         "with Gamma")
+    log(f"[transport-sweep] VAF(0) per member {[round(v, 4) for v in vaf0]}"
+        " (3/Gamma-like)")
+    return counts
+
+
+def mc_projections(card, mc_ms, md_ms, pump_ms):
+    """Production times the measured rates imply (host clock): a transport
+    job (200,000 MC + 8,712 MD steps), an mc-tag 408quad job (100,000 MC +
+    1,700 MD steps + 23 pump steps of 62 ticks), each for one job and for
+    a fold of 8."""
+    for E in (1, 8):
+        tj = (200_000 * mc_ms[E] + 8_712 * md_ms[E]) / 1e3
+        mj = (100_000 * mc_ms[E] + 1_700 * md_ms[E] + 23 * pump_ms[E]) / 1e3
+        log(f"[projection] E={E}: MC step {mc_ms[E]:.4f} ms, MD step "
+            f"{md_ms[E]:.4f} ms, pump MD step {pump_ms[E]:.2f} ms -> "
+            f"transport job {tj:.1f} s ({100 * 200_000 * mc_ms[E] / 1e3 / tj:.0f}"
+            f" % MC), mc-tag job {mj:.1f} s ({card})")
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -2003,6 +2375,15 @@ def main() -> int:
     fold_counts, _ = frozen_fold_path(torch, smi)
     frozen_408_path(torch, smi)
     three_state_path(torch, smi)
+    t_mc = time.perf_counter()
+    mc_ms = metropolis_path(torch, smi)
+    tr_counts, tr_walls = transport_path(torch, smi)
+    mt_counts, mt_fold_counts, _ = mc_tag_path(torch, smi)
+    mc_projections(smi, mc_ms, tr_walls["md_ms"],
+                   {E: pump_step_ms(torch, E) for E in (1, 8)})
+    sweep_tr_counts = transport_sweep_path(torch, smi)
+    log(f"[env] phases 23-26 (the Monte-Carlo families) took "
+        f"{time.perf_counter() - t_mc:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -2013,12 +2394,16 @@ def main() -> int:
         dict(name="yukawa_forces", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:302",
              launches=counts["yukawa_forces"],
-             launches_frozen_tag=tag_counts["yukawa_forces"], **force),
+             launches_frozen_tag=tag_counts["yukawa_forces"],
+             launches_transport=tr_counts["yukawa_forces"],
+             launches_mc_tag=mt_counts["yukawa_forces"], **force),
         dict(name="yukawa_forces_batched", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:411",
              launches=ens_counts["yukawa_forces_batched"],
              launches_frozen_tag_fold=fold_counts["yukawa_forces_batched"],
-             **force_e),
+             launches_mc_tag_fold=mt_fold_counts["yukawa_forces_batched"],
+             launches_transport_sweep=sweep_tr_counts[
+                 "yukawa_forces_batched"], **force_e),
         dict(name="yukawa_forces_potential", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:147",
              launches=counts["yukawa_forces_potential"],

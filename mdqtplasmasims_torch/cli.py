@@ -1,5 +1,5 @@
-"""Command-line runner of the port: the cooling, three-state and
-frozen-start tagging families.
+"""Command-line runner of the port: the cooling, three-state,
+frozen-start tagging, transport and MC-tagging families.
 
     python -m mdqtplasmasims_torch.cli cooling --n0 3500 --tmax 30 \
         --save-directory dataLaserCool/ --job 1 --device cuda
@@ -23,6 +23,16 @@ frozen-start tagging families.
         --om-values 1.3 --jobs-per-point 4 --save-directory sweepTag/
     python -m mdqtplasmasims_torch.cli three-state-sweep \
         --det-values=-2,-1,-0.5 --om-values 0.5,1 --cross --mesh-ens 2
+    python -m mdqtplasmasims_torch.cli transport --batch-jobs 8 \
+        --save-directory dataTransport/
+    python -m mdqtplasmasims_torch.cli transport-sweep --gamma-values 1,3,10 \
+        --kappa-values 0.5,1 --cross --save-directory sweepTransport/
+    python -m mdqtplasmasims_torch.cli mc-tag --variant 408quad \
+        --checkpoint-every-chunks 1 --save-directory dataMCTag/ --job 1
+    python -m mdqtplasmasims_torch.cli mc-tag --variant 408quad --resume \
+        --checkpoint-every-chunks 1 --save-directory dataMCTag/ --job 1
+    python -m mdqtplasmasims_torch.cli mc-tag-sweep --det-values=-1,0 \
+        --save-directory sweepMCTag/
 
 Flags are generated from each family's config dataclass exactly as the JAX
 package's ``mdqt`` commands of the same names generate them (``--jobs``,
@@ -31,7 +41,9 @@ package's ``mdqt`` commands of the same names generate them (``--jobs``,
 hand-written kernels, ``cpu`` runs their plain torch versions).
 ``cooling --resume`` continues from the job directory's newest checkpoint
 and ``cooling --jobs K`` runs jobs 1..K one after the other in this
-process, as the JAX CLI does.
+process, as the JAX CLI does; ``transport --resume`` and ``mc-tag
+--resume`` continue a job's staged pipeline from its newest pipeline
+checkpoint (published with ``--checkpoint-every-chunks K``).
 ``--mesh-ens K`` (and ``--mesh-ions I``) spread an ensemble or sweep over
 a K x I mesh of device slots (parallel/mesh.py): distinct cards with
 ``--device cuda``, CPU slots with ``--device cpu``.
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import sys
 import time
 import types
@@ -182,10 +195,21 @@ def _add_cooling_commands(sub, lc) -> None:
     _add_mesh_args(ps, ions=True)
 
 
-def _add_family_commands(sub, name: str, cls, resume: bool) -> None:
+#: a sweep's grid flags: (config field, flag, help)
+LASER_GRID = (("detuning", "--det-values", "detuning grid, e.g. -3,-1,0"),
+              ("om", "--om-values", "Rabi grid, same length (zipped) or "
+               "crossed with --cross"))
+PHASE_GRID = (("gamma", "--gamma-values", "Gamma grid, e.g. 1,3,10,30"),
+              ("kappa", "--kappa-values", "kappa grid, same length (zipped) "
+               "or crossed with --cross"))
+
+
+def _add_family_commands(sub, name: str, cls, resume: bool,
+                         grid=LASER_GRID) -> None:
     """``<name>`` (one job, ``--jobs`` one after the other, ``--batch-jobs``
-    as one fold) and ``<name>-sweep`` (a (detuning, om) grid as one fold)
-    of a tagging family or the three-state toy, with the JAX CLI's flags."""
+    as one fold) and ``<name>-sweep`` (a grid of ``grid``'s fields as one
+    fold: (detuning, om) for the tagging families and the three-state
+    toy, (Gamma, kappa) for transport), with the JAX CLI's flags."""
     p = sub.add_parser(name)
     _common(p, cls)
     p.add_argument("--jobs", type=int, default=0, metavar="K",
@@ -202,14 +226,12 @@ def _add_family_commands(sub, name: str, cls, resume: bool) -> None:
     _add_mesh_args(p)
     pq = sub.add_parser(
         name + "-sweep",
-        help="run a (detuning, om) laser grid as ONE fold; the reference "
-             "rebuilds the binary per point")
+        help=f"run a ({', '.join(f for f, _, _ in grid)}) grid as ONE fold; "
+             "the reference rebuilds the binary per point")
     _common(pq, cls)
-    pq.add_argument("--det-values", type=str, default=None, metavar="CSV",
-                    help="detuning grid, e.g. -3,-1,0")
-    pq.add_argument("--om-values", type=str, default=None, metavar="CSV",
-                    help="Rabi grid, same length (zipped) or crossed with "
-                         "--cross")
+    for _, flag, what in grid:
+        pq.add_argument(flag, type=str, default=None, metavar="CSV",
+                        help=what)
     pq.add_argument("--cross", action="store_true",
                     help="full cartesian product of the given grids")
     pq.add_argument("--jobs-per-point", type=int, default=1)
@@ -254,18 +276,23 @@ def _run_cooling(parser, ns, lc, t0) -> str:
     return f"{len(points)} points x {ns.jobs_per_point} jobs in one fold"
 
 
-def _run_family(parser, ns, module, cfg, t0) -> str:
-    """``module`` is experiments.three_state or experiments.
-    frozen_tagging: ``run``, ``run_ensemble`` and ``run_sweep`` take the
-    same arguments in both."""
+def _run_family(parser, ns, module, cfg, t0, grid=LASER_GRID) -> str:
+    """``module`` is one of experiments.three_state, frozen_tagging,
+    mc_md_anisotropy, mc_qt_tagging: ``run``, ``run_ensemble`` and
+    ``run_sweep`` take the same arguments in all four, apart from
+    ``resume`` (the staged families' folds publish no checkpoint)."""
     if ns.cmd.endswith("-sweep"):
-        points = _grids(parser, ns, (("detuning", "det_values"),
-                                     ("om", "om_values")))
+        points = _grids(parser, ns, [(f, flag[2:].replace("-", "_"))
+                                     for f, flag, _ in grid])
         module.run_sweep(cfg, points, jobs_per_point=ns.jobs_per_point,
                          seed=ns.seed, mesh=_mesh_from_flags(ns),
                          device=ns.device)
         return f"{len(points)} points x {ns.jobs_per_point} jobs in one fold"
     kw = {"resume": True} if getattr(ns, "resume", False) else {}
+    if (ns.batch_jobs > 1 and kw and "resume" not in
+            inspect.signature(module.run_ensemble).parameters):
+        parser.error(f"{ns.cmd} --resume continues single jobs (--job, "
+                     "--jobs); a --batch-jobs fold publishes no checkpoint")
     if ns.batch_jobs > 1:
         module.run_ensemble(cfg, ns.batch_jobs, mesh=_mesh_from_flags(ns),
                             device=ns.device, **kw)
@@ -283,29 +310,36 @@ def _run_family(parser, ns, module, cfg, t0) -> str:
 
 
 def main(argv=None) -> int:
-    from .experiments import frozen_tagging, laser_cooling, three_state
+    from .experiments import (frozen_tagging, laser_cooling,
+                              mc_md_anisotropy, mc_qt_tagging, three_state)
 
-    # command prefix -> (module, config class, has --resume)
+    # command prefix -> (module, config class, has --resume, sweep grid)
     families = {
-        "three-state": (three_state, three_state.ThreeStateConfig, False),
-        "frozen-tag": (frozen_tagging, frozen_tagging.FrozenTagConfig, True),
+        "three-state": (three_state, three_state.ThreeStateConfig, False,
+                        LASER_GRID),
+        "frozen-tag": (frozen_tagging, frozen_tagging.FrozenTagConfig, True,
+                       LASER_GRID),
+        "transport": (mc_md_anisotropy, mc_md_anisotropy.MCTransportConfig,
+                      True, PHASE_GRID),
+        "mc-tag": (mc_qt_tagging, mc_qt_tagging.MCTagConfig, True,
+                   LASER_GRID),
     }
     parser = argparse.ArgumentParser(prog="mdqt-torch")
     parser.add_argument("--version", action="version",
                         version=f"%(prog)s {_version_string()}")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_cooling_commands(sub, laser_cooling)
-    for name, (_, cls, resume) in families.items():
-        _add_family_commands(sub, name, cls, resume)
+    for name, (_, cls, resume, grid) in families.items():
+        _add_family_commands(sub, name, cls, resume, grid)
     ns = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
     t0 = time.perf_counter()
     if ns.cmd.startswith("cooling"):
         what = _run_cooling(parser, ns, laser_cooling, t0)
         save_directory = ns.save_directory
     else:
-        module, cls, _ = families[ns.cmd.removesuffix("-sweep")]
+        module, cls, _, grid = families[ns.cmd.removesuffix("-sweep")]
         cfg = _build_cfg(cls, ns)
-        what = _run_family(parser, ns, module, cfg, t0)
+        what = _run_family(parser, ns, module, cfg, t0, grid)
         save_directory = cfg.save_directory
     mesh = getattr(ns, "mesh_ens", 0)
     print(f"[{ns.cmd}] {what} on {ns.device}"

@@ -2,11 +2,13 @@
 of the cooling family: forces once per MD step, drift/kick and the quantum
 update at the quantum substep
 (laserCoolingPlusExpansionMDQTSpeedUp.cpp:1365-1378).
-:class:`FrozenTagScheduler` (at the end of the module) is the frozen-start
-tagging family's: full-dt leapfrog MD with the pump's quantum ticks inside
-a time window.
+:class:`FrozenTagScheduler` is the frozen-start tagging family's: full-dt
+leapfrog MD with the pump's quantum ticks inside a time window;
+:class:`MCTagScheduler` (at the end of the module) the MC-tagging
+family's pump stepper: ``ratio`` plain-engine ticks, then one
+velocity-Verlet step.
 
-Counterpart of ``mdqtplasmasims_tpu/core/scheduler.py:40-494``.  The port
+Counterpart of ``mdqtplasmasims_tpu/core/scheduler.py``.  The port
 has one stepping path on every device: the state stays in the kernels'
 lane layout for a whole sampling segment (``soa_init -> soa_md_step x k ->
 soa_restore``), and each MD step is one force launch plus one fused tick
@@ -39,7 +41,7 @@ import torch
 
 from ..state import SimState, complex_dtype, tick_time
 from ..ops.yukawa import yukawa_forces_n3l_soa, yukawa_forces_n3l_soa_batched
-from .md import step_R
+from .md import step_R, wrap_pbc
 from .qt import QTEngine, QTParams
 from .qt_fused import FusedTickSpec, fused_md_substeps, fused_tables
 
@@ -417,3 +419,60 @@ class FrozenTagScheduler:
         return dataclasses.replace(
             state, R=R, V=V, F=F, psi=psi_sm.transpose(-1, -2).contiguous(),
             t_part=tp, tick=tick, t=tick_time(tick, self.qdt, state.dtype))
+
+
+def tick_major_rolls(generator: torch.Generator) -> Callable:
+    """``rolls_fn`` of :class:`MCTagScheduler` drawing from ``generator``
+    on its device (no host sync): ``rolls_fn(ratio, lanes) -> [ratio, 5,
+    *lanes]`` uniforms in [0, 1), drawn in that (tick-major) order as the
+    JAX package draws them (scheduler.py:512-513 there).  A fold draws
+    each member's ``(n,)`` lanes from the member's own generator
+    (core/draws.MemberDraws.pump)."""
+    def rolls_fn(ratio: int, lanes) -> torch.Tensor:
+        return torch.rand((ratio, 5) + tuple(lanes), generator=generator,
+                          dtype=torch.float32, device=generator.device)
+    return rolls_fn
+
+
+@dataclasses.dataclass
+class MCTagScheduler:
+    """MC-family pump stepper: ``ratio`` quantum ticks of the plain engine
+    (``QTEngine.step_sm``; the pump applies no force), then one
+    velocity-Verlet MDStep with fresh accelerations
+    (MonteCarloFollowedByQTTagging408Quad.cpp:1230-1235).  ``t`` advances
+    by ``dt`` (summed in the state's float type, as the JAX package sums
+    it) and ``tick`` by ``ratio``.
+
+    A state is one trajectory or a fold ``[E, N, ...]``; ``forces_fn`` (``R
+    -> (F, pot | None)``, ops/yukawa.best_forces_fn or
+    best_forces_fn_batched) is given for its shape.  ``rolls_fn(ratio,
+    lanes)`` supplies each MD step's ``[ratio, 5, *lanes]`` uniforms
+    (:func:`tick_major_rolls`) and is the stepper's only source of
+    randomness; ``qt_params`` carries a sweep's per-member tables."""
+
+    engine: QTEngine
+    forces_fn: Callable
+    L: float
+    dt: float            # MD timestep (0.005)
+    ratio: int
+    rolls_fn: Optional[Callable] = None
+    qt_params: Optional[QTParams] = None
+
+    def md_step(self, state: SimState) -> SimState:
+        lanes = tuple(state.R.shape[:-1])
+        rolls = self.rolls_fn(self.ratio, lanes).to(state.dtype)
+        vx = state.V[..., 0]
+        psi_sm, tp = state.psi.transpose(-1, -2), state.t_part
+        for k in range(self.ratio):
+            psi_sm, _, tp = self.engine.step_sm(psi_sm, vx, tp,
+                                                rolls=rolls[k],
+                                                params=self.qt_params)
+        R = wrap_pbc(state.R + self.dt * state.V
+                     + 0.5 * self.dt ** 2 * state.F, self.L)
+        F, _ = self.forces_fn(R)
+        V = state.V + 0.5 * self.dt * (state.F + F)
+        np_dtype = np.float32 if state.dtype == torch.float32 else np.float64
+        return dataclasses.replace(
+            state, R=R, V=V, F=F, psi=psi_sm.transpose(-1, -2).contiguous(),
+            t_part=tp, tick=state.tick + self.ratio,
+            t=float(np_dtype(state.t) + np_dtype(self.dt)))

@@ -43,7 +43,8 @@ def gaussian_kde(v: torch.Tensor, bins: torch.Tensor, *, folded: bool,
                  weights: Optional[torch.Tensor] = None,
                  width: float = KDE_WIDTH,
                  normalize: bool = True) -> torch.Tensor:
-    """KDE of velocities ``v`` [N] onto ``bins`` [B].
+    """KDE of velocities ``v`` [N] onto ``bins`` [B] (``[..., B]`` for
+    ``v [..., N]`` and ``weights [..., N]``: a fold's members at once).
 
     ``folded=True`` is the cooling code's symmetrized form
     ``exp(-(b-v)^2/2w^2) + exp(-(b+v)^2/2w^2)`` over non-negative bins
@@ -53,14 +54,14 @@ def gaussian_kde(v: torch.Tensor, bins: torch.Tensor, *, folded: bool,
     The reference normalization 1/(6*sqrt(2*pi*w^2)) is applied when
     ``normalize``."""
     inv2w2 = 1.0 / (2.0 * width * width)
-    d = bins[:, None] - v[None, :]
+    d = bins[:, None] - v[..., None, :]
     k = torch.exp(-inv2w2 * d * d)
     if folded:
-        s = bins[:, None] + v[None, :]
+        s = bins[:, None] + v[..., None, :]
         k = k + torch.exp(-inv2w2 * s * s)
     if weights is not None:
-        k = k * weights[None, :]
-    out = torch.sum(k, dim=1)
+        k = k * weights[..., None, :]
+    out = torch.sum(k, dim=-1)
     if normalize:
         out = out / (6.0 * math.sqrt(2.0 * math.pi) * width)
     return out

@@ -577,11 +577,12 @@ def _pack_lanes(R: torch.Tensor, mask: Optional[torch.Tensor], tile: int):
     return Rp.reshape(3, e * npad), rows, npad
 
 
-def _forces_potential_lanes(R: torch.Tensor, L: float, ldeb: float,
+def _forces_potential_lanes(R: torch.Tensor, L: float, ldeb,
                             mask: Optional[torch.Tensor], tile: int,
                             with_pot: bool):
     """One launch of the potential form of ``csrc/yukawa_forces.cu`` for
-    ``R [E, n, 3]`` on the card: ``(F [E, n, 3], pot [E, n] | None)``."""
+    ``R [E, n, 3]`` on the card: ``(F [E, n, 3], pot [E, n] | None)``.
+    ``ldeb`` is a float or a per-member ``[E]`` tensor (:func:`_inv_ldeb`)."""
     if R.dtype != torch.float32:
         raise ValueError(f"the CUDA force kernel is float32, got {R.dtype}")
     if mask is not None and (mask.device != R.device
@@ -591,7 +592,8 @@ def _forces_potential_lanes(R: torch.Tensor, L: float, ldeb: float,
     soa_force_tile(tile)               # a multiple of 128
     e, n, _ = R.shape
     Rp, rows, npad = _pack_lanes(R, mask, tile)
-    F, pot = _launch_forces(Rp, rows, e, L, ldeb, None, with_pot)
+    ldeb, inv = _inv_ldeb(ldeb, R)
+    F, pot = _launch_forces(Rp, rows, e, L, ldeb, inv, with_pot)
     F = F.reshape(3, e, npad)[:, :, :n].permute(1, 2, 0)
     return F, None if pot is None else pot.reshape(e, npad)[:, :n]
 
@@ -599,6 +601,25 @@ def _forces_potential_lanes(R: torch.Tensor, L: float, ldeb: float,
 def _check_device(R: torch.Tensor) -> None:
     if R.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no force kernel for device {R.device}")
+
+
+def _inv_ldeb(ldeb, R: torch.Tensor):
+    """A float ``ldeb`` -> ``(ldeb, None)``; a per-member ``[E]`` tensor of
+    screening lengths (kappa sweeps) -> ``(1.0, inv_ldeb [E])`` in R's
+    dtype on R's device, the kernel's per-member 1/lambda."""
+    if not isinstance(ldeb, torch.Tensor):
+        return ldeb, None
+    e = R.shape[0]
+    if tuple(ldeb.shape) != (e,):
+        raise ValueError(f"want ldeb a float or [{e}], got "
+                         f"{tuple(ldeb.shape)}")
+    return 1.0, (1.0 / ldeb).to(dtype=R.dtype, device=R.device).contiguous()
+
+
+def _member_ldeb(ldeb, j: int):
+    """Member j's screening length as a float (the CPU twins' member-by-
+    member path)."""
+    return float(ldeb[j]) if isinstance(ldeb, torch.Tensor) else ldeb
 
 
 def yukawa_forces_potential_pallas(R: torch.Tensor, L: float, ldeb: float,
@@ -639,12 +660,14 @@ def yukawa_potential_pallas(R, L, ldeb, mask=None, tile: int = 512):
 
 
 def yukawa_forces_potential_pallas_batched(
-        R: torch.Tensor, L: float, ldeb: float, tile: int = 512,
+        R: torch.Tensor, L: float, ldeb, tile: int = 512,
         mask: Optional[torch.Tensor] = None):
     """``R [E, N, 3]`` ensemble positions -> ``(F [E, N, 3], pot [E,
     N])``, the JAX package's entry of kernel G.  ``mask`` (``[N]`` shared,
     or ``[E, N]`` per member: Poissonian counts) marks real ions; masked
-    rows come out exactly 0.
+    rows come out exactly 0.  ``ldeb`` is a float, or a per-member ``[E]``
+    tensor of screening lengths (kappa sweeps): the kernel reads each
+    member's 1/ldeb, the twin takes each member's ldeb as a float.
 
     A CUDA tensor (float32) launches the potential form of
     ``csrc/yukawa_forces.cu`` once over the grid of :func:`pair_split`,
@@ -656,8 +679,12 @@ def yukawa_forces_potential_pallas_batched(
     if mask is not None and tuple(mask.shape) not in ((n,), (e, n)):
         raise ValueError(f"want mask [{n}] or [{e}, {n}], got "
                          f"{tuple(mask.shape)}")
+    if isinstance(ldeb, torch.Tensor) and tuple(ldeb.shape) != (e,):
+        raise ValueError(f"want ldeb a float or [{e}], got "
+                         f"{tuple(ldeb.shape)}")
     if R.device.type == "cpu":
-        per = [yukawa_forces_potential(R[j], L, ldeb, _member_mask(mask, j))
+        per = [yukawa_forces_potential(R[j], L, _member_ldeb(ldeb, j),
+                                       _member_mask(mask, j))
                for j in range(e)]
         return (torch.stack([f for f, _ in per]),
                 torch.stack([u for _, u in per]))
@@ -721,14 +748,8 @@ def yukawa_forces_n3l_pallas_batched(R: torch.Tensor, L: float, ldeb,
         raise ValueError(f"want mask [{n}] or [{e}, {n}] on R's device, got "
                          f"{tuple(mask.shape)} on {mask.device}")
     Rp, rows, npad = _pack_lanes(R, mask, tile)
-    if isinstance(ldeb, torch.Tensor):
-        if tuple(ldeb.shape) != (e,):
-            raise ValueError(f"want ldeb a float or [{e}], got "
-                             f"{tuple(ldeb.shape)}")
-        inv = (1.0 / ldeb).to(dtype=R.dtype, device=R.device)
-        F = yukawa_forces_n3l_soa_batched(Rp, rows, e, L, 1.0, inv)
-    else:
-        F = yukawa_forces_n3l_soa_batched(Rp, rows, e, L, ldeb)
+    ldeb, inv = _inv_ldeb(ldeb, R)
+    F = yukawa_forces_n3l_soa_batched(Rp, rows, e, L, ldeb, inv)
     return F.reshape(3, e, npad)[:, :, :n].permute(1, 2, 0)
 
 
@@ -760,13 +781,16 @@ def best_forces_fn(n: int, L: float, ldeb: float, mask=None,
     return forces
 
 
-def best_forces_fn_batched(n: int, L: float, ldeb: float, mask=None,
+def best_forces_fn_batched(n: int, L: float, ldeb, mask=None,
                            use_pallas: Optional[bool] = None,
                            tile: Optional[int] = None):
     """:func:`best_forces_fn` for a fold: an ``R [E, N, 3] -> (F [E, N,
     3], pot [E, N] | None)`` callable that serves all members with one
     launch, as the JAX package gets by lifting its ``[N, 3]`` chooser over
-    the member axis.  ``mask`` is ``[N]`` or per member ``[E, N]``.
+    the member axis.  ``mask`` is ``[N]`` or per member ``[E, N]``;
+    ``ldeb`` a float or per member ``[E]`` (kappa sweeps; a float64
+    tensor keeps each member's ldeb exactly as its own ``[N, 3]`` call
+    takes it).
     Forces only come from kernel C, forces with the per-ion potential from
     kernel G; the choice between the two forms and between kernel and twin
     is :func:`best_forces_fn`'s, so on a CPU tensor every member gets

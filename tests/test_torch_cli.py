@@ -6,7 +6,9 @@ accept the same flags and leave trees with the same file names (the
 uniforms differ between the packages, so contents are held in
 tests/test_torch_cooling.py with replayed uniforms).  ``three-state``,
 ``three-state-sweep``, ``frozen-tag`` and ``frozen-tag-sweep``: the flags
-of their ``mdqt`` namesakes, run through ``main([...])`` on the CPU."""
+of their ``mdqt`` namesakes, run through ``main([...])`` on the CPU; so
+do ``transport``, ``transport-sweep``, ``mc-tag`` (with ``--resume`` of a
+crashed job) and ``mc-tag-sweep``."""
 
 import glob
 import os
@@ -198,32 +200,112 @@ def test_frozen_tag_sweep_command(tmp_path):
 
 
 def _flags(main, argv):
-    """The option strings a CLI's subcommand accepts (from its --help)."""
+    """The option strings a CLI's subcommand accepts (from the usage block
+    of its --help: the help texts may break a flag they mention)."""
     import contextlib
     import io
     import re
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
         main(argv + ["--help"])
-    return set(re.findall(r"--[a-z0-9-]+", buf.getvalue()))
+    return set(re.findall(r"--[a-z0-9-]+", buf.getvalue().split("\n\n")[0]))
 
 
 @pytest.mark.parametrize("cmd", ["three-state", "three-state-sweep",
-                                 "frozen-tag", "frozen-tag-sweep"])
+                                 "frozen-tag", "frozen-tag-sweep",
+                                 "transport", "transport-sweep", "mc-tag",
+                                 "mc-tag-sweep"])
 def test_new_commands_accept_the_jax_clis_flags(cmd):
     """Every flag of the ``mdqt`` namesake is a flag of ``mdqt-torch``,
     which adds ``--device`` (default cuda)."""
     ours, theirs = _flags(tcli.main, [cmd]), _flags(jcli.main, [cmd])
     assert theirs <= ours, sorted(theirs - ours)
     assert ours - theirs == {"--device"}
-    wanted = {"three-state": {"--jobs", "--batch-jobs", "--mesh-ens"},
-              "frozen-tag": {"--jobs", "--batch-jobs", "--resume",
-                             "--mesh-ens"}}.get(
+    job = {"--jobs", "--batch-jobs", "--resume", "--mesh-ens"}
+    wanted = {"three-state": job - {"--resume"}, "frozen-tag": job,
+              "transport": job, "mc-tag": job,
+              "transport-sweep": {"--gamma-values", "--kappa-values",
+                                  "--cross", "--jobs-per-point", "--seed",
+                                  "--mesh-ens"}}.get(
         cmd, {"--det-values", "--om-values", "--cross", "--jobs-per-point",
               "--seed", "--mesh-ens"})
     assert wanted <= ours
     if not torch.cuda.is_available():          # the default device is cuda
+        size = (["--n", "8"] if cmd.startswith(("transport", "mc-tag"))
+                else ["--n0", "8", "--tmax", "1"])
+        grid = {"transport-sweep": ["--gamma-values", "1"]}.get(
+            cmd, ["--det-values=-1"] if cmd.endswith("sweep") else [])
         with pytest.raises((RuntimeError, AssertionError)):
-            tcli.main([cmd, "--n0", "8", "--tmax", "1"]
-                      + (["--det-values=-1"] if cmd.endswith("sweep")
-                         else []))
+            tcli.main([cmd, *size, *grid])
+
+
+# ---- the Monte-Carlo families' commands
+
+TRANSPORT = ["--n", "27", "--mc-steps", "200", "--gr-every-mc", "100",
+             "--pre-record-md-steps", "5", "--record-steps", "20",
+             "--gr-every-record", "10", "--instant-aniso-steps", "5",
+             "--reequil-steps", "5", "--aniso-relax-steps", "5",
+             "--aniso-time-us", "0.1", "--device", "cpu"]
+MCTAG = ["--variant", "422linear", "--n", "27", "--mc-steps", "200",
+         "--mc-chunk-steps", "100", "--pre-record-md-steps", "5",
+         "--record-steps", "20", "--gr-every-record", "10",
+         "--tpump-seconds", "2e-8", "--device", "cpu"]
+
+
+def test_transport_batch_jobs_and_sweep(tmp_path, capsys):
+    root = str(tmp_path / "fold")
+    assert tcli.main(["transport", *TRANSPORT, "--batch-jobs", "2",
+                      "--save-directory", root]) == 0
+    vafs = sorted(glob.glob(os.path.join(root, "*", "job*", "VAF.dat")))
+    assert len(vafs) == 2 and np.loadtxt(vafs[0]).shape == (20, 2)
+    assert not np.array_equal(np.loadtxt(vafs[0]), np.loadtxt(vafs[1]))
+    sweep = str(tmp_path / "sweep")
+    assert tcli.main(["transport-sweep", *TRANSPORT, "--gamma-values",
+                      "1,3", "--kappa-values", "0.5,1", "--cross",
+                      "--save-directory", sweep]) == 0
+    dirs = sorted(os.path.basename(d) for d in glob.glob(sweep + "/*"))
+    assert dirs == ["Gamma100Kappa100NumIons27", "Gamma100Kappa50NumIons27",
+                    "Gamma300Kappa100NumIons27", "Gamma300Kappa50NumIons27"]
+    out = capsys.readouterr().out
+    assert "2 batched trajectories" in out and "4 points x 1 jobs" in out
+    with pytest.raises(SystemExit):       # a fold publishes no checkpoint
+        tcli.main(["transport", *TRANSPORT, "--batch-jobs", "2",
+                   "--resume", "--save-directory", root])
+
+
+def test_mc_tag_sweep_and_resume(tmp_path, capsys):
+    """``mc-tag-sweep --det-values=-1,0`` writes one tree per point;
+    ``mc-tag --resume`` continues a crashed job and ends with the
+    uninterrupted job's tree, byte for byte."""
+    from mdqtplasmasims_torch.core.pipeline import PipelinePublisher
+    sweep = str(tmp_path / "sweep")
+    assert tcli.main(["mc-tag-sweep", *MCTAG, "--det-values=-1,0",
+                      "--save-directory", sweep]) == 0
+    assert len(glob.glob(os.path.join(sweep, "*", "job1",
+                                      "taggedMoments.dat"))) == 2
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    args = ["mc-tag", *MCTAG, "--checkpoint-every-chunks", "1", "--job", "2"]
+    assert tcli.main([*args, "--save-directory", a]) == 0
+    real = PipelinePublisher.save
+
+    def crashing(self, *x, **kw):            # a walltime kill mid-pump
+        real(self, *x, **kw)
+        if self.seq == 6:
+            raise RuntimeError("killed")
+    PipelinePublisher.save = crashing
+    try:
+        with pytest.raises(RuntimeError, match="killed"):
+            tcli.main([*args, "--save-directory", b])
+    finally:
+        PipelinePublisher.save = real
+    assert not glob.glob(os.path.join(b, "**", "taggedMoments.dat"),
+                         recursive=True)
+    assert tcli.main([*args, "--resume", "--save-directory", b]) == 0
+    fa, fb = _names(a), _names(b)
+    dats = [n for n in fa if n.endswith(".dat")]
+    assert dats == [n for n in fb if n.endswith(".dat")] and dats
+    for n in dats:
+        with open(os.path.join(a, n), "rb") as x, \
+                open(os.path.join(b, n), "rb") as y:
+            assert x.read() == y.read(), n
+    assert "[mc-tag] 1 run on cpu" in capsys.readouterr().out

@@ -3,7 +3,8 @@
 * A fresh interpreter whose import system refuses ``jax`` and
   ``mdqtplasmasims_tpu`` imports every module of ``mdqtplasmasims_torch``
   and ``chip_smoke``, then runs a tiny ``run()`` and fold of every ported
-  family (cooling, three-state, frozen-start tagging) on the CPU.
+  family (cooling, three-state, frozen-start tagging, transport,
+  MC-tagging) on the CPU.
 * No source file of the port (nor chip_smoke.py) has an import statement
   naming either.
 * The port's own copies of the level tables, the unit constants, the
@@ -88,6 +89,28 @@ with tempfile.TemporaryDirectory() as tmp:
                  "--exact-n", "false", "--resume", "--device", "cpu",
                  "--save-directory", tmp]) == 0
 assert len(autocorr_suite(torch.randn(8, 5, 3))) == 4
+# the Monte-Carlo families' modules are among ``names``; drive them too
+new = {"core.mc", "core.thermostat", "core.draws", "core.pipeline",
+       "experiments.mc_md_anisotropy", "experiments.mc_qt_tagging"}
+assert {"mdqtplasmasims_torch." + m for m in new} <= set(names), names
+from mdqtplasmasims_torch.experiments import mc_md_anisotropy, mc_qt_tagging
+with tempfile.TemporaryDirectory() as tmp:
+    tr = mc_md_anisotropy.MCTransportConfig(
+        n=8, mc_steps=40, gr_every_mc=20, pre_record_md_steps=2,
+        record_steps=4, gr_every_record=2, instant_aniso_steps=2,
+        reequil_steps=2, aniso_relax_steps=2, aniso_time_us=0.05,
+        save_directory=tmp)
+    assert mc_md_anisotropy.run(tr, device="cpu")["vaf"].shape == (4,)
+    mc_md_anisotropy.run_sweep(tr, [{"kappa": 1.0}, {"gamma": 2.0}],
+                               device="cpu")
+    tg = mc_qt_tagging.MCTagConfig(
+        variant="422linear", n=8, mc_steps=40, mc_chunk_steps=20,
+        pre_record_md_steps=2, record_steps=4, gr_every_record=2,
+        tpump_seconds=1e-8, checkpoint_every_chunks=1, save_directory=tmp)
+    assert mc_qt_tagging.run(tg, device="cpu")["tags"].shape == (8,)
+    assert mc_qt_tagging.run(tg, device="cpu", resume=True)["vaf"].shape \
+        == (4,)
+    mc_qt_tagging.run_ensemble(tg, 2, device="cpu")
 assert len(tag_classical(torch.randn(9), torch.Generator().manual_seed(0),
                          2.0)) == 4
 bad = sorted(m for m in sys.modules
@@ -216,6 +239,16 @@ def test_cli_helpers_equal(argv):
             jcli._sweep_points(None, dict(grids), cross)
 
 
+def test_mc_family_dirs_equal():
+    kw = dict(gamma=3.0, kappa=0.5, n=4096, job=2)
+    assert (tdirs.mc_transport_dir("base", **kw)
+            == jdirs.mc_transport_dir("base", **kw))
+    kw = dict(gamma=3.0, kappa=0.5, n=4096, tpump_seconds=5e-8,
+              detuning=-1.0, om=1.3, density=2.0, job=1,
+              date_stamp="Date101626")
+    assert tdirs.mc_tag_dir("base", **kw) == jdirs.mc_tag_dir("base", **kw)
+
+
 def test_three_state_and_frozen_tag_dirs_equal():
     kw = dict(om=0.5, detuning=-0.5, n0=1000, temperature_k=0.01, job=2)
     assert (tdirs.three_state_dir("base", **kw)
@@ -226,7 +259,8 @@ def test_three_state_and_frozen_tag_dirs_equal():
             == jdirs.frozen_tag_dir("base", **kw))
 
 
-@pytest.mark.parametrize("family", ["three_state", "frozen_tagging"])
+@pytest.mark.parametrize("family", ["three_state", "frozen_tagging",
+                                    "mc_md_anisotropy", "mc_qt_tagging"])
 def test_family_config_defaults_equal(family):
     """The families' config dataclasses are copies: the same fields in the
     same order with the same defaults (so the CLIs generate the same
@@ -234,14 +268,31 @@ def test_family_config_defaults_equal(family):
     import importlib
     j = importlib.import_module(f"mdqtplasmasims_tpu.experiments.{family}")
     t = importlib.import_module(f"mdqtplasmasims_torch.experiments.{family}")
-    name = ("ThreeStateConfig" if family == "three_state"
-            else "FrozenTagConfig")
+    name = {"three_state": "ThreeStateConfig",
+            "frozen_tagging": "FrozenTagConfig",
+            "mc_md_anisotropy": "MCTransportConfig",
+            "mc_qt_tagging": "MCTagConfig"}[family]
     fj = [(f.name, f.default) for f in dataclasses.fields(getattr(j, name))]
     ft = [(f.name, f.default) for f in dataclasses.fields(getattr(t, name))]
     assert fj == ft
     if family == "frozen_tagging":
         assert t.VARIANTS == j.VARIANTS
         assert t.FROZEN_VARIANT_DEFAULTS == j.FROZEN_VARIANT_DEFAULTS
+    elif family == "mc_md_anisotropy":
+        cj, ct = j.MCTransportConfig(), t.MCTransportConfig()
+        assert (cj.aniso_establish_steps, cj.L, cj.ldeb) == (
+            ct.aniso_establish_steps, ct.L, ct.ldeb)
+    elif family == "mc_qt_tagging":
+        assert t.VARIANT_DEFAULTS == j.VARIANT_DEFAULTS
+        for v in t.VARIANT_DEFAULTS:
+            cj, ct = j.MCTagConfig(variant=v), t.MCTagConfig(variant=v)
+            assert (cj.ratio, cj.qdt, cj.pump_md_steps, cj.n_states, cj.L,
+                    cj.tpump_seconds, cj.detuning, cj.om) == (
+                ct.ratio, ct.qdt, ct.pump_md_steps, ct.n_states, ct.L,
+                ct.tpump_seconds, ct.detuning, ct.om)
+            for f in ("coupling", "decay_w", "e0", "e1"):
+                np.testing.assert_array_equal(getattr(cj.scheme(), f),
+                                              getattr(ct.scheme(), f))
     else:
         assert t.doppler_limit_ekin(-0.5) == j.doppler_limit_ekin(-0.5)
         cj, ct = j.ThreeStateConfig(), t.ThreeStateConfig()
