@@ -131,9 +131,40 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      per-member ``ldeb [E]``: counts exact, the MD's start forces of each
      member against the plain version at that member's ldeb.
 
-Phases 7, 10, 11, 12, 17 and 19-26 each set the launch counts to 0 just
-before they drive their path and read them just after.  The line before the last
-is a JSON object with one entry per kernel and form, each with its bound
+ 27. the presets and the ``.dat`` codec at full width:
+     ``run(presets.north_star(save_directory=...))`` (CoolingConfig(), N0 =
+     3500, tmax=30: 15,000 MD steps, 375 samples) with its tree through
+     the codec, timed, and once more without the tree; the same run's
+     outputs and final state written again through the codec and through
+     the Python ``%g`` path (both timed), each tree equal to the run's
+     byte for byte (the ``.npz`` array by array); then
+     ``run(presets.pre_speedup(save_directory=...))`` unmodified (N0 =
+     3500, tmax=30, physics "pre_speedup", 13 VAF intervals, LCCF) with
+     exact launch counts (A once per MD step, B'rng once per MD step +
+     once per sample, D once per sample + 1, nothing else), phase 14's
+     VAF(0), VZERO and J(k) checks on all 13 intervals, the energy audit
+     falling below 0 and the S+P+D norm;
+ 28. the host tools on the card's trees: ``analysis.analyze_job``,
+     ``quicklook.collect_panels`` (the expected panel titles) and ``cli
+     analyze --json`` (rc 0, the same report) on both trees of phase 27
+     (pre-speedup: Green-Kubo D finite and positive, the dispersion, S(k)
+     of the final checkpoint); an 8-member Poissonian ``run_ensemble``
+     (n0=3500, tmax=1.0) timed with and without its trees, its member
+     trees written again through both formatters (timed, byte for byte
+     equal), and ``analyze_ensemble`` on its parameter directory;
+ 29. a first profiler trace: ``profiling.device_trace`` (torch.profiler,
+     CPU + CUDA) around ``run(CoolingConfig(tmax=0.4))`` (200 MD steps);
+     the trace must hold kernel A's and kernel B'rng's CUDA symbols once
+     per MD step; prints the five device operations that took most time
+     and the card's busy share of the traced window, and holds a
+     ``PhaseTimer`` with ``block_on`` over the same run to at least the
+     card's busy time.
+
+Phases 7, 10, 11, 12, 17, 19-26 and 27 each set the launch counts to 0
+just before they drive their path and read them just after.  The line
+before the last is a JSON object with one entry per kernel and form (A,
+D and B'rng also with their counts from phase 27's pre-speedup run,
+``launches_pre_speedup``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -148,6 +179,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1208,11 +1240,52 @@ def stream_contract(torch):
         raise SystemExit("the in-kernel stream breaks its contract")
 
 
+def check_interval_files(job, cfg, outs, L):
+    """The interval diagnostics' files of a finished run in ``job``: per
+    VAF interval the rows, the time axis, VAF(0) = <|v0|^2> of the sampled
+    origin and the terminal VZERO snapshot; ``J_interval0.dat``'s rows and
+    step counter, and the first and last samples' J(k), taken on the card,
+    against a float64 direct sum over the sampled R and V on the host.
+    Returns ``([(rows, ok) per interval], J shape, J error, J ok)``."""
+    import numpy as np
+    from mdqtplasmasims_torch.io.datfiles import read_rows
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    t = np.asarray(outs["t"], np.float64)
+    got = []
+    for k, ts in enumerate(cfg.vaf_intervals):
+        vaf = read_rows(os.path.join(job, f"VAF_interval{k}.dat"), 2)
+        start = int(np.argmin(np.abs(t - ts)))
+        v0 = np.asarray(outs["V"][start], np.float64)
+        ok = (vaf.shape[0] == len(t) - start
+              and np.allclose(vaf[:, 0], t[start:], rtol=1e-5)
+              and abs(vaf[0, 1] - np.mean(np.sum(v0 * v0, -1)))
+              <= 1e-5 * vaf[0, 1] and np.isfinite(vaf).all())
+        vz = read_rows(os.path.join(
+            job, f"VZERO_timestep{n_md - 1:06d}_interval{k}.dat"), 3)
+        ok = ok and np.allclose(vz, v0, rtol=1e-5, atol=1e-7)
+        got.append((vaf.shape[0], ok))
+    J = read_rows(os.path.join(job, "J_interval0.dat"), 10)
+    j_ok = (J.shape[0] == len(t) * 12 ** 3 and np.isfinite(J).all()
+            and np.array_equal(np.unique(J[:, 0]),
+                               np.arange(len(t)) * cfg.sample_freq))
+    K = 12 ** 3
+    kv = (2.0 * np.pi / L) * J[:K, 1:4]
+    j_err = 0.0
+    for s in (0, len(t) - 1):
+        R = np.asarray(outs["R"][s], np.float64)
+        V = np.asarray(outs["V"][s], np.float64)
+        ref = V.T @ np.exp(1j * (R @ kv.T))                 # [3, K]
+        cols = J[s * K:(s + 1) * K, 4:].T                   # [6, K]
+        jk = cols[0::2] + 1j * cols[1::2]
+        j_err = max(j_err, float(np.abs(jk - ref).max()
+                                 / np.abs(ref).max()))
+    return got, J.shape, j_err, j_ok and j_err <= LCCF_TOL
+
+
 def interval_path(torch, card, L):
     """A flagship-width run with the interval diagnostics (``L`` is the
     box length of its 3500 ions)."""
     import numpy as np
-    from mdqtplasmasims_torch.io.datfiles import read_rows
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         CoolingConfig, run)
     iv = (0.2, 0.5)
@@ -1223,46 +1296,15 @@ def interval_path(torch, card, L):
         t0 = time.perf_counter()
         final, res = run(cfg, device="cuda")
         wall = time.perf_counter() - t0
-        outs = res["outs"]
-        t = np.asarray(outs["t"], np.float64)
         job = next(d for d, _, fs in os.walk(tmp) if "energies.dat" in fs)
-        got = []
-        for k, ts in enumerate(iv):
-            vaf = read_rows(os.path.join(job, f"VAF_interval{k}.dat"), 2)
-            start = int(np.argmin(np.abs(t - ts)))
-            v0 = np.asarray(outs["V"][start], np.float64)
-            ok = (vaf.shape[0] == len(t) - start
-                  and np.allclose(vaf[:, 0], t[start:], rtol=1e-5)
-                  and abs(vaf[0, 1] - np.mean(np.sum(v0 * v0, -1)))
-                  <= 1e-5 * vaf[0, 1] and np.isfinite(vaf).all())
-            vz = read_rows(os.path.join(
-                job, f"VZERO_timestep{n_md - 1:06d}_interval{k}.dat"), 3)
-            ok = ok and np.allclose(vz, v0, rtol=1e-5, atol=1e-7)
-            got.append((vaf.shape[0], ok))
-        J = read_rows(os.path.join(job, "J_interval0.dat"), 10)
-        j_ok = (J.shape[0] == len(t) * 12 ** 3 and np.isfinite(J).all()
-                and np.array_equal(np.unique(J[:, 0]),
-                                   np.arange(len(t)) * cfg.sample_freq))
-        # the first and last samples' J(k), taken on the card, against a
-        # float64 direct sum over the sampled R and V on the host
-        K = 12 ** 3
-        kv = (2.0 * np.pi / L) * J[:K, 1:4]
-        j_err = 0.0
-        for s in (0, len(t) - 1):
-            R = np.asarray(outs["R"][s], np.float64)
-            V = np.asarray(outs["V"][s], np.float64)
-            ref = V.T @ np.exp(1j * (R @ kv.T))                 # [3, K]
-            cols = J[s * K:(s + 1) * K, 4:].T                   # [6, K]
-            jk = cols[0::2] + 1j * cols[1::2]
-            j_err = max(j_err, float(np.abs(jk - ref).max()
-                                     / np.abs(ref).max()))
-        j_ok = j_ok and j_err <= LCCF_TOL
+        got, j_shape, j_err, j_ok = check_interval_files(job, cfg,
+                                                         res["outs"], L)
         with np.load(os.path.join(job, f"checkpoint_{n_md - 1:06d}.npz")) as z:
             vh = z["vholder"]
         vh_ok = vh.shape == (13, cfg.n0, 3) and not vh[2:].any()
     log(f"[intervals] run(n0=3500, tmax=1.0, vaf_intervals={iv}, "
         f"record_lccf=True) in {wall:.3f} s ({card}): VAF rows and checks "
-        f"{got}; J_interval0.dat {J.shape}, max err vs float64 direct sum "
+        f"{got}; J_interval0.dat {j_shape}, max err vs float64 direct sum "
         f"{j_err:.3g} of max|J| (tol {LCCF_TOL:g}), ok {j_ok}; checkpoint "
         f"vholder "
         f"{vh.shape} ok {vh_ok}")
@@ -2288,6 +2330,311 @@ def mc_projections(card, mc_ms, md_ms, pump_ms):
             f" % MC), mc-tag job {mj:.1f} s ({card})")
 
 
+# ---- presets, the .dat codec, the host tools and a trace (phases 27-29)
+
+# the tabs of a flagship tree (CoolingConfig() to tmax=30: 375 samples)
+FLAGSHIP_PANELS = ["Kinetic energies", "Energy audit (cooling removes energy)",
+                   "Velocity distribution (x)",
+                   "State populations vs velocity (last sample)"]
+
+
+def _timed(torch, fn):
+    """(result, seconds) of ``fn()`` from a synced card to its return."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_trees(a, b):
+    """The files of job directories ``a`` and ``b`` as the writers left
+    them: the same names, every text file byte for byte, and every array
+    of a ``.npz`` both hold bitwise (a rewrite carries no generator state,
+    and the archive's member timestamps differ).  Returns (ok, what)."""
+    import filecmp
+    import numpy as np
+    fa, fb = sorted(os.listdir(a)), sorted(os.listdir(b))
+    if fa != fb:
+        return False, f"file lists differ: {sorted(set(fa) ^ set(fb))[:6]}"
+    for name in fa:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".npz"):
+            with np.load(pa) as za, np.load(pb) as zb:
+                keys = set(za.files) & set(zb.files)
+                if ({"R", "V", "psi", "counter"} - keys or not all(
+                        np.array_equal(za[k], zb[k]) for k in keys)):
+                    return False, f"{name} differs"
+        elif not filecmp.cmp(pa, pb, shallow=False):
+            return False, f"{name} differs"
+    return True, f"{len(fa)} files"
+
+
+def rewrite_tree(cfg, outs, epot0, final, directory, fmt, n_actual=None):
+    """Seconds to write one finished run's tree (.dat files and terminal
+    checkpoint, one group, aligned tmax) again into ``directory`` through
+    the formatter ``fmt``."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import write_outputs
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    t0 = time.perf_counter()
+    write_outputs(directory, cfg, outs, epot0, final, n_md,
+                  n_actual=n_actual, fmt=fmt)
+    return time.perf_counter() - t0
+
+
+def presets_path(torch, card, root):
+    """Phase 27: the flagship preset to tmax=30 with its tree through the
+    codec, the same tree written again through the Python ``%g`` path
+    (byte for byte), then the pre-speedup preset unmodified with exact
+    launch counts and its interval diagnostics.  Returns the two job
+    directories."""
+    import numpy as np
+    from mdqtplasmasims_torch import _build
+    from mdqtplasmasims_torch.experiments import presets
+    from mdqtplasmasims_torch.experiments.laser_cooling import _save_dir, run
+    from mdqtplasmasims_torch.io import datfiles
+    from mdqtplasmasims_torch.units import PlasmaUnits
+    cfg = presets.north_star(save_directory=os.path.join(root, "north_star"))
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    if n_md % cfg.sample_freq or cfg.checkpoint_every_segments:
+        raise SystemExit("the flagship rewrite assumes one aligned group")
+    (final, res), wall = _timed(torch, lambda: run(cfg, device="cuda"))
+    _, wall_bare = _timed(torch, lambda: run(
+        dataclasses.replace(cfg, save_directory=None), device="cuda"))
+    job = _save_dir(cfg)
+    t_codec = rewrite_tree(cfg, res["outs"], res["epot0"], final,
+                           os.path.join(root, "north_star_codec"),
+                           datfiles.format_rows)
+    t_py = rewrite_tree(cfg, res["outs"], res["epot0"], final,
+                        os.path.join(root, "north_star_py"),
+                        datfiles.format_rows_py)
+    same_py, what_py = same_trees(job, os.path.join(root, "north_star_py"))
+    same_c, what_c = same_trees(job, os.path.join(root, "north_star_codec"))
+    size = sum(os.path.getsize(os.path.join(job, f)) for f in os.listdir(job))
+    shutil.rmtree(os.path.join(root, "north_star_py"))
+    shutil.rmtree(os.path.join(root, "north_star_codec"))
+    log(f"[presets] run(presets.north_star()) to tmax={cfg.tmax:g} ({n_md} "
+        f"MD steps) "
+        f"with its tree: {wall:.3f} s; without the tree {wall_bare:.3f} s "
+        f"({card})")
+    log(f"[presets] the tree ({what_py}, {size / 2 ** 20:.1f} MiB) written "
+        f"again: codec {t_codec:.3f} s, Python %g {t_py:.3f} s; the codec's "
+        f"build {_build.build_seconds.get('datio', 0.0):.2f} s (cc, at its "
+        f"first use); run's tree == Python tree byte for byte: {same_py}; "
+        f"== codec rewrite: {same_c} ({what_c})")
+    if not (same_py and same_c):
+        raise SystemExit(f"the codec's tree differs from the Python path's: "
+                         f"{what_py}; {what_c}")
+
+    # the reference's original program, unmodified
+    pcfg = presets.pre_speedup(save_directory=os.path.join(root,
+                                                           "pre_speedup"))
+    n_md = int(round(pcfg.tmax / pcfg.timestep))
+    n_samples = n_md // pcfg.sample_freq
+    reset_counts()
+    (pfinal, pres), pwall = _timed(torch, lambda: run(pcfg, device="cuda"))
+    counts = read_counts()
+    log(f"[presets] run(presets.pre_speedup()) (N0={pcfg.n0}, tmax="
+        f"{pcfg.tmax:g}, physics={pcfg.physics!r}, "
+        f"{len(pcfg.vaf_intervals)} VAF intervals, LCCF) in {pwall:.3f} s "
+        f"({card}); launches: {counts}")
+    want_counts(counts, "the pre-speedup run", yukawa_forces=n_md,
+                fused_ticks_rng=n_md + n_samples,
+                yukawa_forces_potential=n_samples + 1)
+    outs = pres["outs"]
+    pjob = _save_dir(pcfg)
+    got, j_shape, j_err, j_ok = check_interval_files(
+        pjob, pcfg, outs, PlasmaUnits.box_length(pcfg.n0))
+    missing = [k for k in range(len(pcfg.vaf_intervals)) if not
+               os.path.exists(os.path.join(pjob, f"VAF_interval{k}.dat"))]
+    e = datfiles.read_rows(os.path.join(pjob, "energies.dat"), 7)
+    norms = outs["pops"].sum(-1)
+    pop_err = float(abs(norms.mean(-1) - 1.0).max())
+    finite = all(np_isfinite(a) for a in (pfinal.R, pfinal.V, pfinal.psi,
+                                          *outs.values()))
+    log(f"[presets] pre-speedup: VAF rows and checks {got}; "
+        f"J_interval0.dat {j_shape}, max err vs float64 direct sum "
+        f"{j_err:.3g} of max|J| (tol {LCCF_TOL:g}), ok {j_ok}; energy audit "
+        f"{e[0, 5]:.4g} -> {e[-1, 5]:.4g}; max |<S+P+D>-1| {pop_err:.3g} "
+        f"(tol {POP_TOL:g}); EkinX {e[0, 1]:.4g} -> {e[-1, 1]:.4g}")
+    if (missing or len(got) != 13 or not all(ok for _, ok in got)
+            or not j_ok):
+        raise SystemExit(f"pre-speedup interval files wrong: missing VAF "
+                         f"intervals {missing}, checks {got}, J ok {j_ok}")
+    if not (finite and e.shape[0] == n_samples and e[-1, 5] < 0.0
+            and e[-1, 5] < e[0, 5] and pop_err <= POP_TOL):
+        raise SystemExit("pre-speedup run: non-finite values, wrong rows, "
+                         "an energy audit that did not fall, or S+P+D off")
+    return {"north_star": job, "pre_speedup": pjob}, counts
+
+
+def _report_sections(rep) -> list:
+    return [k for k in rep if k not in ("job_dir", "notes")]
+
+
+def host_tools_path(torch, card, trees, root):
+    """Phase 28: ``analyze_job``, ``collect_panels`` and ``cli analyze``
+    on phase 27's trees; an 8-member Poissonian ``run_ensemble`` with its
+    trees (timed with and without, its member trees written again through
+    both formatters) and ``analyze_ensemble`` on its parameter
+    directory."""
+    import io
+    import numpy as np
+    from mdqtplasmasims_torch import analysis, cli, quicklook
+    from mdqtplasmasims_torch.core.init import poisson_member_mask
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, _member_np, _save_dir, run_ensemble)
+    from mdqtplasmasims_torch.io import datfiles
+    for name, job in trees.items():
+        t0 = time.perf_counter()
+        rep = analysis.analyze_job(job)
+        t_an = time.perf_counter() - t0
+        text = analysis.format_job_report(rep)
+        titles = [t for t, _ in quicklook.collect_panels(job)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["analyze", job, "--json"])
+        same = json.loads(buf.getvalue()) == json.loads(json.dumps(rep))
+        log(f"[host] analyze_job({name}) in {t_an:.3f} s: sections "
+            f"{_report_sections(rep)}, notes {rep['notes']}, "
+            f"{len(text.splitlines())} report lines; panels {titles}; "
+            f"`analyze --json` rc {rc}, same report {same}")
+        for line in text.splitlines()[:6]:
+            log(f"[host]   {line}")
+        want = FLAGSHIP_PANELS + (["Velocity autocorrelation"]
+                                  if name == "pre_speedup" else [])
+        ok = (rc == 0 and same and titles == want and not rep["notes"]
+              and {"energies", "structure"} <= set(rep)
+              and rep["structure"]["checkpoint"] == 14999)
+        if name == "pre_speedup":
+            d = rep.get("diffusion", {}).get("d", float("nan"))
+            ok = ok and np.isfinite(d) and d > 0 and "dispersion" in rep
+        if not ok:
+            raise SystemExit(f"the host tools on the {name} tree: {rep}")
+
+    E = 8
+    cfg = CoolingConfig(n0=3500, tmax=1.0, exact_n=False,
+                        save_directory=os.path.join(root, "ensemble"))
+    (final, outs), wall = _timed(torch, lambda: run_ensemble(
+        cfg, E, device="cuda"))
+    _, wall_bare = _timed(torch, lambda: run_ensemble(
+        dataclasses.replace(cfg, save_directory=None), E, device="cuda"))
+    _, n_js = poisson_member_mask(cfg.n0, E, 0)
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    secs, same = {}, []
+    for tag, fmt in (("codec", datfiles.format_rows),
+                     ("python", datfiles.format_rows_py)):
+        secs[tag] = 0.0
+        for j in range(E):
+            src = _save_dir(dataclasses.replace(cfg, job=j + 1))
+            jc = dataclasses.replace(cfg, job=j + 1, save_directory=(
+                os.path.join(root, "ensemble_" + tag)))
+            with np.load(os.path.join(src, f"checkpoint_{n_md - 1:06d}.npz")
+                         ) as z:
+                epot0 = float(z["epot0"])
+            secs[tag] += rewrite_tree(
+                jc, {k: v[j] for k, v in outs.items()}, epot0,
+                _member_np(final, j), _save_dir(jc), fmt, n_actual=n_js[j])
+            same.append(same_trees(src, _save_dir(jc))[0])
+        shutil.rmtree(os.path.join(root, "ensemble_" + tag))
+    param_dir = os.path.dirname(_save_dir(cfg))
+    t0 = time.perf_counter()
+    rep = analysis.analyze_ensemble(param_dir)
+    t_an = time.perf_counter() - t0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["analyze", param_dir, "--json"])
+    log(f"[host] run_ensemble(n0={cfg.n0}, tmax={cfg.tmax:g}, exact_n=False), "
+        f"{E} "
+        f"members, N={n_js}: {wall:.3f} s with the trees, {wall_bare:.3f} s "
+        f"without ({card}); the trees written again: codec "
+        f"{secs['codec']:.3f} s, Python %g {secs['python']:.3f} s; byte "
+        f"for byte equal to the run's: {all(same)}")
+    log(f"[host] analyze_ensemble in {t_an:.3f} s: {len(rep['jobs'])} jobs, "
+        f"pooled {sorted(rep['pooled'])}; `analyze --json` rc {rc}")
+    for k, v in rep["pooled"].items():
+        log(f"[host]   {k}: mean {v['mean']:.6g} sd {v['sd']:.6g} n {v['n']}")
+    titles = [t for t, _ in quicklook.collect_panels(
+        analysis.job_dirs(param_dir)[0])]
+    if not (all(same) and len(same) == 2 * E and rc == 0
+            and len(rep["jobs"]) == E and titles == FLAGSHIP_PANELS
+            and rep["pooled"]["structure.s_peak"]["n"] == E
+            and json.loads(buf.getvalue())["pooled"] == rep["pooled"]):
+        raise SystemExit(f"the ensemble's trees or report are wrong: same "
+                         f"{same}, rc {rc}, panels {titles}, pooled "
+                         f"{rep['pooled']}")
+
+
+def _template_args(name: str, symbol: str):
+    """The template arguments of ``symbol<...>`` in a demangled kernel
+    name (``(bool)1`` read as ``true``), or None."""
+    i = name.find(symbol + "<")
+    if i < 0:
+        return None
+    args = name[i + len(symbol) + 1:name.index(">", i)].split(",")
+    norm = {"(bool)0": "false", "(bool)1": "true"}
+    return [norm.get(a.strip(), a.strip()) for a in args]
+
+
+def trace_path(torch, card):
+    """Phase 29: a torch.profiler trace of ~200 MD steps of the flagship
+    config; the trace must hold kernels A and B'rng by their CUDA symbol
+    names.  Prints the five device operations that took most time and the
+    card's busy share of the traced window."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, run)
+    from mdqtplasmasims_torch.profiling import PhaseTimer, device_trace
+    cfg = CoolingConfig(tmax=0.4)
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    run(CoolingConfig(tmax=0.02), device="cuda")      # warm the path
+    timer = PhaseTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp, device="cuda"):
+            with timer.phase("run", block_on=torch.zeros(1, device="cuda")):
+                run(cfg, device="cuda")
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(tmp, "trace.json"))
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                "gpu_memset")]
+    if not dev:
+        raise SystemExit("the trace holds no device activity")
+    t_lo = min(e["ts"] for e in spans)
+    t_hi = max(e["ts"] + e["dur"] for e in spans)
+    busy, end = 0.0, t_lo
+    for e in sorted(dev, key=lambda e: e["ts"]):      # union of intervals
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+        end = max(end, b)
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    kernels = [e["name"] for e in dev if e.get("cat") == "kernel"]
+    a_hits = sum(_template_args(k, "yukawa_pair_kernel") == ["false", "false"]
+                 for k in kernels)
+    b_hits = sum((lambda t: t is not None and t[0] == "12" and t[2:5] == [
+        "false", "false", "true"])(_template_args(k, "fused_ticks_kernel"))
+        for k in kernels)
+    wall_ms = timer.phases["run"] * 1e3
+    log(f"[trace] torch.profiler over run(CoolingConfig(tmax={cfg.tmax:g})) "
+        f"({n_md} MD steps, {card}): {len(spans)} spans, {len(dev)} device "
+        f"operations, trace {size / 2 ** 20:.1f} MiB; window "
+        f"{(t_hi - t_lo) / 1e3:.3f} ms, card busy {busy / 1e3:.3f} ms = "
+        f"{100 * busy / (t_hi - t_lo):.1f} %; PhaseTimer (block_on) "
+        f"{wall_ms:.3f} ms")
+    for name, (n, t) in top:
+        log(f"[trace]   {t / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
+    log(f"[trace] kernel A (yukawa_pair_kernel<false, false>) events "
+        f"{a_hits}, kernel B'rng (fused_ticks_kernel<12, G, false, false, "
+        f"true, W>) events {b_hits}")
+    if not (a_hits >= n_md and b_hits >= n_md and wall_ms >= busy / 1e3):
+        raise SystemExit("the trace lacks kernel A or B'rng, or the "
+                         "PhaseTimer read less than the card's busy time")
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -2384,6 +2731,13 @@ def main() -> int:
     sweep_tr_counts = transport_sweep_path(torch, smi)
     log(f"[env] phases 23-26 (the Monte-Carlo families) took "
         f"{time.perf_counter() - t_mc:.1f} s")
+    t_host = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        trees, preset_counts = presets_path(torch, smi, root)
+        host_tools_path(torch, smi, trees, root)
+    trace_path(torch, smi)
+    log(f"[env] phases 27-29 (presets, codec, host tools, trace) took "
+        f"{time.perf_counter() - t_host:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -2396,7 +2750,8 @@ def main() -> int:
              launches=counts["yukawa_forces"],
              launches_frozen_tag=tag_counts["yukawa_forces"],
              launches_transport=tr_counts["yukawa_forces"],
-             launches_mc_tag=mt_counts["yukawa_forces"], **force),
+             launches_mc_tag=mt_counts["yukawa_forces"],
+             launches_pre_speedup=preset_counts["yukawa_forces"], **force),
         dict(name="yukawa_forces_batched", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:411",
              launches=ens_counts["yukawa_forces_batched"],
@@ -2408,6 +2763,7 @@ def main() -> int:
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:147",
              launches=counts["yukawa_forces_potential"],
              launches_frozen_tag=tag_counts["yukawa_forces_potential"],
+             launches_pre_speedup=preset_counts["yukawa_forces_potential"],
              **pot_d),
         dict(name="yukawa_forces_potential_batched", route="cuda",
              source=src_f, replaces="mdqtplasmasims_tpu/ops/yukawa.py:166",
@@ -2416,6 +2772,7 @@ def main() -> int:
                  "yukawa_forces_potential_batched"], **pot_g),
         dict(name="fused_ticks_rng", route="cuda", source=src_t,
              replaces=tpu_rng, launches=counts["fused_ticks_rng"],
+             launches_pre_speedup=preset_counts["fused_ticks_rng"],
              **rng["fused_ticks_rng"]),
         dict(name="fused_ticks_rng_per_lane_e0", route="cuda", source=src_t,
              replaces=tpu_rng,

@@ -1,11 +1,14 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written native code of ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  On first use it is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` (listed in .gitignore), keyed on a hash of the source and the
-flags, and loaded with ``ctypes``.  A fresh checkout therefore builds
-everything it runs from its own sources.  The build log (``-Xptxas -v``:
-registers, shared memory and spills per kernel) sits beside the library.
+Each ``csrc/<name>.cu`` (a CUDA kernel library) or ``csrc/<name>.c`` (the
+host's ``.dat`` codec) has a plain C interface.  On first use it is
+compiled, ``.cu`` with ``nvcc`` for ``sm_90a`` and ``.c`` with the host C
+compiler (``cc``, or ``$CC``), into a shared library under ``_build/``
+(listed in .gitignore), keyed on a hash of the source and the flags,
+published atomically and loaded with ``ctypes``.  A fresh checkout
+therefore builds everything it runs from its own sources.  The build log
+(for nvcc ``-Xptxas -v``: registers, shared memory and spills per kernel)
+sits beside the library.
 
 Nothing here runs at import time; the CPU tests import the wrappers but
 never reach a build.
@@ -30,8 +33,10 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # plain torch versions at 2e-5..5e-5, which fast exp/sin/div would break)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
 
-#: seconds spent in nvcc by this process, per library (for chip_smoke.py)
+#: seconds spent in the compiler by this process, per library (for
+#: chip_smoke.py)
 build_seconds: dict = {}
 
 
@@ -44,22 +49,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _cc() -> str:
+    for cand in (os.environ.get("CC"), shutil.which("cc"),
+                 shutil.which("gcc")):
+        if cand:
+            return cand
+    raise RuntimeError("no host C compiler found: install cc or set CC")
+
+
+def _source(name: str) -> str:
+    """``csrc/<name>.cu`` or ``csrc/<name>.c``, whichever exists."""
+    for ext in (".cu", ".c"):
+        src = os.path.join(CSRC, name + ext)
+        if os.path.exists(src):
+            return src
+    raise FileNotFoundError(f"no {name}.cu or {name}.c in {CSRC}")
+
+
+def _flags(src: str) -> tuple:
+    return NVCC_FLAGS if src.endswith(".cu") else CC_FLAGS
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+    src = _source(name)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(src)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
-    path = library_path(name)
+    """Build (if needed) and load ``csrc/<name>.cu`` or ``.c``; raises
+    with the compiler's log on failure."""
+    src, path = _source(name), library_path(name)
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, name + ".cu")]
+        compiler = _nvcc() if src.endswith(".cu") else _cc()
+        cmd = [compiler, *_flags(src), "-o", tmp, src]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds[name] = time.perf_counter() - t0
@@ -67,13 +94,14 @@ def load(name: str) -> ctypes.CDLL:
         with open(path[:-3] + ".log", "w") as f:
             f.write(" ".join(cmd) + "\n" + log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                               f"{os.path.basename(src)}:\n{log}")
         os.replace(tmp, path)      # atomic publish: concurrent builds
     return ctypes.CDLL(path)
 
 
 def build_log(name: str) -> str:
-    """The nvcc output of the library ``load(name)`` uses ('' if it was
+    """The compiler output of the library ``load(name)`` uses ('' if it was
     built by another process that kept no log)."""
     log = library_path(name)[:-3] + ".log"
     if not os.path.exists(log):

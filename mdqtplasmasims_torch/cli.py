@@ -47,13 +47,30 @@ checkpoint (published with ``--checkpoint-every-chunks K``).
 ``--mesh-ens K`` (and ``--mesh-ions I``) spread an ensemble or sweep over
 a K x I mesh of device slots (parallel/mesh.py): distinct cards with
 ``--device cuda``, CPU slots with ``--device cpu``.
+
+Two host commands read a tree once it is written, with the JAX CLI's
+flags; they are dispatched before any experiment family (or torch's CUDA)
+is imported:
+
+    python -m mdqtplasmasims_torch.cli analyze dataLaserCool/<params>/job1
+    python -m mdqtplasmasims_torch.cli analyze dataLaserCool/<params> --json
+    python -m mdqtplasmasims_torch.cli plot dataLaserCool/<params>/job1 \
+        -o quicklook.png
+
+``analyze`` prints analysis.analyze_job's report (a directory holding
+``job*`` subdirectories is analyzed as an ensemble, pooled across jobs);
+``plot`` renders quicklook.render's PNG (needs matplotlib).  Installed,
+the command is ``mdqt-torch``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import inspect
+import json
+import os
 import sys
 import time
 import types
@@ -157,6 +174,61 @@ def _version_string() -> str:
         return version("mdqtplasmasims_tpu")      # the distribution's name
     except Exception:          # running from a source tree, not installed
         return __version__ + "+src"
+
+
+def _add_host_subcommands(sub) -> None:
+    """The host-only subcommands, plot and analyze (the JAX CLI's)."""
+    pp = sub.add_parser(
+        "plot",
+        help="render the quicklook PNG summary of a job directory's "
+             ".dat output tree (any family; see quicklook.py)")
+    pp.add_argument("job_dir")
+    pp.add_argument("-o", "--out", default=None,
+                    help="output PNG (default <job_dir>/quicklook.png)")
+
+    pa = sub.add_parser(
+        "analyze",
+        help="numeric summary of a job directory's .dat tree: energies/"
+             "audit, temperatures, Green-Kubo D, L+T dispersion, S(k), "
+             "g(r), tagged moments (analysis.analyze_job)")
+    pa.add_argument("job_dir")
+    pa.add_argument("--timestep", type=float, default=0.002,
+                    help="MD step in omega_E^-1 for the dispersion time "
+                         "axis (default 0.002)")
+    pa.add_argument("--max-shell", type=int, default=None,
+                    help="largest integer |k|^2 shell for dispersion/S(k)")
+    pa.add_argument("--skip", type=int, default=0,
+                    help="initial J samples to drop (e.g. the DIH "
+                         "transient)")
+    pa.add_argument("--json", action="store_true", dest="as_json",
+                    help="emit the report as JSON instead of text")
+
+
+def _dispatch_host(ns, parser) -> int:
+    """Run a host-only subcommand (returns 0; errors via parser.error)."""
+    if ns.cmd == "plot":
+        from .quicklook import render
+        try:
+            print(render(ns.job_dir, ns.out))
+        except ValueError as e:
+            parser.error(str(e))
+        return 0
+    from .analysis import (analyze_ensemble, analyze_job,
+                           format_ensemble_report, format_job_report)
+    # a parameter directory (job* subdirs) pools across jobs
+    ensemble = bool(glob.glob(os.path.join(ns.job_dir, "job*")))
+    analyze = analyze_ensemble if ensemble else analyze_job
+    try:
+        rep = analyze(ns.job_dir, timestep=ns.timestep,
+                      max_shell=ns.max_shell, skip=ns.skip)
+    except ValueError as e:
+        parser.error(str(e))
+    if ns.as_json:
+        print(json.dumps(rep, indent=1))
+    else:
+        print(format_ensemble_report(rep) if ensemble
+              else format_job_report(rep))
+    return 0
 
 
 def _add_cooling_commands(sub, lc) -> None:
@@ -310,6 +382,16 @@ def _run_family(parser, ns, module, cfg, t0, grid=LASER_GRID) -> str:
 
 
 def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
+    # plot / analyze are host commands: dispatch them before the
+    # experiment families (and torch's CUDA) are imported
+    first_pos = next((a for a in args if not a.startswith("-")), None)
+    if first_pos in ("plot", "analyze"):
+        parser = argparse.ArgumentParser(prog="mdqt-torch")
+        _add_host_subcommands(parser.add_subparsers(dest="cmd",
+                                                    required=True))
+        return _dispatch_host(parser.parse_args(args), parser)
+
     from .experiments import (frozen_tagging, laser_cooling,
                               mc_md_anisotropy, mc_qt_tagging, three_state)
 
@@ -331,7 +413,8 @@ def main(argv=None) -> int:
     _add_cooling_commands(sub, laser_cooling)
     for name, (_, cls, resume, grid) in families.items():
         _add_family_commands(sub, name, cls, resume, grid)
-    ns = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+    _add_host_subcommands(sub)            # listed in --help; run above
+    ns = parser.parse_args(args)
     t0 = time.perf_counter()
     if ns.cmd.startswith("cooling"):
         what = _run_cooling(parser, ns, laser_cooling, t0)

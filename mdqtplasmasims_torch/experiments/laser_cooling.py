@@ -78,7 +78,7 @@ from ..core.scheduler import (CoolingScheduler, auto_qt_tile,
                               check_uniform_tick, draw_seed_word,
                               fold_sweep_lanes, uniform_rolls)
 from ..io import checkpoint as ckpt
-from ..io.datfiles import DatWriter
+from ..io.datfiles import DatWriter, format_rows
 from ..io.dirs import cooling_dir
 from ..levels import sr12_cooling, with_recoil
 from ..ops.kde import folded_bins, folded_bins_np, gaussian_kde
@@ -1132,7 +1132,8 @@ def write_outputs(directory: str, cfg: CoolingConfig, outs: dict,
                   epot0: float, final: NumpyState, n_md: int,
                   sample_offset: int = 0, vholder0=None,
                   terminal: bool = True, n_actual: Optional[int] = None,
-                  rng_extra: Optional[dict] = None) -> np.ndarray:
+                  rng_extra: Optional[dict] = None,
+                  fmt=format_rows) -> np.ndarray:
     """Emit energies.dat (appended), vel_dist{X,Y,Z}_time*.dat,
     statePopulationsVsVTime*.dat, the interval diagnostics
     (VAF_interval<k>.dat, J_interval0.dat; appended) and (when
@@ -1141,9 +1142,11 @@ def write_outputs(directory: str, cfg: CoolingConfig, outs: dict,
     counters of a later group or window; ``vholder0`` carries the VAF
     intervals' origins of an earlier group or window (the reference
     re-reads VZERO into Vholder on restart, SpeedUp.cpp:901-909);
-    ``n_actual`` cuts a Poissonian member's padded lanes off every file.
-    Returns the updated vholder for the caller to carry on."""
-    w = DatWriter(directory)
+    ``n_actual`` cuts a Poissonian member's padded lanes off every file;
+    ``fmt`` formats the .dat rows (``io.datfiles.format_rows``, the codec,
+    or ``format_rows_py``).  Returns the updated vholder for the caller
+    to carry on."""
+    w = DatWriter(directory, fmt)
     bins = folded_bins_np()
     n_samples = outs["t"].shape[0]
     n = n_actual if n_actual is not None else final.R.shape[0]
@@ -1198,7 +1201,7 @@ def write_outputs(directory: str, cfg: CoolingConfig, outs: dict,
         write_terminal_checkpoint(directory, cfg, final, n_md,
                                   sample_offset + n_samples, epot0,
                                   vholder=vholder, n_actual=n_actual,
-                                  rng_extra=rng_extra)
+                                  rng_extra=rng_extra, fmt=fmt)
     return vholder
 
 
@@ -1206,14 +1209,15 @@ def write_terminal_checkpoint(directory: str, cfg: CoolingConfig,
                               final: NumpyState, n_md: int, counter: int,
                               epot0: float, vholder=None,
                               n_actual: Optional[int] = None,
-                              rng_extra: Optional[dict] = None) -> None:
+                              rng_extra: Optional[dict] = None,
+                              fmt=format_rows) -> None:
     """The reference-schema terminal checkpoint at c0 = n_md - 1
     (writeConditions, SpeedUp.cpp:725-783: the 13 VZERO interval files
     hold ``vholder``, zeros without VAF intervals as the SpeedUp main
     writes them) plus the native .npz (with t_part, which the ASCII schema
     drops, the vholder when VAF intervals are on, and the generator state
     and seed word in ``rng_extra``).  ``n_actual`` cuts padded lanes
-    off."""
+    off; ``fmt`` formats the VZERO files."""
     n = n_actual if n_actual is not None else final.R.shape[0]
     c0 = n_md - 1
     ckpt.write_ions(directory, c0, n, counter)
@@ -1221,7 +1225,7 @@ def write_terminal_checkpoint(directory: str, cfg: CoolingConfig,
     ckpt.write_wvfns(directory, c0, final.psi[:n])
     if vholder is None:
         vholder = np.zeros((13, n, 3))
-    ckpt.write_vzero(directory, c0, vholder[:13])
+    ckpt.write_vzero(directory, c0, vholder[:13], fmt)
     ckpt.save_native(directory, c0, R=final.R[:n], V=final.V[:n],
                      psi=final.psi[:n], counter=counter,
                      vholder=vholder if cfg.vaf_intervals else None,

@@ -97,14 +97,15 @@ def read_wvfns(directory: str, c0: int,
     return arr[:, 0::2] + 1j * arr[:, 1::2]
 
 
-def write_vzero(directory: str, c0: int, vholder: np.ndarray) -> None:
+def write_vzero(directory: str, c0: int, vholder: np.ndarray,
+                fmt=format_rows) -> None:
     """vholder: [n_intervals, N, 3] velocity snapshots (zeros when VAF
     intervals are disabled, matching the SpeedUp main where Zfunc is
-    commented out)."""
+    commented out); ``fmt`` formats the rows."""
     for k in range(vholder.shape[0]):
         path = os.path.join(directory, f"VZERO_timestep{c0:06d}_interval{k}.dat")
         with open(path, "w") as f:
-            f.write(format_rows(vholder[k]))
+            f.write(fmt(vholder[k]))
 
 
 def read_vzero(directory: str, c0: int, n_intervals: int) -> np.ndarray:

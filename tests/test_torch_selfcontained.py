@@ -4,13 +4,15 @@
   ``mdqtplasmasims_tpu`` imports every module of ``mdqtplasmasims_torch``
   and ``chip_smoke``, then runs a tiny ``run()`` and fold of every ported
   family (cooling, three-state, frozen-start tagging, transport,
-  MC-tagging) on the CPU.
+  MC-tagging) on the CPU, and the host tools: a tree written through the
+  ``%g`` codec, ``analyze_job``, ``collect_panels`` (without matplotlib),
+  ``PhaseTimer`` and the ``pre_speedup`` preset's ``run``.
 * No source file of the port (nor chip_smoke.py) has an import statement
   naming either.
 * The port's own copies of the level tables, the unit constants, the
-  ``%g`` writer, the directory encoders, the CLI helpers and the families'
-  config defaults equal the JAX package's originals (exactly: they are
-  copies).
+  ``%g`` writer, the directory encoders, the CLI helpers, the families'
+  config defaults, the preset table and the report formats equal the JAX
+  package's originals (exactly: they are copies).
 """
 
 import dataclasses
@@ -38,7 +40,7 @@ from mdqtplasmasims_torch.io import dirs as tdirs
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _REFUSING_RUN = r'''
-import importlib.abc, pkgutil, sys, tempfile
+import glob, importlib.abc, os, pkgutil, sys, tempfile
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -113,6 +115,35 @@ with tempfile.TemporaryDirectory() as tmp:
     mc_qt_tagging.run_ensemble(tg, 2, device="cpu")
 assert len(tag_classical(torch.randn(9), torch.Generator().manual_seed(0),
                          2.0)) == 4
+# the host tools, the presets and the codec are among ``names``; drive them
+new = {"experiments.presets", "analysis", "quicklook", "profiling"}
+assert {"mdqtplasmasims_torch." + m for m in new} <= set(names), names
+import numpy as np
+from mdqtplasmasims_torch import analysis, profiling, quicklook
+from mdqtplasmasims_torch.experiments import presets
+from mdqtplasmasims_torch.io.datfiles import (DatWriter, format_rows,
+                                              format_rows_py)
+arr = np.array([[1234565.0, -0.0, np.nan], [5e-324, 1e-05, -np.inf]])
+assert format_rows(arr) == format_rows_py(arr)
+timer = profiling.PhaseTimer()
+with tempfile.TemporaryDirectory() as tmp:
+    DatWriter(tmp).write("VAF.dat", np.stack([np.arange(8) * 0.1,
+                                              np.exp(-np.arange(8.0))], -1))
+    rep = analysis.analyze_job(tmp)
+    assert rep["diffusion"]["d"] > 0, rep
+    assert [t for t, _ in quicklook.collect_panels(tmp)] == [
+        "Velocity autocorrelation"]
+    assert "matplotlib" not in sys.modules
+    cfg = presets.pre_speedup(n0=16, tmax=0.008, sample_freq=2,
+                              vaf_intervals=(0.001,), save_directory=tmp)
+    with timer.phase("pre_speedup", block_on=torch.ones(1)):
+        final, res = run(cfg, device="cpu")
+    assert res["outs"]["J"].shape[:2] == (2, 3)
+    job = analysis.job_dirs(os.path.dirname(glob.glob(
+        os.path.join(tmp, "*", "job1"))[0]))[0]
+    assert {"energies", "structure"} <= set(analysis.analyze_job(job))
+    assert main(["analyze", job, "--json"]) == 0
+assert timer.counts == {"pre_speedup": 1}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad
@@ -126,7 +157,7 @@ def test_port_runs_with_jax_refused():
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 24      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 28      # every module imported
 
 
 def _sources():
@@ -300,3 +331,40 @@ def test_family_config_defaults_equal(family):
         assert (sj.h, sj.dt_plasma, sj.apply_force) == (st.h, st.dt_plasma,
                                                         st.apply_force)
         np.testing.assert_array_equal(sj.scheme.coupling, st.scheme.coupling)
+
+
+def test_preset_table_equal():
+    from mdqtplasmasims_tpu.experiments import presets as jp
+    from mdqtplasmasims_torch.experiments import presets as tp
+    assert list(tp.PRESETS) == list(jp.PRESETS)
+    for name in jp.PRESETS:
+        a, b = jp.PRESETS[name](), tp.PRESETS[name]()
+        for f in dataclasses.fields(b):
+            assert getattr(b, f.name) == getattr(a, f.name), (name, f.name)
+
+
+_REPORT = {
+    "job_dir": "d/job1", "notes": ["dispersion skipped: too few"],
+    "energies": {"n_samples": 3, "t_first": 0.0, "t_last": 1.5,
+                 "ekin_final": [0.1, 0.2, 0.3], "audit_final": -0.25,
+                 "audit_max_abs": 0.5},
+    "temperature": {"t_final": [1.0, 2.0, 3.5], "anisotropy_final": 0.25,
+                    "n_samples": 3},
+    "diffusion": {"d": 0.0123, "drift": 0.04, "n_segments": 3,
+                  "vaf0": 1.5, "source": "VAF.dat"},
+    "dispersion": {"k_int2": [1, 2], "omega_peak": [1.25, 1.5],
+                   "omega_peak_t": [0.0, 0.75], "d_omega": 0.125},
+    "structure": {"s_peak": 2.5, "k_peak": 6.75, "checkpoint": 99},
+    "gofr": {"peak_g": 1.5, "peak_r": 1.75, "source": "g.dat"},
+    "tagged": {"n_samples": 2, "first": [0.5, 1.0], "final": [0.25, 0.5]}}
+
+
+def test_report_formats_equal():
+    from mdqtplasmasims_tpu import analysis as ja
+    from mdqtplasmasims_torch import analysis as ta
+    assert ta.format_job_report(_REPORT) == ja.format_job_report(_REPORT)
+    ens = {"param_dir": "d", "jobs": [_REPORT, {"job_dir": "d/job2",
+                                                "notes": ["skipped: x"]}],
+           "pooled": {"diffusion.d": {"mean": 0.5, "sd": 0.25, "n": 2}}}
+    assert (ta.format_ensemble_report(ens)
+            == ja.format_ensemble_report(ens))
