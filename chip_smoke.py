@@ -158,13 +158,24 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      per MD step; prints the five device operations that took most time
      and the card's busy share of the traced window, and holds a
      ``PhaseTimer`` with ``block_on`` over the same run to at least the
-     card's busy time.
+     card's busy time;
+ 30. a production job uncut: the frozen-start tagging family at the
+     reference's operating point (``FrozenTagConfig()``: 422linear, N0 =
+     3500, tstart=15, tmax=25; 12,500 MD steps) through the production
+     soak's own function and metric extraction
+     (``tools/torch_soak.py::soak_frozen``), held to the frozen soak bands
+     of tests/test_physics_targets.py::TestFullScaleSoak and to exact
+     launch counts (kernel A once per MD step + 1, D once per block + 2,
+     nothing else), with its tree's files and labels; the wall printed
+     with the card's name and power limit, and split against phase 19's
+     cut job (the same pump window) into MD steps and the pump's ticks.
 
-Phases 7, 10, 11, 12, 17, 19-26 and 27 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-26, 27 and 30 each set the launch counts to 0
 just before they drive their path and read them just after.  The line
 before the last is a JSON object with one entry per kernel and form (A,
 D and B'rng also with their counts from phase 27's pre-speedup run,
-``launches_pre_speedup``), each with its bound
+``launches_pre_speedup``, A and D with phase 30's,
+``launches_frozen_production``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -1766,7 +1777,7 @@ def frozen_tag_path(torch, card):
             raise SystemExit("frozen-tag resume: rows left the sample grid")
         if not np.array_equal(res2["spin_up"], res["spin_up"]):
             raise SystemExit("frozen-tag resume lost the spin-up list")
-    return counts, dict(wall=wall, steps_per_s=n_md / wall)
+    return counts, dict(wall=wall, n_md=n_md, steps_per_s=n_md / wall)
 
 
 class raw_fold:
@@ -2635,6 +2646,65 @@ def trace_path(torch, card):
                          "PhaseTimer read less than the card's busy time")
 
 
+# ---- a production job uncut (phase 30)
+
+# tests/test_physics_targets.py::TestFullScaleSoak.test_frozen_tagging:
+# the pooled compiled-reference tag fraction 0.439-0.447, the sigma+ pump's
+# vx > 0 wing, the tau=0 VAF row at the DIH plateau (open intervals)
+FROZEN_BANDS = dict(tag_fraction=(0.30, 0.55), tagged_vx_at_tag=(0.10, 0.35),
+                    tagged_vx2_at_tag=(0.20, 0.45), vaf_tau0=(0.20, 0.45))
+
+
+def production_frozen_path(torch, card, cut):
+    """Phase 30: ``tools/torch_soak.py::soak_frozen`` on the card, uncut,
+    held to the frozen soak bands and exact launch counts.  With phase
+    19's job (``cut``: its wall and MD steps; the same pump window) it
+    splits the wall: host ms per MD step (with its share of the blocks and
+    the tree) and the seconds left for the pump window's ticks."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_soak
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = torch_soak.frozen_config("422linear",
+                                       os.path.join(tmp, "frozen"))
+        n_md_a, n_md, segs, _ = ft._phase_b_plan(cfg)
+        blocks = len(segs)
+        reset_counts()
+        m = torch_soak.soak_frozen(tmp, device="cuda")
+        counts = read_counts()
+        log(f"[production] tools/torch_soak.py frozen: FrozenTagConfig("
+            f"422linear, n0={cfg.n0}, tstart={cfg.tstart:g}, tmax="
+            f"{cfg.tmax:g}): {n_md} MD steps ({n_md_a} to the tag), {blocks} "
+            f"output blocks with the tree in {m['wall_s']:.3f} s -> "
+            f"{n_md / m['wall_s']:.1f} MD steps/s ({card})")
+        md_ms = 1e3 * (m["wall_s"] - cut["wall"]) / (n_md - cut["n_md"])
+        rest = cut["wall"] - cut["n_md"] * md_ms / 1e3
+        log(f"[production] against phase 19's cut job ({cut['n_md']} MD "
+            f"steps, the same pump window, {cut['wall']:.3f} s): "
+            f"{md_ms:.4f} ms per MD step, so the MD steps take "
+            f"{n_md * md_ms / 1e3:.3f} s of this job and the pump window's "
+            f"ticks and fixed costs {rest:.3f} s")
+        log(f"[production] launches: {counts}")
+        log("[production] " + ", ".join(
+            f"{k} {m[k]:.6g} (band {lo:g} .. {hi:g})"
+            for k, (lo, hi) in FROZEN_BANDS.items())
+            + f"; tagged vx at the end {m['tagged_vx_final']:.4g}")
+        want_counts(counts, "the production frozen-tag job",
+                    yukawa_forces=n_md + 1,
+                    yukawa_forces_potential=blocks + 2)
+        if not (m["n0"] == 3500 and m["tstart"] == 15.0 and m["tmax"] == 25.0
+                and all(lo < m[k] < hi
+                        for k, (lo, hi) in FROZEN_BANDS.items())):
+            raise SystemExit(f"the production frozen-tag job misses the "
+                             f"soak bands: {m}")
+        f = cfg.sample_freq
+        l0 = n_md_a + (f - n_md_a % f) - 1
+        _tag_tree(cfg.job_dir(), "VAF.dat", blocks, blocks + 1,
+                  [l0 + k * f for k in range(blocks)], n_md_a - 1, n_md - 1)
+    return counts, m
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -2718,7 +2788,7 @@ def main() -> int:
     cross = check_cross_kernel(torch, L, pu.debye_length)
     mesh_counts = mesh_path(torch, smi, L, pu.debye_length)
     check_fold_force_entry(torch, L, pu.debye_length)
-    tag_counts, _ = frozen_tag_path(torch, smi)
+    tag_counts, tag_cut = frozen_tag_path(torch, smi)
     fold_counts, _ = frozen_fold_path(torch, smi)
     frozen_408_path(torch, smi)
     three_state_path(torch, smi)
@@ -2738,6 +2808,10 @@ def main() -> int:
     trace_path(torch, smi)
     log(f"[env] phases 27-29 (presets, codec, host tools, trace) took "
         f"{time.perf_counter() - t_host:.1f} s")
+    t_prod = time.perf_counter()
+    prod_counts, _ = production_frozen_path(torch, smi, tag_cut)
+    log(f"[env] phase 30 (the production frozen-tag job) took "
+        f"{time.perf_counter() - t_prod:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -2751,7 +2825,9 @@ def main() -> int:
              launches_frozen_tag=tag_counts["yukawa_forces"],
              launches_transport=tr_counts["yukawa_forces"],
              launches_mc_tag=mt_counts["yukawa_forces"],
-             launches_pre_speedup=preset_counts["yukawa_forces"], **force),
+             launches_pre_speedup=preset_counts["yukawa_forces"],
+             launches_frozen_production=prod_counts["yukawa_forces"],
+             **force),
         dict(name="yukawa_forces_batched", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:411",
              launches=ens_counts["yukawa_forces_batched"],
@@ -2764,7 +2840,8 @@ def main() -> int:
              launches=counts["yukawa_forces_potential"],
              launches_frozen_tag=tag_counts["yukawa_forces_potential"],
              launches_pre_speedup=preset_counts["yukawa_forces_potential"],
-             **pot_d),
+             launches_frozen_production=prod_counts[
+                 "yukawa_forces_potential"], **pot_d),
         dict(name="yukawa_forces_potential_batched", route="cuda",
              source=src_f, replaces="mdqtplasmasims_tpu/ops/yukawa.py:166",
              launches=ens_counts["yukawa_forces_potential_batched"],

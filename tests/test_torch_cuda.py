@@ -14,10 +14,15 @@ of dp0 may be decided differently by the two and then diverges; at most 2
 such lanes of 3500 are allowed (3 per member for the in-kernel RNG, whose
 twin draws the same Threefry stream).  The full flagship run, through
 the in-kernel RNG as every CUDA run without a ``rolls_fn``, is held to
-the JAX package's production physics bands.
+the JAX package's production physics bands (by the soak tool's own
+extraction, tools/torch_soak.py), and the MC-tagging family's production
+408quad pump window on the card to the same window on the CPU from the
+same draws.
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -32,6 +37,7 @@ from mdqtplasmasims_torch.ops import yukawa as ty
 pytestmark = pytest.mark.cuda
 
 N, NPAD = 3500, 3584            # the flagship lane layout
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -160,21 +166,11 @@ def test_uniform_rolls_are_in_unit_interval(cuda):
 
 
 def soak_metrics(res, final):
-    """The cooling soak's summary numbers (tools/soak.py:71-91)."""
-    outs = res["outs"]
-    t = np.asarray(outs["t"], np.float64)
-    ekx = np.asarray(outs["ekin"], np.float64)[:, 0]
-    early, late = t <= 8.0, t >= 25.0
-    i_peak = int(np.argmax(ekx[early]))
-    pops = np.abs(np.asarray(final.psi)) ** 2
-    return dict(
-        dih_peak_t=float(t[early][i_peak]),
-        dih_peak_ekin_x=float(ekx[early][i_peak]),
-        gamma_dih=float(1.0 / (2 * np.mean(ekx[(t > 6) & (t < 10)]))),
-        cooling_ratio=float(np.mean(ekx[late]) / ekx[early][i_peak]),
-        pop_s=float(pops[:, :2].sum(-1).mean()),
-        pop_p=float(pops[:, 2:6].sum(-1).mean()),
-        pop_d=float(pops[:, 6:].sum(-1).mean()))
+    """The cooling soak's summary numbers, by the soak tool's own
+    extraction (tools/torch_soak.py, tools/soak.py's formulas)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_soak
+    return torch_soak.cooling_metrics(res["outs"], final.psi)
 
 
 def test_flagship_run_meets_soak_bands(cuda):
@@ -191,6 +187,54 @@ def test_flagship_run_meets_soak_bands(cuda):
     assert 0.45 < m["pop_s"] < 0.72, m
     assert 0.10 < m["pop_p"] < 0.30, m
     assert 0.10 < m["pop_d"] < 0.35, m
+
+
+class _HostDraws:
+    """A job's draws from one CPU generator (core/draws.MemberDraws), moved
+    to ``device``: the card and the CPU then run on the same numbers."""
+
+    def __init__(self, seed, device):
+        from mdqtplasmasims_torch.core.draws import MemberDraws
+        self.draws = MemberDraws([torch.Generator().manual_seed(seed)])
+        self.device = device
+
+    def __getattr__(self, name):
+        draw = getattr(self.draws, name)
+        return lambda *a: draw(*a).to(self.device)
+
+
+MAX_TAG_FLIPS = 8      # of 4096: measurements within rounding of p_up
+
+
+def test_mc_tag_pump_window_matches_cpu(cuda):
+    """The production 408quad pump window of MCTagConfig() (n = 4096, 23
+    pump MD steps = 1426 ticks of the plain engine at S=7) on the card and
+    on the CPU, from one lattice start with thermal velocities and the same
+    draws: the tags agree but for ions whose collapse or measurement
+    uniform falls within float rounding of its threshold (a few of 4096),
+    and so do the tag fractions and the mean spin-up probability."""
+    from mdqtplasmasims_torch.core.pipeline import fresh_state, lattice_start
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    cfg = mt.MCTagConfig()
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        m = mt._members(cfg, 1, _HostDraws(3, dev), single=True)
+        st = fresh_state(dev, mt.ACC_KEYS)
+        st["R"], st["V"] = lattice_start(cfg, m, dev)
+        st["A"] = m.forces(st["R"])
+        ps = mt.pump_phase(cfg, m, st)
+        p_up = cfg.spin_up_probability(ps.psi)
+        got.append((mt._measure(cfg, m, ps.psi)[0].cpu(),
+                    float(p_up.mean()), ps.V[0].cpu()))
+    (tc, pc, vc), (th, ph, vh) = got
+    flips = int((tc != th).sum())
+    print(f"408quad pump window, n={cfg.n}: tag fraction card "
+          f"{float(tc.float().mean()):.6f}, CPU {float(th.float().mean()):.6f}"
+          f" ({flips} tags differ); mean p_up card {pc:.6f}, CPU {ph:.6f}; "
+          f"max |V card - V CPU| {float((vc - vh).abs().max()):.3g}")
+    assert flips <= MAX_TAG_FLIPS
+    assert abs(pc - ph) < 1e-3
+    assert float((vc - vh).abs().max()) < 1e-3
 
 
 # ---- ensemble folds: kernel C and the per-lane tick variants ----

@@ -6,9 +6,10 @@
   family (cooling, three-state, frozen-start tagging, transport,
   MC-tagging) on the CPU, and the host tools: a tree written through the
   ``%g`` codec, ``analyze_job``, ``collect_panels`` (without matplotlib),
-  ``PhaseTimer`` and the ``pre_speedup`` preset's ``run``.
-* No source file of the port (nor chip_smoke.py) has an import statement
-  naming either.
+  ``PhaseTimer`` and the ``pre_speedup`` preset's ``run``, and two
+  families of the production soak (``tools/torch_soak.py``).
+* No source file of the port (nor chip_smoke.py or tools/torch_soak.py)
+  has an import statement naming either.
 * The port's own copies of the level tables, the unit constants, the
   ``%g`` writer, the directory encoders, the CLI helpers, the families'
   config defaults, the preset table and the report formats equal the JAX
@@ -144,6 +145,19 @@ with tempfile.TemporaryDirectory() as tmp:
     assert {"energies", "structure"} <= set(analysis.analyze_job(job))
     assert main(["analyze", job, "--json"]) == 0
 assert timer.counts == {"pre_speedup": 1}
+# the port's production soak (tools/torch_soak.py) at a tiny size
+sys.path.insert(0, os.path.join(os.getcwd(), "tools"))
+import torch_soak
+with tempfile.TemporaryDirectory() as tmp:
+    m = torch_soak.soak_cooling(tmp, device="cpu", n0=16, tmax=0.008,
+                                sample_freq=2)
+    assert {"dih_peak_t", "pop_s", "wall_s"} <= set(m), m
+    m = torch_soak.soak_transport(
+        tmp, device="cpu", n=8, mc_steps=40, gr_every_mc=20,
+        pre_record_md_steps=2, record_steps=4, gr_every_record=2,
+        instant_aniso_steps=2, reequil_steps=2, aniso_relax_steps=2,
+        aniso_time_us=0.05)
+    assert "aniso_spread_relaxed" in m, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad
@@ -162,7 +176,8 @@ def test_port_runs_with_jax_refused():
 
 def _sources():
     pkg = os.path.join(ROOT, "mdqtplasmasims_torch")
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tools", "torch_soak.py")]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

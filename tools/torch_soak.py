@@ -1,0 +1,574 @@
+#!/usr/bin/env python3
+"""Production soak of the PyTorch + CUDA port on one NVIDIA GPU: one full
+reference-scale run per experiment family, its .dat tree written, and the
+headline physics numbers extracted to ``artifacts/soak_torch/summary.json``,
+which ``tests/test_torch_soak.py`` holds to the bands of
+``tests/test_physics_targets.py::TestFullScaleSoak`` and to the JAX
+package's archive (``artifacts/soak/summary.json``, ``tools/soak.py``).
+
+    python tools/torch_soak.py [name ...] [--out-dir DIR] [--summary PATH]
+
+The families and their configurations are ``tools/soak.py``'s (the
+reference programs' own operating points), plus the renormalized and the
+N0 = 14000 cooling runs that ``TestFullScaleSoak`` reads:
+
+- ``cooling``: ``CoolingConfig(n0=3500, tmax=30, sample_freq=40)``;
+  ``cooling_renorm`` the same with ``renormalize=True``;
+  ``cooling_n14000`` with ``n0=14000``;
+- ``cooling_poisson_ensemble``: 8 Poissonian members (``exact_n=False``,
+  ``seed=1``, a checkpoint every 75 segments); ``cooling_mesh_ensemble``:
+  8 members per card on ``make_mesh(n_cards, 1)``;
+- ``frozen`` / ``frozen_408quad``: ``FrozenTagConfig`` 422linear / 408quad
+  at N0 = 3500, ``tstart=15``, ``tmax=25``;
+- ``mc_tag`` / ``mc_tag_422``: ``MCTagConfig`` 408quad / 422linear at
+  n = 4096 (100k MC steps, 1500 recorded steps);
+- ``transport``: ``MCTransportConfig(n=4096)`` (200k MC steps, the full
+  staged pipeline);
+- ``three_state``: ``ThreeStateConfig(n0=1000)`` (tmax = 45000, 4.5 M
+  ticks of the plain engine); not among the defaults: hours on the card
+  until its ticks go through the tick kernel.
+
+Each family is written into the summary as soon as it finishes, so a run
+cut short loses only the family it was running; ``_meta`` holds the
+card's ``nvidia-smi`` name and power limit, the torch and CUDA versions,
+the source revision (``git rev-parse HEAD``, or "archive" outside a
+checkout) and the date.  Each entry holds ``wall_s`` (host
+clock from a synced card to the run's return, its tree included) and the
+kernels' ``launches`` during the run.  The trees go to ``--out-dir``
+(default ``$TMPDIR/soak_torch``), never into the repository.
+
+The kernel libraries and the codec are built before the first family is
+timed.  Three diagnostics run when named: ``chain_trace`` traces 300
+Metropolis steps at the transport configuration with
+``profiling.device_trace`` (the card's busy share, the top device
+operations), ``md_trace_n14000`` 200 MD steps of the N0 = 14000 cooling
+configuration, and ``tag_pool`` runs each tagging family as a fold of 8
+jobs (per-member and pooled tag fractions); each is stored as
+``_<name>``.
+
+Every family function takes ``device`` and keyword overrides of its
+configuration, so the tests run the same code at a tiny size on the CPU;
+the metric extraction is plain numpy on the run's results, with
+``tools/soak.py``'s keys and formulas.  Runs on CUDA only: exits 2
+without a card.  Imports torch, numpy and ``mdqtplasmasims_torch`` only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+SUMMARY = os.path.join(ROOT, "artifacts", "soak_torch", "summary.json")
+
+# tools/soak.py's operating points
+COOLING = dict(n0=3500, tmax=30.0, sample_freq=40)
+FROZEN = dict(n0=3500, tstart=15.0, tmax=25.0)
+MC_N = 4096
+
+
+# ---- metric extraction (plain numpy, tools/soak.py's formulas)
+
+def _dih_windows(t, ekx) -> dict:
+    """DIH peak in t <= 8 and the late (t >= 25) cooling ratio of one EkinX
+    curve (tools/soak.py:69-82)."""
+    early, late = t <= 8.0, t >= 25.0
+    i_peak = int(np.argmax(ekx[early]))
+    peak = ekx[early][i_peak]
+    return dict(dih_peak_t=float(t[early][i_peak]),
+                dih_peak_ekin_x=float(peak),
+                ekin_x_late=float(np.mean(ekx[late])),
+                cooling_ratio=float(np.mean(ekx[late]) / peak))
+
+
+def cooling_metrics(outs: dict, psi) -> dict:
+    """One cooling run's summary numbers from its outputs and final psi
+    (tools/soak.py:69-91)."""
+    t = np.asarray(outs["t"], np.float64)
+    ekx = np.asarray(outs["ekin"], np.float64)[:, 0]
+    pops = np.abs(np.asarray(psi)) ** 2
+    return dict(
+        _dih_windows(t, ekx),
+        gamma_dih=float(1.0 / (2 * np.mean(ekx[(t > 6) & (t < 10)]))),
+        pop_s=float(pops[:, :2].sum(-1).mean()),
+        pop_p=float(pops[:, 2:6].sum(-1).mean()),
+        pop_d=float(pops[:, 6:].sum(-1).mean()))
+
+
+def norm_max_dev(psi) -> float:
+    """max over ions of | ||psi||^2 - 1 |."""
+    p = np.asarray(psi).astype(np.complex128)
+    return float(np.abs((np.abs(p) ** 2).sum(-1) - 1.0).max())
+
+
+def ensemble_metrics(outs: dict) -> dict:
+    """The member-mean EkinX curve's DIH peak and cooling ratio
+    (tools/soak.py:228-252)."""
+    t = np.asarray(outs["t"], np.float64)[0]
+    ekx = np.asarray(outs["ekin"], np.float64)[:, :, 0].mean(0)
+    m = _dih_windows(t, ekx)
+    del m["ekin_x_late"]
+    return m
+
+
+def member_counts(base: str, tmax: float, timestep: float) -> list:
+    """Each member's N from its tree's last ``conditions_timestep*.dat``
+    (tools/soak.py:241-243)."""
+    c0 = int(round(tmax / timestep)) - 1
+    return sorted(int(np.loadtxt(p, ndmin=2).shape[0]) for p in glob.glob(
+        os.path.join(base, "*", "job*", f"conditions_timestep{c0:06d}.dat")))
+
+
+def frozen_metrics(final, res: dict, variant: str) -> dict:
+    """Frozen-start tagging (tools/soak.py:95-137): the tag fraction and
+    the tagged moments at the tag; for 422linear also the tau=0 VAF and
+    the tagged ions' final vx, for 408quad the tau=0 longitudinal
+    kinetic-energy autocorrelation."""
+    spin_up = np.asarray(res["spin_up"], bool)
+    mom = np.asarray(res["out_tag"]["moments"], np.float64)
+    if variant == "408quad":
+        return dict(tag_fraction=float(spin_up.mean()),
+                    tagged_vx2_at_tag=float(mom[1]),
+                    long_kin_tau0=float(np.asarray(
+                        res["out_tag"]["long_kin"])))
+    vx_tag = np.asarray(final.V, np.float64)[spin_up, 0]
+    return dict(tag_fraction=float(spin_up.mean()),
+                tagged_vx_at_tag=float(mom[0]),
+                tagged_vx2_at_tag=float(mom[1]),
+                vaf_tau0=float(np.asarray(res["out_tag"]["vaf"])),
+                tagged_vx_final=float(vx_tag.mean()),
+                frac_tagged_positive_vx=float((vx_tag > 0).mean()))
+
+
+def mc_tag_metrics(res: dict, gamma: float, variant: str) -> dict:
+    """MC tagging (tools/soak.py:140-176): the tag fraction and record
+    temperature; for 408quad also the selectivity and the VAF's decay."""
+    tags = np.asarray(res["tags"], bool)
+    temps = np.asarray(res["temps"], np.float64)
+    out = dict(tag_fraction=float(tags.mean()),
+               mean_record_temp=float(temps.mean()))
+    if variant == "408quad":
+        moments = np.asarray(res["moments"], np.float64)     # [T, 4]
+        vaf = np.asarray(res["vaf"], np.float64)
+        out.update(gamma=gamma, tagged_vx2_initial=float(moments[0, 1]),
+                   selectivity=float(moments[0, 1] * gamma),
+                   vaf_norm_min=float((vaf / vaf[0]).min()))
+    return out
+
+
+def transport_metrics(res: dict, gamma: float) -> dict:
+    """Transport (tools/soak.py:179-199)."""
+    temps = np.asarray(res["temps"], np.float64)
+    ti = np.asarray(res["temps_inst"], np.float64)           # [steps, 3]
+    vaf = np.asarray(res["vaf"], np.float64)
+    tail = ti[-500:].mean(0)
+    return dict(gamma=gamma, mean_record_temp=float(temps.mean()),
+                vaf_norm_min=float((vaf / vaf[0]).min()),
+                aniso_spread_initial=float(ti[0].max() - ti[0].min()),
+                aniso_spread_relaxed=float(tail.max() - tail.min()))
+
+
+def three_state_metrics(ekin_x, doppler: float) -> dict:
+    """Three-state toy (tools/soak.py:202-219)."""
+    ek = np.asarray(ekin_x, np.float64)
+    n_late = max(1, len(ek) // 10)
+    return dict(ekin_x_initial=float(ek[0]),
+                ekin_x_final=float(ek[-n_late:].mean()),
+                doppler_limit=float(doppler),
+                cooling_factor=float(ek[0] / ek[-n_late:].mean()))
+
+
+# ---- the families
+
+def _launch_counters():
+    """chip_smoke.py's counters of every kernel form (reset, read)."""
+    import chip_smoke
+    return chip_smoke.reset_counts, chip_smoke.read_counts
+
+
+def _timed(device, fn):
+    """``fn()``'s result, its host-clock seconds from a synced card to its
+    return (every family ends in a host fetch), and the launches."""
+    reset, read = _launch_counters()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    reset()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v for k, v in read().items() if v}
+
+
+def _fresh(out_dir: str, name: str) -> str:
+    """An empty tree directory for one family (a rerun never appends)."""
+    d = os.path.join(out_dir, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def cooling_config(save_directory, **over):
+    from mdqtplasmasims_torch.experiments.laser_cooling import CoolingConfig
+    return CoolingConfig(**dict(COOLING, save_directory=save_directory,
+                                **over))
+
+
+def _cooling(name: str, fixed: dict):
+    def soak(out_dir, device="cuda", **over):
+        from mdqtplasmasims_torch.experiments.laser_cooling import run
+        cfg = cooling_config(_fresh(out_dir, name), **dict(fixed, **over))
+        (final, res), wall, launches = _timed(
+            device, lambda: run(cfg, device=device))
+        m = dict(n0=cfg.n0, tmax=cfg.tmax, wall_s=wall,
+                 **cooling_metrics(res["outs"], final.psi))
+        if cfg.renormalize:
+            m["final_norm_max_dev"] = norm_max_dev(final.psi)
+        return dict(m, launches=launches)
+    soak.__name__ = f"soak_{name}"
+    soak.__doc__ = f"``{name}``: CoolingConfig({COOLING}, {fixed})."
+    return soak
+
+
+soak_cooling = _cooling("cooling", {})
+soak_cooling_renorm = _cooling("cooling_renorm", dict(renormalize=True))
+soak_cooling_n14000 = _cooling("cooling_n14000", dict(n0=14000))
+
+
+def soak_cooling_poisson_ensemble(out_dir, device="cuda", **over):
+    """8 jobs, each with its own N ~ Binomial(729 N0, 1/729), folded into
+    one program with per-member masks (tools/soak.py:222-256)."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
+    base = _fresh(out_dir, "cooling_poisson")
+    cfg = cooling_config(base, **dict(dict(
+        exact_n=False, checkpoint_every_segments=75), **over))
+    (final, outs), wall, launches = _timed(
+        device, lambda: run_ensemble(cfg, n_jobs=8, seed=1, device=device))
+    n_js = member_counts(base, cfg.tmax, cfg.timestep)
+    return dict(n_jobs=8, n0=cfg.n0, tmax=cfg.tmax, wall_s=wall,
+                member_ns=n_js, member_n_spread=int(n_js[-1] - n_js[0]),
+                **ensemble_metrics(outs), launches=launches)
+
+
+def soak_cooling_mesh_ensemble(out_dir, device="cuda", **over):
+    """``run_ensemble(mesh=make_mesh(n_cards, 1))`` with 8 members per card,
+    trees and periodic checkpoints (tools/soak.py:259-285); on the CPU one
+    slot on ``device``."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    dev = torch.device(device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    mesh = make_mesh(n_dev, 1, devices=None if dev.type == "cuda" else [dev])
+    cfg = cooling_config(_fresh(out_dir, "cooling_mesh"), **dict(dict(
+        checkpoint_every_segments=75), **over))
+    n_jobs = 8 * n_dev
+    (final, outs), wall, launches = _timed(
+        device, lambda: run_ensemble(cfg, n_jobs=n_jobs, seed=1, mesh=mesh))
+    ticks = n_jobs * cfg.n0 * int(round(cfg.tmax / cfg.timestep)) * cfg.ratio
+    return dict(n_devices=n_dev, n_jobs=n_jobs, n0=cfg.n0, tmax=cfg.tmax,
+                wall_s=wall, agg_updates_per_sec=ticks / wall,
+                **ensemble_metrics(outs), launches=launches)
+
+
+def frozen_config(variant: str, save_directory, **over):
+    from mdqtplasmasims_torch.experiments.frozen_tagging import (
+        FrozenTagConfig)
+    return FrozenTagConfig(**dict(FROZEN, variant=variant,
+                                  save_directory=save_directory, **over))
+
+
+def _frozen(name: str, variant: str, tree: str):
+    def soak(out_dir, device="cuda", **over):
+        from mdqtplasmasims_torch.experiments.frozen_tagging import run
+        cfg = frozen_config(variant, _fresh(out_dir, tree), **over)
+        (final, res), wall, launches = _timed(
+            device, lambda: run(cfg, device=device))
+        return dict(n0=cfg.n0, tstart=cfg.tstart, tmax=cfg.tmax,
+                    wall_s=wall, **frozen_metrics(final, res, variant),
+                    launches=launches)
+    soak.__name__ = f"soak_{name}"
+    soak.__doc__ = f"``{name}``: FrozenTagConfig({variant!r}, {FROZEN})."
+    return soak
+
+
+soak_frozen = _frozen("frozen", "422linear", "frozen")
+soak_frozen_408quad = _frozen("frozen_408quad", "408quad", "frozen408q")
+
+
+def _mc_tag(name: str, variant: str, tree: str):
+    def soak(out_dir, device="cuda", **over):
+        from mdqtplasmasims_torch.experiments.mc_qt_tagging import (
+            MCTagConfig, run)
+        cfg = MCTagConfig(**dict(dict(variant=variant, n=MC_N,
+                                      save_directory=_fresh(out_dir, tree)),
+                                 **over))
+        res, wall, launches = _timed(device, lambda: run(cfg, device=device))
+        return dict(n=cfg.n, mc_steps=cfg.mc_steps, wall_s=wall,
+                    **mc_tag_metrics(res, cfg.gamma, variant),
+                    launches=launches)
+    soak.__name__ = f"soak_{name}"
+    soak.__doc__ = f"``{name}``: MCTagConfig({variant!r}, n={MC_N})."
+    return soak
+
+
+soak_mc_tag = _mc_tag("mc_tag", "408quad", "mc_tag")
+soak_mc_tag_422 = _mc_tag("mc_tag_422", "422linear", "mc_tag422")
+
+
+def soak_transport(out_dir, device="cuda", **over):
+    """``MCTransportConfig(n=4096)``: 200k MC steps and the staged MD."""
+    from mdqtplasmasims_torch.experiments.mc_md_anisotropy import (
+        MCTransportConfig, run)
+    cfg = MCTransportConfig(**dict(dict(
+        n=MC_N, save_directory=_fresh(out_dir, "transport")), **over))
+    res, wall, launches = _timed(device, lambda: run(cfg, device=device))
+    return dict(n=cfg.n, mc_steps=cfg.mc_steps, wall_s=wall,
+                **transport_metrics(res, cfg.gamma), launches=launches)
+
+
+def soak_three_state(out_dir, device="cuda", **over):
+    """``ThreeStateConfig(n0=1000)`` to tmax = 45000."""
+    from mdqtplasmasims_torch.experiments.three_state import (
+        ThreeStateConfig, doppler_limit_ekin, run)
+    cfg = ThreeStateConfig(**dict(dict(
+        n0=1000, save_directory=_fresh(out_dir, "three_state")), **over))
+    res, wall, launches = _timed(device, lambda: run(cfg, device=device))
+    return dict(n0=cfg.n0, tmax=cfg.tmax, wall_s=wall,
+                **three_state_metrics(res["ekin_x"],
+                                      doppler_limit_ekin(cfg.detuning,
+                                                         cfg.om)),
+                launches=launches)
+
+
+FAMILIES = {
+    "cooling": soak_cooling,
+    "cooling_renorm": soak_cooling_renorm,
+    "cooling_n14000": soak_cooling_n14000,
+    "cooling_poisson_ensemble": soak_cooling_poisson_ensemble,
+    "cooling_mesh_ensemble": soak_cooling_mesh_ensemble,
+    "frozen": soak_frozen,
+    "frozen_408quad": soak_frozen_408quad,
+    "mc_tag": soak_mc_tag,
+    "mc_tag_422": soak_mc_tag_422,
+    "transport": soak_transport,
+    "three_state": soak_three_state,
+}
+DEFAULT_FAMILIES = tuple(k for k in FAMILIES if k != "three_state")
+
+
+def tag_pool(out_dir, device="cuda", n_jobs=8, frozen_over=None,
+             mc_over=None) -> dict:
+    """Each tagging family's job as a fold of ``n_jobs`` members (seed 1,
+    no trees), the same configurations as its soak: per-member tag
+    fractions, the pooled fraction and its binomial standard error, the
+    spread that one job's fraction has around the pool."""
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    runs = {}
+    for fam, variant in (("frozen", "422linear"),
+                         ("frozen_408quad", "408quad")):
+        cfg = frozen_config(variant, None, **(frozen_over or {}))
+        runs[fam] = (cfg.n0, lambda cfg=cfg: [r["spin_up"] for r in (
+            ft.run_ensemble(cfg, n_jobs, seed=1, device=device))])
+    for fam, variant in (("mc_tag", "408quad"), ("mc_tag_422", "422linear")):
+        cfg = mt.MCTagConfig(**dict(dict(variant=variant, n=MC_N),
+                                    **(mc_over or {})))
+        runs[fam] = (cfg.n, lambda cfg=cfg: [r["tags"] for r in (
+            mt.run_ensemble(cfg, n_jobs, seed=1, device=device))])
+    out = {}
+    for fam, (n, fn) in runs.items():
+        tags, wall, launches = _timed(device, fn)
+        fr = np.asarray([np.asarray(t, bool).mean() for t in tags])
+        pooled = float(np.mean(np.concatenate(
+            [np.asarray(t, bool).ravel() for t in tags])))
+        out[fam] = dict(n=n, n_jobs=n_jobs, member_fractions=fr.tolist(),
+                        pooled=pooled, pooled_se=float(np.sqrt(
+                            pooled * (1 - pooled) / (n * n_jobs))),
+                        member_sd=float(fr.std(ddof=1)), wall_s=wall,
+                        launches=launches)
+    return out
+
+
+def build_libraries() -> float:
+    """Build and load the kernel libraries and the .dat codec before any
+    family is timed; returns the seconds it took."""
+    from mdqtplasmasims_torch.core import qt_fused
+    from mdqtplasmasims_torch.io import datfiles
+    from mdqtplasmasims_torch.ops import yukawa
+    t0 = time.perf_counter()
+    for lib in (yukawa._lib, qt_fused._lib, datfiles._codec):
+        lib()
+    return time.perf_counter() - t0
+
+
+# ---- the archive
+
+def run_meta(device) -> dict:
+    """The card (``nvidia-smi`` name and power limit), versions, source
+    revision and date."""
+    card = "cpu"
+    if torch.device(device).type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    try:
+        rev = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                             capture_output=True, text=True, timeout=30,
+                             check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        rev = "archive"
+    return dict(card=card, device=(torch.cuda.get_device_name(0)
+                                   if card != "cpu" else "cpu"),
+                torch=torch.__version__, cuda=torch.version.cuda, git=rev,
+                date=time.strftime("%Y-%m-%d"))
+
+
+def update_summary(path: str, family: str, metrics: dict,
+                   meta: dict) -> None:
+    """Write one entry (and ``_meta``) into the summary at once, atomically,
+    keeping the entries already there."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    cur = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            cur = json.load(f)
+    cur[family] = metrics
+    cur["_meta"] = meta
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(cur, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    print(f"[soak] {family}: {json.dumps(metrics)}", flush=True)
+
+
+def _trace(device, fn, steps: int) -> dict:
+    """``fn()`` untraced, then under ``profiling.device_trace``: its host
+    ms per step, the card's busy share of the traced window, device
+    operations per step and the five that took most time."""
+    from mdqtplasmasims_torch.profiling import device_trace
+    _, untraced, _ = _timed(device, fn)
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp, device=device):
+            fn()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    ops = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                "gpu_memset")]
+    t_lo = min(e["ts"] for e in spans)
+    t_hi = max(e["ts"] + e["dur"] for e in spans)
+    busy, end = 0.0, t_lo
+    for e in sorted(ops, key=lambda e: e["ts"]):     # union of intervals
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        busy += max(0.0, b - a)
+        end = max(end, b)
+    by_name = {}
+    for e in ops:
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return dict(steps=steps, untraced_ms_per_step=1e3 * untraced / steps,
+                window_ms=(t_hi - t_lo) / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / (t_hi - t_lo) if t_hi > t_lo else 0.0,
+                device_ops_per_step=len(ops) / steps,
+                device_us_per_step=busy / steps,
+                top=[dict(name=k[:120], count=n, ms=t / 1e3)
+                     for k, (n, t) in top])
+
+
+def trace_chain(steps: int, device="cuda") -> dict:
+    """:func:`_trace` over ``steps`` Metropolis steps of one transport job
+    (n = 4096 from the lattice start)."""
+    from mdqtplasmasims_torch.core.init import lattice_init
+    from mdqtplasmasims_torch.core.mc import MetropolisMC, draw_mc
+    from mdqtplasmasims_torch.experiments.mc_md_anisotropy import (
+        MCTransportConfig)
+    cfg = MCTransportConfig(n=MC_N)
+    g = torch.Generator(device=torch.device(device)).manual_seed(1)
+    R, _ = lattice_init(g, cfg.n, cfg.gamma, cfg.L)
+    mc = MetropolisMC(L=cfg.L, ldeb=cfg.ldeb, gamma=cfg.gamma,
+                      max_r_step=cfg.max_r_step)
+    R, _ = mc.run(R[None].contiguous(), draws=draw_mc([g], 20, cfg.n))
+    draws = draw_mc([g], steps, cfg.n)
+    return dict(n=cfg.n, **_trace(device, lambda: mc.run(R, draws=draws),
+                                  steps))
+
+
+def trace_md(steps: int, device="cuda", n0: int = 14000) -> dict:
+    """:func:`_trace` over ``steps`` MD steps (one sample, no tree) of the
+    ``cooling_n14000`` configuration: kernels A and B'rng at N0 = 14000."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import run
+    cfg = cooling_config(None, n0=n0, sample_freq=steps)
+    cfg = dataclasses.replace(cfg, tmax=steps * cfg.timestep)
+    run(dataclasses.replace(cfg, tmax=cfg.timestep, sample_freq=1),
+        device=device)                                        # warm-up
+    return dict(n0=n0, **_trace(device, lambda: run(cfg, device=device),
+                                steps))
+
+
+# diagnostics, run only when named; stored as ``_<name>``
+EXTRAS = {
+    "chain_trace": lambda out_dir: trace_chain(300),
+    "md_trace_n14000": lambda out_dir: trace_md(200),
+    "tag_pool": tag_pool,
+}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("names", nargs="*", metavar="family",
+                   help=f"families among {', '.join(FAMILIES)} (default: "
+                   f"all but three_state) or diagnostics among "
+                   f"{', '.join(EXTRAS)}")
+    p.add_argument("--out-dir", default=os.path.join(tempfile.gettempdir(),
+                                                     "soak_torch"),
+                   help="where the .dat trees go (default: %(default)s)")
+    p.add_argument("--summary", default=SUMMARY,
+                   help="the summary to update (default: %(default)s)")
+    args = p.parse_args(argv)
+    unknown = sorted(set(args.names) - set(FAMILIES) - set(EXTRAS))
+    if unknown:
+        p.error(f"unknown names {unknown}")
+    if not torch.cuda.is_available():
+        print("torch_soak: no CUDA device; the soak runs on an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meta = run_meta("cuda")
+    print(f"[soak] card: {meta['card']}; torch {meta['torch']}, CUDA "
+          f"{meta['cuda']}; source {meta['git']}; libraries built in "
+          f"{build_libraries():.1f} s", flush=True)
+    for name in args.names or DEFAULT_FAMILIES:
+        print(f"[soak] running {name} ...", flush=True)
+        t0 = time.perf_counter()
+        if name in FAMILIES:
+            update_summary(args.summary, name,
+                           FAMILIES[name](args.out_dir, device="cuda"), meta)
+        else:
+            update_summary(args.summary, "_" + name,
+                           EXTRAS[name](args.out_dir), meta)
+        print(f"[soak] {name} done in {time.perf_counter() - t0:.1f} s "
+              f"({meta['card']})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
