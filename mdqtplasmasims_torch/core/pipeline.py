@@ -38,7 +38,7 @@ AUTOC_KEYS = ("vaf", "long_visc", "v_cube", "v_fourth")
 def check_device(cfg, device: torch.device) -> None:
     if cfg.torch_dtype == torch.float64 and device.type != "cpu":
         raise NotImplementedError("float64 runs on the CPU only; the CUDA "
-                                  "force kernels are float32 (ROADMAP.md)")
+                                  "kernels are float32 (ROADMAP.md)")
 
 
 def _forces(cfg, ldeb: Sequence[float], single: bool) -> Callable:

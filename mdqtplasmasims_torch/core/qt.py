@@ -10,11 +10,12 @@ or complex128).  Per ion and tick (SURVEY.md L4):
 3. jump: emitting sublevel by population, S-vs-D branch, destination from
    the C-G-weighted table, clock reset, +-recoil along x.
 
-Wavefunctions ride state-major (``[S, N]``) as in the JAX package.  The
-cooling family runs the same tick inside the fused kernel
-(:mod:`mdqtplasmasims_torch.core.qt_fused`); the tagging families and the
-three-state toy step through this engine, as the JAX package runs their
-ticks outside its fused kernel, a whole fold at a time
+Wavefunctions ride state-major (``[S, N]``) as in the JAX package.  Every
+family runs the same tick inside the fused kernel
+(:mod:`mdqtplasmasims_torch.core.qt_fused`; the tagging pumps and the
+three-state toy through core/scheduler.free_ion_ticks), where the JAX
+package steps the latter two through its engine; this engine is the
+reference the tests hold those ticks to, a whole fold at a time
 (``[E, S, N]``, with per-member tables from :func:`sweep_qt_params`).
 """
 
@@ -93,18 +94,14 @@ def sweep_qt_params(scheme_unit: LevelScheme, detuning, om, rdtype, cdtype,
                                om * base.coupling.imag))
 
 
-def sweep_member_params(cfg, points, jobs_per_point: int,
-                        scheme_unit: LevelScheme, rdtype, cdtype, device):
-    """Shared front half of every family's ``run_sweep``: validate the
-    grid, build point-major member configs and their
-    :func:`sweep_qt_params`.
+def sweep_member_cfgs(cfg, points, jobs_per_point: int) -> list:
+    """Validate a sweep grid and build its point-major member configs.
 
     ``points`` are dicts with keys among ``detuning``/``om`` (unset
     fields keep ``cfg``'s value); only these knobs can vary inside one
     fold.  ``jobs_per_point`` replicates each point with independent
     seeds (member order is point-major, job numbers restart at 1 per
-    point).  Returns ``(member_cfgs, params)`` with ``params`` an
-    ``[E]``-batched :class:`QTParams`."""
+    point)."""
     allowed = {"detuning", "om"}
     member_cfgs = []
     for pt in points:
@@ -115,6 +112,16 @@ def sweep_member_params(cfg, points, jobs_per_point: int,
                              f"{sorted(allowed)}, got {sorted(bad)}")
         for r in range(jobs_per_point):
             member_cfgs.append(dataclasses.replace(cfg, job=r + 1, **ov))
+    return member_cfgs
+
+
+def sweep_member_params(cfg, points, jobs_per_point: int,
+                        scheme_unit: LevelScheme, rdtype, cdtype, device):
+    """:func:`sweep_member_cfgs` and the members' :func:`sweep_qt_params`
+    (the JAX package's front half of every family's ``run_sweep``).
+    Returns ``(member_cfgs, params)`` with ``params`` an ``[E]``-batched
+    :class:`QTParams`."""
+    member_cfgs = sweep_member_cfgs(cfg, points, jobs_per_point)
     params = sweep_qt_params(scheme_unit,
                              [m.detuning for m in member_cfgs],
                              [m.om for m in member_cfgs], rdtype, cdtype,

@@ -56,7 +56,7 @@ from .rng import tick_uniforms
 _MAX_TDEP = 4
 _MAX_FORCE = 16
 _KERNEL_S = (3, 5, 7, 12)      # state counts csrc/fused_ticks.cu is built for
-_LANE_S = 12                   # the per-lane variants are built for sr12 only
+_RNG_S = 12                    # the in-kernel RNG forms are built for sr12 only
 _THREADS = 128                 # threads of a block of the kernel
 _KREG = 3                      # row entries a lane of the kernel keeps in
 #                                registers; longer rows stay in shared memory
@@ -105,6 +105,26 @@ class FusedTickSpec:
     @property
     def SP(self) -> int:      # padded state count
         return _round_up(self.S, 8)
+
+
+@functools.lru_cache(maxsize=64)
+def empty_pattern(scheme: LevelScheme) -> LevelScheme:
+    """``scheme`` without couplings, beat notes or Ehrenfest terms: the DP
+    pattern of a scheme driven by one laser (made once per scheme)."""
+    return dataclasses.replace(
+        scheme, name=scheme.name + "_empty",
+        coupling=np.zeros_like(scheme.coupling), tdep_rows=(), tdep_cols=(),
+        tdep_coefs=(), force_a=(), force_b=(), force_w=())
+
+
+def rabi_scaled(spec: FusedTickSpec) -> FusedTickSpec:
+    """``spec``'s per-lane Rabi form for a scheme driven by one laser (the
+    tagging and three-state schemes): the SP pattern is the scheme itself
+    and the DP pattern empty, so the lanes' ``(om_j / om_base, 0)`` scale
+    every coupling and Ehrenfest weight of the scheme (all linear in om),
+    and a lane at scale 1 computes what ``spec`` computes bit for bit."""
+    return dataclasses.replace(spec, per_lane_om=True, scheme_sp=spec.scheme,
+                               scheme_dp=empty_pattern(spec.scheme))
 
 
 def check_real_couplings(spec: FusedTickSpec) -> None:
@@ -371,10 +391,9 @@ def _kernel_params(spec: FusedTickSpec) -> _Params:
     if spec.S not in _KERNEL_S:
         raise ValueError(f"the CUDA tick kernel is built for S in "
                          f"{_KERNEL_S}, got {spec.S}")
-    if (spec.per_lane_e0 or spec.per_lane_om
-            or spec.internal_rng) and spec.S != _LANE_S:
-        raise ValueError(f"the per-lane and in-kernel RNG tick kernels are "
-                         f"built for S={_LANE_S} only, got {spec.S}")
+    if spec.internal_rng and spec.S != _RNG_S:
+        raise ValueError(f"the in-kernel RNG tick kernels are built for "
+                         f"S={_RNG_S} only, got {spec.S}")
     forces = _force_terms(spec)
     if len(tsch.tdep_rows) > _MAX_TDEP or len(forces) > _MAX_FORCE:
         raise ValueError("scheme exceeds the tick kernel's term capacity")
@@ -567,9 +586,10 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
     ``csrc/fused_ticks.cu`` and count the launch in the one counter of
     its form: ``fused_md_substeps.launches`` for explicit rolls and
-    ``launches_rng`` for the in-kernel RNG, each with the suffix
-    ``_per_lane_e0``, ``_per_lane_om`` or ``_per_lane_e0_om`` for a
-    per-lane variant (:data:`LAUNCH_COUNTERS`).  The kernel's five
+    ``launches_rng`` for the in-kernel RNG, ``_s3``, ``_s5`` or ``_s7``
+    added for a small scheme, each with the suffix ``_per_lane_e0``,
+    ``_per_lane_om`` or ``_per_lane_e0_om`` for a per-lane variant
+    (:data:`LAUNCH_COUNTERS`, :func:`launch_counter`).  The kernel's five
     outputs are row blocks of one allocation.  The spec's coupling check,
     parameter block and lane table are made once per spec (and card).  CPU
     tensors run :func:`fused_md_substeps_reference`."""
@@ -655,16 +675,20 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
 
 def launch_counter(spec: FusedTickSpec) -> str:
     """The attribute of :func:`fused_md_substeps` counting the launches of
-    ``spec``'s kernel form."""
+    ``spec``'s kernel form: ``launches[_rng][_s<S>][_per_lane_..]``, the
+    state count named for the small schemes (S = 3, 5, 7)."""
     lanes = "".join(f for f, on in (("_e0", spec.per_lane_e0),
                                     ("_om", spec.per_lane_om)) if on)
     return ("launches" + ("_rng" if spec.internal_rng else "")
+            + ("" if spec.S == _RNG_S else f"_s{spec.S}")
             + ("_per_lane" + lanes if lanes else ""))
 
 
+_LANE_FORMS = ("", "_per_lane_e0", "_per_lane_om", "_per_lane_e0_om")
 #: launch counts, one per kernel form (see :func:`fused_md_substeps`)
-LAUNCH_COUNTERS = tuple(f"launches{r}{f}" for r in ("", "_rng")
-                        for f in ("", "_per_lane_e0", "_per_lane_om",
-                                  "_per_lane_e0_om"))
+LAUNCH_COUNTERS = (tuple(f"launches{r}{f}" for r in ("", "_rng")
+                         for f in _LANE_FORMS)
+                   + tuple(f"launches_s{S}{f}" for S in _KERNEL_S
+                           if S != _RNG_S for f in _LANE_FORMS))
 for _name in LAUNCH_COUNTERS:
     setattr(fused_md_substeps, _name, 0)

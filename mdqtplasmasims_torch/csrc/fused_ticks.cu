@@ -99,15 +99,27 @@
 // split between launches.
 //
 // Sweep variants (the JAX kernel's per_lane_e0 / per_lane_om flags), two
-// template flags instantiated for S=12 only (sr12 is the one scheme that
-// folds sweeps):
+// template flags instantiated for every state count (S=12: the cooling
+// sweeps; S=3: the three-state sweeps; S=5 and 7: the tagging pumps'
+// sweeps):
 //   PE0  the diagonal energies come from an [SP, Np] lane plane (each
 //        ensemble member's detunings) instead of the vecs column;
 //   POM  H = om*C_sp + om_dp*C_dp + diag with (om, om_dp) from an [2, Np]
 //        lane plane; the beat-note terms are the DP pattern's, scaled by
 //        om_dp; the Ehrenfest terms carry a group tag (0: SP, scaled by
 //        om; 1: DP, scaled by om_dp).
-// The lane values are constant across the ticks.
+// The lane values are constant across the ticks.  The tagging and
+// three-state sweeps vary (detuning, om) of one laser: e0 is the member's
+// own diagonal, and the om form runs with the scheme's own coupling as the
+// SP pattern, an empty DP pattern and (om_j / om_base, 0) on the lanes,
+// so every coupling and Ehrenfest weight scales with om_j / om_base and a
+// member at the base (scale 1) computes what the plain form computes.
+//
+// Free ions (the three-state toy) and the tagging pumps (a fixed vx, no
+// force, no recoil) take the plain forms with F = 0 and a dummy R: the
+// leapfrog then leaves v bit for bit (v + qdt * 0), and with apply_kick = 0
+// nothing else writes it.  No template flag: the pumps' schemes have no
+// force terms, so the forms are the same code.
 //
 // Registers, spills and shared memory of every form: nvcc -Xptxas -v, in
 // the build log beside the library (chip_smoke.py prints them).
@@ -521,11 +533,21 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
   else                                                                    \
     fused_ticks_kernel<SV, GV, E0, OM, RG, false>                         \
         <<<blocks, THREADS, smem_bytes, st>>>(ARGS)
-  // the per-lane and RNG forms are built for sr12 (the cooling family) only
+  // every state count takes the per-lane forms; the RNG forms are built
+  // for sr12 (the cooling family) only
   switch (p->S * 8 + rng * 4 + pe0 * 2 + pom) {
     case 3 * 8: LAUNCH(3, 4, false, false, false); break;
+    case 3 * 8 + 2: LAUNCH(3, 4, true, false, false); break;
+    case 3 * 8 + 1: LAUNCH(3, 4, false, true, false); break;
+    case 3 * 8 + 3: LAUNCH(3, 4, true, true, false); break;
     case 5 * 8: LAUNCH(5, 8, false, false, false); break;
+    case 5 * 8 + 2: LAUNCH(5, 8, true, false, false); break;
+    case 5 * 8 + 1: LAUNCH(5, 8, false, true, false); break;
+    case 5 * 8 + 3: LAUNCH(5, 8, true, true, false); break;
     case 7 * 8: LAUNCH(7, 8, false, false, false); break;
+    case 7 * 8 + 2: LAUNCH(7, 8, true, false, false); break;
+    case 7 * 8 + 1: LAUNCH(7, 8, false, true, false); break;
+    case 7 * 8 + 3: LAUNCH(7, 8, true, true, false); break;
     case 12 * 8: LAUNCH(12, 16, false, false, false); break;
     case 12 * 8 + 2: LAUNCH(12, 16, true, false, false); break;
     case 12 * 8 + 1: LAUNCH(12, 16, false, true, false); break;

@@ -19,8 +19,10 @@ Phase structure (each a host loop over MD steps):
 Each MD step is one launch of a force kernel (ops/yukawa.best_forces_fn:
 kernel A for one job; best_forces_fn_batched: kernel C for all members of
 a fold, per-member masks included) plus elementwise leapfrog ops; the
-pump's ticks go through the plain engine (core/qt.QTEngine.step_sm), as
-the JAX package runs them outside its fused tick kernel.  The potential of
+pump window's ticks of an MD step are one launch of the tick kernel at
+the leapfrog's vx (core/scheduler.free_ion_ticks; its plain twin on the
+CPU), every member of a fold in it, a sweep's members through the
+kernel's per-lane forms (core/scheduler.member_sweep).  The potential of
 ``epot0`` and of every output block comes from kernel D (kernel G: one
 launch for all members of a fold).  Output blocks stay on the device until
 the run ends; the host fetches once.
@@ -57,8 +59,9 @@ from ..bridge import (NumpyState, state_from_numpy, state_to_numpy,
                       states_from_numpy)
 from ..core.init import frozen_gas_init, poisson_member_mask
 from ..core.md import kinetic_energies
-from ..core.qt import QTEngine, QTParams, sweep_member_params
-from ..core.scheduler import FrozenTagScheduler, lane_major_rolls
+from ..core.qt import QTEngine, QTParams, sweep_member_cfgs
+from ..core.scheduler import (FrozenTagScheduler, lane_major_rolls,
+                              member_sweep, sweep_lanes)
 from ..core.tagging import (spin_up_probability_408, spin_up_probability_422,
                             tagged_moments)
 from ..io import checkpoint as ckpt
@@ -70,7 +73,7 @@ from ..ops.kde import centered_bins, centered_bins_np, gaussian_kde
 from ..ops.yukawa import (best_forces_fn, best_forces_fn_batched,
                           yukawa_potential_pallas,
                           yukawa_potential_pallas_batched)
-from ..state import SimState, complex_dtype, make_state, tick_time
+from ..state import SimState, make_state, tick_time
 from ..units import (PlasmaUnits, pump_window_einstein, qt_units_408,
                      qt_units_422)
 from .laser_cooling import latest_checkpoint, member_seed
@@ -193,6 +196,9 @@ def _check_device(cfg: FrozenTagConfig, device: torch.device) -> None:
     if cfg.torch_dtype == torch.float64 and device.type != "cpu":
         raise NotImplementedError("float64 runs on the CPU only; the CUDA "
                                   "force kernels are float32 (ROADMAP.md)")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on "
+                           "the CPU")
 
 
 def _forces_fn(cfg: FrozenTagConfig, n: int, mask=None, fold: bool = False):
@@ -201,17 +207,16 @@ def _forces_fn(cfg: FrozenTagConfig, n: int, mask=None, fold: bool = False):
 
 
 def build_scheduler(cfg: FrozenTagConfig,
-                    rolls_fn: Optional[Callable] = None,
-                    qt_params: Optional[QTParams] = None, mask=None,
-                    fold: bool = False) -> FrozenTagScheduler:
+                    rolls_fn: Optional[Callable] = None, sweep=(None, None),
+                    mask=None, fold: bool = False) -> FrozenTagScheduler:
     """The stepper of one job, or with ``fold`` of ``[E, N, ...]`` states
     (one batched force launch per MD step).  ``rolls_fn(ratio, lanes)``
     gives the pump ticks' uniforms (needed by ``md_step`` only).
-    ``qt_params``: a sweep's per-member (detuning, om) tables
-    (core/qt.sweep_qt_params); None uses cfg's scheme.  ``mask``: real-ion
-    marker of padded members (``[N]``, or ``[E, N]`` in a fold; a tensor
-    on the run's device): the pair kernels gate both sides of every pair,
-    so padded R=V=0 lanes stay exactly inert."""
+    ``sweep``: a sweep's per-member ``(e0 [E, S] | None, om [E] | None)``
+    (core/scheduler.member_sweep); the default uses cfg's scheme.
+    ``mask``: real-ion marker of padded members (``[N]``, or ``[E, N]`` in
+    a fold; a tensor on the run's device): the pair kernels gate both
+    sides of every pair, so padded R=V=0 lanes stay exactly inert."""
     u = cfg.units
     engine = QTEngine(cfg.scheme(), h=cfg.qdt * u.gamma_to_einstein,
                       dt_plasma=cfg.qdt,
@@ -222,7 +227,8 @@ def build_scheduler(cfg: FrozenTagConfig,
     return FrozenTagScheduler(
         engine=engine, forces_fn=_forces_fn(cfg, n, mask, fold),
         L=cfg.L, qdt=cfg.qdt, ratio=cfg.ratio, t_pump_start=cfg.tstart,
-        t_pump_end=cfg.tend, rolls_fn=rolls_fn, qt_params=qt_params)
+        t_pump_end=cfg.tend, rolls_fn=rolls_fn, sweep_e0=sweep[0],
+        sweep_om=sweep[1])
 
 
 def _drawn_start(cfg: FrozenTagConfig, generator: torch.Generator,
@@ -456,7 +462,7 @@ def _phase_b_plan(cfg: FrozenTagConfig):
 
 
 def _phases(cfg: FrozenTagConfig, state: SimState, rolls_fn: Callable,
-            measure_fn: Callable, qt_params=None, mask=None):
+            measure_fn: Callable, sweep=(None, None), mask=None):
     """All three phases of one job or one fold from its start state (F
     seeded).  Returns device values: ``(state, spin_up, epot0, out_tag,
     outs, vholder)``."""
@@ -464,7 +470,7 @@ def _phases(cfg: FrozenTagConfig, state: SimState, rolls_fn: Callable,
     n_md_a, _, seg_lengths, tail = _phase_b_plan(cfg)
     epot0 = (yukawa_potential_pallas_batched if fold
              else yukawa_potential_pallas)(state.R, cfg.L, cfg.ldeb, mask)
-    sched = build_scheduler(cfg, rolls_fn, qt_params, mask=mask, fold=fold)
+    sched = build_scheduler(cfg, rolls_fn, sweep, mask=mask, fold=fold)
     state = run_phase_a(cfg, sched, state, n_md_a)
     spin_up, vholder = measure(cfg, state, measure_fn)
     out_tag = tag_instant_output(cfg, state, spin_up, vholder, epot0,
@@ -645,15 +651,17 @@ def _fold_start(cfg: FrozenTagConfig, generators, mask=None) -> SimState:
 
 
 def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
-                 qt_params: Optional[QTParams] = None, mesh=None, mask=None,
+                 sweep=(None, None), mesh=None, mask=None,
                  device="cuda", states=None,
                  rolls_fn: Optional[Callable] = None,
                  measure_fn: Optional[Callable] = None):
     """All three phases over the member axis: one batched force launch
-    (kernel C) per MD step and one set of engine ops per pump tick serve
-    every member, one launch of kernel G every output block; one fetch;
-    each member's .dat tree under its own param-encoded directory.
-    ``qt_params``: ``[E]``-batched tables (sweep folds).  ``mesh`` runs
+    (kernel C) per MD step and one tick-kernel launch per pumping MD step
+    serve every member, one launch of kernel G every output block; one
+    fetch; each member's .dat tree under its own param-encoded directory.
+    ``sweep``: ``(e0 [E, S] | None, om [E] | None)``, a sweep fold's
+    per-member tables of the tick kernel's per-lane forms (core/scheduler.
+    member_sweep).  ``mesh`` runs
     member block k on ens slot k (parallel/ensemble.member_sharded, no
     collectives).
 
@@ -674,7 +682,7 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
     n_arr = cfg.n0 if mask is None else mask.shape[1]
     rdtype = cfg.torch_dtype
 
-    def fold(idx, start, e0, coupling, mk):
+    def fold(idx, start, e0, om, mk):
         """Members ``idx`` on idx's device; every tensor argument carries
         the member axis (the form member_sharded splits), None where the
         fold has none."""
@@ -685,17 +693,10 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
               else SimState(**start))
         st = dataclasses.replace(
             st, F=_forces_fn(cfg, n_arr, mk, fold=True)(st.R)[0])
-        params = None
-        if e0 is not None:
-            params = qt_params._replace(
-                e0=e0, coupling=coupling,
-                **{k: getattr(qt_params, k).to(dev)
-                   for k in ("decay_w", "e1", "jump_src_mask",
-                             "jump_dest_cum")})
         rf = rolls_fn or _fold_rolls(generators)
         mf = measure_fn or _fold_measure(generators)
         st, spin_up, epot0, out_tag, outs, vholder = _phases(
-            cfg, st, rf, mf, params, mk)
+            cfg, st, rf, mf, (e0, om), mk)
         fields = {k: getattr(st, k) for k in ("R", "V", "F", "psi", "t_part")}
         return fields, spin_up, epot0, out_tag, outs, vholder, (st.tick,
                                                                  st.t)
@@ -710,9 +711,7 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
                  for k in ("R", "V", "F", "psi", "t_part")}
     mask_t = (None if mask is None
               else torch.as_tensor(np.asarray(mask)).to(device, rdtype))
-    args = (torch.arange(E, device=device), start,
-            None if qt_params is None else qt_params.e0,
-            None if qt_params is None else qt_params.coupling, mask_t)
+    args = (torch.arange(E, device=device), start, *sweep, mask_t)
     fn = fold
     if mesh is not None:
         from ..parallel.ensemble import member_sharded
@@ -823,10 +822,11 @@ def run_sweep(cfg: FrozenTagConfig, points, jobs_per_point: int = 1,
     tagging binary (randomFrozenStartTag422Linear.cpp:55-57) and rebuilds
     per point; mapping the tagged velocity class vs detuning therefore
     costs a rebuild + SLURM array per point.  The pump Hamiltonian is
-    linear in both knobs, so each member carries its own tables
-    (core/qt.sweep_qt_params: e0 = detuning*e0_unit, coupling =
-    om*C_unit) through the fold's pump window: every grid point costs one
-    more member.
+    linear in both knobs, so each member carries its own tables through
+    the fold's pump window, in the tick kernel's per-lane forms (its own
+    scheme's e0 where a detuning differs from cfg's, the scheme's coupling
+    scaled by om/cfg.om where a Rabi frequency does; core/scheduler.
+    member_sweep): every grid point costs one more member.
 
     ``points``: dicts with keys among ``detuning``/``om`` (unset fields
     keep cfg's value).  ``jobs_per_point`` replicates each point with
@@ -836,18 +836,21 @@ def run_sweep(cfg: FrozenTagConfig, points, jobs_per_point: int = 1,
     ``cfg.exact_n=False`` every member additionally draws its own
     Poissonian ion count (per-member masks, as run_ensemble).
     ``qt_params`` replaces the tables built from the points
-    (``[E]``-batched, bridge.qt_params_from_numpy).  Returns ``(results,
-    member_cfgs)``."""
+    (``[E]``-batched, bridge.qt_params_from_numpy; core/scheduler.
+    sweep_lanes checks that its couplings are cfg's scaled).  Returns
+    ``(results, member_cfgs)``."""
     dev = torch.device(mesh.home if mesh is not None else device)
-    member_cfgs, params = sweep_member_params(
-        cfg, points, jobs_per_point, cfg.scheme_unit(), cfg.torch_dtype,
-        complex_dtype(cfg.torch_dtype), dev)
+    member_cfgs = sweep_member_cfgs(cfg, points, jobs_per_point)
+    oms = [m.om for m in member_cfgs]
+    sweep = (member_sweep(cfg.scheme(), cfg.om,
+                          [m.scheme() for m in member_cfgs], oms,
+                          cfg.torch_dtype, dev) if qt_params is None
+             else sweep_lanes(cfg.scheme(), cfg.om, qt_params, oms))
     mask = (None if cfg.exact_n
             else _poisson_mask(cfg.n0, len(member_cfgs), seed))
     results = _run_batched(
-        cfg, member_cfgs, seed,
-        qt_params=params if qt_params is None else qt_params, mesh=mesh,
-        mask=mask, device=device, states=states, rolls_fn=rolls_fn,
+        cfg, member_cfgs, seed, sweep=sweep, mesh=mesh, mask=mask,
+        device=device, states=states, rolls_fn=rolls_fn,
         measure_fn=measure_fn)
     return results, member_cfgs
 

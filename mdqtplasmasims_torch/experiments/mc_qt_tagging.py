@@ -12,7 +12,9 @@ autocorrelation suite.
 Stages (a host loop each, on the run's device): 0 lattice start + the
 Metropolis chain (core/mc.py, plain torch) on the fixed ``mc_chunk_steps``
 grid; 1 collisional MD; 2 the pump window (core/scheduler.MCTagScheduler:
-the plain engine's ticks, then one MD step) and the measurement; 3 the
+per pump MD step its ticks as one launch of the tick kernel at the fixed
+vx, every member of a fold in it, then one MD step) and the measurement;
+3 the
 recording and the FFT autocorrelation suite.  Every MD step is one force
 launch: kernel A for a job, kernel C for a fold.  A job is a fold of one
 member (core/pipeline.py, the staged runner both Monte-Carlo families
@@ -47,8 +49,8 @@ from ..core.pipeline import (Members, _cat, check_device, equilibrate,
                              no_publish, open_pipeline, pair_correlations,
                              pipeline_key, record_chunks, restore_generator,
                              restore_state, to_numpy)
-from ..core.qt import QTEngine, QTParams, sweep_member_params
-from ..core.scheduler import MCTagScheduler
+from ..core.qt import QTEngine, QTParams, sweep_member_cfgs
+from ..core.scheduler import MCTagScheduler, member_sweep, sweep_lanes
 from ..core.tagging import (spin_up_probability_408, spin_up_probability_422,
                             tagged_moments)
 from ..core.thermostat import temperature
@@ -177,18 +179,22 @@ def _members(cfg: MCTagConfig, n_members: int, draws,
                       [1.0 / cfg.kappa] * n_members, draws, single)
 
 
-def _make_scheduler(cfg: MCTagConfig, m: Members,
-                    qt_params: Optional[QTParams] = None) -> MCTagScheduler:
+def pump_engine(cfg: MCTagConfig) -> QTEngine:
+    """The pump's quantum engine: cfg's scheme at the quantum step, no
+    force on the ions."""
     u = cfg.units
-    engine = QTEngine(cfg.scheme(), h=cfg.qdt * u.gamma_to_einstein,
-                      dt_plasma=cfg.qdt,
-                      plas_to_quant_vel=u.plas_to_quant_vel,
-                      gamma_to_einstein=u.gamma_to_einstein,
-                      apply_force=False)
-    return MCTagScheduler(engine=engine,
+    return QTEngine(cfg.scheme(), h=cfg.qdt * u.gamma_to_einstein,
+                    dt_plasma=cfg.qdt, plas_to_quant_vel=u.plas_to_quant_vel,
+                    gamma_to_einstein=u.gamma_to_einstein, apply_force=False)
+
+
+def _make_scheduler(cfg: MCTagConfig, m: Members,
+                    sweep=(None, None)) -> MCTagScheduler:
+    return MCTagScheduler(engine=pump_engine(cfg),
                           forces_fn=lambda R: (m.forces(R), None), L=cfg.L,
                           dt=cfg.timestep, ratio=cfg.ratio,
-                          rolls_fn=m.draws.pump, qt_params=qt_params)
+                          rolls_fn=m.draws.pump, sweep_e0=sweep[0],
+                          sweep_om=sweep[1])
 
 
 def _pump_chunk(sched: MCTagScheduler, state: SimState,
@@ -202,15 +208,15 @@ def _pump_chunk(sched: MCTagScheduler, state: SimState,
 
 
 def pump_phase(cfg: MCTagConfig, m: Members, st: dict,
-               publish=no_publish,
-               qt_params: Optional[QTParams] = None) -> SimState:
+               publish=no_publish, sweep=(None, None)) -> SimState:
     """pumpMDTimeSteps x [ratio qsteps; MDStep]
     (MonteCarlo...408Quad.cpp:1230-1235) from the live pump state
     ``st["pump"]`` (the start wavefunctions drawn, at t = 0, when there is
     none) at pump MD step ``st["chunk"]``.  With checkpoints on, the
     window goes in 8 chunks, each published; returns the window's end
-    state and drops the live one from ``st``.  ``qt_params`` overrides the
-    pump Hamiltonian with per-member (detuning, om) tables (run_sweep)."""
+    state and drops the live one from ``st``.  ``sweep`` gives the members
+    their own pump detuning and Rabi frequency: ``(e0 [E, S] | None, om
+    [E] | None)`` of core/scheduler.member_sweep (run_sweep)."""
     if st.get("pump") is None:
         psi = m.draws.psi(cfg.n, cfg.n_states,
                           complex_dtype(cfg.torch_dtype)).to(st["device"])
@@ -218,7 +224,7 @@ def pump_phase(cfg: MCTagConfig, m: Members, st: dict,
             R=st["R"], V=st["V"], F=st["A"], psi=psi,
             t_part=torch.zeros((m.E, cfg.n), dtype=cfg.torch_dtype,
                                device=st["device"]))
-    sched = _make_scheduler(cfg, m, qt_params)
+    sched = _make_scheduler(cfg, m, sweep)
     cs = (max(1, -(-cfg.pump_md_steps // 8))
           if cfg.checkpoint_every_chunks > 0 else cfg.pump_md_steps)
     done = st["chunk"]
@@ -280,7 +286,7 @@ def _mc_scan(cfg: MCTagConfig, m: Members, st: dict,
 
 
 def _pipeline(cfg: MCTagConfig, m: Members, st: dict, publish=no_publish,
-              qt_params: Optional[QTParams] = None) -> dict:
+              sweep=(None, None)) -> dict:
     """The staged pipeline of a job or a fold from ``st`` (fresh or a
     restored checkpoint; ``st["pump"]`` a live mid-pump state).
     ``publish(stage, chunk, with_vstore)`` is called where the checkpoints
@@ -293,7 +299,7 @@ def _pipeline(cfg: MCTagConfig, m: Members, st: dict, publish=no_publish,
     # ---- stage 2: the optical pump window (resumable at any MD step),
     # then the projective spin measurement
     if st["stage"] == 2:
-        ps = pump_phase(cfg, m, st, publish, qt_params)
+        ps = pump_phase(cfg, m, st, publish, sweep)
         st["tags"] = _measure(cfg, m, ps.psi)
         st["R"], st["V"], st["A"] = ps.R, ps.V, ps.F
         publish(3, 0)
@@ -373,38 +379,31 @@ def run(cfg: MCTagConfig, seed: Optional[int] = None, *,
 
 
 def _run_batched(cfg: MCTagConfig, member_cfgs, seed: int,
-                 qt_params: Optional[QTParams] = None, mesh=None,
-                 device="cuda", draws=None):
+                 sweep=(None, None), mesh=None, device="cuda",
+                 draws=None):
     """The whole pipeline over the member axis: one batched force launch
-    (kernel C) per MD step and one set of engine ops per pump tick serve
-    every member; one fetch; each member's .dat tree under its own
-    param-encoded directory.  ``qt_params``: ``[E]``-batched tables (sweep
-    folds).  ``mesh`` runs member block k on ens slot k
-    (parallel/ensemble.member_sharded, no collectives)."""
+    (kernel C) per MD step and one tick-kernel launch per pump MD step
+    serve every member; one fetch; each member's .dat tree under its own
+    param-encoded directory.  ``sweep``: ``(e0 [E, S] | None, om [E] |
+    None)``, a sweep fold's per-member tables of the tick kernel's
+    per-lane forms (core/scheduler.member_sweep).  ``mesh`` runs member
+    block k on ens slot k (parallel/ensemble.member_sharded, no
+    collectives)."""
     device = torch.device(mesh.home if mesh is not None else device)
     check_device(cfg, device)
     if mesh is not None and draws is not None:
         raise ValueError("draws replay one fold's stream and cannot be "
                          "split over a mesh")
 
-    def fold(idx, e0, coupling):
+    def fold(idx, e0, om):
         dev = idx.device
         src = draws or MemberDraws([torch.Generator(device=dev).manual_seed(
             member_seed(seed, j)) for j in idx.tolist()])
-        params = None
-        if e0 is not None:
-            params = qt_params._replace(
-                e0=e0, coupling=coupling,
-                **{k: getattr(qt_params, k).to(dev)
-                   for k in ("decay_w", "e1", "jump_src_mask",
-                             "jump_dest_cum")})
         m = _members(cfg, len(idx), src)
         return _pipeline(cfg, m, fresh_state(dev, ACC_KEYS),
-                         qt_params=params)
+                         sweep=(e0, om))
 
-    args = (torch.arange(len(member_cfgs), device=device),
-            None if qt_params is None else qt_params.e0,
-            None if qt_params is None else qt_params.coupling)
+    args = (torch.arange(len(member_cfgs), device=device), *sweep)
     fn = fold
     if mesh is not None:
         from ..parallel.ensemble import member_sharded
@@ -439,7 +438,8 @@ def run_sweep(cfg: MCTagConfig, points, jobs_per_point: int = 1,
     The reference compiles the pump detuning and Rabi frequency into each
     tagging binary (MonteCarloFollowedByQTTagging408Quad.cpp:96-100) and
     rebuilds per point.  The pump Hamiltonian is linear in both knobs, so
-    each member carries its own tables (core/qt.sweep_qt_params) through
+    each member carries its own tables (its own scheme's e0, cfg's
+    coupling scaled by om / cfg.om; core/scheduler.member_sweep) through
     the fold's pump window: every grid point costs one more member, and
     the shared stages (MC anneal, MD, recording, FFT suite) batch with it.
 
@@ -449,16 +449,19 @@ def run_sweep(cfg: MCTagConfig, points, jobs_per_point: int = 1,
     ``cfg.save_directory`` set, each member writes the full reference
     .dat tree under its own detuning/om-encoded directory.  ``qt_params``
     replaces the tables built from the points (``[E]``-batched,
-    bridge.qt_params_from_numpy).  Returns ``(results, member_cfgs)``."""
+    bridge.qt_params_from_numpy; core/scheduler.sweep_lanes checks that
+    its couplings are cfg's scaled).  Returns ``(results,
+    member_cfgs)``."""
     dev = torch.device(mesh.home if mesh is not None else device)
     check_device(cfg, dev)
-    member_cfgs, params = sweep_member_params(
-        cfg, points, jobs_per_point, cfg.scheme_unit(), cfg.torch_dtype,
-        complex_dtype(cfg.torch_dtype), dev)
-    results = _run_batched(cfg, member_cfgs, seed,
-                           qt_params=params if qt_params is None
-                           else qt_params,
-                           mesh=mesh, device=device, draws=draws)
+    member_cfgs = sweep_member_cfgs(cfg, points, jobs_per_point)
+    oms = [m.om for m in member_cfgs]
+    sweep = (member_sweep(cfg.scheme(), cfg.om,
+                          [m.scheme() for m in member_cfgs], oms,
+                          cfg.torch_dtype, dev) if qt_params is None
+             else sweep_lanes(cfg.scheme(), cfg.om, qt_params, oms))
+    results = _run_batched(cfg, member_cfgs, seed, sweep=sweep, mesh=mesh,
+                           device=device, draws=draws)
     return results, member_cfgs
 
 

@@ -8,11 +8,14 @@ applied when ``apply_force``).  No Coulomb forces; time is in 1/gamma
 units (dt = 0.01).  Output: mean x kinetic energy every ``sample_freq``
 ticks (energies.dat: t, EkinX; reference output(), lines 296-347).
 
-The ticks go through the plain engine (core/qt.QTEngine.step_sm), as the
-JAX package runs this family outside its fused tick kernel: a host loop,
-one set of torch ops per tick for all ions of a run, or for all members of
-a fold (``[E, S, N]``, with per-member tables in a sweep).  The per-segment
-records stay on the device until the run ends (one host fetch per run).
+The ticks go through the tick kernel (core/qt_fused.fused_md_substeps at
+S = 3; its plain twin on the CPU) as free ions: one launch per block of
+ticks (:func:`roll_block`) for all ions of a run, or for all members of a
+fold (``E x npad`` lanes, n0 padded to a multiple of 128), a sweep's
+members through the kernel's per-lane forms.  Each tick is the JAX
+package's ``QTEngine.step_sm`` tick.  The per-segment records stay on the
+device until the run ends (one host fetch per run).  The kernel is
+float32: float64 runs on the CPU only.
 
 Randomness: explicit ``torch.Generator`` objects.  A run draws its start
 velocities and then its jump uniforms from one generator; member j of a
@@ -31,7 +34,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.qt import QTEngine, QTParams, scheme_params, sweep_member_params
+from ..core.pipeline import check_device
+from ..core.qt import QTEngine, QTParams, sweep_member_cfgs
+from ..core.scheduler import (free_ion_spec, free_ion_ticks, member_sweep,
+                              sweep_lanes)
 from ..io.datfiles import DatWriter
 from ..io.dirs import three_state_dir
 from ..levels import three_state
@@ -54,9 +60,9 @@ class ThreeStateConfig:
     sample_freq: int = 1000
     apply_force: bool = True
     vkick: float = 0.0012076       # laserCoolNoPlasmaThreeState.cpp:88
-    # segments per device dispatch in the JAX package; the port's host loop
-    # has no dispatch to group, so the value changes nothing (kept so that
-    # both packages take the same configuration and flags)
+    # segments per device dispatch in the JAX package; the port launches
+    # per roll block, so the value changes nothing (kept so that both
+    # packages take the same configuration and flags)
     dispatch_segments: int = 500
     job: int = 1
     dtype: str = "float32"
@@ -98,48 +104,40 @@ def tick_rolls(generators) -> Callable:
     return rolls_fn
 
 
-def _ticks(eng: QTEngine, vx, psi_sm, tp, rolls, e0=None, coupling=None,
-           force_scale=None):
-    """One tick per entry of ``rolls [..., T, 5, n]`` (members leading, as
-    every argument: the form parallel/ensemble.member_sharded splits).
-    ``e0 [E, S]``, ``coupling [E, S, S]`` and ``force_scale [E]`` give
-    each member of a sweep its own Hamiltonian and Ehrenfest-kick scale."""
-    params = None
-    if e0 is not None:
-        params = scheme_params(eng.scheme, vx.dtype, psi_sm.dtype,
-                               psi_sm.device)._replace(e0=e0,
-                                                       coupling=coupling)
-    if force_scale is not None:
-        force_scale = force_scale[:, None]
-    for k in range(rolls.shape[-3]):
-        psi_sm, vx, tp = eng.step_sm(
-            psi_sm, vx, tp, rolls=rolls[..., k, :, :].movedim(-2, 0),
-            params=params, force_scale=force_scale)
-    return vx, psi_sm, tp
+def roll_block(cfg: ThreeStateConfig, lanes) -> int:
+    """Ticks of one launch and one ``rolls_fn`` draw for ``lanes`` (the
+    ions of a run, ``(n,)``, or of a fold, ``(E, n)``): a segment's
+    ``sample_freq`` ticks, or fewer where their uniforms would pass
+    :data:`ROLL_BLOCK_FLOATS`."""
+    return max(1, min(cfg.sample_freq,
+                      ROLL_BLOCK_FLOATS // (5 * int(np.prod(lanes)))))
 
 
 def run_compiled(cfg: ThreeStateConfig, vx, psi_sm, t_part,
-                 rolls_fn: Callable, n_segments: int,
-                 qt_params: Optional[QTParams] = None, force_scale=None,
+                 rolls_fn: Callable, n_segments: int, sweep=(None, None),
                  mesh=None):
     """``n_segments`` segments of ``sample_freq`` ticks from ``vx [..., n]``,
     ``psi_sm [..., S, n]`` (state-major) and ``t_part [..., n]``, one run
-    or a fold with the member axis leading.  ``qt_params`` / ``force_scale
-    [E]`` give the members their own (detuning, om) tables and scale the
-    om-linear Ehrenfest kick (:func:`run_sweep`); None takes cfg's scheme.
-    ``mesh`` spreads the members over the mesh's ``ens`` slots.  Returns
-    ``((vx, psi_sm, t_part), recs)`` with ``recs [..., n_segments, 2]`` on
-    the device: per segment ``mean(0.5 vx^2)`` and ``mean(|psi_0|^2)``."""
-    eng = build_engine(cfg)
+    or a fold with the member axis leading.  ``sweep``: ``(e0 [E, S] |
+    None, om [E] | None)``, the members' own diagonal energies and Rabi
+    scales ``om_j / cfg.om`` (core/scheduler.member_sweep; the kernel
+    scales the coupling and the om-linear Ehrenfest kick by it).  ``mesh``
+    spreads the members over the mesh's ``ens`` slots.  Each block of
+    ticks is one launch of the tick kernel.  Returns ``((vx, psi_sm,
+    t_part), recs)`` with ``recs [..., n_segments, 2]`` on the device: per
+    segment ``mean(0.5 vx^2)`` and ``mean(|psi_0|^2)`` over the real
+    ions."""
     lanes = tuple(vx.shape)
     dtype = vx.dtype
-    block = max(1, min(cfg.sample_freq,
-                       ROLL_BLOCK_FLOATS // (5 * int(np.prod(lanes)))))
-    extra = (() if qt_params is None
-             else (qt_params.e0, qt_params.coupling, force_scale))
+    block = roll_block(cfg, lanes)
+    spec = free_ion_spec(build_engine(cfg), block, sweep[0] is not None,
+                         sweep[1] is not None)
 
-    def ticks(*args):
-        return _ticks(eng, *args)
+    def ticks(vx, psi_sm, tp, rolls, e0, om):
+        # rolls [..., nt, 5, n] (members leading, the form member_sharded
+        # splits) -> the draw order [nt, 5, ..., n]
+        return free_ion_ticks(spec, vx, psi_sm, tp,
+                              rolls.movedim((-3, -2), (0, 1)), e0, om)
 
     if mesh is not None:
         from ..parallel.ensemble import member_sharded
@@ -151,7 +149,7 @@ def run_compiled(cfg: ThreeStateConfig, vx, psi_sm, t_part,
             nt = min(block, cfg.sample_freq - done)
             # [nt, 5, *lanes] -> members (if any) leading
             rolls = rolls_fn(nt, lanes).to(dtype).movedim((0, 1), (-3, -2))
-            vx, psi_sm, t_part = ticks(vx, psi_sm, t_part, rolls, *extra)
+            vx, psi_sm, t_part = ticks(vx, psi_sm, t_part, rolls, *sweep)
             done += nt
         recs.append(torch.stack(
             [torch.mean(0.5 * vx ** 2, dim=-1),
@@ -204,6 +202,7 @@ def run(cfg: ThreeStateConfig, seed: Optional[int] = None, device="cuda",
     replaces the drawn start and ``rolls_fn`` the drawn uniforms
     (:func:`tick_rolls`)."""
     device = torch.device(device)
+    check_device(cfg, device)
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.job if seed is None else seed)
     V = (_initial_v(cfg, generator) if V is None
@@ -223,11 +222,12 @@ def run(cfg: ThreeStateConfig, seed: Optional[int] = None, device="cuda",
 
 
 def _run_fold(cfg: ThreeStateConfig, member_cfgs, seed: int, mesh, device,
-              V, rolls_fn, qt_params=None, force_scale=None):
+              V, rolls_fn, sweep=(None, None)):
     """The fold behind :func:`run_ensemble` and :func:`run_sweep`: member
     j draws its start and then its uniforms from a generator seeded with
     ``member_seed(seed, j)``."""
     device = torch.device(mesh.home if mesh is not None else device)
+    check_device(cfg, device)
     E = len(member_cfgs)
     generators = [torch.Generator(device=device).manual_seed(
         member_seed(seed, j)) for j in range(E)]
@@ -236,8 +236,7 @@ def _run_fold(cfg: ThreeStateConfig, member_cfgs, seed: int, mesh, device,
     psi_sm, tp = _start(cfg, V)
     (vx, _, _), recs = run_compiled(cfg, V[..., 0], psi_sm, tp,
                                     rolls_fn or tick_rolls(generators),
-                                    cfg.n_segments, qt_params=qt_params,
-                                    force_scale=force_scale, mesh=mesh)
+                                    cfg.n_segments, sweep=sweep, mesh=mesh)
     V = V.clone()
     V[..., 0] = vx
     recs = recs.cpu().numpy()               # [E, n_segments, 2], one fetch
@@ -253,11 +252,11 @@ def run_ensemble(cfg: ThreeStateConfig, n_jobs: int, seed: int = 0,
                  mesh=None, device="cuda", V=None,
                  rolls_fn: Optional[Callable] = None):
     """Batched job array: ``n_jobs`` independent jobs as one fold (the
-    ions are independent already, so this is one bigger set of ops per
-    tick with per-job output rows).  Writes each job's energies.dat;
-    returns the stacked results dict (``ekin_x [E, n_segments]``, ...).
-    ``mesh`` spreads the jobs over the mesh's ``ens`` slots; ``V [E, n0,
-    3]`` and ``rolls_fn`` as in :func:`run`."""
+    ions are independent already, so this is one launch over all members'
+    lanes per block of ticks, with per-job output rows).  Writes each
+    job's energies.dat; returns the stacked results dict (``ekin_x [E,
+    n_segments]``, ...).  ``mesh`` spreads the jobs over the mesh's
+    ``ens`` slots; ``V [E, n0, 3]`` and ``rolls_fn`` as in :func:`run`."""
     member_cfgs = [dataclasses.replace(cfg, job=j + 1) for j in range(n_jobs)]
     return _run_fold(cfg, member_cfgs, seed, mesh, device, V, rolls_fn)
 
@@ -271,33 +270,32 @@ def run_sweep(cfg: ThreeStateConfig, points, jobs_per_point: int = 1,
     The reference compiles detuning/Om into the binary
     (laserCoolNoPlasmaThreeState.cpp:85-87) and rebuilds per point.  The
     toy Hamiltonian is linear in both knobs, so each member carries its
-    own tables (core/qt.sweep_qt_params) and an om force scale (the
-    Ehrenfest kick is om-linear; jump recoils are fixed at vkick) through
-    the fold's tick loop.
+    own tables into the tick kernel's per-lane forms (core/scheduler.
+    member_sweep): its own scheme's e0, and cfg's coupling and Ehrenfest
+    kick (both om-linear; jump recoils are fixed at vkick) scaled by om /
+    cfg.om.
 
     ``points``: dicts with keys among ``detuning``/``om``.
     ``jobs_per_point`` replicates each point with independent seeds;
     member order is point-major.  Writes each member's energies.dat under
     its own Om/detuning-encoded directory.  ``qt_params`` replaces the
     tables built from the points (``[E]``-batched, bridge.
-    qt_params_from_numpy).  Returns ``(results, member_cfgs)`` with
+    qt_params_from_numpy; core/scheduler.sweep_lanes checks that its
+    couplings are cfg's scaled).  Returns ``(results, member_cfgs)`` with
     results as in :func:`run_ensemble`."""
     dev = torch.device(mesh.home if mesh is not None else device)
-    rdtype = cfg.torch_dtype
-    member_cfgs, params = sweep_member_params(
-        cfg, points, jobs_per_point, three_state(1.0, 1.0, cfg.vkick),
-        rdtype, complex_dtype(rdtype), dev)
-    # the engine's scheme bakes force_w = vkick*cfg.om; scale it to each
-    # member's om (e0/coupling come absolute from the tables)
-    if cfg.om == 0.0 and any(m.om != 0.0 for m in member_cfgs):
-        raise ValueError("om sweep needs a nonzero cfg.om base "
-                         "(force_w scales relative to it)")
-    oms = torch.tensor([m.om for m in member_cfgs], dtype=rdtype, device=dev)
-    fscales = oms / torch.tensor(cfg.om if cfg.om != 0.0 else 1.0,
-                                 dtype=rdtype, device=dev)
+    member_cfgs = sweep_member_cfgs(cfg, points, jobs_per_point)
+    # the engine's scheme bakes coupling = -om/2 and force_w = vkick*cfg.om;
+    # the kernel scales both to each member's om
+    base, oms = build_engine(cfg).scheme, [m.om for m in member_cfgs]
+    if qt_params is None:
+        sweep = member_sweep(base, cfg.om, [build_engine(m).scheme
+                                            for m in member_cfgs], oms,
+                             cfg.torch_dtype, dev)
+    else:
+        sweep = sweep_lanes(base, cfg.om, qt_params, oms)
     results = _run_fold(cfg, member_cfgs, seed, mesh, device, V, rolls_fn,
-                        qt_params=params if qt_params is None else qt_params,
-                        force_scale=fscales)
+                        sweep=sweep)
     return results, member_cfgs
 
 

@@ -868,6 +868,29 @@ def test_tick_kernel_small_schemes(cuda, scheme_name, excited):
         _hold_tick_kernel(cuda, spec, tables, 1, 3584, 3500, excited)
 
 
+@pytest.mark.parametrize("variant", ["e0", "om", "e0_om"])
+@pytest.mark.parametrize("scheme_name", ["three_state", "tag422", "tag408"])
+def test_tick_kernel_small_per_lane_forms(cuda, scheme_name, variant):
+    """The S = 3, 5 and 7 sweep forms as the three-state and tagging sweeps
+    launch them (tf.rabi_scaled: the scheme's own coupling scaled by a
+    lane's om), on a 4-member fold."""
+    from mdqtplasmasims_torch import levels
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    scheme = dict(three_state=levels.three_state, tag422=levels.tag422,
+                  tag408=lambda: levels.tag408(0.0, 2.0, False)
+                  )[scheme_name]()
+    pe0, pom = "e0" in variant, "om" in variant
+    spec = _small_spec(scheme, 25, per_lane_e0=pe0)
+    if pom:
+        spec = tf.rabi_scaled(spec)
+    e0 = [scheme.e0 * f for f in (1.0, 0.5, 2.0, -1.0)]
+    om = [(f, 0.0) for f in (1.0, 0.6, 1.5, 0.3)]
+    e0p, omp = fold_sweep_lanes(spec, 1024, e0 if pe0 else None,
+                                om if pom else None, cuda)
+    tables = tf.fused_tables(spec, cuda)
+    _hold_tick_kernel(cuda, spec, tables, 4, 1024, 1000, True, e0p, omp)
+
+
 @pytest.mark.parametrize("rng", [False, True])
 def test_tick_kernel_dense_coupling_table(cuda, rng):
     """A coupling table with full rows (12 entries a row) takes the
@@ -939,16 +962,20 @@ def test_fold_force_entry_with_per_member_mask_matches_twin(cuda):
 def test_frozen_tag_run_and_fold_on_the_card(cuda, variant, tmp_path):
     """A short job and a Poissonian fold of 3 at N0=600: the launch counts
     (A per MD step + 1 and D per block + 2; C and G likewise for the whole
-    fold; no tick kernel, no E or F), inert padded lanes through the
-    results' shapes, the tree, and a resume."""
+    fold; the tick kernel once per MD step that pumps, no E or F), inert
+    padded lanes through the results' shapes, the tree, and a resume."""
     from mdqtplasmasims_torch.experiments import frozen_tagging as ft
     cfg = ft.FrozenTagConfig(variant=variant, n0=600, tstart=0.02, tmax=0.1,
                              sample_freq=4, tpump_seconds=5e-8,
                              save_directory=str(tmp_path))
-    _, n_md, segs, _ = ft._phase_b_plan(cfg)
+    n_md_a, n_md, segs, _ = ft._phase_b_plan(cfg)
+    sched = ft.build_scheduler(cfg)
+    pumps = sum(np.subtract(*sched.window(k * cfg.ratio, torch.float32)) < 0
+                for k in range(n_md_a))
+    assert pumps > 0
     before = _counts()
     final, res = ft.run(cfg, device="cuda")
-    assert _moved(before) == {"A": n_md + 1, "D": len(segs) + 2}
+    assert _moved(before) == {"A": n_md + 1, "D": len(segs) + 2, "B": pumps}
     assert 0.0 < res["spin_up"].mean() < 1.0
     assert np.isfinite(res["outs"]["energies"]).all()
     e = res["outs"]["energies"]
@@ -960,7 +987,7 @@ def test_frozen_tag_run_and_fold_on_the_card(cuda, variant, tmp_path):
     fold_cfg = dataclasses.replace(cfg, exact_n=False, save_directory=None)
     before = _counts()
     results = ft.run_ensemble(fold_cfg, 3, seed=2, device="cuda")
-    assert _moved(before) == {"C": n_md + 1, "G": len(segs) + 2}
+    assert _moved(before) == {"C": n_md + 1, "G": len(segs) + 2, "B": pumps}
     assert len({r["n_ions"] for r in results}) > 1
     for r in results:
         assert r["final"].R.shape[0] == r["n_ions"]
@@ -978,18 +1005,21 @@ def test_frozen_tag_run_and_fold_on_the_card(cuda, variant, tmp_path):
 
 
 def test_three_state_on_the_card(cuda):
-    """The toy launches no kernel; its identity sweep member equals the
-    ensemble member bit for bit on the card too, float64 runs there, and
-    the tick does not depend on the TF32 switch."""
+    """The toy's ticks are the tick kernel's S=3 launches, one per segment
+    here; its identity sweep member equals the ensemble member bit for bit
+    on the card too, float64 is refused there, and the tick does not depend
+    on the TF32 switch."""
     from mdqtplasmasims_torch.experiments import three_state as ts
     cfg = ts.ThreeStateConfig(n0=500, tmax=4.0, sample_freq=200)
     before = _counts()
     res = ts.run(cfg, device="cuda")
+    assert _moved(before) == {"B": 2}
+    assert tf.fused_md_substeps.launches_s3 >= 2
     swept, _ = ts.run_sweep(cfg, [{"detuning": cfg.detuning, "om": cfg.om},
                                   {"detuning": -2.0, "om": 1.0}], seed=4,
                             device="cuda")
     ens = ts.run_ensemble(cfg, 1, seed=4, device="cuda")
-    assert _moved(before) == {}
+    assert _moved(before) == {"B": 6}
     assert np.isfinite(res["ekin_x"]).all() and res["ekin_x"].shape == (2,)
     np.testing.assert_array_equal(swept["ekin_x"][0], ens["ekin_x"][0])
     np.testing.assert_array_equal(swept["V"][0], ens["V"][0])
@@ -999,5 +1029,5 @@ def test_three_state_on_the_card(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     np.testing.assert_array_equal(again["V"], ens["V"])
-    f64 = ts.run(dataclasses.replace(cfg, dtype="float64"), device="cuda")
-    assert f64["V"].dtype == np.float64 and np.isfinite(f64["ekin_x"]).all()
+    with pytest.raises(NotImplementedError, match="float64"):
+        ts.run(dataclasses.replace(cfg, dtype="float64"), device="cuda")

@@ -3,6 +3,7 @@ Pallas kernel (interpret mode, explicit rolls) on the same numpy inputs,
 mirroring tests/test_fused.py (the CUDA kernel is held to the twin in
 tests/test_torch_cuda.py).
 
+The schemes are the four the kernel is built for (S = 12, 5, 3, 7).
 Tolerances are tests/test_fused.py:91-101's: R/V 2e-5, tp 2e-5, psi 5e-5
 (float32, reordered sums), pad rows and padded lanes exactly zero;
 float64 1e-10 against the JAX per-tick XLA path."""
@@ -17,7 +18,8 @@ import torch
 from mdqtplasmasims_tpu.core import md as jmd
 from mdqtplasmasims_tpu.core import qt as jqt
 from mdqtplasmasims_tpu.core import qt_fused as jf
-from mdqtplasmasims_tpu.levels import sr12_cooling, tag422, with_recoil
+from mdqtplasmasims_tpu.levels import (sr12_cooling, tag408, tag422,
+                                       three_state, with_recoil)
 from mdqtplasmasims_tpu.units import PlasmaUnits
 from mdqtplasmasims_torch.core import qt_fused as tf
 
@@ -49,8 +51,9 @@ def _planes(n, npad, S, SP, ratio, excited, seed, dtype=np.float32):
         return out
     psi = np.zeros((S, n), np.complex128)
     if excited:
-        # populated P manifold: jumps fire on most ticks (test_fused.py:61-65)
-        psi[2], psi[4], psi[0] = 0.7, 0.5j, 0.51
+        # populated P manifold: jumps fire on most ticks (test_fused.py:61-65;
+        # the three-state toy's excited states are 1 and 2)
+        psi[2], psi[4 if S > 4 else 1], psi[0] = 0.7, 0.5j, 0.51
     else:
         r1, r2 = rng.uniform(size=(2, n))
         psi[0] = np.sqrt(r1)
@@ -89,15 +92,18 @@ def _assert_close(jout, tout, S, n):
         assert np.abs(t[:, n:]).max() == 0.0
 
 
-@pytest.mark.parametrize("scheme_name", ["sr12", "tag422"])
+@pytest.mark.parametrize("scheme_name", ["sr12", "tag422", "three_state",
+                                         "tag408"])
 @pytest.mark.parametrize("excited_start", [False, True])
 def test_twin_matches_jax_kernel(scheme_name, excited_start):
+    """S = 12, 5, 3 (the toy's kicks and recoils on) and 7."""
     n, npad = 96, 128
     ratio = 20 if excited_start else 5
-    if scheme_name == "sr12":
-        scheme, force = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4), True
-    else:
-        scheme, force = tag422(), False
+    scheme, force = {
+        "sr12": (with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4), True),
+        "tag422": (tag422(), False),
+        "three_state": (three_state(-0.5, 0.5, 0.0012076), True),
+        "tag408": (tag408(-1.0, 2.0, linear=False), False)}[scheme_name]
     L = PlasmaUnits.box_length(n)
     jspec, tspec = _specs(scheme, ratio, L, apply_force=force)
     p, _ = _planes(n, npad, scheme.n_states, tspec.SP, ratio, excited_start,

@@ -197,7 +197,10 @@ def test_lane_inputs_are_validated():
     with pytest.raises(ValueError, match="scheme_sp"):
         tf.fused_md_substeps(dataclasses.replace(tspec, per_lane_om=True),
                              False, *args, om_lanes=torch.ones((2, E * NPAD)))
-    # the CUDA variants are built for sr12 (S=12) only
+    # the in-kernel RNG forms are built for sr12 (S=12) only; the per-lane
+    # forms for every state count of the kernel
     with pytest.raises(ValueError, match="S=12"):
         tf._kernel_params(dataclasses.replace(tspec, scheme=tag422(),
-                                              per_lane_e0=True))
+                                              internal_rng=True))
+    assert tf._kernel_params(dataclasses.replace(
+        tspec, scheme=tag422(), per_lane_e0=True)).per_lane_e0 == 1

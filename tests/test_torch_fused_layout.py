@@ -474,6 +474,28 @@ def test_lane_model_small_schemes_match_twin(name):
     _hold(spec, p, 120, True, 0, jumps=1)
 
 
+@pytest.mark.parametrize("variant", ["e0", "om", "e0_om"])
+@pytest.mark.parametrize("name", ["three_state", "tag408_linear", "tag422"])
+def test_lane_model_small_per_lane_forms_match_twin(name, variant):
+    """The per-lane forms at S = 3, 5, 7 as the three-state and tagging
+    sweeps launch them: each member's own e0 plane, and the scheme's own
+    coupling and Ehrenfest weights scaled by a lane's om (tf.rabi_scaled:
+    an empty DP pattern, om_dp = 0)."""
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    sch = SCHEMES[name]()
+    pe0, pom = "e0" in variant, "om" in variant
+    spec = _spec(sch, 10, apply_force=sch.has_force, per_lane_e0=pe0)
+    if pom:
+        spec = tf.rabi_scaled(spec)
+    E, npad = 2, 128
+    e0 = np.stack([sch.e0, 1.7 * sch.e0]).astype(f32)
+    om = np.asarray([(1.0, 0.0), (0.6, 0.0)], f32)
+    e0p, omp = (None if x is None else x.numpy() for x in fold_sweep_lanes(
+        spec, npad, e0 if pe0 else None, om if pom else None))
+    p = _planes(spec.S, spec.SP, E * npad, E * npad, 10, True, seed=15)
+    _hold(spec, p, E * npad, True, 0, e0p, omp, jumps=1)
+
+
 def test_lane_model_dense_table_matches_twin():
     """A table with full rows (K = S: the kernel's shared-memory path)."""
     rng = np.random.default_rng(3)

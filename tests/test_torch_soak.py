@@ -11,8 +11,9 @@
   already uses between two runs of the same physics (DIH peak time 0.5,
   its height 0.02, the cooling ratio 0.06 for single runs and 0.08 for
   ensembles, the S population 0.03, the 422 tag fraction 0.06 and the
-  408quad one 0.01).  Walls are never compared: the JAX archive's are a
-  TPU's.
+  408quad one 0.01), and the three-state toy's late Ekin_x at
+  :data:`THREE_STATE_EKIN_TOL`, set from its spread between seeds.
+  Walls are never compared: the JAX archive's are a TPU's.
 * ``test_family_soak_on_cpu`` runs each family's soak function on the CPU
   at a tiny size through the same code the card runs, and checks that its
   summary entry has every key ``TestFullScaleSoak`` reads.
@@ -56,11 +57,18 @@ class TestTorchSoak(_Bands):
 _SINGLE = {"dih_peak_t": 0.5, "dih_peak_ekin_x": 0.02, "cooling_ratio": 0.06,
            "pop_s": 0.03}
 _ENSEMBLE = dict(_SINGLE, cooling_ratio=0.08)
+# ekin_x_final of ThreeStateConfig(n0=1000), one run against another: 3
+# standard deviations of the difference of two independent runs, 3 *
+# sqrt(2) * 4.94e-6, the standard deviation between 8 seeds of the port
+# on the card (the archive's ``_three_state_seeds``, tools/torch_soak.py)
+THREE_STATE_SEED_SD = 4.94e-6
+THREE_STATE_EKIN_TOL = 3 * math.sqrt(2) * THREE_STATE_SEED_SD
 _TOLERANCES = {
     "cooling": _SINGLE, "cooling_renorm": _SINGLE, "cooling_n14000": _SINGLE,
     "cooling_poisson_ensemble": _ENSEMBLE, "cooling_mesh_ensemble": _ENSEMBLE,
     "frozen": {"tag_fraction": 0.06}, "mc_tag_422": {"tag_fraction": 0.06},
     "frozen_408quad": {"tag_fraction": 0.01}, "mc_tag": {"tag_fraction": 0.01},
+    "three_state": {"ekin_x_final": THREE_STATE_EKIN_TOL},
 }
 
 
@@ -87,6 +95,17 @@ def test_physics_matches_jax_archive(soak, family, key, tol):
         pytest.skip(f"{family} not in the port's archive")
     port, ref = soak[family][key], _jax_archive()[family][key]
     assert abs(port - ref) < tol, (family, key, port, ref)
+
+
+def test_three_state_tolerance_is_the_archived_seed_spread(soak):
+    """The stated spread is the archived fold of seeds' (to the 3
+    digits written), and that fold ran the soak's configuration."""
+    seeds = soak["_three_state_seeds"]
+    assert seeds["n_jobs"] >= 8
+    assert (seeds["n0"], seeds["tmax"]) == (soak["three_state"]["n0"],
+                                            soak["three_state"]["tmax"])
+    assert abs(seeds["ekin_x_final_sd"] - THREE_STATE_SEED_SD) < 5e-9
+    assert len(seeds["ekin_x_final"]) == seeds["n_jobs"]
 
 
 def test_archive_meta_names_the_card(soak):
@@ -150,7 +169,7 @@ _EMPTY_WINDOWS = {"ekin_x_late", "cooling_ratio", "gamma_dih"}
 
 def test_tiny_table_covers_every_family():
     assert set(TINY) == set(BAND_KEYS) == set(torch_soak.FAMILIES)
-    assert set(torch_soak.DEFAULT_FAMILIES) == set(TINY) - {"three_state"}
+    assert set(torch_soak.DEFAULT_FAMILIES) == set(TINY)
 
 
 @pytest.mark.filterwarnings("ignore::RuntimeWarning")
@@ -189,6 +208,33 @@ def test_tag_pool_on_cpu(tmp_path):
         assert len(p["member_fractions"]) == 2 and p["launches"] == {}, fam
         assert 0.0 <= p["pooled"] <= 1.0 and p["pooled_se"] >= 0.0, fam
         assert abs(np.mean(p["member_fractions"]) - p["pooled"]) < 1e-12
+
+
+def test_xval_408quad_on_cpu(tmp_path):
+    """The pooled 408quad fold and its z-scores (a tiny fold)."""
+    x = torch_soak.xval_408quad(str(tmp_path), device="cpu", n_jobs=2,
+                                **{k: v for k, v in TINY["mc_tag"].items()
+                                   if k != "tpump_seconds"})
+    assert x["n"] == 27 and len(x["member_fractions"]) == 2
+    assert abs(np.mean(x["member_fractions"]) - x["pooled"]) < 1e-12
+    assert set(x["z"]) == set(torch_soak.XVAL_POOLS)
+    for k, p in torch_soak.XVAL_POOLS.items():
+        se = np.sqrt(x["pooled_se"] ** 2 + p * (1 - p) / (8 * 216))
+        assert abs(x["z"][k] - (x["pooled"] - p) / se) < 1e-9
+
+
+def test_three_state_seeds_on_cpu(tmp_path):
+    """The three-state fold of seeds: per-member metrics, their mean and
+    spread (a tiny fold)."""
+    x = torch_soak.three_state_seeds(str(tmp_path), device="cpu", n_jobs=3,
+                                     **TINY["three_state"])
+    assert x["n_jobs"] == 3 and x["launches"] == {}
+    for key in ("ekin_x_final", "cooling_factor"):
+        v = np.asarray(x[key])
+        assert v.shape == (3,) and np.isfinite(v).all(), key
+        assert abs(v.mean() - x[key + "_mean"]) < 1e-15, key
+        assert abs(v.std(ddof=1) - x[key + "_sd"]) < 1e-15, key
+    assert len(set(x["ekin_x_final"])) == 3     # the members differ
 
 
 def test_traces_on_cpu():

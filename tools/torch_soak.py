@@ -25,8 +25,7 @@ N0 = 14000 cooling runs that ``TestFullScaleSoak`` reads:
 - ``transport``: ``MCTransportConfig(n=4096)`` (200k MC steps, the full
   staged pipeline);
 - ``three_state``: ``ThreeStateConfig(n0=1000)`` (tmax = 45000, 4.5 M
-  ticks of the plain engine); not among the defaults: hours on the card
-  until its ticks go through the tick kernel.
+  ticks through the tick kernel's S = 3 form, one launch per 1000 ticks).
 
 Each family is written into the summary as soon as it finishes, so a run
 cut short loses only the family it was running; ``_meta`` holds the
@@ -38,13 +37,17 @@ kernels' ``launches`` during the run.  The trees go to ``--out-dir``
 (default ``$TMPDIR/soak_torch``), never into the repository.
 
 The kernel libraries and the codec are built before the first family is
-timed.  Three diagnostics run when named: ``chain_trace`` traces 300
+timed.  Five diagnostics run when named: ``chain_trace`` traces 300
 Metropolis steps at the transport configuration with
 ``profiling.device_trace`` (the card's busy share, the top device
 operations), ``md_trace_n14000`` 200 MD steps of the N0 = 14000 cooling
-configuration, and ``tag_pool`` runs each tagging family as a fold of 8
-jobs (per-member and pooled tag fractions); each is stored as
-``_<name>``.
+configuration, ``tag_pool`` runs each tagging family as a fold of 8
+jobs (per-member and pooled tag fractions), and ``xval_408quad`` pools a
+fold of 64 408quad jobs at ``tools/cross_validate_mc_tag.py``'s
+configuration with its z-scores against the archived reference and JAX
+pools, and ``three_state_seeds`` runs the ``three_state`` configuration
+as a fold of 8 seeds (the spread of its final Ekin_x and cooling factor);
+each is stored as ``_<name>``.
 
 Every family function takes ``device`` and keyword overrides of its
 configuration, so the tests run the same code at a tiny size on the CPU;
@@ -369,7 +372,7 @@ FAMILIES = {
     "transport": soak_transport,
     "three_state": soak_three_state,
 }
-DEFAULT_FAMILIES = tuple(k for k in FAMILIES if k != "three_state")
+DEFAULT_FAMILIES = tuple(FAMILIES)
 
 
 def tag_pool(out_dir, device="cuda", n_jobs=8, frozen_over=None,
@@ -402,6 +405,68 @@ def tag_pool(out_dir, device="cuda", n_jobs=8, frozen_over=None,
                             pooled * (1 - pooled) / (n * n_jobs))),
                         member_sd=float(fr.std(ddof=1)), wall_s=wall,
                         launches=launches)
+    return out
+
+
+# tools/cross_validate_mc_tag.py's configuration (the compiled reference
+# shrunk to N = 216; the 408quad pump's defaults: tpump = 1e-7 s, det = 0,
+# Om = 2) and the pooled tag fractions of 8 jobs archived there
+XVAL_408QUAD = dict(variant="408quad", n=216, mc_steps=20000,
+                    pre_record_md_steps=100, record_steps=300)
+XVAL_POOLS = {
+    "reference (RESULTS.md:415)": 0.0394,
+    "reference (artifacts/validate_all/logs/mc_tag_408quad.log)": 0.0422,
+    "JAX package (RESULTS.md:415)": 0.0405,
+    "JAX package (artifacts/validate_all/logs/mc_tag_408quad.log)": 0.0370,
+}
+XVAL_POOL_IONS = 8 * 216
+
+
+def xval_408quad(out_dir, device="cuda", n_jobs=64, **over) -> dict:
+    """The port's pooled 408quad tag fraction at
+    :data:`XVAL_408QUAD` as one fold of ``n_jobs`` members (seed 1, no
+    trees), and its z-score against each pool of :data:`XVAL_POOLS`: the
+    difference over the root sum of both binomial standard errors (8 jobs
+    of 216 ions a pool)."""
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    cfg = mt.MCTagConfig(**dict(XVAL_408QUAD, **over))
+    tags, wall, launches = _timed(device, lambda: [
+        r["tags"] for r in mt.run_ensemble(cfg, n_jobs, seed=1,
+                                           device=device)])
+    flat = np.concatenate([np.asarray(t, bool).ravel() for t in tags])
+    pooled = float(flat.mean())
+    se = float(np.sqrt(pooled * (1 - pooled) / flat.size))
+    z = {k: (pooled - p) / float(np.sqrt(se ** 2 + p * (1 - p)
+                                          / XVAL_POOL_IONS))
+         for k, p in XVAL_POOLS.items()}
+    return dict(n=cfg.n, n_jobs=n_jobs, mc_steps=cfg.mc_steps,
+                pooled=pooled, pooled_se=se, z=z,
+                member_fractions=[float(np.asarray(t, bool).mean())
+                                  for t in tags],
+                wall_s=wall, launches=launches)
+
+
+def three_state_seeds(out_dir, device="cuda", n_jobs=8, **over) -> dict:
+    """The ``three_state`` soak's configuration as one fold of ``n_jobs``
+    independent members (seed 1, no trees): each member's
+    :func:`three_state_metrics`, and the spread of ``ekin_x_final`` and
+    of the cooling factor between seeds, against which one run's values
+    (the JAX package's archive, the port's) are compared."""
+    from mdqtplasmasims_torch.experiments.three_state import (
+        ThreeStateConfig, doppler_limit_ekin, run_ensemble)
+    cfg = ThreeStateConfig(**dict(dict(n0=1000), **over))
+    res, wall, launches = _timed(device, lambda: run_ensemble(
+        cfg, n_jobs, seed=1, device=device))
+    doppler = doppler_limit_ekin(cfg.detuning, cfg.om)
+    members = [three_state_metrics(ek, doppler)
+               for ek in np.asarray(res["ekin_x"])]
+    out = dict(n0=cfg.n0, tmax=cfg.tmax, n_jobs=n_jobs, wall_s=wall,
+               launches=launches)
+    for key in ("ekin_x_final", "cooling_factor"):
+        x = np.asarray([m[key] for m in members])
+        out[key] = x.tolist()
+        out[key + "_mean"] = float(x.mean())
+        out[key + "_sd"] = float(x.std(ddof=1))
     return out
 
 
@@ -528,6 +593,8 @@ EXTRAS = {
     "chain_trace": lambda out_dir: trace_chain(300),
     "md_trace_n14000": lambda out_dir: trace_md(200),
     "tag_pool": tag_pool,
+    "xval_408quad": xval_408quad,
+    "three_state_seeds": three_state_seeds,
 }
 
 
@@ -535,7 +602,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("names", nargs="*", metavar="family",
                    help=f"families among {', '.join(FAMILIES)} (default: "
-                   f"all but three_state) or diagnostics among "
+                   f"all of them) or diagnostics among "
                    f"{', '.join(EXTRAS)}")
     p.add_argument("--out-dir", default=os.path.join(tempfile.gettempdir(),
                                                      "soak_torch"),
