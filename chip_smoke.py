@@ -22,7 +22,12 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      every S = 3, 5, 7 form, plain and per-lane (e0, om, e0+om), at the
      shapes the three-state run and sweep, the frozen-tag pump and the
      MC-tag pump launch them (free ions: F = 0, a dummy R; a pump form
-     leaves V bit for bit), each through the same shapes, timed;
+     leaves V bit for bit; a sweep form's members at the base equal the
+     plain form bit for bit), each through the same shapes, timed, the
+     S = 3 forms (one thread an ion) also on 32 ions in cycles a tick;
+     then (:func:`check_ion_sass`) the S = 3 forms' machine code: no
+     shuffle or vote, no register load of a roll in the tick loop, the
+     rolls fetched ticks ahead;
   5. the in-kernel RNG form of the tick kernel against its twin (which
      draws the same Threefry stream in plain torch) at Np=3584, ratio 25,
      from the ground and the excited start and late in a flagship run's
@@ -203,6 +208,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -434,16 +440,21 @@ def excite(torch, carry, on, g):
 def kernel_resources() -> dict:
     """Registers, stack, spill bytes of every instantiation of the tick
     kernel, from the nvcc log (``-Xptxas -v``) of the library in use:
-    ``(S, per_lane_e0, per_lane_om, internal_rng, long_rows) -> dict``."""
-    import re
+    ``(S, per_lane_e0, per_lane_om, internal_rng, long_rows) -> dict``
+    (the S = 3 kernel, one thread an ion, has neither RNG nor long rows)."""
     from mdqtplasmasims_torch import _build
     entry = re.compile(r"fused_ticks_kernelILi(\d+)ELi\d+ELb([01])ELb([01])"
                        r"ELb([01])ELb([01])EE")
+    ion = re.compile(r"fused_ticks_ion_kernelILi(\d+)ELb([01])ELb([01])EE")
     out, key = {}, None
     for line in _build.build_log("fused_ticks").splitlines():
-        m = entry.search(line)
+        m, mi = entry.search(line), ion.search(line)
         if m and "Compiling entry" in line:
             key = (int(m.group(1)), *(g == "1" for g in m.groups()[1:]))
+            out[key] = {}
+        elif mi and "Compiling entry" in line:
+            key = (int(mi.group(1)), mi.group(2) == "1", mi.group(3) == "1",
+                   False, False)
             out[key] = {}
         elif key is not None and "spill stores" in line:
             out[key].update(zip(("stack", "spill_stores", "spill_loads"),
@@ -913,9 +924,12 @@ def check_small_tick_kernels(torch):
     """Phase 4b: every S = 3, 5, 7 form of the tick kernel against its twin
     at the shapes its family's main path launches it (:func:`small_tick_
     forms`), from a start with the excited states populated; a pump form
-    (no force) leaves V bit for bit; then :func:`check_tick_shapes` (a
-    mesh shard, 1 and 24 ticks, an E=8 fold; each bitwise run to run and
-    equal to its two-part launch); timed with its plain version."""
+    (no force) leaves V bit for bit; a per-lane form with its members at
+    the base equals the plain form (:func:`check_base_members`); then
+    :func:`check_tick_shapes` (a mesh shard, 1 and 24 ticks, an E=8 fold;
+    each bitwise run to run and equal to its two-part launch); timed with
+    its plain version; the S = 3 forms also on 32 ions
+    (:func:`chain_probe`)."""
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
     dev = torch.device("cuda")
@@ -942,6 +956,8 @@ def check_small_tick_kernels(torch):
             f"apply_force {spec.apply_force})")
         if not spec.apply_force and not torch.equal(res[1], V):
             raise SystemExit(f"{what}: the pump form changed V")
+        if spec.per_lane_e0 or spec.per_lane_om:
+            check_base_members(torch, spec, E, npad, args, tables, what)
         worst = max(worst, check_tick_shapes(
             torch, spec, tables, g, what, folds=(1, 8) if E == 1 else (8,),
             sweep=(e0, om), free=True))
@@ -954,8 +970,162 @@ def check_small_tick_kernels(torch):
             f"per {spec.ratio}-tick launch over {lanes} lanes (median of "
             f"{N_TIMED}/{reps}); {resources(spec)}")
         out[name] = dict(max_abs_err=worst, ms=ms, idle_card_ms=idle,
-                         plain_ms=plain, **tick_bound(spec, E * n, lanes))
+                         plain_ms=plain, ticks=spec.ratio,
+                         **tick_bound(spec, E * n, lanes))
+        if spec.S == 3:
+            out[name].update(chain_probe(torch, spec, g, e0, om, ms, what))
     return out
+
+
+def check_base_members(torch, spec, E, npad, args, tables, what):
+    """A per-lane form whose ``E`` members all sit at the base (the
+    scheme's own e0; om scale 1.0 with an empty DP pattern) computes what
+    the plain form computes on the same lanes, bit for bit."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    dev = torch.device("cuda")
+    plain = dataclasses.replace(spec, per_lane_e0=False, per_lane_om=False,
+                                scheme_sp=None, scheme_dp=None)
+    e0p, omp = fold_sweep_lanes(
+        spec, npad, [spec.scheme.e0] * E if spec.per_lane_e0 else None,
+        [(1.0, 0.0)] * E if spec.per_lane_om else None, dev)
+    base = tf.fused_md_substeps(spec, False, *args, tables=tables,
+                                e0_lanes=e0p, om_lanes=omp)
+    ref = tf.fused_md_substeps(plain, False, *args,
+                               tables=tf.fused_tables(plain, dev))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(base, ref))
+    log(f"{what}: {E} members at the base against the plain form: bitwise "
+        f"equal {same}")
+    if not same:
+        raise SystemExit(f"{what}: a member at the base differs from the "
+                         "plain form")
+
+
+def busy_sm_clock(torch, fn, calls: int = 1000):
+    """The SM clock and its maximum (MHz) as nvidia-smi reads them while
+    ``calls`` launches of ``fn`` keep the card busy."""
+    for _ in range(calls):
+        fn()
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    return tuple(float(x) for x in line.split(","))
+
+
+def chain_probe(torch, spec, g, e0, om, ms, what):
+    """The S = 3 kernel on 32 ions (one warp, in 128 lanes; the first
+    sweep member's tables) beside its main-path launch of ``ms``: equal
+    times say that one warp's tick after tick sets the launch, not the
+    card's width.  Both in cycles a tick at the SM clock nvidia-smi reads
+    while the kernel runs."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    dev = torch.device("cuda")
+    npad, n = 128, 32
+    on, (_, V, _, tp, pre, pim) = excited_planes(
+        torch, g, spec.SP, 1, npad, n, excited_rows(spec))
+    zeros = torch.zeros((3, npad), device=dev)
+    e0p, omp = fold_sweep_lanes(spec, npad, None if e0 is None else e0[:1],
+                                None if om is None else om[:1], dev)
+    rolls = torch.rand((spec.ratio * 5, npad), generator=g, device=dev)
+    tables = tf.fused_tables(spec, dev)
+    args = (zeros, V * 2.0, zeros, tp, pre, pim, rolls)
+    kw = dict(tables=tables, e0_lanes=e0p, om_lanes=omp)
+    res = tf.fused_md_substeps(spec, False, *args, **kw)
+    ref = tf.fused_md_substeps_reference(spec, False, *args, tables,
+                                         e0_lanes=e0p, om_lanes=omp)
+    torch.cuda.synchronize()
+    err = compare_ticks(torch, spec, res, ref, on,
+                        allowed_lanes(1, spec.ratio), f"{what} on {n} ions")
+    ms32 = cuda_ms(torch, lambda: tf.fused_md_substeps(spec, False, *args,
+                                                       **kw))
+    mhz, max_mhz = busy_sm_clock(torch, lambda: tf.fused_md_substeps(
+        spec, False, *args, **kw))
+    cycles = lambda t: t * 1e-3 * mhz * 1e6 / spec.ratio
+    log(f"{what}: {n} ions in {npad} lanes {ms32:.4f} ms against {ms:.4f} "
+        f"ms on the main path's lanes; SM clock {mhz:g} MHz busy (max "
+        f"{max_mhz:g}): {cycles(ms):.1f} / {cycles(ms32):.1f} cycles a tick")
+    return dict(ms_32_ions=ms32, sm_clock_mhz=mhz, cycles_per_tick=cycles(ms),
+                cycles_per_tick_32_ions=cycles(ms32), max_abs_err_32_ions=err)
+
+
+def ion_sass_faults(sass: str) -> dict:
+    """``{function: [fault, ...]}`` for each S = 3 form
+    (``fused_ticks_ion_kernel``) in a ``cuobjdump -sass`` dump: a shuffle
+    or vote anywhere in it; in a tick loop (a backward branch whose body
+    issues ``cp.async``, LDGSTS) a register load from device memory (LDG)
+    outside a loop nested in it without copies (sincosf's table walk), or
+    a wait that leaves no copy group in flight (``DEPBAR.LE`` below 1, or
+    none); no tick loop at all."""
+    fns, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "fused_ticks_ion_kernel" in m.group(1) \
+                else None
+            if name:
+                fns[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?P\w+\s+)?(.*?)\s*;",
+                     line)
+        if m and name:
+            fns[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, ins in fns.items():
+        ops = [t.split()[0] for _, t in ins]
+        at = {a: k for k, (a, _) in enumerate(ins)}
+        loops = []                                  # (first, last) indices
+        for k, (a, t) in enumerate(ins):
+            m = re.match(r"BRA\s+(0x[0-9a-f]+)", t)
+            if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+                loops.append((at[int(m.group(1), 16)], k))
+        copies = lambda lo, hi: any(o.startswith("LDGSTS")
+                                    for o in ops[lo:hi + 1])
+        ticks = [x for x in loops if copies(*x)]
+        inner = [x for x in loops if not copies(*x)]
+        faults = [f"{o} at {ins[k][0]:#x}" for k, o in enumerate(ops)
+                  if o.split(".")[0] in ("SHFL", "VOTE")]
+        if not ticks:
+            faults.append("no tick loop with cp.async")
+        for lo, hi in ticks:
+            faults += [f"LDG in the tick loop at {ins[k][0]:#x}"
+                       for k in range(lo, hi + 1)
+                       if ops[k].split(".")[0] == "LDG"
+                       and not any(a <= k <= b for a, b in inner)]
+            waits = [int(m.group(1), 16) for _, t in ins[lo:hi + 1]
+                     for m in [re.match(r"DEPBAR\.LE SB\d, (0x[0-9a-f]+)",
+                                        t)] if m]
+            if not waits or min(waits) < 1:
+                faults.append(f"tick loop at {ins[lo][0]:#x}: waits "
+                              f"{waits} leave no roll in flight")
+        out[name] = faults
+    return out
+
+
+def check_ion_sass() -> None:
+    """Phase 4c: the S = 3 kernel's machine code in this run's library
+    (``cuobjdump -sass``) through :func:`ion_sass_faults`; fails unless
+    all four forms are there and none has a fault.  The chain's and the
+    issue's floors are ``tools/tick_kernel_sass.py``'s, recorded in
+    PERF.md."""
+    from mdqtplasmasims_torch import _build
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass",
+                           _build.library_path("fused_ticks")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    faults = ion_sass_faults(sass)
+    for name, f in sorted(faults.items()):
+        log(f"[ticks-sass] {name[:40]}...: "
+            + ("no shuffle/vote, no LDG in the tick loop, rolls in flight"
+               if not f else "; ".join(f)))
+    if len(faults) != 4 or any(faults.values()):
+        raise SystemExit(f"phase 4c: {len(faults)} S = 3 forms in the "
+                         "library, or a shuffle, a vote or an unprefetched "
+                         "roll on a tick loop")
 
 
 class PlainTicks:
@@ -2953,6 +3123,12 @@ def np_isfinite(a) -> bool:
     return bool(np.isfinite(np.asarray(a)).all())
 
 
+# instantiations of the tick kernel: S = 5, 7, 12 in four per-lane forms,
+# each with short and long rows (32, the RNG forms at S = 12 among them),
+# and the S = 3 kernel's four forms
+TICK_FORMS = 36
+
+
 def build_kernels(torch):
     """Both kernel libraries, one nvcc each, started together."""
     from mdqtplasmasims_torch import _build
@@ -2979,9 +3155,9 @@ def build_kernels(torch):
             f"stack")
     spilled = {k: v for k, v in forms.items()
                if v["spill_stores"] or v["spill_loads"]}
-    if len(forms) != 40 or spilled:
+    if len(forms) != TICK_FORMS or spilled:
         raise SystemExit(f"the tick kernel's nvcc log lists {len(forms)} of "
-                         f"40 forms; forms that spill: {spilled}")
+                         f"{TICK_FORMS} forms; forms that spill: {spilled}")
 
 
 def main() -> int:
@@ -3015,6 +3191,7 @@ def main() -> int:
     force = check_force_kernel(torch, L, pu.debye_length)
     ticks = check_tick_kernel(torch, cfg, L, pu.debye_length)
     small = check_small_tick_kernels(torch)
+    check_ion_sass()
     rng = check_rng_tick_kernels(torch, cfg, L, pu.debye_length)
     pot_d, pot_g = check_potential_kernels(torch, L, pu.debye_length)
     counts = main_path(torch, smi)

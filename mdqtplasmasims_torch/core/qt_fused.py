@@ -29,12 +29,14 @@ plane; its tables gain a fifth ``[SP, SP]`` block (the DP pattern).
 
 :func:`fused_md_substeps` launches ``csrc/fused_ticks.cu`` for CUDA
 tensors and runs :func:`fused_md_substeps_reference`, the plain torch
-twin, for CPU tensors.  The kernel gives each state of an ion to one lane
-of a warp and reads H row by row: the host turns the packed coupling
-block, the beat-note terms and the Ehrenfest terms into one sparse row
-per state (:func:`coupling_rows`, the lane table of :func:`_kernel_plan`),
-once per spec, and :func:`launch_geometry` says how the lanes are laid
-out.
+twin, for CPU tensors.  At S = 5, 7 and 12 the kernel gives each state of
+an ion to one lane of a warp and reads H row by row: the host turns the
+packed coupling block, the beat-note terms and the Ehrenfest terms into
+one sparse row per state (:func:`coupling_rows`, the lane table of
+:func:`_kernel_plan`), once per spec.  At S = 3 one thread holds a whole
+ion and takes the scheme's tables by value (:func:`ion_table`, dense
+3 x 3 blocks made from the same lane table).  :func:`launch_geometry`
+says how the lanes are laid out.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ _RNG_S = 12                    # the in-kernel RNG forms are built for sr12 only
 _THREADS = 128                 # threads of a block of the kernel
 _KREG = 3                      # row entries a lane of the kernel keeps in
 #                                registers; longer rows stay in shared memory
+_ION_S = 3                     # the state count whose kernel gives each ion
+_ION_THREADS = 32              # one thread, in blocks of one warp
+_ROLL_STAGES = 4               # ticks of rolls the S = 3 kernel has in flight
 
 
 def _round_up(x: int, m: int) -> int:
@@ -466,7 +471,7 @@ def lane_table_width(K: int) -> int:
 
 
 class LaunchGeometry(NamedTuple):
-    lanes_per_ion: int       # lanes of a warp that own one ion
+    lanes_per_ion: int       # lanes of a warp that own one ion (1: a thread)
     threads: int             # per block
     blocks: int
     shared_bytes: int        # dynamic shared memory per block
@@ -474,11 +479,17 @@ class LaunchGeometry(NamedTuple):
 
 def launch_geometry(npad: int, S: int, K: int) -> LaunchGeometry:
     """How csrc/fused_ticks.cu is launched over ``npad`` lanes of an
-    ``S``-state scheme whose longest coupling row has ``K`` entries: a
-    group of 4, 8 or 16 lanes per ion (one state a lane), 128 threads a
-    block, and shared memory for the two ``[SP, SP]`` destination tables
-    plus, for rows too long for a lane's registers, the lane table."""
-    G = 4 if S <= 4 else 8 if S <= 8 else 16
+    ``S``-state scheme whose longest coupling row has ``K`` entries.  At
+    S = 3 one thread an ion in blocks of 32 threads (1000 ions: one warp on
+    each of 32 SMs) and shared memory for a ring of four ticks' rolls.
+    Otherwise a group of 8 or 16 lanes per ion (one state a lane), 128
+    threads a block, and shared memory for the two ``[SP, SP]``
+    destination tables plus, for rows too long for a lane's registers,
+    the lane table."""
+    if S == _ION_S:
+        return LaunchGeometry(1, _ION_THREADS, npad // _ION_THREADS,
+                              4 * _ROLL_STAGES * 5 * _ION_THREADS)
+    G = 8 if S <= 8 else 16
     SP = _round_up(S, 8)
     rows = SP * lane_table_width(K) if K > _KREG else 0
     return LaunchGeometry(G, _THREADS, npad // (_THREADS // G),
@@ -490,6 +501,77 @@ class KernelPlan(NamedTuple):
     params: _Params
     K: int                   # entries of the longest coupling row
     lane_table: np.ndarray   # [SP, lane_table_width(K)] float32
+    ion_table: np.ndarray    # [ion_table_width(S)] float32 at S = 3, else None
+
+
+#: fields of the S = 3 kernel's by-value tables (``IonTables`` in
+#: csrc/fused_ticks.cu), in order, with their shapes: per state the decay
+#: weight, e0, e1 and jump mask; ``[row, column]`` the static coupling (the
+#: lane table's c_sp and c_dp planes), the beat-note m and m times its
+#: phase sign; per state pair (s < c) in the order (0, 1), (0, 2), (1, 2)
+#: the weight W of an Ehrenfest term W Im(psi_s conj(psi_c)) and its group;
+#: ``[src, dest]`` the cumulative destination tables of the S and D branch
+ION_FIELDS = (("w", "S"), ("e0", "S"), ("e1", "S"), ("msk", "S"),
+              ("c_sp", "SS"), ("c_dp", "SS"), ("tdep_m", "SS"),
+              ("tdep_m_signed", "SS"), ("pair_w", "P"), ("pair_g", "P"),
+              ("cum_s", "SS"), ("cum_d", "SS"))
+
+
+def _ion_field_shape(code: str, S: int) -> tuple:
+    return {"S": (S,), "SS": (S, S), "P": (S * (S - 1) // 2,)}[code]
+
+
+def ion_table_width(S: int) -> int:
+    """Floats of the S = 3 kernel's tables (:data:`ION_FIELDS`)."""
+    return sum(int(np.prod(_ion_field_shape(c, S))) for _, c in ION_FIELDS)
+
+
+def ion_fields(table: np.ndarray, S: int) -> dict:
+    """:data:`ION_FIELDS` of a flat ion table, by name."""
+    out, at = {}, 0
+    for name, code in ION_FIELDS:
+        shape = _ion_field_shape(code, S)
+        size = int(np.prod(shape))
+        out[name] = table[at:at + size].reshape(shape)
+        at += size
+    return out
+
+
+def ion_table(spec: FusedTickSpec, lane_table: np.ndarray,
+              K: int) -> np.ndarray:
+    """The S = 3 kernel's tables (:data:`ION_FIELDS`, float32) of ``spec``:
+    the packed vectors and destination tables, and the lane table's rows
+    scattered into dense ``[S, S]`` blocks by their columns (padding
+    entries hold zeros).  A pair's Ehrenfest weight is its entry on (s, c)
+    minus its entry on (c, s), the two of one group
+    (:func:`_kernel_plan` refuses two groups on one pair)."""
+    S, SP = spec.S, spec.SP
+    vecs, mats = pack_tables(spec)
+    rows = lane_table.reshape(SP, len(ROW_PLANES), K)
+    dense = np.zeros((len(ROW_PLANES) - 1, S, S), np.float32)
+    for s in range(S):
+        for k in range(K):
+            c = int(rows[s, 0, k])
+            if c >= S:
+                raise ValueError(f"row {s} of the lane table reaches column "
+                                 f"{c} of an {S}-state scheme")
+            dense[:, s, c] += rows[s, 1:, k]
+    fw, fg = dense[4], dense[5]
+    pairs = [(s, c) for s in range(S) for c in range(s + 1, S)]
+    pair_w = np.array([fw[s, c] - fw[c, s] for s, c in pairs], np.float32)
+    pair_g = np.array([max(fg[s, c], fg[c, s]) for s, c in pairs],
+                      np.float32)
+    fields = dict(w=vecs[:S, 0], e0=vecs[:S, 1], e1=vecs[:S, 2],
+                  msk=vecs[:S, 3], c_sp=dense[0], c_dp=dense[1],
+                  tdep_m=dense[2], tdep_m_signed=dense[3], pair_w=pair_w,
+                  pair_g=pair_g,
+                  # mats blocks 1 and 2 are [dest, src]
+                  cum_s=mats[SP:SP + S, :S].T, cum_d=mats[2 * SP:2 * SP + S,
+                                                          :S].T)
+    table = np.concatenate([np.asarray(fields[name], np.float32).ravel()
+                            for name, _ in ION_FIELDS])
+    assert table.shape == (ion_table_width(S),)
+    return np.ascontiguousarray(table)
 
 
 @functools.lru_cache(maxsize=64)
@@ -537,7 +619,9 @@ def _kernel_plan(spec: FusedTickSpec) -> KernelPlan:
                              f"the states ({a}, {b})")
         tab[at][5] += w
         tab[at][6] = g
-    return KernelPlan(params, K, tab.reshape(SP, -1))
+    tab = tab.reshape(SP, -1)
+    return KernelPlan(params, K, tab,
+                      ion_table(spec, tab, K) if spec.S == _ION_S else None)
 
 
 @functools.lru_cache(maxsize=64)
@@ -556,7 +640,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ticks")
     v, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
-    lib.fused_ticks_launch.argtypes = ([v] * 14 + [i] + [v] * 5
+    lib.fused_ticks_launch.argtypes = ([v] * 14 + [i] + [v] * 6
                                        + [i, f, f, u, u, i, i, v])
     lib.fused_ticks_launch.restype = ctypes.c_int
     return lib
@@ -591,8 +675,10 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     ``_per_lane_om`` or ``_per_lane_e0_om`` for a per-lane variant
     (:data:`LAUNCH_COUNTERS`, :func:`launch_counter`).  The kernel's five
     outputs are row blocks of one allocation.  The spec's coupling check,
-    parameter block and lane table are made once per spec (and card).  CPU
-    tensors run :func:`fused_md_substeps_reference`."""
+    parameter block and lane table are made once per spec (and card).  At
+    S = 3 the kernel takes the scheme's tables by value from the spec's
+    plan (:func:`ion_table`, packed as :func:`fused_tables` packs
+    ``tables``).  CPU tensors run :func:`fused_md_substeps_reference`."""
     _checked(spec)
     SP = spec.SP
     npad = R.shape[-1]
@@ -663,7 +749,8 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
             ctypes.addressof(plan.params),
             *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im)),
             *ptrs, *(x.data_ptr() for x in tabs), lane_table.data_ptr(),
-            plan.K, *(x.data_ptr() for x in outs),
+            plan.K, None if plan.ion_table is None
+            else plan.ion_table.ctypes.data, *(x.data_ptr() for x in outs),
             npad, 1.0 if first else 0.0, float(tick0), int(tick0),
             int(lane0), geo.blocks, geo.shared_bytes,
             _build.raw_stream(R.device))

@@ -26,8 +26,13 @@
 // spills.  So the time is set by how many warps each scheduler can switch
 // between and by how many instructions a tick takes.
 //
-// Design: G lanes of a warp own one ion and lane s of the group owns state
-// s (G = 16 at S = 12: two ions a warp; 8 at S = 5 and 7; 4 at S = 3;
+// Two designs.  At S = 3 (the three-state toy: 1000 ions, 1000 dependent
+// ticks a launch) one thread holds a whole ion, its sums are in-thread adds
+// and the shared tables sit in the constant bank; one warp's in-order
+// instruction stream bounds it, not the card's rates
+// (fused_ticks_ion_kernel below).
+// At S = 5, 7 and 12 G lanes of a warp own one ion and lane s of the group
+// owns state s (G = 16 at S = 12: two ions a warp; 8 at S = 5 and 7;
 // lanes s >= S idle on zeros).  3584 ions are 1792 warps, 3.4 on each of
 // the card's 528 schedulers.  A lane keeps its own amplitude, slope,
 // stage and accumulator: a dozen floats where a thread kept seven arrays
@@ -125,6 +130,7 @@
 // the build log beside the library (chip_smoke.py prints them).
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #define THREADS 128
 #define MAX_TDEP 4
@@ -478,8 +484,371 @@ fused_ticks_kernel(const TickConsts p, const float* __restrict__ R,
   }
 }
 
+// ---- S = 3: one thread an ion ----
+//
+// The three-state toy's launch is the opposite shape of the cooling one:
+// 1000 ions (32 warps) and 1000 dependent ticks, so the time is one warp's
+// tick after tick, and a group's shuffles, butterflies and votes (some
+// 1,100-1,250 cycles a tick at G = 4 on the H100) were most of it.  Three
+// complex amplitudes are six floats, so a thread holds its whole ion:
+//   * every sum over states (dp of each slope, the Ehrenfest sum, the
+//     collapse's cumulative sum, the norm) is an in-thread add in state
+//     order, and an ion's result depends on neither its block nor how a
+//     fold is cut into launches;
+//   * H phi is a dense 3 x 3 product in column order, zeros included
+//     (0 * x added to a sum leaves it; the sparse rows' value);
+//   * the tables the ions share (the coupling, beat-note and Ehrenfest
+//     weights, w, e0, e1, the jump mask and both destination tables) are
+//     kernel parameters (IonTables): an FFMA reads them from the constant
+//     bank.  The per-lane e0 and om are loaded once before the tick loop;
+//     the om forms merge om * c_sp + om_dp * c_dp once, as above, so a
+//     member at scale 1 computes what the plain form computes;
+//   * the rolls of tick i + 3 start on their way (cp.async, coalesced rows
+//     of the [T*5, npad] plane) while tick i runs, into a ring of four
+//     ticks in shared memory that each thread fills and reads for itself:
+//     a load from device memory outlasts a tick, and a register copy of a
+//     value still on its way would wait for it;
+//   * the collapse runs under the ion's own `jumped` (no vote): a few
+//     percent of the ticks;
+//   * 32 threads a block, so 1000 ions are 32 blocks on 32 SMs, one warp
+//     a scheduler, and an E = 8 fold of 1024 lanes 256 blocks.
+// What bounds it: one warp's stream, tick after tick.  A tick issues some
+// 410-420 instructions (at most one a cycle), and its loop-carried chain
+// (four slopes, each a sum of squares, a clip and a reciprocal square root
+// ahead of the next stage: 53 dependent instructions) takes some 277
+// cycles; in order, the warp stalls on the chain between the independent
+// work, ~655 cycles a tick on an H100 (tools/tick_kernel_sass.py reads
+// both floors from the machine code; 32 ions take as long as 1000).
+#define ION_THREADS 32
+#define ION_S 3                  // state count of the one-thread-an-ion kernel
+#define ROLL_STAGES 4            // ticks of rolls in flight (a shared ring)
+#define ION_SMEM (ROLL_STAGES * 5 * ION_THREADS * (int)sizeof(float))
+
+// The tables every ion shares, in the flat float32 order qt_fused.py's
+// ion_table writes (ION_FIELDS there): per state w, e0, e1, jump mask;
+// [row][column] static coupling (c_sp | c_dp, as the lane table's planes),
+// beat-note m and m times its phase sign; per state pair (0,1), (0,2),
+// (1,2) the Ehrenfest weight W of Im(psi_s conj(psi_c)) and its group;
+// [src][dest] cumulative destination tables of the S and D branches
+template <int S>
+struct IonTables {
+  float w[S], e0[S], e1[S], msk[S];
+  float c_sp[S][S], c_dp[S][S], tm[S][S], tms[S][S];
+  float pair_w[S * (S - 1) / 2], pair_g[S * (S - 1) / 2];
+  float cum_s[S][S], cum_d[S][S];
+};
+__host__ __device__ constexpr int ion_table_width(int S) {
+  return 4 * S + 6 * S * S + S * (S - 1);
+}
+static_assert(sizeof(IonTables<ION_S>) ==
+                  sizeof(float) * ion_table_width(ION_S),
+              "IonTables is the flat table, float for float");
+
+// rsqrtf of x in [0.1, 1]: the same approximate reciprocal square root
+// (MUFU.RSQ) without rsqrtf's rescaling of subnormal arguments, which
+// none in this range is: the same bits, three dependent instructions
+// fewer on each slope
+__device__ __forceinline__ float rsqrt_01(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ``T`` ticks of one ion held in this thread's registers; BEAT: the
+// scheme has beat-note terms (a complex row a tick)
+template <int S, bool PE0, bool POM, bool BEAT>
+__device__ __forceinline__ void ion_ticks(
+    const TickConsts& p, const IonTables<S>& t, int n, int npad,
+    const float* __restrict__ rolls, const float* __restrict__ e0_lanes,
+    const float* __restrict__ om_lanes, float first, float tick0,
+    float* ring, float (&r)[3], float (&v)[3], const float (&f)[3],
+    float& tp, float (&a)[S], float (&b)[S]) {
+  constexpr int P = S * (S - 1) / 2;
+  // ---- this ion's constants: the constant bank's, or merged per ion ----
+  const float om = POM ? om_lanes[n] : 1.f;
+  const float omdp = POM ? om_lanes[npad + n] : 1.f;
+  float e0[S], coef[S][S], tm[S][S], tms[S][S], pw[P];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    e0[s] = PE0 ? e0_lanes[(size_t)s * npad + n] : t.e0[s];
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      coef[s][c] = POM ? om * t.c_sp[s][c] + omdp * t.c_dp[s][c]
+                       : t.c_sp[s][c];
+      tm[s][c] = POM ? omdp * t.tm[s][c] : t.tm[s][c];
+      tms[s][c] = POM ? omdp * t.tms[s][c] : t.tms[s][c];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    pw[k] = POM ? ((t.pair_g[k] != 0.f) ? omdp : om) * t.pair_w[k]
+                : t.pair_w[k];
+  const float hq = p.half_qdt, L = p.L;
+  const int T = p.n_ticks;
+
+  // tick min(i, T-1)'s five uniforms into ring slot i % ROLL_STAGES, one
+  // cp.async group (coalesced 128-byte rows of the [T*5, npad] plane)
+  auto fetch = [&](int i) {
+    const float* q = rolls + (size_t)(min(i, T - 1) * 5) * npad + n;
+    const unsigned slot = (unsigned)__cvta_generic_to_shared(
+        ring + (i % ROLL_STAGES) * 5 * ION_THREADS);
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                       slot + 4u * (unsigned)(k * ION_THREADS)),
+                   "l"(q + (size_t)k * npad)
+                   : "memory");
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  auto tick = [&](int i, const float (&rl)[5]) {
+    // ---- leapfrog substep (forces fixed) ----
+    const float fsq = (((first > 0.f && i == 0) ? 1.f : 0.f) * hq) * hq;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      r[d] = wrap(r[d] + hq * v[d] + fsq * f[d], L);
+      v[d] = v[d] + p.qdt * f[d];
+      r[d] = wrap(r[d] + hq * v[d] + fsq * f[d], L);
+    }
+    // ---- quantum tick: the clock advances before the beat note ----
+    tp = tp + p.qdt;
+    float u = v[0] * p.p2q;
+    if (p.has_exp) {
+      const float tpl = (tick0 + (float)i) * p.qdt;
+      u = u + (p.exp_c1 * tpl) * rsqrtf(1.f + p.exp_c2 * tpl * tpl);
+    }
+    float cr[S][S], ci[S][S];
+    if constexpr (BEAT) {
+      float cphi, sphi;
+      sincosf((p.tdep_freq * u) * (tp * p.g2e), &sphi, &cphi);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int c = 0; c < S; ++c) {
+          cr[s][c] = coef[s][c] + tm[s][c] * cphi;
+          ci[s][c] = tms[s][c] * sphi;
+        }
+    }
+    float diag[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) diag[s] = e0[s] + t.e1[s] * u;
+
+    // One RK slope at stage input (sa, sb), as the group kernel's; returns
+    // sum_s w_s |phi_s|^2
+    auto slope = [&](const float (&sa)[S], const float (&sb)[S],
+                     float (&ka)[S], float (&kb)[S]) -> float {
+      float dps = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        dps += t.w[s] * (sa[s] * sa[s] + sb[s] * sb[s]);
+      const float dp = p.h * dps;
+      const float pref = rsqrt_01(1.f - fminf(fmaxf(dp, 0.f), 0.9f));
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float re = 0.f, im = 0.f;
+#pragma unroll
+        for (int c = 0; c < S; ++c) {
+          if constexpr (BEAT) {
+            re += cr[s][c] * sa[c] - ci[s][c] * sb[c];
+            im += cr[s][c] * sb[c] + ci[s][c] * sa[c];
+          } else {
+            re += coef[s][c] * sa[c];
+            im += coef[s][c] * sb[c];
+          }
+        }
+        re += diag[s] * sa[s];
+        im += diag[s] * sb[s];
+        const float hw = -0.5f * t.w[s];
+        re = re - hw * sb[s];
+        im = im + hw * sa[s];
+        ka[s] = (pref * (sa[s] + p.h * im) - sa[s]) * p.inv_h;
+        kb[s] = (pref * (sb[s] - p.h * re) - sb[s]) * p.inv_h;
+      }
+      return dps;
+    };
+
+    // ---- RK step: acc = k1 + 3 k2 + 3 k3 + k4 ----
+    float ka[S], kb[S], sa[S], sb[S], acca[S], accb[S];
+    const float dp0 = slope(a, b, ka, kb);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acca[s] = ka[s];
+      accb[s] = kb[s];
+      sa[s] = a[s] + p.half_h * ka[s];
+      sb[s] = b[s] + p.half_h * kb[s];
+    }
+    slope(sa, sb, ka, kb);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acca[s] = acca[s] + 3.f * ka[s];
+      accb[s] = accb[s] + 3.f * kb[s];
+      sa[s] = a[s] + p.half_h * ka[s];
+      sb[s] = b[s] + p.half_h * kb[s];
+    }
+    slope(sa, sb, ka, kb);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acca[s] = acca[s] + 3.f * ka[s];
+      accb[s] = accb[s] + 3.f * kb[s];
+      sa[s] = a[s] + p.h * ka[s];
+      sb[s] = b[s] + p.h * kb[s];
+    }
+    slope(sa, sb, ka, kb);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      acca[s] = acca[s] + ka[s];
+      accb[s] = accb[s] + kb[s];
+    }
+
+    // ---- Ehrenfest kick from the tick's initial amplitudes, pair order --
+    float kick = 0.f;
+    {
+      int k = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int c = s + 1; c < S; ++c, ++k)
+          kick += pw[k] * (b[s] * a[c] - a[s] * b[c]);
+    }
+    const float kick_nj = p.apply_kick ? kick * p.h : 0.f;
+    const bool jumped = rl[0] < p.h * dp0;      // unclipped dp, strict <
+
+    // ---- jump collapse, for this ion only when it jumps ----
+    int dest = 0;
+    float kick_j = 0.f;
+    if (jumped) {
+      float cum[S], run = 0.f;                  // inclusive sum over s
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        run = (s == 0) ? (a[s] * a[s] + b[s] * b[s]) * t.msk[s]
+                       : run + (a[s] * a[s] + b[s] * b[s]) * t.msk[s];
+        cum[s] = run;
+      }
+      const float tot = fmaxf(cum[S - 1], 1e-30f);
+      int src = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) src += (rl[1] * tot >= cum[s]) ? 1 : 0;
+      src = min(src, S - 1);
+      const bool d_branch = rl[2] < p.branch_d;
+#pragma unroll
+      for (int d = 0; d < S; ++d) {
+        float cs = t.cum_s[0][d], cd = t.cum_d[0][d];
+#pragma unroll
+        for (int k = 1; k < S; ++k) {
+          cs = (src == k) ? t.cum_s[k][d] : cs;
+          cd = (src == k) ? t.cum_d[k][d] : cd;
+        }
+        dest += (rl[4] >= (d_branch ? cd : cs)) ? 1 : 0;
+      }
+      dest = min(dest, S - 1);
+      kick_j = p.apply_recoil
+                   ? ((rl[3] < 0.5f) ? 1.f : -1.f) *
+                         (d_branch ? p.kick_d : p.kick_s)
+                   : 0.f;
+    }
+
+    // ---- merge ----
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      a[s] = jumped ? ((s == dest) ? 1.f : 0.f) : a[s] + acca[s] * p.h8;
+      b[s] = jumped ? 0.f : b[s] + accb[s] * p.h8;
+    }
+    tp = jumped ? 0.f : tp;
+    if (p.renormalize) {
+      float nn = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) nn += a[s] * a[s] + b[s] * b[s];
+      const float nrm = sqrtf(nn);
+      const float inv = (nrm > 0.f) ? 1.f / nrm : 0.f;   // pad lanes stay 0
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        a[s] = a[s] * inv;
+        b[s] = b[s] * inv;
+      }
+    }
+    if (p.apply_kick) v[0] = v[0] + (jumped ? kick_j : kick_nj);
+  };
+
+  // the rolls of tick i + ROLL_STAGES - 1 start on their way while tick i
+  // runs; each thread reads only the slots it filled.  A slot read at tick
+  // i is refilled at tick i + 1, after tick i's merge has consumed what was
+  // read from it (rl[0] decides `jumped`; the rest is read and used under
+  // it), so the refill cannot reach a read still outstanding.
+  for (int k = 0; k < ROLL_STAGES - 1; ++k) fetch(k);
+#pragma unroll 1
+  for (int i = 0; i < T; ++i) {
+    fetch(i + ROLL_STAGES - 1);
+    asm volatile("cp.async.wait_group %0;" ::"n"(ROLL_STAGES - 1) : "memory");
+    float rl[5];
+    const float* slot = ring + (i % ROLL_STAGES) * 5 * ION_THREADS;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) rl[k] = slot[k * ION_THREADS];
+    tick(i, rl);
+  }
+  // the last ROLL_STAGES - 1 groups (tick T - 1 again, never read) land
+  // before the thread leaves
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <int S, bool PE0, bool POM>
+__global__ void __launch_bounds__(ION_THREADS)
+fused_ticks_ion_kernel(const TickConsts p, const IonTables<S> t,
+                       const float* __restrict__ R,
+                       const float* __restrict__ V,
+                       const float* __restrict__ F,
+                       const float* __restrict__ tp_in,
+                       const float* __restrict__ pre,
+                       const float* __restrict__ pim,
+                       const float* __restrict__ rolls,
+                       const float* __restrict__ e0_lanes,
+                       const float* __restrict__ om_lanes,
+                       float* __restrict__ Ro, float* __restrict__ Vo,
+                       float* __restrict__ tpo, float* __restrict__ preo,
+                       float* __restrict__ pimo, int npad, float first,
+                       float tick0) {
+  const int n = blockIdx.x * ION_THREADS + threadIdx.x;   // the ion
+  float r[3], v[3], f[3], a[S], b[S];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    r[d] = R[(size_t)d * npad + n];
+    v[d] = V[(size_t)d * npad + n];
+    f[d] = F[(size_t)d * npad + n];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    a[s] = pre[(size_t)s * npad + n];
+    b[s] = pim[(size_t)s * npad + n];
+  }
+  float tp = tp_in[n];
+  extern __shared__ float ring[];    // [ROLL_STAGES][5][ION_THREADS]
+  if (p.n_tdep > 0)
+    ion_ticks<S, PE0, POM, true>(p, t, n, npad, rolls, e0_lanes, om_lanes,
+                                 first, tick0, ring + threadIdx.x, r, v, f,
+                                 tp, a, b);
+  else
+    ion_ticks<S, PE0, POM, false>(p, t, n, npad, rolls, e0_lanes, om_lanes,
+                                  first, tick0, ring + threadIdx.x, r, v, f,
+                                  tp, a, b);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    Ro[(size_t)d * npad + n] = r[d];
+    Vo[(size_t)d * npad + n] = v[d];
+  }
+  tpo[n] = tp;
+  for (int row = 0; row < p.SP; ++row) {      // pad rows stay exactly zero
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      x = (row == s) ? a[s] : x;
+      y = (row == s) ? b[s] : y;
+    }
+    preo[(size_t)row * npad + n] = x;
+    pimo[(size_t)row * npad + n] = y;
+  }
+}
+
 // lanes of a warp that own one ion
-static int lanes_per_ion(int S) { return S <= 4 ? 4 : S <= 8 ? 8 : 16; }
+static int lanes_per_ion(int S) { return S == ION_S ? 1 : S <= 8 ? 8 : 16; }
 
 extern "C" {
 
@@ -487,18 +856,20 @@ extern "C" {
 // tick_base is then the absolute run tick at entry and lane0 the global
 // lane of lane 0).  lane_tab [SP, lane_table_width(K)] holds each lane's
 // row of H (K entries; the beat-note and Ehrenfest terms ride on them);
-// blocks and smem_bytes are the caller's launch geometry, checked against
-// the kernel's own.
+// at S = ION_S the kernel takes ion_tab instead, a host array of
+// ion_table_width(S) floats (IonTables) passed by value.  blocks and
+// smem_bytes are the caller's launch geometry, checked against the
+// kernel's own.
 int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* F, const float* tp, const float* pre,
                        const float* pim, const float* rolls, const int* seed,
                        const float* e0_lanes, const float* om_lanes,
                        const float* vecs, const float* mats,
-                       const float* lane_tab, int K, float* Ro, float* Vo,
-                       float* tpo, float* preo, float* pimo, int npad,
-                       float first, float tick0, unsigned tick_base,
-                       unsigned lane0, int blocks, int smem_bytes,
-                       void* stream) {
+                       const float* lane_tab, int K, const float* ion_tab,
+                       float* Ro, float* Vo, float* tpo, float* preo,
+                       float* pimo, int npad, float first, float tick0,
+                       unsigned tick_base, unsigned lane0, int blocks,
+                       int smem_bytes, void* stream) {
   const int pe0 = p->per_lane_e0 != 0, pom = p->per_lane_om != 0;
   const int rng = p->internal_rng != 0;
   const int G = lanes_per_ion(p->S), SP = p->SP;
@@ -508,10 +879,6 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
       (pom && !om_lanes) || (rng && !seed) || (!rng && !rolls))
     return (int)cudaErrorInvalidValue;
   const int W = lane_table_width(K);
-  const int need =
-      (int)sizeof(float) * (2 * SP * SP + (K > KREG ? SP * W : 0));
-  if (blocks != npad / (THREADS / G) || smem_bytes != need)
-    return (int)cudaErrorInvalidValue;
   TickConsts c;
   c.SP = SP; c.n_ticks = p->n_ticks; c.n_tdep = p->n_tdep; c.K = K; c.W = W;
   c.apply_kick = p->apply_kick; c.apply_recoil = p->apply_recoil;
@@ -522,6 +889,30 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
   c.exp_c1 = p->exp_c1; c.exp_c2 = p->exp_c2; c.tdep_freq = p->tdep_freq;
   c.branch_d = p->branch_d; c.kick_s = p->kick_s; c.kick_d = p->kick_d;
   cudaStream_t st = (cudaStream_t)stream;
+  if (p->S == ION_S) {       // one thread an ion; no RNG form at this S
+    if (rng || !ion_tab || blocks != npad / ION_THREADS ||
+        smem_bytes != ION_SMEM)
+      return (int)cudaErrorInvalidValue;
+    IonTables<ION_S> t;
+    memcpy(&t, ion_tab, sizeof t);
+#define ION_LAUNCH(E0, OM)                                                \
+  fused_ticks_ion_kernel<ION_S, E0, OM>                                    \
+      <<<blocks, ION_THREADS, ION_SMEM, st>>>(                            \
+      c, t, R, V, F, tp, pre, pim, rolls, e0_lanes, om_lanes, Ro, Vo, tpo, \
+      preo, pimo, npad, first, tick0)
+    switch (pe0 * 2 + pom) {
+      case 0: ION_LAUNCH(false, false); break;
+      case 2: ION_LAUNCH(true, false); break;
+      case 1: ION_LAUNCH(false, true); break;
+      default: ION_LAUNCH(true, true); break;
+    }
+#undef ION_LAUNCH
+    return (int)cudaGetLastError();
+  }
+  const int need =
+      (int)sizeof(float) * (2 * SP * SP + (K > KREG ? SP * W : 0));
+  if (blocks != npad / (THREADS / G) || smem_bytes != need)
+    return (int)cudaErrorInvalidValue;
 #define ARGS                                                              \
   c, R, V, F, tp, pre, pim, rolls, seed, e0_lanes, om_lanes, vecs, mats,  \
       lane_tab, Ro, Vo, tpo, preo, pimo, npad, first, tick0, tick_base,   \
@@ -536,10 +927,6 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
   // every state count takes the per-lane forms; the RNG forms are built
   // for sr12 (the cooling family) only
   switch (p->S * 8 + rng * 4 + pe0 * 2 + pom) {
-    case 3 * 8: LAUNCH(3, 4, false, false, false); break;
-    case 3 * 8 + 2: LAUNCH(3, 4, true, false, false); break;
-    case 3 * 8 + 1: LAUNCH(3, 4, false, true, false); break;
-    case 3 * 8 + 3: LAUNCH(3, 4, true, true, false); break;
     case 5 * 8: LAUNCH(5, 8, false, false, false); break;
     case 5 * 8 + 2: LAUNCH(5, 8, true, false, false); break;
     case 5 * 8 + 1: LAUNCH(5, 8, false, true, false); break;

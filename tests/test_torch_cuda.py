@@ -852,12 +852,18 @@ def _small_spec(scheme, ratio=25, **kw):
 
 
 @pytest.mark.parametrize("excited", [False, True])
-@pytest.mark.parametrize("scheme_name", ["three_state", "tag422",
-                                         "tag408_linear", "tag408_circular"])
+@pytest.mark.parametrize("scheme_name", ["three_state", "three_state_beat",
+                                         "tag422", "tag408_linear",
+                                         "tag408_circular"])
 def test_tick_kernel_small_schemes(cuda, scheme_name, excited):
-    """The explicit S = 3, 5 and 7 forms (groups of 4 and 8 lanes)."""
+    """The explicit S = 3 (one thread an ion; with a beat-note term too, the
+    complex-row path), 5 and 7 (groups of 8 lanes) forms."""
     from mdqtplasmasims_torch import levels
-    scheme = dict(three_state=levels.three_state, tag422=levels.tag422,
+    beat = lambda: dataclasses.replace(
+        levels.three_state(), name="three_state_beat", tdep_rows=(1,),
+        tdep_cols=(2,), tdep_coefs=(0.05,), tdep_freq=0.7)
+    scheme = dict(three_state=levels.three_state, three_state_beat=beat,
+                  tag422=levels.tag422,
                   tag408_linear=lambda: levels.tag408(-1.0, 0.5, True),
                   tag408_circular=lambda: levels.tag408(-1.0, 0.5, False)
                   )[scheme_name]()

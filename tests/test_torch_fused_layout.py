@@ -3,12 +3,15 @@ rows, the lane table, the per-spec cache and the launch geometry
 (mdqtplasmasims_torch/core/qt_fused.py), on the CPU.
 
 The CUDA kernel (csrc/fused_ticks.cu) gives each state of an ion to one
-lane of a group and reads its tables lane by lane.  ``lane_model`` below
-is that data flow in numpy (a lane axis, shuffles as index lookups, xor
-butterflies, the scan, the ballots), fed by the same lane table the kernel
-gets; it is held to the plain twin at the kernel's own bars (R/V/tp 2e-5,
-psi 5e-5 + 1e-4 relative, pads exactly 0), so a wrong index, sign or
-padding entry in the table fails here, without a card."""
+lane of a group and reads its tables lane by lane (S = 5, 7, 12), or each
+ion to one thread with the scheme's tables by value (S = 3).
+``lane_model`` below is that data flow in numpy (a lane axis, shuffles as
+index lookups, xor butterflies, the scan, the ballots; at S = 3
+``ion_model``: a state axis summed in state order), fed by the same lane
+or ion table the kernel gets; it is held to the plain twin at the
+kernel's own bars (R/V/tp 2e-5, psi 5e-5 + 1e-4 relative, pads exactly
+0), so a wrong index, sign or padding entry in the table fails here,
+without a card."""
 
 import dataclasses
 
@@ -46,6 +49,11 @@ SCHEMES = {
     "sr12_sp_pattern": lambda: sr12_cooling(om=1.0, om_dp=0.0),
     "sr12_dp_pattern": lambda: sr12_cooling(om=0.0, om_dp=1.0),
     "three_state": lambda: three_state(),
+    # a beat-note term on the two excited states: the S = 3 kernel's
+    # complex-row path (no reference three-state scheme has one)
+    "three_state_beat": lambda: dataclasses.replace(
+        three_state(), name="three_state_beat", tdep_rows=(1,),
+        tdep_cols=(2,), tdep_coefs=(0.05,), tdep_freq=0.7),
     "tag408_linear": lambda: tag408(-1.0, 0.5, True),
     "tag408_circular": lambda: tag408(-1.0, 0.5, False),
     "tag422": lambda: tag422(),
@@ -207,13 +215,14 @@ def test_terms_ride_on_the_row_entries():
     (3584, 12, 12, (16, 128, 448, 2048 + 4 * 16 * 84)),
     (128, 7, 2, (8, 128, 8, 512)),
     (128, 5, 1, (8, 128, 8, 512)),
-    (256, 3, 2, (4, 128, 8, 512)),
+    (256, 3, 2, (1, 32, 8, 2560)),
 ])
 def test_launch_geometry_reads_only_its_arguments(npad, S, K, want):
     geo = tf.launch_geometry(npad, S, K)
     assert tuple(geo) == want
     assert geo.blocks * (geo.threads // geo.lanes_per_ion) == npad
-    assert geo.lanes_per_ion >= S
+    # a group holds one state a lane; at S = 3 a thread holds the ion
+    assert geo.lanes_per_ion >= S or (S == 3 and geo.lanes_per_ion == 1)
     tf._kernel_plan(_spec(sr12_cooling()))        # other state of the module
     assert tf.launch_geometry(npad, S, K) == geo
     assert tf.lane_table_width(K) == 7 * K
@@ -255,11 +264,150 @@ def test_sparse_row_sum_equals_dense_sum_bit_for_bit(name):
 
 # ---- the kernel's data flow, lane by lane, in numpy ----
 
+def ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
+              e0_lanes=None, om_lanes=None):
+    """csrc/fused_ticks.cu's S = 3 kernel (one thread an ion): arrays are
+    ``[n]`` per state, the tables the plan's ion table, every sum over
+    states taken in state order (over pairs s < c for the Ehrenfest sum),
+    H phi dense in column order, the collapse's result taken only where an
+    ion jumps."""
+    plan = tf._kernel_plan(spec)
+    p, S, SP = plan.params, spec.S, spec.SP
+    t = tf.ion_fields(plan.ion_table, S)
+    n = R.shape[1]
+    c = lambda x: f32(x)
+    pom = spec.per_lane_om
+    om, omdp = (om_lanes[0], om_lanes[1]) if pom else (c(1), c(1))
+    e0 = (e0_lanes[:S] if spec.per_lane_e0
+          else np.broadcast_to(t["e0"][:, None], (S, n)))
+    coef = [[om * t["c_sp"][s, k] + omdp * t["c_dp"][s, k] if pom
+             else t["c_sp"][s, k] for k in range(S)] for s in range(S)]
+    tm = [[omdp * t["tdep_m"][s, k] if pom else t["tdep_m"][s, k]
+           for k in range(S)] for s in range(S)]
+    tms = [[omdp * t["tdep_m_signed"][s, k] if pom
+            else t["tdep_m_signed"][s, k] for k in range(S)]
+           for s in range(S)]
+    pairs = [(s, k) for s in range(S) for k in range(s + 1, S)]
+    pw = [np.where(t["pair_g"][j] != 0, omdp, om) * t["pair_w"][j] if pom
+          else t["pair_w"][j] for j in range(len(pairs))]
+    w, e1, msk = t["w"], t["e1"], t["msk"]
+
+    def wrap(x):
+        x = np.where(x < 0, x + c(p.L), x)
+        return np.where(x > c(p.L), x - c(p.L), x)
+
+    r, v, f = R.copy(), V.copy(), F.copy()
+    tp = tp[0].copy()
+    a = [pre[s].copy() for s in range(S)]
+    b = [pim[s].copy() for s in range(S)]
+    hq, h, inv_h = c(p.half_qdt), c(p.h), c(1) / c(p.h)
+    for i in range(p.n_ticks):
+        rl = rolls[i * 5:i * 5 + 5]
+        fsq = c(c(1.0 if (first and i == 0) else 0.0) * hq) * hq
+        r = wrap(r + hq * v + fsq * f)
+        v = v + c(p.qdt) * f
+        r = wrap(r + hq * v + fsq * f)
+        tp = tp + c(p.qdt)
+        u = v[0] * c(p.p2q)
+        if p.has_exp:
+            tpl = c(c(tick0) + c(i)) * c(p.qdt)
+            u = u + c(c(p.exp_c1) * tpl) / np.sqrt(
+                c(1) + c(p.exp_c2) * tpl * tpl, dtype=f32)
+        beat = p.n_tdep > 0
+        if beat:
+            ang = (c(p.tdep_freq) * u) * (tp * c(p.g2e))
+            cphi, sphi = np.cos(ang), np.sin(ang)
+            cr = [[coef[s][k] + tm[s][k] * cphi for k in range(S)]
+                  for s in range(S)]
+            ci = [[tms[s][k] * sphi for k in range(S)] for s in range(S)]
+        diag = [e0[s] + e1[s] * u for s in range(S)]
+
+        def slope(sa, sb):
+            dps = c(0)
+            for s in range(S):
+                dps = dps + w[s] * (sa[s] * sa[s] + sb[s] * sb[s])
+            pref = c(1) / np.sqrt(c(1) - np.clip(h * dps, c(0), c(0.9)))
+            ka, kb = [], []
+            for s in range(S):
+                re = im = c(0)
+                for k in range(S):
+                    if beat:
+                        re = re + (cr[s][k] * sa[k] - ci[s][k] * sb[k])
+                        im = im + (cr[s][k] * sb[k] + ci[s][k] * sa[k])
+                    else:
+                        re = re + coef[s][k] * sa[k]
+                        im = im + coef[s][k] * sb[k]
+                re, im = re + diag[s] * sa[s], im + diag[s] * sb[s]
+                hw = c(-0.5) * w[s]
+                re, im = re - hw * sb[s], im + hw * sa[s]
+                ka.append((pref * (sa[s] + h * im) - sa[s]) * inv_h)
+                kb.append((pref * (sb[s] - h * re) - sb[s]) * inv_h)
+            return ka, kb, dps
+
+        ka, kb, dp0 = slope(a, b)
+        acca, accb = ka, kb
+        stage = lambda x, k, m: [x[s] + m * k[s] for s in range(S)]
+        ka, kb, _ = slope(stage(a, ka, c(p.half_h)), stage(b, kb, c(p.half_h)))
+        acca = [acca[s] + c(3) * ka[s] for s in range(S)]
+        accb = [accb[s] + c(3) * kb[s] for s in range(S)]
+        ka, kb, _ = slope(stage(a, ka, c(p.half_h)), stage(b, kb, c(p.half_h)))
+        acca = [acca[s] + c(3) * ka[s] for s in range(S)]
+        accb = [accb[s] + c(3) * kb[s] for s in range(S)]
+        ka, kb, _ = slope(stage(a, ka, h), stage(b, kb, h))
+        acca = [acca[s] + ka[s] for s in range(S)]
+        accb = [accb[s] + kb[s] for s in range(S)]
+
+        kick = c(0)
+        for j, (s, k) in enumerate(pairs):
+            kick = kick + pw[j] * (b[s] * a[k] - a[s] * b[k])
+        kick_nj = kick * h
+        jumped = rl[0] < h * dp0
+        cum, run = [], None
+        for s in range(S):
+            x = (a[s] * a[s] + b[s] * b[s]) * msk[s]
+            run = x if run is None else run + x
+            cum.append(run)
+        tot = np.maximum(cum[-1], c(1e-30))
+        src = np.minimum(sum((rl[1] * tot >= cum[s]).astype(int)
+                             for s in range(S)), S - 1)
+        d_branch = rl[2] < c(p.branch_d)
+        dest = np.minimum(sum((rl[4] >= np.where(
+            d_branch, t["cum_d"][src, d], t["cum_s"][src, d])).astype(int)
+            for d in range(S)), S - 1)
+        kick_j = (np.where(rl[3] < c(0.5), c(1), c(-1))
+                  * np.where(d_branch, c(p.kick_d), c(p.kick_s))
+                  if p.apply_recoil else np.zeros_like(tp))
+        a = [np.where(jumped, (dest == s).astype(f32),
+                      a[s] + acca[s] * c(p.h8)) for s in range(S)]
+        b = [np.where(jumped, c(0), b[s] + accb[s] * c(p.h8))
+             for s in range(S)]
+        tp = np.where(jumped, c(0), tp)
+        if p.renormalize:
+            nn = c(0)
+            for s in range(S):
+                nn = nn + (a[s] * a[s] + b[s] * b[s])
+            nrm = np.sqrt(nn)
+            inv = np.where(nrm > 0, c(1) / np.where(nrm > 0, nrm, c(1)), c(0))
+            a, b = [x * inv for x in a], [x * inv for x in b]
+        if p.apply_kick:
+            v = v.copy()
+            v[0] = v[0] + np.where(jumped, kick_j, kick_nj)
+    outs = [r, v, tp[None], np.zeros((SP, n), f32), np.zeros((SP, n), f32)]
+    outs[3][:S], outs[4][:S] = a, b
+    for x in (r, v, tp, *a, *b):
+        assert x.dtype == np.float32
+    return outs
+
+
 def lane_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
                e0_lanes=None, om_lanes=None):
     """csrc/fused_ticks.cu's tick loop with a lane axis: arrays are
     ``[G, n]``, lane s of every ion's group along axis 0; a shuffle from
-    lane ``idx[s]`` is ``x[idx]``."""
+    lane ``idx[s]`` is ``x[idx]``.  At S = 3 the kernel's own data flow,
+    :func:`ion_model`."""
+    if tf.launch_geometry(128, spec.S, 1).lanes_per_ion == 1:
+        return ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0,
+                         e0_lanes, om_lanes)
     plan = tf._kernel_plan(spec)
     p, K, tab = plan.params, plan.K, plan.lane_table
     S, SP = spec.S, spec.SP
@@ -464,10 +612,11 @@ def test_lane_model_per_lane_forms_match_twin(variant, excited):
           omp, jumps=1 if excited else 0)
 
 
-@pytest.mark.parametrize("name", ["three_state", "tag408_linear", "tag422"])
+@pytest.mark.parametrize("name", ["three_state", "three_state_beat",
+                                  "tag408_linear", "tag422"])
 def test_lane_model_small_schemes_match_twin(name):
-    """S = 3, 5, 7: groups of 4 and 8 lanes, no beat notes, 2 or no
-    Ehrenfest terms."""
+    """S = 3 (one thread an ion, with and without a beat-note term), 5, 7
+    (groups of 8 lanes, no beat notes): 2 or no Ehrenfest terms."""
     sch = SCHEMES[name]()
     spec = _spec(sch, 10, apply_force=sch.has_force)
     p = _planes(spec.S, spec.SP, 120, 128, 10, True, seed=13)
@@ -494,6 +643,46 @@ def test_lane_model_small_per_lane_forms_match_twin(name, variant):
         spec, npad, e0 if pe0 else None, om if pom else None))
     p = _planes(spec.S, spec.SP, E * npad, E * npad, 10, True, seed=15)
     _hold(spec, p, E * npad, True, 0, e0p, omp, jumps=1)
+
+
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+def test_ion_model_s3_whole_equals_parts_and_base_equals_plain(variant):
+    """The S = 3 kernel's data flow (one thread an ion) in all four forms:
+    a whole launch equals the same lanes launched in two parts bit for bit
+    (no sum crosses ions), and a fold whose members sit at the base (the
+    scheme's own e0, om scale 1.0 with an empty DP pattern) computes what
+    the plain form computes, bit for bit."""
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    sch = three_state()
+    pe0, pom = "e0" in variant, "om" in variant
+    plain = _spec(sch, 12, apply_force=sch.has_force)
+    spec = dataclasses.replace(plain, per_lane_e0=pe0)
+    if pom:
+        spec = tf.rabi_scaled(spec)
+    E, npad = 2, 128
+    p = _planes(3, 8, E * npad, E * npad, 12, True, seed=16)
+    args = [p[k] for k in ARGS]
+
+    def lanes(e0, om):
+        return (None if x is None else x.numpy() for x in fold_sweep_lanes(
+            spec, npad, e0 if pe0 else None, om if pom else None))
+    e0p, omp = lanes(np.stack([sch.e0, 1.7 * sch.e0]).astype(f32),
+                     np.asarray([(1.0, 0.0), (0.6, 0.0)], f32))
+    whole = ion_model(spec, True, *args, e0_lanes=e0p, om_lanes=omp)
+    cut = lambda x, lo, hi: None if x is None else np.ascontiguousarray(
+        x[:, lo:hi])
+    parts = [ion_model(spec, True, *(cut(x, lo, hi) for x in args),
+                       e0_lanes=cut(e0p, lo, hi), om_lanes=cut(omp, lo, hi))
+             for lo, hi in ((0, 96), (96, E * npad))]
+    for w, a, b in zip(whole, *parts):
+        np.testing.assert_array_equal(w, np.concatenate([a, b], 1))
+    assert int((whole[2][0] < 12 * QDT).sum()) >= 1          # jumps ran
+    e0b, omb = lanes(np.stack([sch.e0] * E).astype(f32),
+                     np.asarray([(1.0, 0.0)] * E, f32))
+    base = ion_model(spec, True, *args, e0_lanes=e0b, om_lanes=omb)
+    ref = ion_model(plain, True, *args)
+    for x, y in zip(base, ref):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_lane_model_dense_table_matches_twin():

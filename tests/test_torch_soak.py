@@ -246,3 +246,15 @@ def test_traces_on_cpu():
         assert t["steps"] in (5, 2) and t["untraced_ms_per_step"] > 0
         assert t["busy_ms"] == 0.0 and t["top"] == [] and t["window_ms"] > 0
     assert chain["n"] == 4096 and md["n0"] == 32
+
+
+def test_three_state_trace_on_cpu():
+    """``three_state_trace`` (``profiling.device_trace`` over a window of
+    the three-state job's tick-kernel launches) at a tiny size: its keys,
+    the launch count it divides by, and a window without device
+    operations."""
+    t = torch_soak.trace_three_state(2, device="cpu", n0=16, sample_freq=50)
+    assert t["n0"] == 16 and t["steps"] == 2
+    assert t["untraced_ms_per_step"] > 0 and t["window_ms"] > 0
+    assert t["busy_ms"] == 0.0 and t["busy_share"] == 0.0 and t["top"] == []
+    assert "three_state_trace" in torch_soak.EXTRAS

@@ -32,7 +32,11 @@ nothing but those entries.  It reports
     in-kernel stream) at 3584 lanes, ``B_rng_1792`` on a mesh shard (875
     ions in 1792 lanes, ``lane0`` 1792), the six per-lane forms on a
     4-member fold (``B_e0_E4`` .. ``B_rng_e0_om_E4``), ``B_rng_E8`` and
-    ``B_rng_E16`` on folds of 8 and 16 members;
+    ``B_rng_E16`` on folds of 8 and 16 members; the S = 3, 5 and 7 forms
+    at their families' main-path shapes (``chip_smoke.small_tick_forms``:
+    ``B_s3`` 1000 ions in 1024 lanes x 1000 ticks, its sweep forms
+    ``B_s3_e0`` .. ``B_s3_e0_om`` on 4 members x 838 ticks, ``B_s5*`` and
+    ``B_s7*``) and ``B_s3_32ions``, the plain S = 3 form on 32 ions;
   * ``idle_ms``: ``B`` and ``B_rng`` at 3584 lanes from an idle card (the
     wrapper's host time included, ``chip_smoke.cuda_ms(head_start=False)``);
   * ``wall_s`` (unless ``--kernels-only``): the host-clock seconds of
@@ -110,6 +114,32 @@ def tick_kernel_ms(torch, cs, lc, dev, g) -> tuple:
     return ms, idle
 
 
+def small_tick_kernel_ms(torch, cs, dev, g) -> dict:
+    """Device ms of the S = 3, 5 and 7 forms of the tick kernel at the
+    shapes :func:`chip_smoke.small_tick_forms` gives them, from the start
+    its phase 4b uses (free ions, the excited states populated), and of
+    the plain S = 3 form on 32 ions in 128 lanes."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    ms = {}
+    forms = list(cs.small_tick_forms().items())
+    s3 = dict(forms)["fused_ticks_s3"]
+    forms.append(("fused_ticks_s3_32ions", (s3[0], 1, 32, 128, None, None)))
+    for name, (spec, E, n, npad, e0, om) in forms:
+        key = "B_" + name[len("fused_ticks_"):].replace("_per_lane", "")
+        _, (_, V, _, tp, pre, pim) = cs.excited_planes(
+            torch, g, spec.SP, E, npad, n, cs.excited_rows(spec))
+        zeros, V = torch.zeros((3, E * npad), device=dev), V * 2.0
+        e0p, omp = fold_sweep_lanes(spec, npad, e0, om, dev)
+        rolls = torch.rand((spec.ratio * 5, E * npad), generator=g,
+                           device=dev)
+        tables = tf.fused_tables(spec, dev)
+        ms[key] = cs.cuda_ms(torch, lambda: tf.fused_md_substeps(
+            spec, False, zeros, V, zeros, tp, pre, pim, rolls,
+            tables=tables, e0_lanes=e0p, om_lanes=omp))
+    return ms
+
+
 def one_turn(kernels_only: bool, flagship: bool = False) -> dict:
     """Measure the tree in the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -178,6 +208,7 @@ def one_turn(kernels_only: bool, flagship: bool = False) -> dict:
         rows, ma, e_loc, L, ldeb))
     tick_ms, idle = tick_kernel_ms(torch, cs, lc, dev, g)
     ms.update(tick_ms)
+    ms.update(small_tick_kernel_ms(torch, cs, dev, g))
     out = dict(ms=ms, idle_ms=idle)
     if kernels_only:
         return out

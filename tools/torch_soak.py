@@ -37,11 +37,12 @@ kernels' ``launches`` during the run.  The trees go to ``--out-dir``
 (default ``$TMPDIR/soak_torch``), never into the repository.
 
 The kernel libraries and the codec are built before the first family is
-timed.  Five diagnostics run when named: ``chain_trace`` traces 300
+timed.  Six diagnostics run when named: ``chain_trace`` traces 300
 Metropolis steps at the transport configuration with
 ``profiling.device_trace`` (the card's busy share, the top device
 operations), ``md_trace_n14000`` 200 MD steps of the N0 = 14000 cooling
-configuration, ``tag_pool`` runs each tagging family as a fold of 8
+configuration, ``three_state_trace`` 200 launches (200,000 ticks) of the
+``three_state`` job, ``tag_pool`` runs each tagging family as a fold of 8
 jobs (per-member and pooled tag fractions), and ``xval_408quad`` pools a
 fold of 64 408quad jobs at ``tools/cross_validate_mc_tag.py``'s
 configuration with its z-scores against the archived reference and JAX
@@ -588,10 +589,25 @@ def trace_md(steps: int, device="cuda", n0: int = 14000) -> dict:
                                 steps))
 
 
+def trace_three_state(launches: int, device="cuda", n0: int = 1000,
+                      **over) -> dict:
+    """:func:`_trace` over ``launches`` blocks of ticks (one tick-kernel
+    launch each, no tree) of the ``three_state`` configuration."""
+    from mdqtplasmasims_torch.experiments.three_state import (
+        ThreeStateConfig, run)
+    cfg = ThreeStateConfig(**dict(dict(n0=n0), **over))
+    cfg = dataclasses.replace(cfg, tmax=launches * cfg.sample_freq * cfg.dt)
+    run(dataclasses.replace(cfg, tmax=cfg.sample_freq * cfg.dt),
+        device=device)                                        # warm-up
+    return dict(n0=n0, **_trace(device, lambda: run(cfg, device=device),
+                                launches))
+
+
 # diagnostics, run only when named; stored as ``_<name>``
 EXTRAS = {
     "chain_trace": lambda out_dir: trace_chain(300),
     "md_trace_n14000": lambda out_dir: trace_md(200),
+    "three_state_trace": lambda out_dir: trace_three_state(200),
     "tag_pool": tag_pool,
     "xval_408quad": xval_408quad,
     "three_state_seeds": three_state_seeds,
