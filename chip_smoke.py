@@ -21,13 +21,16 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      lanes launched in two parts; then (:func:`check_small_tick_kernels`)
      every S = 3, 5, 7 form, plain and per-lane (e0, om, e0+om), at the
      shapes the three-state run and sweep, the frozen-tag pump and the
-     MC-tag pump launch them (free ions: F = 0, a dummy R; a pump form
-     leaves V bit for bit; a sweep form's members at the base equal the
-     plain form bit for bit), each through the same shapes, timed, the
-     S = 3 forms (one thread an ion) also on 32 ions in cycles a tick;
-     then (:func:`check_ion_sass`) the S = 3 forms' machine code: no
-     shuffle or vote, no register load of a roll in the tick loop, the
-     rolls fetched ticks ahead;
+     MC-tag pump launch them, and the 408 linear pump's (free ions: F =
+     0, a dummy R; a pump form leaves V bit for bit; a sweep form's
+     members at the base equal the plain form bit for bit; a pump's
+     compiled coupling pattern equals the dense pattern's form bit for
+     bit), each through the same shapes, timed, and on 32 ions in cycles
+     a tick (one thread an ion at every S);
+     then (:func:`check_ion_sass`) the S = 3, 5, 7 forms' machine code:
+     no shuffle or vote, no register load of a roll in the tick loop, the
+     rolls fetched ticks ahead, each pump pattern's tick fewer
+     instructions than the dense pattern's;
   5. the in-kernel RNG form of the tick kernel against its twin (which
      draws the same Threefry stream in plain torch) at Np=3584, ratio 25,
      from the ground and the excited start and late in a flagship run's
@@ -286,28 +289,42 @@ def half_pairs(counts) -> int:
     return sum(int(n) * (int(n) - 1) // 2 for n in counts)
 
 
+def tick_ops(spec) -> int:
+    """FP32 operations of one ion's tick of ``spec``, counted on
+    csrc/fused_ticks.cu over the work the scheme's data needs
+    (its coupling is sparse: a dense S x S product would count zeros):
+    each of the 4 RK stages 4 per real coupling place (one real multiply-
+    add on each of the two planes; the per-lane om forms' coupling is one
+    list whose coefficients om * c_sp + om_dp * c_dp the kernel forms once
+    a launch) and 8 per place with a beat note (a complex coefficient),
+    plus 16 S for the diagonal, decay, dp and slope; 22 S for the stage
+    combinations, collapse and merge; 6 per Ehrenfest term; 24 for the
+    leapfrog; 180 integer operations for the in-kernel RNG's three
+    Threefry calls."""
+    import numpy as np
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    S, SP = spec.S, spec.SP
+    plan = tf._kernel_plan(spec)
+    tab = plan.lane_table.reshape(SP, len(tf.ROW_PLANES), plan.K)
+    coupled = (tab[:, 1] != 0) | (tab[:, 2] != 0)
+    beat = tab[:, 3] != 0
+    stage = (4 * int(np.sum(coupled & ~beat)) + 8 * int(np.sum(beat))
+             + 16 * S)
+    return (4 * stage + 22 * S + 6 * len(tf._force_terms(spec)) + 24
+            + (180 if spec.internal_rng else 0))
+
+
 def tick_bound(spec, n_real: int, lanes: int) -> dict:
     """Bound of one launch of the tick kernel of ``spec`` over ``lanes``
-    lanes of which ``n_real`` hold ions.  Operations per ion and tick,
-    counted on csrc/fused_ticks.cu: each of the 4 RK stages two S x S
-    real matvecs (4 S^2; the per-lane om forms too: their coupling is one
-    list whose coefficients om * c_sp + om_dp * c_dp the kernel forms once
-    a launch, and a one-laser scheme's DP pattern is empty) plus 16 S for
-    the diagonal, decay, dp and slope; 22 S for the stage combinations,
-    collapse and merge; 6 per Ehrenfest term; 24 for the leapfrog; 180
-    integer operations for the in-kernel RNG's three Threefry calls.
-    Bytes: the planes read and written once, plus the explicit rolls and
-    the per-lane tables."""
-    from mdqtplasmasims_torch.core.qt_fused import _force_terms
-    S, SP = spec.S, spec.SP
-    stage = 4 * S * S + 16 * S
-    per_tick = (4 * stage + 22 * S + 6 * len(_force_terms(spec)) + 24
-                + (180 if spec.internal_rng else 0))
+    lanes of which ``n_real`` hold ions: :func:`tick_ops` a tick of each
+    ion; the bytes of the planes read and written once, plus the explicit
+    rolls and the per-lane tables."""
+    SP = spec.SP
     rows = ((10 + 2 * SP) + (7 + 2 * SP)
             + (0 if spec.internal_rng else 5 * spec.ratio)
             + (SP if spec.per_lane_e0 else 0)
             + (2 if spec.per_lane_om else 0))
-    return bound(n_real * spec.ratio * per_tick, 4 * rows * lanes)
+    return bound(n_real * spec.ratio * tick_ops(spec), 4 * rows * lanes)
 
 
 def log(msg: str) -> None:
@@ -440,21 +457,28 @@ def excite(torch, carry, on, g):
 def kernel_resources() -> dict:
     """Registers, stack, spill bytes of every instantiation of the tick
     kernel, from the nvcc log (``-Xptxas -v``) of the library in use:
-    ``(S, per_lane_e0, per_lane_om, internal_rng, long_rows) -> dict``
-    (the S = 3 kernel, one thread an ion, has neither RNG nor long rows)."""
+    ``(S, pattern, per_lane_e0, per_lane_om, internal_rng, long_rows) ->
+    dict`` (the ion kernel, one thread an ion at S = 3, 5, 7, has neither
+    RNG nor long rows and is named by its compiled coupling pattern,
+    ``qt_fused.ION_PATTERNS``; the group kernel's pattern is "")."""
     from mdqtplasmasims_torch import _build
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    names = {(S, m): n for n, S, m in tf.ION_PATTERNS}
     entry = re.compile(r"fused_ticks_kernelILi(\d+)ELi\d+ELb([01])ELb([01])"
                        r"ELb([01])ELb([01])EE")
-    ion = re.compile(r"fused_ticks_ion_kernelILi(\d+)ELb([01])ELb([01])EE")
+    ion = re.compile(r"fused_ticks_ion_kernelILi(\d+)EL[my](\d+)ELb([01])"
+                     r"ELb([01])EE")
     out, key = {}, None
     for line in _build.build_log("fused_ticks").splitlines():
         m, mi = entry.search(line), ion.search(line)
         if m and "Compiling entry" in line:
-            key = (int(m.group(1)), *(g == "1" for g in m.groups()[1:]))
+            key = (int(m.group(1)), "",
+                   *(g == "1" for g in m.groups()[1:]))
             out[key] = {}
         elif mi and "Compiling entry" in line:
-            key = (int(mi.group(1)), mi.group(2) == "1", mi.group(3) == "1",
-                   False, False)
+            S = int(mi.group(1))
+            key = (S, names.get((S, int(mi.group(2))), mi.group(2)),
+                   mi.group(3) == "1", mi.group(4) == "1", False, False)
             out[key] = {}
         elif key is not None and "spill stores" in line:
             out[key].update(zip(("stack", "spill_stores", "spill_loads"),
@@ -468,14 +492,19 @@ def kernel_resources() -> dict:
 def resources(spec) -> str:
     """The registers, spills and shared memory of ``spec``'s kernel form."""
     from mdqtplasmasims_torch.core import qt_fused as tf
-    K = tf._kernel_plan(spec).K
-    res = kernel_resources().get((spec.S, spec.per_lane_e0, spec.per_lane_om,
-                                  spec.internal_rng, K > tf._KREG))
+    plan = tf._kernel_plan(spec)
+    K = plan.K
+    pattern = ({m: n for n, S, m in tf.ION_PATTERNS if S == spec.S}
+               [plan.pattern] if plan.ion_table is not None else "")
+    res = kernel_resources().get((spec.S, pattern, spec.per_lane_e0,
+                                  spec.per_lane_om, spec.internal_rng,
+                                  K > tf._KREG))
     if not res:
         raise SystemExit("the nvcc log does not list this form of the tick "
                          "kernel")
     geo = tf.launch_geometry(3584, spec.S, K)
-    return (f"{res['registers']} registers, {res['spill_stores']} / "
+    return (f"{pattern + ' pattern, ' if pattern else ''}"
+            f"{res['registers']} registers, {res['spill_stores']} / "
             f"{res['spill_loads']} B spill stores / loads, {res['stack']} B "
             f"stack, {geo.shared_bytes} B shared, {geo.lanes_per_ion} lanes "
             f"per ion")
@@ -920,22 +949,67 @@ def small_tick_forms():
     return out
 
 
+def linear_pump_forms():
+    """The 408-nm linear pump (``MCTagConfig(variant="408linear")``, its own
+    compiled coupling pattern) at the 408quad pump's shapes in
+    :func:`small_tick_forms`, in the four forms: phase 4b holds them to
+    their twin and to the dense pattern's form, untimed."""
+    from mdqtplasmasims_torch.core.scheduler import free_ion_spec
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    from mdqtplasmasims_torch import levels
+    cfg = mt.MCTagConfig(variant="408linear")
+    eng = mt.pump_engine(cfg)
+    points = [(cfg.detuning, cfg.om), (-3.0, 1.0)]
+    e0 = [levels.tag408(d, o, linear=True).e0 for d, o in points]
+    om = [(o / cfg.om, 0.0) for _, o in points]
+    out = {"fused_ticks_s7_linear": (free_ion_spec(eng, cfg.ratio), 1,
+                                     cfg.n, cfg.n, None, None)}
+    for form, pe0, pom in (("e0", True, False), ("om", False, True),
+                           ("e0_om", True, True)):
+        out[f"fused_ticks_s7_linear_per_lane_{form}"] = (
+            free_ion_spec(eng, cfg.ratio, pe0, pom), len(points), cfg.n,
+            cfg.n, e0 if pe0 else None, om if pom else None)
+    return out
+
+
+def check_dense_form(torch, spec, res, args, tables, kw, what):
+    """``spec``'s launch ``res`` (its compiled coupling pattern) against the
+    dense pattern's form on the same inputs: bit for bit (a zero skipped
+    in column order leaves a sum's value)."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    dense = dataclasses.replace(spec, coupling_pattern="dense")
+    if tf._kernel_plan(dense).pattern == tf._kernel_plan(spec).pattern:
+        raise SystemExit(f"{what}: the spec already takes the dense pattern")
+    full = tf.fused_md_substeps(dense, False, *args, tables=tables, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(res, full))
+    log(f"{what}: its compiled pattern against the dense pattern's form: "
+        f"bitwise equal {same}")
+    if not same:
+        raise SystemExit(f"{what}: the compiled pattern's form differs from "
+                         "the dense form")
+
+
 def check_small_tick_kernels(torch):
     """Phase 4b: every S = 3, 5, 7 form of the tick kernel against its twin
     at the shapes its family's main path launches it (:func:`small_tick_
-    forms`), from a start with the excited states populated; a pump form
-    (no force) leaves V bit for bit; a per-lane form with its members at
-    the base equals the plain form (:func:`check_base_members`); then
-    :func:`check_tick_shapes` (a mesh shard, 1 and 24 ticks, an E=8 fold;
-    each bitwise run to run and equal to its two-part launch); timed with
-    its plain version; the S = 3 forms also on 32 ions
+    forms`; the 408 linear pump's forms too, :func:`linear_pump_forms`),
+    from a start with the excited states populated; a pump form (no
+    force) leaves V bit for bit; a per-lane form with its members at the
+    base equals the plain form (:func:`check_base_members`); a pump's form
+    equals the dense pattern's (:func:`check_dense_form`); then, for the
+    main paths' forms, :func:`check_tick_shapes` (a mesh shard, 1 and 24
+    ticks, an E=8 fold; each bitwise run to run and equal to its two-part
+    launch); timed with its plain version; every form also on 32 ions
     (:func:`chain_probe`)."""
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(41)
     out = {}
-    for name, (spec, E, n, npad, e0, om) in small_tick_forms().items():
+    timed = small_tick_forms()
+    for name, (spec, E, n, npad, e0, om) in {**timed,
+                                             **linear_pump_forms()}.items():
         what = f"[ticks-small] {name}"
         tables = tf.fused_tables(spec, dev)
         lanes = E * npad
@@ -958,6 +1032,10 @@ def check_small_tick_kernels(torch):
             raise SystemExit(f"{what}: the pump form changed V")
         if spec.per_lane_e0 or spec.per_lane_om:
             check_base_members(torch, spec, E, npad, args, tables, what)
+        if spec.S in (5, 7):
+            check_dense_form(torch, spec, res, args, tables, kw, what)
+        if name not in timed:
+            continue
         worst = max(worst, check_tick_shapes(
             torch, spec, tables, g, what, folds=(1, 8) if E == 1 else (8,),
             sweep=(e0, om), free=True))
@@ -972,8 +1050,7 @@ def check_small_tick_kernels(torch):
         out[name] = dict(max_abs_err=worst, ms=ms, idle_card_ms=idle,
                          plain_ms=plain, ticks=spec.ratio,
                          **tick_bound(spec, E * n, lanes))
-        if spec.S == 3:
-            out[name].update(chain_probe(torch, spec, g, e0, om, ms, what))
+        out[name].update(chain_probe(torch, spec, g, e0, om, ms, what))
     return out
 
 
@@ -1016,11 +1093,11 @@ def busy_sm_clock(torch, fn, calls: int = 1000):
 
 
 def chain_probe(torch, spec, g, e0, om, ms, what):
-    """The S = 3 kernel on 32 ions (one warp, in 128 lanes; the first
-    sweep member's tables) beside its main-path launch of ``ms``: equal
-    times say that one warp's tick after tick sets the launch, not the
-    card's width.  Both in cycles a tick at the SM clock nvidia-smi reads
-    while the kernel runs."""
+    """A small scheme's form (S = 3, 5, 7) on 32 ions (one warp, in 128
+    lanes; the first sweep member's tables) beside its main-path launch of
+    ``ms``: equal times say that one warp's tick after tick sets the
+    launch, not the card's width.  Both in cycles a tick at the SM clock
+    nvidia-smi reads while the kernel runs."""
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
     dev = torch.device("cuda")
@@ -1053,8 +1130,9 @@ def chain_probe(torch, spec, g, e0, om, ms, what):
 
 
 def ion_sass_faults(sass: str) -> dict:
-    """``{function: [fault, ...]}`` for each S = 3 form
-    (``fused_ticks_ion_kernel``) in a ``cuobjdump -sass`` dump: a shuffle
+    """``{function: [fault, ...]}`` for each ion-kernel form
+    (``fused_ticks_ion_kernel``, S = 3, 5, 7) in a ``cuobjdump -sass``
+    dump: a shuffle
     or vote anywhere in it; in a tick loop (a backward branch whose body
     issues ``cp.async``, LDGSTS) a register load from device memory (LDG)
     outside a loop nested in it without copies (sincosf's table walk), or
@@ -1105,12 +1183,54 @@ def ion_sass_faults(sass: str) -> dict:
     return out
 
 
+def _sass_tool():
+    """``tools/tick_kernel_sass.py`` of this checkout, as a module."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import tick_kernel_sass
+    return tick_kernel_sass
+
+
+def ion_form_key(name: str) -> tuple:
+    """``(S, pattern name, e0, om)`` of an ion-kernel function's name."""
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    S, mask, e0, om = _sass_tool().ion_form(name)
+    names = {(s, m): n for n, s, m in tf.ION_PATTERNS}
+    return (S, names.get((S, mask), "" if mask is None else f"{mask:#x}"),
+            e0, om)
+
+
+def pattern_issue(sass: str) -> tuple:
+    """``(counts, faults)``: the instructions a tick on the no-jump path
+    (``tools/tick_kernel_sass.py``'s walk) of every S = 5 / 7 ion-kernel
+    form in a dump, ``{"S=7 tag408_quad e0=0 om=0": n, ...}``, and a fault
+    for each compiled pump pattern whose form issues no fewer a tick than
+    the dense pattern's form of the same S and flags (the masked product
+    must skip the coupling's zeros)."""
+    tks = _sass_tool()
+    counts = {}
+    for name, ins in tks.functions(sass).items():
+        if not tks.ion_form(name) or tks.ion_form(name)[0] not in (5, 7):
+            continue
+        path = tks.main_path(ins, tks.tick_loop(ins))
+        ticks = max(1, round(sum("MUFU.RSQ" in t for t in path) / 4))
+        counts[ion_form_key(name)] = len(path) / ticks
+    faults = [f"S={S} {p} e0={e0} om={om}: {n:g} instructions a tick, the "
+              f"dense form {counts.get((S, 'dense', e0, om))}"
+              for (S, p, e0, om), n in sorted(counts.items())
+              if p != "dense" and not n < counts.get((S, "dense", e0, om),
+                                                     -1)]
+    return ({f"S={S} {p} e0={e0} om={om}": n
+             for (S, p, e0, om), n in sorted(counts.items())}, faults)
+
+
 def check_ion_sass() -> None:
-    """Phase 4c: the S = 3 kernel's machine code in this run's library
-    (``cuobjdump -sass``) through :func:`ion_sass_faults`; fails unless
-    all four forms are there and none has a fault.  The chain's and the
-    issue's floors are ``tools/tick_kernel_sass.py``'s, recorded in
-    PERF.md."""
+    """Phase 4c: the ion kernel's machine code (S = 3, 5, 7) in this run's
+    library (``cuobjdump -sass``) through :func:`ion_sass_faults` and
+    :func:`pattern_issue`; fails unless all 24 forms are there, none has a
+    fault, and every pump pattern's form issues fewer instructions a tick
+    than the dense form.  The chain's and the issue's floors are
+    ``tools/tick_kernel_sass.py``'s, recorded in PERF.md."""
     from mdqtplasmasims_torch import _build
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass",
@@ -1118,14 +1238,18 @@ def check_ion_sass() -> None:
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     faults = ion_sass_faults(sass)
-    for name, f in sorted(faults.items()):
-        log(f"[ticks-sass] {name[:40]}...: "
+    for name, f in sorted(faults.items(), key=lambda x: ion_form_key(x[0])):
+        log("[ticks-sass] S={} {} e0={} om={}: ".format(*ion_form_key(name))
             + ("no shuffle/vote, no LDG in the tick loop, rolls in flight"
                if not f else "; ".join(f)))
-    if len(faults) != 4 or any(faults.values()):
-        raise SystemExit(f"phase 4c: {len(faults)} S = 3 forms in the "
-                         "library, or a shuffle, a vote or an unprefetched "
-                         "roll on a tick loop")
+    counts, issue = pattern_issue(sass)
+    log("[ticks-sass] instructions a tick on the no-jump path: " + ", ".join(
+        f"{k} {v:g}" for k, v in counts.items()))
+    if len(faults) != 24 or any(faults.values()) or issue:
+        raise SystemExit(f"phase 4c: {len(faults)} ion-kernel forms in the "
+                         "library (want 24), or a shuffle, a vote or an "
+                         "unprefetched roll on a tick loop, or a pattern "
+                         f"that issues no less than dense: {issue}")
 
 
 class PlainTicks:
@@ -3123,10 +3247,11 @@ def np_isfinite(a) -> bool:
     return bool(np.isfinite(np.asarray(a)).all())
 
 
-# instantiations of the tick kernel: S = 5, 7, 12 in four per-lane forms,
-# each with short and long rows (32, the RNG forms at S = 12 among them),
-# and the S = 3 kernel's four forms
-TICK_FORMS = 36
+# instantiations of the tick kernel: the group kernel at S = 12 in four
+# per-lane forms with and without the RNG, each with short and long rows
+# (16), and the ion kernel's four per-lane forms of each compiled coupling
+# pattern (24: one at S = 3, two at S = 5, three at S = 7)
+TICK_FORMS = 40
 
 
 def build_kernels(torch):
@@ -3147,9 +3272,10 @@ def build_kernels(torch):
                 or "Compiling entry" in line):
             log(f"[build] yukawa_forces: {line.strip()}")
     forms = kernel_resources()
-    for (S, pe0, pom, rng, long_rows), res in sorted(forms.items()):
-        log(f"[build] fused_ticks S={S} per_lane_e0={pe0:d} per_lane_om="
-            f"{pom:d} internal_rng={rng:d} long_rows={long_rows:d}: "
+    for (S, pat, pe0, pom, rng, long_rows), res in sorted(forms.items()):
+        log(f"[build] fused_ticks S={S}{' ' + pat if pat else ''} "
+            f"per_lane_e0={pe0:d} per_lane_om={pom:d} internal_rng={rng:d} "
+            f"long_rows={long_rows:d}: "
             f"{res['registers']} registers, {res['spill_stores']} / "
             f"{res['spill_loads']} B spill stores / loads, {res['stack']} B "
             f"stack")

@@ -29,14 +29,15 @@ plane; its tables gain a fifth ``[SP, SP]`` block (the DP pattern).
 
 :func:`fused_md_substeps` launches ``csrc/fused_ticks.cu`` for CUDA
 tensors and runs :func:`fused_md_substeps_reference`, the plain torch
-twin, for CPU tensors.  At S = 5, 7 and 12 the kernel gives each state of
-an ion to one lane of a warp and reads H row by row: the host turns the
-packed coupling block, the beat-note terms and the Ehrenfest terms into
-one sparse row per state (:func:`coupling_rows`, the lane table of
-:func:`_kernel_plan`), once per spec.  At S = 3 one thread holds a whole
-ion and takes the scheme's tables by value (:func:`ion_table`, dense
-3 x 3 blocks made from the same lane table).  :func:`launch_geometry`
-says how the lanes are laid out.
+twin, for CPU tensors.  At S = 12 the kernel gives each state of an ion
+to one lane of a warp and reads H row by row: the host turns the packed
+coupling block, the beat-note terms and the Ehrenfest terms into one
+sparse row per state (:func:`coupling_rows`, the lane table of
+:func:`_kernel_plan`), once per spec.  At S = 3, 5 and 7 one thread holds
+a whole ion and takes the scheme's tables by value (:func:`ion_table`,
+dense S x S blocks made from the same lane table), with the scheme's
+coupling pattern compiled in (:data:`ION_PATTERNS`, :func:`ion_pattern`).
+:func:`launch_geometry` says how the lanes are laid out.
 """
 
 from __future__ import annotations
@@ -62,9 +63,22 @@ _RNG_S = 12                    # the in-kernel RNG forms are built for sr12 only
 _THREADS = 128                 # threads of a block of the kernel
 _KREG = 3                      # row entries a lane of the kernel keeps in
 #                                registers; longer rows stay in shared memory
-_ION_S = 3                     # the state count whose kernel gives each ion
+_ION_KERNEL_S = (3, 5, 7)      # the state counts whose kernel gives each ion
 _ION_THREADS = 32              # one thread, in blocks of one warp
-_ROLL_STAGES = 4               # ticks of rolls the S = 3 kernel has in flight
+_ROLL_STAGES = 4               # ticks of rolls the ion kernel has in flight
+
+#: the patterns compiled into the ion kernel (``ION_PATTERNS`` in
+#: csrc/fused_ticks.cu, in its order): ``(name, S, mask)``, bit ``s * S +
+#: c`` of the mask the place (s, c) of H's static and beat-note rows, bit
+#: ``S * S + s`` state s decaying (a nonzero decay weight).  A spec takes
+#: the first of its S that covers the scheme's (:func:`ion_pattern`); the
+#: dense pattern last serves any other scheme.
+ION_PATTERNS = (("dense", 3, 0xfff),
+                ("tag422_linear", 5, 0x18008888),
+                ("dense", 5, 0x3fffffff),
+                ("tag408_quad", 7, 0x78001010001010),
+                ("tag408_linear", 7, 0x78001010405414),
+                ("dense", 7, 0xffffffffffffff))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -102,6 +116,10 @@ class FusedTickSpec:
     per_lane_om: bool = False
     scheme_sp: LevelScheme = None
     scheme_dp: LevelScheme = None
+    # the ion kernel's compiled coupling pattern (S = 3, 5, 7) by name: ""
+    # takes the first that covers the scheme (:func:`ion_pattern`); a named
+    # one must cover it too ("dense" always does: the same bits)
+    coupling_pattern: str = ""
 
     @property
     def S(self) -> int:
@@ -480,16 +498,16 @@ class LaunchGeometry(NamedTuple):
 def launch_geometry(npad: int, S: int, K: int) -> LaunchGeometry:
     """How csrc/fused_ticks.cu is launched over ``npad`` lanes of an
     ``S``-state scheme whose longest coupling row has ``K`` entries.  At
-    S = 3 one thread an ion in blocks of 32 threads (1000 ions: one warp on
-    each of 32 SMs) and shared memory for a ring of four ticks' rolls.
-    Otherwise a group of 8 or 16 lanes per ion (one state a lane), 128
-    threads a block, and shared memory for the two ``[SP, SP]``
-    destination tables plus, for rows too long for a lane's registers,
-    the lane table."""
-    if S == _ION_S:
+    S = 3, 5, 7 one thread an ion in blocks of 32 threads (1000 ions: one
+    warp on each of 32 SMs; 3584 lanes 112 blocks) and shared memory for a
+    ring of four ticks' rolls.  At S = 12 a group of 16 lanes per ion (one
+    state a lane), 128 threads a block, and shared memory for the two
+    ``[SP, SP]`` destination tables plus, for rows too long for a lane's
+    registers, the lane table."""
+    if S in _ION_KERNEL_S:
         return LaunchGeometry(1, _ION_THREADS, npad // _ION_THREADS,
                               4 * _ROLL_STAGES * 5 * _ION_THREADS)
-    G = 8 if S <= 8 else 16
+    G = 16                     # S = 12
     SP = _round_up(S, 8)
     rows = SP * lane_table_width(K) if K > _KREG else 0
     return LaunchGeometry(G, _THREADS, npad // (_THREADS // G),
@@ -501,16 +519,19 @@ class KernelPlan(NamedTuple):
     params: _Params
     K: int                   # entries of the longest coupling row
     lane_table: np.ndarray   # [SP, lane_table_width(K)] float32
-    ion_table: np.ndarray    # [ion_table_width(S)] float32 at S = 3, else None
+    ion_table: np.ndarray    # [ion_table_width(S)] float32 at S = 3, 5, 7,
+    #                          else None
+    pattern: int             # the ion kernel's pattern mask, else 0
 
 
-#: fields of the S = 3 kernel's by-value tables (``IonTables`` in
+#: fields of the ion kernel's by-value tables (``IonTables`` in
 #: csrc/fused_ticks.cu), in order, with their shapes: per state the decay
 #: weight, e0, e1 and jump mask; ``[row, column]`` the static coupling (the
 #: lane table's c_sp and c_dp planes), the beat-note m and m times its
-#: phase sign; per state pair (s < c) in the order (0, 1), (0, 2), (1, 2)
-#: the weight W of an Ehrenfest term W Im(psi_s conj(psi_c)) and its group;
-#: ``[src, dest]`` the cumulative destination tables of the S and D branch
+#: phase sign; per state pair (s < c) in the order (0, 1), (0, 2), ...,
+#: (S - 2, S - 1) the weight W of an Ehrenfest term W Im(psi_s
+#: conj(psi_c)) and its group; ``[src, dest]`` the cumulative destination
+#: tables of the S and D branch
 ION_FIELDS = (("w", "S"), ("e0", "S"), ("e1", "S"), ("msk", "S"),
               ("c_sp", "SS"), ("c_dp", "SS"), ("tdep_m", "SS"),
               ("tdep_m_signed", "SS"), ("pair_w", "P"), ("pair_g", "P"),
@@ -522,7 +543,7 @@ def _ion_field_shape(code: str, S: int) -> tuple:
 
 
 def ion_table_width(S: int) -> int:
-    """Floats of the S = 3 kernel's tables (:data:`ION_FIELDS`)."""
+    """Floats of the ion kernel's tables (:data:`ION_FIELDS`)."""
     return sum(int(np.prod(_ion_field_shape(c, S))) for _, c in ION_FIELDS)
 
 
@@ -539,7 +560,7 @@ def ion_fields(table: np.ndarray, S: int) -> dict:
 
 def ion_table(spec: FusedTickSpec, lane_table: np.ndarray,
               K: int) -> np.ndarray:
-    """The S = 3 kernel's tables (:data:`ION_FIELDS`, float32) of ``spec``:
+    """The ion kernel's tables (:data:`ION_FIELDS`, float32) of ``spec``:
     the packed vectors and destination tables, and the lane table's rows
     scattered into dense ``[S, S]`` blocks by their columns (padding
     entries hold zeros).  A pair's Ehrenfest weight is its entry on (s, c)
@@ -572,6 +593,32 @@ def ion_table(spec: FusedTickSpec, lane_table: np.ndarray,
                             for name, _ in ION_FIELDS])
     assert table.shape == (ion_table_width(S),)
     return np.ascontiguousarray(table)
+
+
+def pattern_mask(places, S: int, decaying=()) -> int:
+    """The mask of a set of ``(row, column)`` places (bit ``s * S + c``) and
+    of the decaying states (bit ``S * S + s``)."""
+    return (sum(1 << (r * S + c) for r, c in set(places))
+            + sum(1 << (S * S + s) for s in set(decaying)))
+
+
+def ion_pattern(spec: FusedTickSpec, places) -> tuple:
+    """``(name, mask)`` of the compiled pattern (:data:`ION_PATTERNS`) that
+    ``spec`` launches with, ``places`` its scheme's (row, column) places:
+    the one ``spec.coupling_pattern`` names, or the first of its S that
+    covers them and the scheme's decaying states.  Refuses a named
+    pattern that does not cover them."""
+    decaying = np.flatnonzero(pack_tables(spec)[0][:spec.S, 0])
+    want = pattern_mask(places, spec.S, decaying)
+    for name, S, mask in ION_PATTERNS:
+        if S != spec.S or spec.coupling_pattern not in ("", name):
+            continue
+        if want & ~mask == 0:
+            return name, mask
+    raise ValueError(f"no compiled coupling pattern {spec.coupling_pattern!r}"
+                     f" of S={spec.S} covers the places {sorted(places)} and "
+                     f"decaying states {list(decaying)} of scheme "
+                     f"{spec.scheme.name}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -620,8 +667,10 @@ def _kernel_plan(spec: FusedTickSpec) -> KernelPlan:
         tab[at][5] += w
         tab[at][6] = g
     tab = tab.reshape(SP, -1)
-    return KernelPlan(params, K, tab,
-                      ion_table(spec, tab, K) if spec.S == _ION_S else None)
+    if spec.S not in _ION_KERNEL_S:
+        return KernelPlan(params, K, tab, None, 0)
+    return KernelPlan(params, K, tab, ion_table(spec, tab, K),
+                      ion_pattern(spec, places)[1])
 
 
 @functools.lru_cache(maxsize=64)
@@ -640,8 +689,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ticks")
     v, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
-    lib.fused_ticks_launch.argtypes = ([v] * 14 + [i] + [v] * 6
-                                       + [i, f, f, u, u, i, i, v])
+    lib.fused_ticks_launch.argtypes = ([v] * 14 + [i, v, ctypes.c_ulonglong]
+                                       + [v] * 5 + [i, f, f, u, u, i, i, v])
     lib.fused_ticks_launch.restype = ctypes.c_int
     return lib
 
@@ -676,9 +725,11 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
     (:data:`LAUNCH_COUNTERS`, :func:`launch_counter`).  The kernel's five
     outputs are row blocks of one allocation.  The spec's coupling check,
     parameter block and lane table are made once per spec (and card).  At
-    S = 3 the kernel takes the scheme's tables by value from the spec's
-    plan (:func:`ion_table`, packed as :func:`fused_tables` packs
-    ``tables``).  CPU tensors run :func:`fused_md_substeps_reference`."""
+    S = 3, 5, 7 the kernel takes the scheme's tables by value from the
+    spec's plan (:func:`ion_table`, packed as :func:`fused_tables` packs
+    ``tables``) and the form of its coupling pattern (:func:`ion_pattern`;
+    one launch counter for every pattern).  CPU tensors run
+    :func:`fused_md_substeps_reference`."""
     _checked(spec)
     SP = spec.SP
     npad = R.shape[-1]
@@ -750,7 +801,8 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
             *(x.data_ptr() for x in (R, V, F, tp, psi_re, psi_im)),
             *ptrs, *(x.data_ptr() for x in tabs), lane_table.data_ptr(),
             plan.K, None if plan.ion_table is None
-            else plan.ion_table.ctypes.data, *(x.data_ptr() for x in outs),
+            else plan.ion_table.ctypes.data, plan.pattern,
+            *(x.data_ptr() for x in outs),
             npad, 1.0 if first else 0.0, float(tick0), int(tick0),
             int(lane0), geo.blocks, geo.shared_bytes,
             _build.raw_stream(R.device))

@@ -26,17 +26,17 @@
 // spills.  So the time is set by how many warps each scheduler can switch
 // between and by how many instructions a tick takes.
 //
-// Two designs.  At S = 3 (the three-state toy: 1000 ions, 1000 dependent
-// ticks a launch) one thread holds a whole ion, its sums are in-thread adds
-// and the shared tables sit in the constant bank; one warp's in-order
-// instruction stream bounds it, not the card's rates
-// (fused_ticks_ion_kernel below).
-// At S = 5, 7 and 12 G lanes of a warp own one ion and lane s of the group
-// owns state s (G = 16 at S = 12: two ions a warp; 8 at S = 5 and 7;
-// lanes s >= S idle on zeros).  3584 ions are 1792 warps, 3.4 on each of
-// the card's 528 schedulers.  A lane keeps its own amplitude, slope,
-// stage and accumulator: a dozen floats where a thread kept seven arrays
-// of 24.
+// Two designs.  At S = 3, 5 and 7 (the three-state toy: 1000 ions, 1000
+// dependent ticks a launch; the tagging pumps: 3500-4096 ions, 22-62) one
+// thread holds a whole ion, its sums are in-thread adds, the shared tables
+// sit in the constant bank and the scheme's coupling pattern is compiled
+// in; one warp's in-order instruction stream bounds it, not the card's
+// rates (fused_ticks_ion_kernel below).
+// At S = 12 G = 16 lanes of a warp own one ion (two ions a warp) and lane
+// s of the group owns state s (lanes s >= S idle on zeros).  3584 ions
+// are 1792 warps, 3.4 on each of the card's 528 schedulers.  A lane keeps
+// its own amplitude, slope, stage and accumulator: a dozen floats where a
+// thread kept seven arrays of 24.
 //   * Sparse rows.  H reaches the kernel as per-row lists (the lane
 //     table, built by the host from the packed table: K (column,
 //     coefficient) entries in ascending column order, padded with (s, 0)).
@@ -484,52 +484,100 @@ fused_ticks_kernel(const TickConsts p, const float* __restrict__ R,
   }
 }
 
-// ---- S = 3: one thread an ion ----
+// ---- S = 3, 5, 7: one thread an ion ----
 //
-// The three-state toy's launch is the opposite shape of the cooling one:
-// 1000 ions (32 warps) and 1000 dependent ticks, so the time is one warp's
-// tick after tick, and a group's shuffles, butterflies and votes (some
-// 1,100-1,250 cycles a tick at G = 4 on the H100) were most of it.  Three
-// complex amplitudes are six floats, so a thread holds its whole ion:
+// The small schemes' launches are latency-bound, not rate-bound: the
+// three-state toy runs 1000 ions (32 warps) through 1000 dependent ticks,
+// the tagging pumps 3500-4096 ions through 22-62.  In a group of lanes an
+// ion's every state is one serial stream of dependent instructions with
+// shuffles on it (a butterfly for each slope's dp, the neighbours' fetches;
+// 1,500-2,000 cycles a tick at S = 5, 7 with G = 8, 1,100-1,250 at S = 3
+// with G = 4, on the H100).  A few complex amplitudes are a few dozen
+// floats, so a thread holds its whole ion:
 //   * every sum over states (dp of each slope, the Ehrenfest sum, the
 //     collapse's cumulative sum, the norm) is an in-thread add in state
 //     order, and an ion's result depends on neither its block nor how a
 //     fold is cut into launches;
-//   * H phi is a dense 3 x 3 product in column order, zeros included
-//     (0 * x added to a sum leaves it; the sparse rows' value);
+//   * H phi is the S x S product in column order over the places of the
+//     scheme's coupling pattern, compiled in (the template's mask: bit
+//     s * S + c is the place (s, c); ION_PATTERNS below).  The pumps
+//     couple 4 or 8 of 25 or 49 places, so a dense product would issue
+//     some 98 FFMA a slope for 4-8 terms.  The mask's bits S * S + s name
+//     the states that decay (w_s != 0; 2 of 5, 4 of 7 in the pumps): the
+//     slopes' dp sums and decay terms skip the others.  Skipping a zero
+//     in order leaves the dense sum's value (0 x phi added to a sum leaves
+//     it), so every pattern that covers a scheme computes the same bits;
+//     the all-ones pattern serves any other scheme of these sizes;
 //   * the tables the ions share (the coupling, beat-note and Ehrenfest
 //     weights, w, e0, e1, the jump mask and both destination tables) are
 //     kernel parameters (IonTables): an FFMA reads them from the constant
 //     bank.  The per-lane e0 and om are loaded once before the tick loop;
 //     the om forms merge om * c_sp + om_dp * c_dp once, as above, so a
-//     member at scale 1 computes what the plain form computes;
+//     member at scale 1 computes what the plain form computes.  A pattern
+//     with more than ION_HOLD places (the dense S = 5, 7 forms) forms the
+//     merged entries again each tick from a copy of (om, om_dp) the
+//     compiler cannot hoist, so its registers stay bounded;
 //   * the rolls of tick i + 3 start on their way (cp.async, coalesced rows
 //     of the [T*5, npad] plane) while tick i runs, into a ring of four
 //     ticks in shared memory that each thread fills and reads for itself:
 //     a load from device memory outlasts a tick, and a register copy of a
 //     value still on its way would wait for it;
 //   * the collapse runs under the ion's own `jumped` (no vote): a few
-//     percent of the ticks;
+//     percent of the ticks; the Ehrenfest sum only where the spec kicks
+//     (a branch the whole launch takes alike; the pumps do not kick);
 //   * 32 threads a block, so 1000 ions are 32 blocks on 32 SMs, one warp
-//     a scheduler, and an E = 8 fold of 1024 lanes 256 blocks.
-// What bounds it: one warp's stream, tick after tick.  A tick issues some
-// 410-420 instructions (at most one a cycle), and its loop-carried chain
-// (four slopes, each a sum of squares, a clip and a reciprocal square root
-// ahead of the next stage: 53 dependent instructions) takes some 277
-// cycles; in order, the warp stalls on the chain between the independent
-// work, ~655 cycles a tick on an H100 (tools/tick_kernel_sass.py reads
-// both floors from the machine code; 32 ions take as long as 1000).
+//     a scheduler, 3584 lanes 112 blocks and 4096 lanes 128.
+// What bounds it: one warp's stream, tick after tick.  At S = 3 a tick
+// issues some 410-420 instructions (at most one a cycle), and its
+// loop-carried chain (four slopes, each a sum of squares, a clip and a
+// reciprocal square root ahead of the next stage: 53 dependent
+// instructions) takes some 277 cycles; in order, the warp stalls on the
+// chain between the independent work, ~655 cycles a tick on an H100
+// (tools/tick_kernel_sass.py reads both floors from the machine code; 32
+// ions take as long as 1000).  The pumps' forms issue 452-461 (S = 5) and
+// 591-632 (S = 7) instructions a tick over a 264- / 298-cycle chain, some
+// 780 / 1,030 cycles a tick; a launch of theirs also pays the 7.5-8 us
+// that one tick alone takes (its start, the first loads, the stores).
 #define ION_THREADS 32
-#define ION_S 3                  // state count of the one-thread-an-ion kernel
 #define ROLL_STAGES 4            // ticks of rolls in flight (a shared ring)
 #define ION_SMEM (ROLL_STAGES * 5 * ION_THREADS * (int)sizeof(float))
+#define ION_HOLD 16              // places whose per-ion entries stay in
+                                 // registers across the ticks
+
+// The patterns compiled in, (name, S, mask), in the order the host takes
+// the first that covers a scheme (qt_fused.py's ION_PATTERNS mirrors this
+// list; tests/test_torch_fused_layout.py holds the two equal): the
+// three-state toy's S = 3 dense; the 422-nm pump (2<->3, 1<->4, 1-based;
+// the P states decay); the 408-nm quad pump (2<->6, 1<->5) and its linear
+// form (also 2<->4, 1<->3; the four P states decay); the dense forms of
+// S = 5 and 7
+#define ION_PATTERNS(P)                      \
+  P(dense, 3, 0xfffull)                      \
+  P(tag422_linear, 5, 0x18008888ull)         \
+  P(dense, 5, 0x3fffffffull)                 \
+  P(tag408_quad, 7, 0x78001010001010ull)     \
+  P(tag408_linear, 7, 0x78001010405414ull)   \
+  P(dense, 7, 0xffffffffffffffull)
+
+__host__ __device__ constexpr bool on_place(uint64_t M, int S, int s,
+                                            int c) {
+  return (M >> (s * S + c)) & 1ull;
+}
+
+__host__ __device__ constexpr bool decays(uint64_t M, int S, int s) {
+  return (M >> (S * S + s)) & 1ull;
+}
+
+__host__ __device__ constexpr int popcount64(uint64_t M) {
+  return M ? (int)(M & 1ull) + popcount64(M >> 1) : 0;
+}
 
 // The tables every ion shares, in the flat float32 order qt_fused.py's
 // ion_table writes (ION_FIELDS there): per state w, e0, e1, jump mask;
 // [row][column] static coupling (c_sp | c_dp, as the lane table's planes),
 // beat-note m and m times its phase sign; per state pair (0,1), (0,2),
-// (1,2) the Ehrenfest weight W of Im(psi_s conj(psi_c)) and its group;
-// [src][dest] cumulative destination tables of the S and D branches
+// ..., (S-2,S-1) the Ehrenfest weight W of Im(psi_s conj(psi_c)) and its
+// group; [src][dest] cumulative destination tables of the S and D branches
 template <int S>
 struct IonTables {
   float w[S], e0[S], e1[S], msk[S];
@@ -540,8 +588,9 @@ struct IonTables {
 __host__ __device__ constexpr int ion_table_width(int S) {
   return 4 * S + 6 * S * S + S * (S - 1);
 }
-static_assert(sizeof(IonTables<ION_S>) ==
-                  sizeof(float) * ion_table_width(ION_S),
+static_assert(sizeof(IonTables<3>) == sizeof(float) * ion_table_width(3) &&
+                  sizeof(IonTables<5>) == sizeof(float) * ion_table_width(5) &&
+                  sizeof(IonTables<7>) == sizeof(float) * ion_table_width(7),
               "IonTables is the flat table, float for float");
 
 // rsqrtf of x in [0.1, 1]: the same approximate reciprocal square root
@@ -554,9 +603,10 @@ __device__ __forceinline__ float rsqrt_01(float x) {
   return y;
 }
 
-// ``T`` ticks of one ion held in this thread's registers; BEAT: the
-// scheme has beat-note terms (a complex row a tick)
-template <int S, bool PE0, bool POM, bool BEAT>
+// ``T`` ticks of one ion held in this thread's registers; M: the coupling
+// pattern (ION_PATTERNS); BEAT: the scheme has beat-note terms (a complex
+// row a tick)
+template <int S, uint64_t M, bool PE0, bool POM, bool BEAT>
 __device__ __forceinline__ void ion_ticks(
     const TickConsts& p, const IonTables<S>& t, int n, int npad,
     const float* __restrict__ rolls, const float* __restrict__ e0_lanes,
@@ -564,6 +614,23 @@ __device__ __forceinline__ void ion_ticks(
     float* ring, float (&r)[3], float (&v)[3], const float (&f)[3],
     float& tp, float (&a)[S], float (&b)[S]) {
   constexpr int P = S * (S - 1) / 2;
+  constexpr bool HOLD = popcount64(M & ((1ull << (S * S)) - 1)) <= ION_HOLD;
+  // A pattern's sums start from a zero the compiler cannot see: from a
+  // literal 0 it would fold 0 + c x to c x and fuse the next term's
+  // product with that one instead of with the sum, a rounding the dense
+  // pattern's sums (an FFMA on every coefficient) do not make
+  float zero = 0.f;
+  if constexpr (M != (1ull << (S * S + S)) - 1)
+    asm volatile("" : "+f"(zero));
+  // At S = 5, 7 each product subtracted from a value (and v + qdt f, whose
+  // product the compiler hoists out of the loop) is rounded once, by the
+  // source's own fmaf, and a slope k, later added to the accumulator, is a
+  // product rounded apart (__fmul_rn): the compiler fuses x + y z itself
+  // but leaves x - y z, and a product it cannot fuse where it is made, to
+  // the assembler, which fuses them or not by the code around them, so
+  // two forms (a pattern and the dense one) could round them apart.  S = 3
+  // keeps the expressions, and the machine code, it was measured with.
+  constexpr bool FUSED = S != 3;
   // ---- this ion's constants: the constant bank's, or merged per ion ----
   const float om = POM ? om_lanes[n] : 1.f;
   const float omdp = POM ? om_lanes[npad + n] : 1.f;
@@ -602,12 +669,30 @@ __device__ __forceinline__ void ion_ticks(
   };
 
   auto tick = [&](int i, const float (&rl)[5]) {
+    if constexpr (POM && !HOLD) {
+      // a dense pattern's merged entries, formed again from a copy of
+      // (om, om_dp) that the compiler may not hoist out of the loop: the
+      // same bits as above, no registers held across the ticks
+      float o = om, od = omdp;
+      asm volatile("" : "+f"(o), "+f"(od));
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int c = 0; c < S; ++c) {
+          coef[s][c] = o * t.c_sp[s][c] + od * t.c_dp[s][c];
+          tm[s][c] = od * t.tm[s][c];
+          tms[s][c] = od * t.tms[s][c];
+        }
+    }
     // ---- leapfrog substep (forces fixed) ----
     const float fsq = (((first > 0.f && i == 0) ? 1.f : 0.f) * hq) * hq;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       r[d] = wrap(r[d] + hq * v[d] + fsq * f[d], L);
-      v[d] = v[d] + p.qdt * f[d];
+      if constexpr (FUSED)
+        v[d] = fmaf(p.qdt, f[d], v[d]);
+      else
+        v[d] = v[d] + p.qdt * f[d];
       r[d] = wrap(r[d] + hq * v[d] + fsq * f[d], L);
     }
     // ---- quantum tick: the clock advances before the beat note ----
@@ -637,19 +722,24 @@ __device__ __forceinline__ void ion_ticks(
     // sum_s w_s |phi_s|^2
     auto slope = [&](const float (&sa)[S], const float (&sb)[S],
                      float (&ka)[S], float (&kb)[S]) -> float {
-      float dps = 0.f;
+      float dps = zero;
 #pragma unroll
       for (int s = 0; s < S; ++s)
-        dps += t.w[s] * (sa[s] * sa[s] + sb[s] * sb[s]);
+        if (!FUSED || decays(M, S, s))
+          dps += t.w[s] * (sa[s] * sa[s] + sb[s] * sb[s]);
       const float dp = p.h * dps;
       const float pref = rsqrt_01(1.f - fminf(fmaxf(dp, 0.f), 0.9f));
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        float re = 0.f, im = 0.f;
+        float re = zero, im = zero;
 #pragma unroll
         for (int c = 0; c < S; ++c) {
+          if (!on_place(M, S, s, c)) continue;    // no term of the pattern
           if constexpr (BEAT) {
-            re += cr[s][c] * sa[c] - ci[s][c] * sb[c];
+            if constexpr (FUSED)
+              re += fmaf(cr[s][c], sa[c], -(ci[s][c] * sb[c]));
+            else
+              re += cr[s][c] * sa[c] - ci[s][c] * sb[c];
             im += cr[s][c] * sb[c] + ci[s][c] * sa[c];
           } else {
             re += coef[s][c] * sa[c];
@@ -659,10 +749,20 @@ __device__ __forceinline__ void ion_ticks(
         re += diag[s] * sa[s];
         im += diag[s] * sb[s];
         const float hw = -0.5f * t.w[s];
-        re = re - hw * sb[s];
-        im = im + hw * sa[s];
-        ka[s] = (pref * (sa[s] + p.h * im) - sa[s]) * p.inv_h;
-        kb[s] = (pref * (sb[s] - p.h * re) - sb[s]) * p.inv_h;
+        if constexpr (FUSED) {
+          if (decays(M, S, s)) {
+            re = fmaf(-hw, sb[s], re);
+            im = im + hw * sa[s];
+          }
+          ka[s] = __fmul_rn(fmaf(pref, sa[s] + p.h * im, -sa[s]), p.inv_h);
+          kb[s] = __fmul_rn(fmaf(pref, fmaf(-p.h, re, sb[s]), -sb[s]),
+                            p.inv_h);
+        } else {                  // S = 3 (dense): every state's term
+          re = re - hw * sb[s];
+          im = im + hw * sa[s];
+          ka[s] = (pref * (sa[s] + p.h * im) - sa[s]) * p.inv_h;
+          kb[s] = (pref * (sb[s] - p.h * re) - sb[s]) * p.inv_h;
+        }
       }
       return dps;
     };
@@ -700,15 +800,23 @@ __device__ __forceinline__ void ion_ticks(
       accb[s] = accb[s] + kb[s];
     }
 
-    // ---- Ehrenfest kick from the tick's initial amplitudes, pair order --
-    float kick = 0.f;
-    {
+    // ---- Ehrenfest kick from the tick's initial amplitudes, pair order,
+    // over the pattern's pairs; only where the spec kicks (the pumps do
+    // not; S = 3, whose toy kicks, keeps the unconditional sum it was
+    // measured with) --
+    float kick = zero;
+    if (S == 3 || p.apply_kick) {
       int k = 0;
 #pragma unroll
       for (int s = 0; s < S; ++s)
 #pragma unroll
         for (int c = s + 1; c < S; ++c, ++k)
-          kick += pw[k] * (b[s] * a[c] - a[s] * b[c]);
+          if (on_place(M, S, s, c) || on_place(M, S, c, s)) {
+            if constexpr (FUSED)
+              kick += pw[k] * fmaf(b[s], a[c], -(a[s] * b[c]));
+            else
+              kick += pw[k] * (b[s] * a[c] - a[s] * b[c]);
+          }
     }
     const float kick_nj = p.apply_kick ? kick * p.h : 0.f;
     const bool jumped = rl[0] < p.h * dp0;      // unclipped dp, strict <
@@ -790,7 +898,7 @@ __device__ __forceinline__ void ion_ticks(
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-template <int S, bool PE0, bool POM>
+template <int S, uint64_t M, bool PE0, bool POM>
 __global__ void __launch_bounds__(ION_THREADS)
 fused_ticks_ion_kernel(const TickConsts p, const IonTables<S> t,
                        const float* __restrict__ R,
@@ -822,13 +930,13 @@ fused_ticks_ion_kernel(const TickConsts p, const IonTables<S> t,
   float tp = tp_in[n];
   extern __shared__ float ring[];    // [ROLL_STAGES][5][ION_THREADS]
   if (p.n_tdep > 0)
-    ion_ticks<S, PE0, POM, true>(p, t, n, npad, rolls, e0_lanes, om_lanes,
-                                 first, tick0, ring + threadIdx.x, r, v, f,
-                                 tp, a, b);
+    ion_ticks<S, M, PE0, POM, true>(p, t, n, npad, rolls, e0_lanes,
+                                    om_lanes, first, tick0, ring + threadIdx.x,
+                                    r, v, f, tp, a, b);
   else
-    ion_ticks<S, PE0, POM, false>(p, t, n, npad, rolls, e0_lanes, om_lanes,
-                                  first, tick0, ring + threadIdx.x, r, v, f,
-                                  tp, a, b);
+    ion_ticks<S, M, PE0, POM, false>(p, t, n, npad, rolls, e0_lanes,
+                                     om_lanes, first, tick0,
+                                     ring + threadIdx.x, r, v, f, tp, a, b);
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     Ro[(size_t)d * npad + n] = r[d];
@@ -847,8 +955,9 @@ fused_ticks_ion_kernel(const TickConsts p, const IonTables<S> t,
   }
 }
 
-// lanes of a warp that own one ion
-static int lanes_per_ion(int S) { return S == ION_S ? 1 : S <= 8 ? 8 : 16; }
+// lanes of a warp that own one ion: a thread at S = 3, 5, 7 (the ion
+// kernel), 16 lanes at S = 12 (the group kernel)
+static int lanes_per_ion(int S) { return S <= 7 ? 1 : 16; }
 
 extern "C" {
 
@@ -856,18 +965,20 @@ extern "C" {
 // tick_base is then the absolute run tick at entry and lane0 the global
 // lane of lane 0).  lane_tab [SP, lane_table_width(K)] holds each lane's
 // row of H (K entries; the beat-note and Ehrenfest terms ride on them);
-// at S = ION_S the kernel takes ion_tab instead, a host array of
-// ion_table_width(S) floats (IonTables) passed by value.  blocks and
-// smem_bytes are the caller's launch geometry, checked against the
-// kernel's own.
+// at S = 3, 5, 7 the kernel takes ion_tab instead, a host array of
+// ion_table_width(S) floats (IonTables) passed by value, and pattern, the
+// mask of one of ION_PATTERNS' entries for that S (the host picks one that
+// covers the scheme's places; another is refused).  blocks and smem_bytes
+// are the caller's launch geometry, checked against the kernel's own.
 int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
                        const float* F, const float* tp, const float* pre,
                        const float* pim, const float* rolls, const int* seed,
                        const float* e0_lanes, const float* om_lanes,
                        const float* vecs, const float* mats,
                        const float* lane_tab, int K, const float* ion_tab,
-                       float* Ro, float* Vo, float* tpo, float* preo,
-                       float* pimo, int npad, float first, float tick0,
+                       unsigned long long pattern, float* Ro, float* Vo,
+                       float* tpo, float* preo, float* pimo, int npad,
+                       float first, float tick0,
                        unsigned tick_base, unsigned lane0, int blocks,
                        int smem_bytes, void* stream) {
   const int pe0 = p->per_lane_e0 != 0, pom = p->per_lane_om != 0;
@@ -889,25 +1000,31 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
   c.exp_c1 = p->exp_c1; c.exp_c2 = p->exp_c2; c.tdep_freq = p->tdep_freq;
   c.branch_d = p->branch_d; c.kick_s = p->kick_s; c.kick_d = p->kick_d;
   cudaStream_t st = (cudaStream_t)stream;
-  if (p->S == ION_S) {       // one thread an ion; no RNG form at this S
+  if (G == 1) {              // one thread an ion; no RNG form at these S
     if (rng || !ion_tab || blocks != npad / ION_THREADS ||
         smem_bytes != ION_SMEM)
       return (int)cudaErrorInvalidValue;
-    IonTables<ION_S> t;
-    memcpy(&t, ion_tab, sizeof t);
-#define ION_LAUNCH(E0, OM)                                                \
-  fused_ticks_ion_kernel<ION_S, E0, OM>                                    \
+#define ION_LAUNCH(SV, MV, E0, OM)                                        \
+  fused_ticks_ion_kernel<SV, MV, E0, OM>                                  \
       <<<blocks, ION_THREADS, ION_SMEM, st>>>(                            \
       c, t, R, V, F, tp, pre, pim, rolls, e0_lanes, om_lanes, Ro, Vo, tpo, \
       preo, pimo, npad, first, tick0)
-    switch (pe0 * 2 + pom) {
-      case 0: ION_LAUNCH(false, false); break;
-      case 2: ION_LAUNCH(true, false); break;
-      case 1: ION_LAUNCH(false, true); break;
-      default: ION_LAUNCH(true, true); break;
-    }
+#define ION_FORMS(NAME, SV, MV)                                           \
+  if (p->S == SV && pattern == MV) {                                      \
+    IonTables<SV> t;                                                      \
+    memcpy(&t, ion_tab, sizeof t);                                        \
+    switch (pe0 * 2 + pom) {                                              \
+      case 0: ION_LAUNCH(SV, MV, false, false); break;                    \
+      case 2: ION_LAUNCH(SV, MV, true, false); break;                     \
+      case 1: ION_LAUNCH(SV, MV, false, true); break;                     \
+      default: ION_LAUNCH(SV, MV, true, true); break;                     \
+    }                                                                     \
+    return (int)cudaGetLastError();                                       \
+  }
+    ION_PATTERNS(ION_FORMS)
+#undef ION_FORMS
 #undef ION_LAUNCH
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;          // no such pattern compiled
   }
   const int need =
       (int)sizeof(float) * (2 * SP * SP + (K > KREG ? SP * W : 0));
@@ -924,17 +1041,8 @@ int fused_ticks_launch(const FusedParams* p, const float* R, const float* V,
   else                                                                    \
     fused_ticks_kernel<SV, GV, E0, OM, RG, false>                         \
         <<<blocks, THREADS, smem_bytes, st>>>(ARGS)
-  // every state count takes the per-lane forms; the RNG forms are built
-  // for sr12 (the cooling family) only
+  // the per-lane forms, and the RNG forms (the cooling family's sr12)
   switch (p->S * 8 + rng * 4 + pe0 * 2 + pom) {
-    case 5 * 8: LAUNCH(5, 8, false, false, false); break;
-    case 5 * 8 + 2: LAUNCH(5, 8, true, false, false); break;
-    case 5 * 8 + 1: LAUNCH(5, 8, false, true, false); break;
-    case 5 * 8 + 3: LAUNCH(5, 8, true, true, false); break;
-    case 7 * 8: LAUNCH(7, 8, false, false, false); break;
-    case 7 * 8 + 2: LAUNCH(7, 8, true, false, false); break;
-    case 7 * 8 + 1: LAUNCH(7, 8, false, true, false); break;
-    case 7 * 8 + 3: LAUNCH(7, 8, true, true, false); break;
     case 12 * 8: LAUNCH(12, 16, false, false, false); break;
     case 12 * 8 + 2: LAUNCH(12, 16, true, false, false); break;
     case 12 * 8 + 1: LAUNCH(12, 16, false, true, false); break;

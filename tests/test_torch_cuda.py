@@ -851,27 +851,77 @@ def _small_spec(scheme, ratio=25, **kw):
                             **kw)
 
 
+def _small_scheme(name):
+    from mdqtplasmasims_torch import levels
+    return dict(
+        three_state=levels.three_state,
+        three_state_beat=lambda: dataclasses.replace(
+            levels.three_state(), name="three_state_beat", tdep_rows=(1,),
+            tdep_cols=(2,), tdep_coefs=(0.05,), tdep_freq=0.7),
+        tag422=levels.tag422,
+        tag408_linear=lambda: levels.tag408(-1.0, 0.5, True),
+        tag408_circular=lambda: levels.tag408(-1.0, 0.5, False),
+        # terms no pump has, on its compiled pattern's pairs: a kick on
+        # the 408 linear pump, a beat note on the 422 pump
+        tag408_kick=lambda: dataclasses.replace(
+            levels.tag408(-1.0, 0.5, True), name="tag408_kick",
+            force_a=(0, 1), force_b=(2, 5), force_w=(2e-3, -1e-3)),
+        tag422_beat=lambda: dataclasses.replace(
+            levels.tag422(), name="tag422_beat", tdep_rows=(1,),
+            tdep_cols=(2,), tdep_coefs=(0.05,), tdep_freq=0.7))[name]()
+
+
 @pytest.mark.parametrize("excited", [False, True])
 @pytest.mark.parametrize("scheme_name", ["three_state", "three_state_beat",
                                          "tag422", "tag408_linear",
-                                         "tag408_circular"])
+                                         "tag408_circular", "tag408_kick",
+                                         "tag422_beat"])
 def test_tick_kernel_small_schemes(cuda, scheme_name, excited):
-    """The explicit S = 3 (one thread an ion; with a beat-note term too, the
-    complex-row path), 5 and 7 (groups of 8 lanes) forms."""
-    from mdqtplasmasims_torch import levels
-    beat = lambda: dataclasses.replace(
-        levels.three_state(), name="three_state_beat", tdep_rows=(1,),
-        tdep_cols=(2,), tdep_coefs=(0.05,), tdep_freq=0.7)
-    scheme = dict(three_state=levels.three_state, three_state_beat=beat,
-                  tag422=levels.tag422,
-                  tag408_linear=lambda: levels.tag408(-1.0, 0.5, True),
-                  tag408_circular=lambda: levels.tag408(-1.0, 0.5, False)
-                  )[scheme_name]()
+    """The explicit S = 3, 5 and 7 forms (one thread an ion; with a
+    beat-note term too, the complex-row path; at S = 5 and 7 the pump's
+    compiled pattern, and a kick or a beat note on its pairs)."""
+    scheme = _small_scheme(scheme_name)
     for ticks in (25, 1):
         spec = _small_spec(scheme, ticks)
         tables = tf.fused_tables(spec, cuda)
         _hold_tick_kernel(cuda, spec, tables, 1, 256, 200, excited)
         _hold_tick_kernel(cuda, spec, tables, 1, 3584, 3500, excited)
+
+
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+@pytest.mark.parametrize("scheme_name", ["tag422", "tag408_linear",
+                                         "tag408_circular", "tag408_kick",
+                                         "tag422_beat"])
+def test_tick_kernel_patterns_equal_the_dense_form(cuda, scheme_name,
+                                                   variant):
+    """A scheme's compiled coupling pattern and the dense pattern's form
+    (``coupling_pattern="dense"``) give the same bits on the same inputs,
+    in every per-lane form (the sums skip zeros in order; every product
+    that is subtracted is rounded by the source, not by the assembler)."""
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    scheme = _small_scheme(scheme_name)
+    pe0, pom = "e0" in variant, "om" in variant
+    spec = _small_spec(scheme, 25, per_lane_e0=pe0)
+    if pom:
+        spec = tf.rabi_scaled(spec)
+    dense = dataclasses.replace(spec, coupling_pattern="dense")
+    assert tf._kernel_plan(spec).pattern != tf._kernel_plan(dense).pattern
+    e0p, omp = fold_sweep_lanes(
+        spec, 1024, [scheme.e0 * f for f in (1.0, 0.5)] if pe0 else None,
+        [(f, 0.0) for f in (1.0, 0.6)] if pom else None, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    lanes = 2 * 1024
+    rand = lambda rows: torch.rand((rows, lanes), generator=g, device=cuda)
+    pre, pim = torch.zeros((2, spec.SP, lanes), device=cuda)
+    src = scheme.jump_src                      # the excited states
+    pre[0], pre[src[0]], pim[src[-1]] = 0.51, 0.7, 0.5
+    args = (rand(3) * 5, rand(3) - 0.5, rand(3) - 0.5, rand(1), pre, pim,
+            rand(spec.ratio * 5))
+    tables = tf.fused_tables(spec, cuda)
+    kw = dict(tables=tables, e0_lanes=e0p, om_lanes=omp)
+    masked = tf.fused_md_substeps(spec, False, *args, **kw)
+    full = tf.fused_md_substeps(dense, False, *args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(masked, full))
 
 
 @pytest.mark.parametrize("variant", ["e0", "om", "e0_om"])

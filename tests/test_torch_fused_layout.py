@@ -3,12 +3,13 @@ rows, the lane table, the per-spec cache and the launch geometry
 (mdqtplasmasims_torch/core/qt_fused.py), on the CPU.
 
 The CUDA kernel (csrc/fused_ticks.cu) gives each state of an ion to one
-lane of a group and reads its tables lane by lane (S = 5, 7, 12), or each
-ion to one thread with the scheme's tables by value (S = 3).
-``lane_model`` below is that data flow in numpy (a lane axis, shuffles as
-index lookups, xor butterflies, the scan, the ballots; at S = 3
-``ion_model``: a state axis summed in state order), fed by the same lane
-or ion table the kernel gets; it is held to the plain twin at the
+lane of a group and reads its tables lane by lane (S = 12), or each ion
+to one thread with the scheme's tables by value and its coupling pattern
+compiled in (S = 3, 5, 7).  ``lane_model`` below is that data flow in
+numpy (a lane axis, shuffles as index lookups, xor butterflies, the scan,
+the ballots; at S = 3, 5, 7 ``ion_model``: a state axis summed in state
+order over the pattern's places), fed by the same lane or ion table the
+kernel gets; it is held to the plain twin at the
 kernel's own bars (R/V/tp 2e-5, psi 5e-5 + 1e-4 relative, pads exactly
 0), so a wrong index, sign or padding entry in the table fails here,
 without a card."""
@@ -57,6 +58,15 @@ SCHEMES = {
     "tag408_linear": lambda: tag408(-1.0, 0.5, True),
     "tag408_circular": lambda: tag408(-1.0, 0.5, False),
     "tag422": lambda: tag422(),
+    # an Ehrenfest term on a coupled pair of the 408 linear pump (the ion
+    # kernel's masked pair loop) and a beat note on a coupled pair of the
+    # 422 pump (its masked complex row); no reference pump has either
+    "tag408_kick": lambda: dataclasses.replace(
+        tag408(-1.0, 0.5, True), name="tag408_kick", force_a=(0, 1),
+        force_b=(2, 5), force_w=(2e-3, -1e-3)),
+    "tag422_beat": lambda: dataclasses.replace(
+        tag422(), name="tag422_beat", tdep_rows=(1,), tdep_cols=(2,),
+        tdep_coefs=(0.05,), tdep_freq=0.7),
 }
 
 
@@ -213,16 +223,19 @@ def test_terms_ride_on_the_row_entries():
     (1792, 12, 3, (16, 128, 224, 2048)),
     (4 * 3584, 12, 3, (16, 128, 1792, 2048)),
     (3584, 12, 12, (16, 128, 448, 2048 + 4 * 16 * 84)),
-    (128, 7, 2, (8, 128, 8, 512)),
-    (128, 5, 1, (8, 128, 8, 512)),
+    (128, 7, 2, (1, 32, 4, 2560)),
+    (4096, 7, 2, (1, 32, 128, 2560)),
+    (128, 5, 1, (1, 32, 4, 2560)),
+    (3584, 5, 1, (1, 32, 112, 2560)),
     (256, 3, 2, (1, 32, 8, 2560)),
 ])
 def test_launch_geometry_reads_only_its_arguments(npad, S, K, want):
     geo = tf.launch_geometry(npad, S, K)
     assert tuple(geo) == want
     assert geo.blocks * (geo.threads // geo.lanes_per_ion) == npad
-    # a group holds one state a lane; at S = 3 a thread holds the ion
-    assert geo.lanes_per_ion >= S or (S == 3 and geo.lanes_per_ion == 1)
+    # a group holds one state a lane; at S = 3, 5, 7 a thread holds the ion
+    assert (geo.lanes_per_ion == 1) == (S in (3, 5, 7))
+    assert geo.lanes_per_ion >= S or geo.lanes_per_ion == 1
     tf._kernel_plan(_spec(sr12_cooling()))        # other state of the module
     assert tf.launch_geometry(npad, S, K) == geo
     assert tf.lane_table_width(K) == 7 * K
@@ -266,13 +279,17 @@ def test_sparse_row_sum_equals_dense_sum_bit_for_bit(name):
 
 def ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
               e0_lanes=None, om_lanes=None):
-    """csrc/fused_ticks.cu's S = 3 kernel (one thread an ion): arrays are
-    ``[n]`` per state, the tables the plan's ion table, every sum over
-    states taken in state order (over pairs s < c for the Ehrenfest sum),
-    H phi dense in column order, the collapse's result taken only where an
-    ion jumps."""
+    """csrc/fused_ticks.cu's ion kernel (S = 3, 5, 7; one thread an ion):
+    arrays are ``[n]`` per state, the tables the plan's ion table, every
+    sum over states taken in state order (dp over the pattern's decaying
+    states, the Ehrenfest sum over its pairs s < c where the spec kicks),
+    H phi in column order over the places of the plan's compiled pattern
+    and the decay terms of its decaying states, the collapse's result
+    taken only where an ion jumps."""
     plan = tf._kernel_plan(spec)
     p, S, SP = plan.params, spec.S, spec.SP
+    on = lambda s, k: bool((plan.pattern >> (s * S + k)) & 1)
+    decays = lambda s: bool((plan.pattern >> (S * S + s)) & 1)
     t = tf.ion_fields(plan.ion_table, S)
     n = R.shape[1]
     c = lambda x: f32(x)
@@ -325,12 +342,15 @@ def ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
         def slope(sa, sb):
             dps = c(0)
             for s in range(S):
-                dps = dps + w[s] * (sa[s] * sa[s] + sb[s] * sb[s])
+                if decays(s):
+                    dps = dps + w[s] * (sa[s] * sa[s] + sb[s] * sb[s])
             pref = c(1) / np.sqrt(c(1) - np.clip(h * dps, c(0), c(0.9)))
             ka, kb = [], []
             for s in range(S):
                 re = im = c(0)
                 for k in range(S):
+                    if not on(s, k):
+                        continue
                     if beat:
                         re = re + (cr[s][k] * sa[k] - ci[s][k] * sb[k])
                         im = im + (cr[s][k] * sb[k] + ci[s][k] * sa[k])
@@ -339,7 +359,8 @@ def ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
                         im = im + coef[s][k] * sb[k]
                 re, im = re + diag[s] * sa[s], im + diag[s] * sb[s]
                 hw = c(-0.5) * w[s]
-                re, im = re - hw * sb[s], im + hw * sa[s]
+                if decays(s):
+                    re, im = re - hw * sb[s], im + hw * sa[s]
                 ka.append((pref * (sa[s] + h * im) - sa[s]) * inv_h)
                 kb.append((pref * (sb[s] - h * re) - sb[s]) * inv_h)
             return ka, kb, dps
@@ -359,7 +380,8 @@ def ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
 
         kick = c(0)
         for j, (s, k) in enumerate(pairs):
-            kick = kick + pw[j] * (b[s] * a[k] - a[s] * b[k])
+            if (S == 3 or p.apply_kick) and (on(s, k) or on(k, s)):
+                kick = kick + pw[j] * (b[s] * a[k] - a[s] * b[k])
         kick_nj = kick * h
         jumped = rl[0] < h * dp0
         cum, run = [], None
@@ -403,8 +425,8 @@ def lane_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0=0,
                e0_lanes=None, om_lanes=None):
     """csrc/fused_ticks.cu's tick loop with a lane axis: arrays are
     ``[G, n]``, lane s of every ion's group along axis 0; a shuffle from
-    lane ``idx[s]`` is ``x[idx]``.  At S = 3 the kernel's own data flow,
-    :func:`ion_model`."""
+    lane ``idx[s]`` is ``x[idx]``.  At S = 3, 5, 7 the kernel's own data
+    flow, :func:`ion_model`."""
     if tf.launch_geometry(128, spec.S, 1).lanes_per_ion == 1:
         return ion_model(spec, first, R, V, F, tp, pre, pim, rolls, tick0,
                          e0_lanes, om_lanes)
@@ -613,10 +635,13 @@ def test_lane_model_per_lane_forms_match_twin(variant, excited):
 
 
 @pytest.mark.parametrize("name", ["three_state", "three_state_beat",
-                                  "tag408_linear", "tag422"])
+                                  "tag408_linear", "tag422", "tag408_kick",
+                                  "tag422_beat"])
 def test_lane_model_small_schemes_match_twin(name):
-    """S = 3 (one thread an ion, with and without a beat-note term), 5, 7
-    (groups of 8 lanes, no beat notes): 2 or no Ehrenfest terms."""
+    """S = 3 (with and without a beat-note term), 5, 7 (the pumps, and
+    each with a term no pump has: a beat note, an Ehrenfest kick), one
+    thread an ion with the scheme's pattern compiled in: 2 or no Ehrenfest
+    terms."""
     sch = SCHEMES[name]()
     spec = _spec(sch, 10, apply_force=sch.has_force)
     p = _planes(spec.S, spec.SP, 120, 128, 10, True, seed=13)
@@ -645,22 +670,20 @@ def test_lane_model_small_per_lane_forms_match_twin(name, variant):
     _hold(spec, p, E * npad, True, 0, e0p, omp, jumps=1)
 
 
-@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
-def test_ion_model_s3_whole_equals_parts_and_base_equals_plain(variant):
-    """The S = 3 kernel's data flow (one thread an ion) in all four forms:
-    a whole launch equals the same lanes launched in two parts bit for bit
+def _whole_parts_base(sch, variant, ratio, seed):
+    """The ion kernel's data flow for ``sch`` in one of its four forms: a
+    whole launch equals the same lanes launched in two parts bit for bit
     (no sum crosses ions), and a fold whose members sit at the base (the
     scheme's own e0, om scale 1.0 with an empty DP pattern) computes what
     the plain form computes, bit for bit."""
     from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
-    sch = three_state()
     pe0, pom = "e0" in variant, "om" in variant
-    plain = _spec(sch, 12, apply_force=sch.has_force)
+    plain = _spec(sch, ratio, apply_force=sch.has_force)
     spec = dataclasses.replace(plain, per_lane_e0=pe0)
     if pom:
         spec = tf.rabi_scaled(spec)
     E, npad = 2, 128
-    p = _planes(3, 8, E * npad, E * npad, 12, True, seed=16)
+    p = _planes(spec.S, spec.SP, E * npad, E * npad, ratio, True, seed=seed)
     args = [p[k] for k in ARGS]
 
     def lanes(e0, om):
@@ -676,13 +699,151 @@ def test_ion_model_s3_whole_equals_parts_and_base_equals_plain(variant):
              for lo, hi in ((0, 96), (96, E * npad))]
     for w, a, b in zip(whole, *parts):
         np.testing.assert_array_equal(w, np.concatenate([a, b], 1))
-    assert int((whole[2][0] < 12 * QDT).sum()) >= 1          # jumps ran
+    assert int((whole[2][0] < ratio * QDT).sum()) >= 1       # jumps ran
     e0b, omb = lanes(np.stack([sch.e0] * E).astype(f32),
                      np.asarray([(1.0, 0.0)] * E, f32))
     base = ion_model(spec, True, *args, e0_lanes=e0b, om_lanes=omb)
     ref = ion_model(plain, True, *args)
     for x, y in zip(base, ref):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+def test_ion_model_s3_whole_equals_parts_and_base_equals_plain(variant):
+    """The S = 3 kernel's data flow (one thread an ion) in all four forms:
+    whole equals parts and base equals plain, bit for bit
+    (:func:`_whole_parts_base`)."""
+    _whole_parts_base(three_state(), variant, 12, 16)
+
+
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+@pytest.mark.parametrize("name", ["tag422", "tag408_circular",
+                                  "tag408_linear"])
+def test_ion_model_s5_s7_whole_equals_parts_and_base_equals_plain(name,
+                                                                  variant):
+    """The pumps' forms (S = 5, 7, their patterns compiled in) in all four
+    forms: whole equals parts and base equals plain, bit for bit."""
+    _whole_parts_base(SCHEMES[name](), variant, 10, 17)
+
+
+def _cu_patterns():
+    """``ION_PATTERNS`` of csrc/fused_ticks.cu as ``(name, S, mask)``."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(tf.__file__), os.pardir, "csrc",
+                       "fused_ticks.cu")
+    with open(src) as f:
+        text = f.read()
+    block = text[text.index("#define ION_PATTERNS(P)"):]
+    block = block[:block.index("\n\n")]
+    return tuple((n, int(S), int(m, 16)) for n, S, m in re.findall(
+        r"P\((\w+), (\d+), (0x[0-9a-f]+)ull\)", block))
+
+
+def test_host_patterns_mirror_the_kernel_list():
+    """The host's pattern list is the kernel's, entry for entry and in
+    order (the host takes the first that covers a scheme), each S ends on
+    its dense pattern, and no two patterns of an S are equal."""
+    assert _cu_patterns() == tf.ION_PATTERNS
+    for S in (3, 5, 7):
+        mine = [(n, m) for n, s, m in tf.ION_PATTERNS if s == S]
+        assert mine[-1] == ("dense", (1 << (S * S + S)) - 1)
+        assert len({m for _, m in mine}) == len(mine)
+        assert all(m < 1 << (S * S + S) for _, m in mine)
+
+
+# a scheme of S = 5 or 7 whose coupling is dense: no pump's pattern
+def _dense_scheme(S):
+    sch = tag422() if S == 5 else tag408(-1.0, 0.5, True)
+    c = 0.1 * np.random.default_rng(S).normal(size=(S, S))
+    return dataclasses.replace(sch, name=f"dense{S}", coupling=c + c.T)
+
+
+@pytest.mark.parametrize("name, scheme, want", [
+    ("tag422", tag422, "tag422_linear"),
+    ("tag422_om_1.7", lambda: tag422(-2.0, 1.7), "tag422_linear"),
+    ("tag408_quad", lambda: tag408(-1.0, 0.5, False), "tag408_quad"),
+    ("tag408_linear", lambda: tag408(-1.0, 0.5, True), "tag408_linear"),
+    ("three_state", three_state, "dense"),
+    ("dense5", lambda: _dense_scheme(5), "dense"),
+    ("dense7", lambda: _dense_scheme(7), "dense"),
+    # the quad pump's coupling with a ground state that decays
+    ("tag408_quad_decay0", lambda: dataclasses.replace(
+        tag408(-1.0, 0.5, False), name="tag408_quad_decay0",
+        decay_w=tag408(-1.0, 0.5, False).decay_w + np.eye(7)[0]), "dense"),
+])
+def test_schemes_pick_their_compiled_pattern(name, scheme, want):
+    """The pumps take their own patterns (the places of their coupling and
+    their decaying states exactly), in every form; any other scheme of S =
+    5, 7 the dense one; a named pattern that covers the scheme is taken,
+    one that does not is refused."""
+    sch = scheme()
+    masks = {(n, S): m for n, S, m in tf.ION_PATTERNS}
+    mask = masks[(want, sch.n_states)]
+    for spec in (_spec(sch), _spec(sch, per_lane_e0=True),
+                 tf.rabi_scaled(_spec(sch)),
+                 tf.rabi_scaled(_spec(sch, per_lane_e0=True))):
+        assert tf._kernel_plan(spec).pattern == mask
+    if want != "dense":
+        places = zip(*np.nonzero(sch.coupling))
+        assert tf.pattern_mask(places, sch.n_states,
+                               np.flatnonzero(sch.decay_w)) == mask
+    dense = tf._kernel_plan(_spec(sch, coupling_pattern="dense"))
+    assert dense.pattern == masks[("dense", sch.n_states)]
+    np.testing.assert_array_equal(dense.ion_table,
+                                  tf._kernel_plan(_spec(sch)).ion_table)
+    if name == "tag408_linear":
+        with pytest.raises(ValueError, match="covers"):
+            tf._kernel_plan(_spec(sch, coupling_pattern="tag408_quad"))
+    if name == "tag408_quad":         # a pattern that covers it: taken
+        wide = tf._kernel_plan(_spec(sch, coupling_pattern="tag408_linear"))
+        assert wide.pattern == masks[("tag408_linear", 7)]
+
+
+def test_ion_table_width_of_the_pump_schemes():
+    """190 floats at S = 5 and 364 at S = 7 (760 and 1,456 bytes: the
+    kernel parameter's room is 4 KiB), the .cu's formula, and the plans'
+    tables of that length."""
+    assert tf.ion_table_width(5) == 190 and tf.ion_table_width(7) == 364
+    for S in (3, 5, 7):
+        assert tf.ion_table_width(S) == 4 * S + 6 * S * S + S * (S - 1)
+    for sch in (tag422(), tag408(-1.0, 0.5, False)):
+        plan = tf._kernel_plan(_spec(sch))
+        assert plan.ion_table.shape == (tf.ion_table_width(sch.n_states),)
+        assert plan.ion_table.dtype == np.float32
+    assert tf._kernel_plan(_spec(sr12_cooling())).ion_table is None
+
+
+@pytest.mark.parametrize("variant", ["plain", "e0", "om", "e0_om"])
+@pytest.mark.parametrize("name", ["tag422", "tag408_circular",
+                                  "tag408_linear", "tag408_kick",
+                                  "tag422_beat"])
+def test_masked_ion_model_equals_dense_bit_for_bit(name, variant):
+    """A compiled pattern skips the coupling's zeros in column order (and
+    the Ehrenfest sum's zero pairs), which leaves the dense sums' bits:
+    the pattern's form equals the dense form, bit for bit, in every form,
+    with a kick and with a beat note."""
+    from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
+    sch = SCHEMES[name]()
+    pe0, pom = "e0" in variant, "om" in variant
+    spec = _spec(sch, 10, apply_force=sch.has_force, per_lane_e0=pe0)
+    if pom:
+        spec = tf.rabi_scaled(spec)
+    dense = dataclasses.replace(spec, coupling_pattern="dense")
+    assert tf._kernel_plan(spec).pattern != tf._kernel_plan(dense).pattern
+    E, npad = 2, 128
+    e0p, omp = (None if x is None else x.numpy() for x in fold_sweep_lanes(
+        spec, npad, np.stack([sch.e0, 1.7 * sch.e0]).astype(f32) if pe0
+        else None, np.asarray([(1.0, 0.0), (0.6, 0.0)], f32) if pom
+        else None))
+    p = _planes(spec.S, spec.SP, E * npad, E * npad, 10, True, seed=18)
+    args = [p[k] for k in ARGS]
+    masked = ion_model(spec, True, *args, e0_lanes=e0p, om_lanes=omp)
+    full = ion_model(dense, True, *args, e0_lanes=e0p, om_lanes=omp)
+    for x, y in zip(masked, full):
+        np.testing.assert_array_equal(x, y)
+    if sch.has_force:                   # the kick ran and moved V
+        assert not np.array_equal(masked[1], p["V"])
 
 
 def test_lane_model_dense_table_matches_twin():

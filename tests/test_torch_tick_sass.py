@@ -1,10 +1,13 @@
-"""``tools/tick_kernel_sass.py``'s readings of the S = 3 tick kernel's
-machine code, and ``chip_smoke.ion_sass_faults`` (phase 4c's gate), on a
-recorded dump of the plain S = 3 form: ``tests/fixtures/s3_plain.sass``,
-``cuobjdump -sass`` of the built ``csrc/fused_ticks.cu`` (sm_90a) with
-the instruction encodings stripped, and on copies with one line changed.
-Re-record the dump when the kernel changes (the tool and the gate then
-read the new code; the pinned numbers move with it)."""
+"""``tools/tick_kernel_sass.py``'s readings of the ion tick kernel's
+machine code, and ``chip_smoke.ion_sass_faults`` and
+``chip_smoke.pattern_issue`` (phase 4c's gates), on recorded dumps:
+``tests/fixtures/s3_plain.sass`` (the plain S = 3 form) and
+``tests/fixtures/s7_quad_dense.sass`` (the plain S = 7 forms of the
+tag408_quad pattern and of the dense one), ``cuobjdump -sass`` of the
+built ``csrc/fused_ticks.cu`` (sm_90a) with the instruction encodings
+stripped (``tools/tick_kernel_sass.py --fixture``), and on copies with
+one line changed.  Re-record a dump when its forms change (the tool and
+the gates then read the new code; the pinned numbers move with it)."""
 
 import os
 import sys
@@ -19,6 +22,7 @@ import chip_smoke  # noqa: E402
 import tick_kernel_sass as tks  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "s3_plain.sass")
+FIXTURE_S7 = os.path.join(ROOT, "tests", "fixtures", "s7_quad_dense.sass")
 #: cycles a dependent instruction of each class, as tools/sass_latency.cu
 #: measured them on an H100
 LAT = {"fma": 4.2509765625, "mnmx": 4.248046875, "sel": 4.124267578125,
@@ -122,15 +126,173 @@ def test_gate_refuses_a_loop_without_copies():
 
 
 def test_same_code_compares_group_kernels_only():
-    name = ("_Z18fused_ticks_kernelILi5ELi8ELb0ELb0ELb0ELb0EEv10TickConsts")
-    s3 = ("_Z18fused_ticks_kernelILi3ELi4ELb0ELb0ELb0ELb0EEv10TickConsts")
+    """The S = 12 group kernels by name and the S = 3 ion forms by state
+    count and flags (the new kernel's name carries its coupling pattern,
+    the parent's none); the S = 5 / 7 group forms, which the ion kernel
+    replaced, are read by ``analyse_group`` instead."""
+    s12 = "_Z18fused_ticks_kernelILi12ELi16ELb0ELb0ELb0ELb0EEv10TickConsts"
+    s5 = "_Z18fused_ticks_kernelILi5ELi8ELb0ELb0ELb0ELb0EEv10TickConsts"
+    ion = "_Z22fused_ticks_ion_kernelILi3E{}Lb0ELb1EEv10TickConsts"
 
-    def dump(code5, code3):
-        return (f"Function : {name}\n/*0000*/ {code5} ;\n"
-                f"Function : {s3}\n/*0000*/ {code3} ;\n")
+    def dump(code12, code3, mask=""):
+        return (f"Function : {s12}\n/*0000*/ {code12} ;\n"
+                f"Function : {s5}\n/*0000*/ MOV R1, R2 ;\n"
+                f"Function : {ion.format(mask)}\n/*0000*/ {code3} ;\n")
 
     parent = tks.functions(dump("FADD R1, R2, R3", "MOV R1, R2"))
-    assert tks.same_code(tks.functions(dump("FADD R1, R2, R3", "NOP")),
-                         parent) == {"S=5 e0=0 om=0 rng=0 long_rows=0": True}
-    assert tks.same_code(tks.functions(dump("FMUL R1, R2, R3", "MOV R1, R2")),
-                         parent) == {"S=5 e0=0 om=0 rng=0 long_rows=0": False}
+    keys = ("S=12 e0=0 om=0 rng=0 long_rows=0", "S=3 ion e0=0 om=1")
+    for new, want in ((dump("FADD R1, R2, R3", "MOV R1, R2", "Lm511E"),
+                       (True, True)),
+                      (dump("FMUL R1, R2, R3", "MOV R1, R2", "Lm511E"),
+                       (False, True)),
+                      (dump("FADD R1, R2, R3", "NOP", "Lm511E"),
+                       (True, False))):
+        assert tks.same_code(tks.functions(new), parent) == dict(
+            zip(keys, want))
+
+
+# ---- the S = 7 forms: a compiled pattern and the dense one
+
+QUAD = "S=7 tag408_quad per_lane_e0=0 per_lane_om=0"
+DENSE = "S=7 dense per_lane_e0=0 per_lane_om=0"
+
+
+def _text_s7() -> str:
+    with open(FIXTURE_S7) as f:
+        return f.read()
+
+
+def test_s7_readings_of_both_forms():
+    """The quad pump's form issues some 44 % fewer instructions a tick than
+    the dense form on the same loop, over a shorter chain (four decaying
+    states' dp terms where the dense form sums seven); neither shuffles,
+    votes or loads a roll into a register; both keep three ticks of rolls
+    in flight."""
+    forms = tks.analyse(tks.functions(_text_s7()), LAT, tks.pattern_names())
+    assert sorted(forms) == sorted([QUAD, DENSE])
+    q, d = forms[QUAD], forms[DENSE]
+    assert (q["instructions_per_tick"], d["instructions_per_tick"]) == (
+        597.0, 1060.0)
+    assert q["chain_cycles_per_tick"] == pytest.approx(297.945556640625,
+                                                       rel=1e-12)
+    assert d["chain_cycles_per_tick"] == pytest.approx(348.957275390625,
+                                                       rel=1e-12)
+    assert (q["chain_instructions_per_tick"],
+            d["chain_instructions_per_tick"]) == (58.0, 70.0)
+    assert sum(x.startswith("MUFU.RSQ") for x in q["chain"]) == 4
+    for r in (q, d):
+        assert r["roll_loads"] == [] and r["async_copies"] == 5
+        assert r["ticks_ahead"] == [3] and r["shuffles_votes"] == 0
+        assert r["ticks_per_pass"] == 1
+
+
+def test_s7_dump_passes_both_gates():
+    text = _text_s7()
+    assert list(chip_smoke.ion_sass_faults(text).values()) == [[], []]
+    counts, faults = chip_smoke.pattern_issue(text)
+    assert counts == {"S=7 dense e0=0 om=0": 1060.0,
+                      "S=7 tag408_quad e0=0 om=0": 597.0}
+    assert faults == []
+
+
+_QUAD_NAME = "ILi7ELm33777066193195024E"
+_DENSE_NAME = "ILi7ELm72057594037927935E"
+
+
+@pytest.mark.parametrize("case", ["swapped", "no_dense"])
+def test_pattern_gate_refuses(case):
+    """A pattern's form that issues no fewer instructions a tick than the
+    dense form (the two names swapped), or one with no dense form to be
+    held to, is a fault."""
+    text = _text_s7()
+    if case == "swapped":
+        text = (text.replace(_QUAD_NAME, "@").replace(_DENSE_NAME, _QUAD_NAME)
+                .replace("@", _DENSE_NAME))
+    else:
+        keep, out = True, []
+        for line in text.splitlines():
+            if line.startswith("Function :"):
+                keep = _DENSE_NAME not in line
+            if keep:
+                out.append(line)
+        text = "\n".join(out)
+    _, faults = chip_smoke.pattern_issue(text)
+    assert len(faults) == 1 and "tag408_quad" in faults[0], faults
+
+
+def test_tick_loop_prefers_the_loop_without_sincosf():
+    """Of the loops holding four MUFU.RSQ, the largest without sincosf's
+    2/pi (the ion kernel's plain loop), else the largest with it (the
+    group kernel's one loop, whose sincosf a branch skips); loops with
+    fewer than four are not tick loops."""
+    def fake(loops):
+        lines, a = ["Function : f"], 0
+        for body in loops:
+            start = a
+            for t in body:
+                lines.append(f"/*{a:04x}*/ {t} ;")
+                a += 0x10
+            lines.append(f"/*{a:04x}*/ @P0 BRA {start:#x} ;")
+            a += 0x10
+        return tks.functions("\n".join(lines))["f"]
+    rsq = ["MUFU.RSQ R1, R2"] * 4
+    trig = [f"FMUL R3, R4, {tks.TWO_OVER_PI}"]
+    ins = fake([rsq + trig + ["NOP"] * 5, rsq, ["NOP"] * 20])
+    lo, hi = tks.tick_loop(ins)
+    assert hi - lo == 4                        # the plain four-slope loop
+    ins = fake([rsq + trig + ["NOP"] * 5, ["NOP"] * 20])
+    lo, hi = tks.tick_loop(ins)
+    assert hi - lo == 10                       # only the one with sincosf
+
+
+def test_shuffles_and_votes_are_charged_their_latency():
+    """SHFL and VOTE have probes of their own; a shuffle writes its second
+    operand (the first is its predicate)."""
+    assert tks.opcode_class("SHFL.BFLY") == "shfl"
+    assert tks.opcode_class("SHFL.IDX") == "shfl"
+    assert tks.opcode_class("VOTE.ANY") == "vote"
+    assert {"shfl", "vote"} <= set(tks.PROBES)
+    op, dests, srcs = tks.parse("SHFL.BFLY PT, R5, R4, 0x1, 0x1f")
+    assert (op, dests, srcs) == ("SHFL.BFLY", ["R5"], ["R4"])
+    op, dests, srcs = tks.parse("VOTE.ANY R3, PT, P0")
+    assert (dests, srcs) == (["R3"], ["P0"])
+
+
+def test_compact_writes_the_fixture_format():
+    """``--fixture``'s compaction of a raw cuobjdump listing (tabs, runs of
+    spaces, encodings, headers) gives the fixtures' lines, and keeps only
+    the functions the pattern names."""
+    lines = _text().splitlines()[:4]
+    raw = (f"\t\t{lines[0]}\n\t.headerflags\t@\"EF_CUDA_SM90\"\n"
+           + "".join(f"        {a}                   {t}"
+                     f"        /* 0x000000000000ff00 */\n\n"
+                     for a, t in (x.split(" ", 1) for x in lines[1:]))
+           + "\t\tFunction : _Z5otherv\n        /*0000*/   NOP ;\n")
+    assert tks.compact(raw, "fused_ticks_ion_kernel") == \
+        "\n".join(lines) + "\n"
+
+
+def test_tick_bound_counts_the_schemes_coupling_places():
+    """The bound counts the work the scheme's data needs: the quad pump's
+    4 coupling places where the linear one has 8 and a dense S = 7 scheme
+    49, each 4 operations a stage (8 with a beat note)."""
+    import dataclasses
+    import numpy as np
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.levels import tag408
+
+    def spec(sch):
+        return tf.FusedTickSpec(
+            scheme=sch, h=0.00985, qdt=8e-5, plas_to_quant_vel=1.3,
+            gamma_to_einstein=123.1, ratio=1, L=1.0, apply_force=False)
+    quad, lin = tag408(-1.0, 0.5, False), tag408(-1.0, 0.5, True)
+    c = np.random.default_rng(7).normal(size=(7, 7)) + 1.0
+    dense = dataclasses.replace(quad, coupling=c + c.T)
+    ops = {k: chip_smoke.tick_ops(spec(s))
+           for k, s in (("quad", quad), ("linear", lin), ("dense", dense))}
+    assert ops["linear"] - ops["quad"] == 4 * 4 * 4
+    assert ops["dense"] - ops["quad"] == 4 * 4 * 45
+    b = chip_smoke.tick_bound(dataclasses.replace(spec(quad), ratio=62),
+                              4096, 4096)
+    assert b["bound_ms"] == pytest.approx(
+        1e3 * 4096 * 62 * ops["quad"] / chip_smoke.H100_FP32_OPS)

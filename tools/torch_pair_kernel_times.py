@@ -36,7 +36,9 @@ nothing but those entries.  It reports
     at their families' main-path shapes (``chip_smoke.small_tick_forms``:
     ``B_s3`` 1000 ions in 1024 lanes x 1000 ticks, its sweep forms
     ``B_s3_e0`` .. ``B_s3_e0_om`` on 4 members x 838 ticks, ``B_s5*`` and
-    ``B_s7*``) and ``B_s3_32ions``, the plain S = 3 form on 32 ions;
+    ``B_s7*``), ``B_s3_32ions`` .. ``B_s7_32ions``, each plain form on 32
+    ions, and every S = 5 / 7 form at one tick (``B_s5_T1`` ..) and on a
+    fold of 8 members (``B_s5_E8`` ..);
   * ``idle_ms``: ``B`` and ``B_rng`` at 3584 lanes from an idle card (the
     wrapper's host time included, ``chip_smoke.cuda_ms(head_start=False)``);
   * ``wall_s`` (unless ``--kernels-only``): the host-clock seconds of
@@ -118,13 +120,31 @@ def small_tick_kernel_ms(torch, cs, dev, g) -> dict:
     """Device ms of the S = 3, 5 and 7 forms of the tick kernel at the
     shapes :func:`chip_smoke.small_tick_forms` gives them, from the start
     its phase 4b uses (free ions, the excited states populated), and of
-    the plain S = 3 form on 32 ions in 128 lanes."""
+    the plain S = 3, 5, 7 forms on 32 ions in 128 lanes (``_32ions``);
+    the S = 5 and 7 forms also at one tick (``_T1``: the launch's fixed
+    part) and on a fold of 8 members (``_E8``; a sweep form's points
+    repeated)."""
+    import dataclasses
+    import itertools
     from mdqtplasmasims_torch.core import qt_fused as tf
     from mdqtplasmasims_torch.core.scheduler import fold_sweep_lanes
     ms = {}
     forms = list(cs.small_tick_forms().items())
-    s3 = dict(forms)["fused_ticks_s3"]
-    forms.append(("fused_ticks_s3_32ions", (s3[0], 1, 32, 128, None, None)))
+    small = dict(forms)
+    for S in (3, 5, 7):
+        plain = small[f"fused_ticks_s{S}"]
+        forms.append((f"fused_ticks_s{S}_32ions",
+                      (plain[0], 1, 32, 128, None, None)))
+    for name, form in list(forms):
+        spec, E, n, npad, e0, om = form
+        if spec.S == 3 or name.endswith("32ions"):
+            continue
+        forms.append((name + "_T1", (dataclasses.replace(spec, ratio=1), E,
+                                     n, npad, e0, om)))
+        eight = lambda x: None if x is None else list(
+            itertools.islice(itertools.cycle(x), 8))
+        forms.append((name + "_E8", (spec, 8, n, npad, eight(e0),
+                                     eight(om))))
     for name, (spec, E, n, npad, e0, om) in forms:
         key = "B_" + name[len("fused_ticks_"):].replace("_per_lane", "")
         _, (_, V, _, tp, pre, pim) = cs.excited_planes(
