@@ -187,16 +187,25 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      the S=5 tick form once per pumping MD step, nothing else), with its
      tree's files and labels; the wall printed
      with the card's name and power limit, and split against phase 19's
-     cut job (the same pump window) into MD steps and the pump's ticks.
+     cut job (the same pump window) into MD steps and the pump's ticks;
+ 31. the reference's 99-job campaign (``tools/torch_campaign99.py``, the
+     flagship as one fold of 99 members) cut to tmax=0.4 (200 MD steps, 5
+     samples): kernel C once per MD step, B'rng once per MD step + once
+     per sample, G once per sample + 1, nothing else; run twice, bitwise
+     equal, every member's final EkinX distinct; then one launch each of
+     C, B'rng and G at E=99 on its final state against the plain version
+     of the whole launch, timed.
 
-Phases 7, 10, 11, 12, 17, 19-26, 27 and 30 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-26, 27, 30 and 31 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
 last is a JSON object with one entry per kernel and form (26: A, C, D,
 G, E, F and B's 20 forms; A, D and B'rng also with their counts from
 phase 27's pre-speedup run, ``launches_pre_speedup``, A, D and B's S=5
-form with phase 30's, ``launches_frozen_production``), each with its bound
+form with phase 30's, ``launches_frozen_production``, C, B'rng and G with
+phase 31's, ``launches_campaign99``, and their E=99 launch's readings and
+bound, ``e99``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -3238,6 +3247,174 @@ def production_frozen_path(torch, card, cut):
     return counts, m
 
 
+CAMPAIGN_CUT = dict(tmax=0.4)     # 200 MD steps, 5 samples, 1 group
+CAMPAIGN_PLAIN_REPS = 5           # timings of the E=99 plain versions
+
+
+def campaign_kernels(torch, cfg, final, E):
+    """One launch each of kernels C, B'rng and G at E=99, on the cut
+    campaign's final state, against the plain version of the whole launch
+    (B'rng in the fold's own lane layout, ``lane0`` 0, so member j draws
+    from global lanes j*npad on); timed (device clock, median of
+    :data:`N_TIMED`; the plain versions of :data:`CAMPAIGN_PLAIN_REPS`).
+    Returns each kernel's readings and bound."""
+    from mdqtplasmasims_torch.bridge import states_from_numpy
+    from mdqtplasmasims_torch.core import qt_fused as tf
+    from mdqtplasmasims_torch.experiments import laser_cooling as lc
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    from mdqtplasmasims_torch.units import PlasmaUnits
+    dev = torch.device("cuda")
+    L = PlasmaUnits.box_length(cfg.n0)
+    ldeb = PlasmaUnits(cfg.density, cfg.ge).debye_length
+    n = cfg.n0
+    fold = states_from_numpy(final, device=dev)
+    sched = lc.build_scheduler(cfg, dev)
+    carry = sched.soa_ens_init(fold)
+    npad = carry.R.shape[1] // E
+    rows = torch.zeros((1, npad), device=dev)
+    rows[0, :n] = 1.0
+    on = (torch.arange(E * npad, device=dev) % npad) < n
+    out = {}
+
+    # C: the MD step's forces of the whole fold
+    force_c = lambda: ty.yukawa_forces_n3l_soa_batched(carry.R, rows, E, L,
+                                                       ldeb)
+    plain_c = lambda: ty.yukawa_forces_n3l_soa_batched_reference(
+        carry.R, rows, E, L, ldeb)
+    F, F2, Fr = force_c(), force_c(), plain_c()
+    torch.cuda.synchronize()
+    scale, err = float(Fr.abs().max()), float((F - Fr).abs().max())
+    pads = float(F[:, ~on].abs().max())
+    log(f"[campaign99] C, E={E} x {npad} lanes ({n} ions each), the whole "
+        f"launch against the plain version: max|F| {scale:.6g}, max abs err "
+        f"{err:.3g} (rel {err / scale:.3g}, tol {FORCE_TOL:g}); padded lanes "
+        f"{pads:g}")
+    if not err <= FORCE_TOL * scale or pads != 0.0:
+        raise SystemExit("kernel C at E=99 disagrees with its plain version")
+    if not torch.equal(F, F2):
+        raise SystemExit("kernel C at E=99 is not deterministic run to run")
+    out["C"] = dict(max_abs_err=err, plain=plain_c, fn=force_c,
+                    **bound(half_pairs([n] * E) * PAIR_OPS,
+                            4 * 7 * E * npad))
+
+    # B'rng: the MD step's 25 ticks of the whole fold, in-kernel draws
+    spec = sched.fused_spec
+    if not spec.internal_rng:
+        raise SystemExit("the campaign's scheduler on CUDA is not B'rng")
+    seed = torch.tensor([987654321], dtype=torch.int32, device=dev)
+    args = (carry.R, carry.V, F, carry.tp, carry.psi_re, carry.psi_im)
+    tick0 = int(carry.tick)
+    ticks_b = lambda: tf.fused_md_substeps(spec, False, *args, tick0=tick0,
+                                           tables=sched.tables, seed=seed)
+    plain_b = lambda: tf.fused_md_substeps_reference(
+        spec, False, *args, None, sched.tables, tick0=tick0, seed=seed)
+    res, again, ref = ticks_b(), ticks_b(), plain_b()
+    torch.cuda.synchronize()
+    err = compare_ticks(
+        torch, spec, res, ref, on, allowed_lanes(E, spec.ratio),
+        f"[campaign99] B'rng, E={E} x {npad} lanes, tick {tick0}, lane0 0, "
+        f"the whole launch against the plain version")
+    if not all(torch.equal(x, y) for x, y in zip(res, again)):
+        raise SystemExit("B'rng at E=99 is not bitwise equal run to run")
+    out["B'rng"] = dict(max_abs_err=err, plain=plain_b, fn=ticks_b,
+                        **tick_bound(spec, E * n, E * npad))
+
+    # G: a sample's per-ion potentials of every member
+    pot_g = lambda: ty.yukawa_forces_potential_pallas_batched(fold.R, L,
+                                                              ldeb)
+    plain_g = lambda: [ty.yukawa_forces_potential(fold.R[j], L, ldeb)
+                       for j in range(E)]
+    (Fg, pot), twin = pot_g(), plain_g()
+    Fgr = torch.stack([f for f, _ in twin])
+    potr = torch.stack([u for _, u in twin])
+    eb = ty.yukawa_potential_pallas_batched(fold.R, L, ldeb)
+    er = torch.stack([ty.yukawa_potential(fold.R[j], L, ldeb)
+                      for j in range(E)])
+    torch.cuda.synchronize()
+    sf, sp = float(Fgr.abs().max()), float(potr.abs().max())
+    ef, ep = float((Fg - Fgr).abs().max()), float((pot - potr).abs().max())
+    ee = float(((eb - er) / er).abs().max())
+    log(f"[campaign99] G, E={E} x {n} ions, the whole launch against the "
+        f"plain version: max|F| {sf:.6g} err {ef:.3g} (tol {FORCE_TOL:g} of "
+        f"it), max pot {sp:.6g} err {ep:.3g} (tol {POTENTIAL_TOL:g} of it); "
+        f"per-member energy rel err {ee:.3g}")
+    if not (ef <= FORCE_TOL * sf and ep <= POTENTIAL_TOL * sp
+            and ee <= POTENTIAL_TOL):
+        raise SystemExit("kernel G at E=99 disagrees with its plain version")
+    out["G"] = dict(max_abs_err=max(ef / sf, ep / sp), plain=plain_g,
+                    fn=pot_g,
+                    **bound(half_pairs([n] * E) * (PAIR_OPS + POT_OPS),
+                            4 * 8 * E * (-(-n // 512) * 512)))
+
+    for name, k in out.items():
+        k["ms"], k["idle_card_ms"] = kernel_ms(torch, k.pop("fn"))
+        k["plain_ms"] = cuda_ms(torch, k.pop("plain"),
+                                reps=CAMPAIGN_PLAIN_REPS)
+        log(f"[campaign99] {name} at E={E}: kernel "
+            f"{both(k['ms'], k['idle_card_ms'])}, bound {k['bound_ms']:.5f} "
+            f"ms ({k['bound_by']}; {100 * k['bound_ms'] / k['ms']:.1f} % of "
+            f"it), plain {k['plain_ms']:.4f} ms (median of {N_TIMED} / "
+            f"{CAMPAIGN_PLAIN_REPS})")
+    return out
+
+
+def campaign_path(torch, card):
+    """Phase 31: the reference's 99-job campaign through
+    ``tools/torch_campaign99.py``, cut to :data:`CAMPAIGN_CUT`: the
+    launches of C, B'rng and G exact, the run twice bitwise equal, the
+    members' final EkinX all distinct; then :func:`campaign_kernels`.
+    Returns ``(counts, kernels)``."""
+    import warnings
+    import numpy as np
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_campaign99 as tc
+    cfg = tc.campaign_config(**CAMPAIGN_CUT)
+    E = tc.N_JOBS
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    samples = n_md // cfg.sample_freq
+    runs = []
+    for _ in range(2):
+        with warnings.catch_warnings():
+            # no sample at t >= 25: the cooling ratio is a mean of none
+            warnings.simplefilter("ignore", RuntimeWarning)
+            runs.append(tc.campaign_run("cuda", E, **CAMPAIGN_CUT))
+    (m, final, outs), (m2, final2, outs2) = runs
+    counts = {k: m["launches"].get(k, 0) for k in read_counts()}
+    log(f"[campaign99] tools/torch_campaign99.py campaign(tmax="
+        f"{cfg.tmax:g}): {E} jobs x {cfg.n0} ions, {n_md} MD steps, "
+        f"{samples} samples: wall {m['wall_s']:.3f} s and {m2['wall_s']:.3f} "
+        f"s, {m['agg_updates_per_s']:.4g} ion-QT-updates/s, peak memory "
+        f"{m['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+    log(f"[campaign99] {tc.campaign_line(m)}")
+    log(f"[campaign99] launches: {m['launches']}")
+    want = dict(yukawa_forces_batched=n_md, fused_ticks_rng=n_md + samples,
+                yukawa_forces_potential_batched=samples + 1)
+    want_counts(counts, "the cut campaign", **want)
+    if m2["launches"] != m["launches"]:
+        raise SystemExit(f"the second cut campaign launched "
+                         f"{m2['launches']}")
+    if outs["ekin"].shape != (E, samples, 3) or not all(
+            np_isfinite(v) for v in outs.values()):
+        raise SystemExit(f"the cut campaign's outputs: ekin "
+                         f"{outs['ekin'].shape}, or non-finite values")
+    same = [k for k in outs if np.array_equal(outs[k], outs2[k])]
+    same += [k for k in ("R", "V", "psi", "t_part")
+             if np.array_equal(getattr(final, k), getattr(final2, k))]
+    if len(same) != len(outs) + 4:
+        raise SystemExit(f"the cut campaign is not bitwise equal run to "
+                         f"run: equal only {same}")
+    ek = outs["ekin"][:, :, 0]
+    distinct = len(set(ek[:, -1].tolist()))
+    log(f"[campaign99] bitwise equal run to run ({len(same)} arrays); "
+        f"final EkinX of the {E} members: {distinct} distinct, "
+        f"{ek[:, -1].min():.5g} .. {ek[:, -1].max():.5g}")
+    if distinct != E or not (ek[:, -1] > ek[:, 0]).all():
+        raise SystemExit("the campaign's members coincide, or a member's "
+                         "EkinX did not rise from the frozen start")
+    return counts, campaign_kernels(torch, cfg, final, E)
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -3356,6 +3533,10 @@ def main() -> int:
     prod_counts, _ = production_frozen_path(torch, smi, tag_cut)
     log(f"[env] phase 30 (the production frozen-tag job) took "
         f"{time.perf_counter() - t_prod:.1f} s")
+    t_camp = time.perf_counter()
+    camp_counts, camp = campaign_path(torch, smi)
+    log(f"[env] phase 31 (the 99-job campaign cut to tmax="
+        f"{CAMPAIGN_CUT['tmax']:g}) took {time.perf_counter() - t_camp:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -3378,7 +3559,9 @@ def main() -> int:
              launches_frozen_tag_fold=fold_counts["yukawa_forces_batched"],
              launches_mc_tag_fold=mt_fold_counts["yukawa_forces_batched"],
              launches_transport_sweep=sweep_tr_counts[
-                 "yukawa_forces_batched"], **force_e),
+                 "yukawa_forces_batched"],
+             launches_campaign99=camp_counts["yukawa_forces_batched"],
+             e99=camp["C"], **force_e),
         dict(name="yukawa_forces_potential", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:147",
              launches=counts["yukawa_forces_potential"],
@@ -3390,11 +3573,15 @@ def main() -> int:
              source=src_f, replaces="mdqtplasmasims_tpu/ops/yukawa.py:166",
              launches=ens_counts["yukawa_forces_potential_batched"],
              launches_frozen_tag_fold=fold_counts[
-                 "yukawa_forces_potential_batched"], **pot_g),
+                 "yukawa_forces_potential_batched"],
+             launches_campaign99=camp_counts[
+                 "yukawa_forces_potential_batched"],
+             e99=camp["G"], **pot_g),
         dict(name="fused_ticks_rng", route="cuda", source=src_t,
              replaces=tpu_rng, launches=counts["fused_ticks_rng"],
              launches_pre_speedup=preset_counts["fused_ticks_rng"],
-             **rng["fused_ticks_rng"]),
+             launches_campaign99=camp_counts["fused_ticks_rng"],
+             e99=camp["B'rng"], **rng["fused_ticks_rng"]),
         dict(name="fused_ticks_rng_per_lane_e0", route="cuda", source=src_t,
              replaces=tpu_rng,
              launches=sweep_counts["fused_ticks_rng_per_lane_e0"],

@@ -6,10 +6,11 @@
   family (cooling, three-state, frozen-start tagging, transport,
   MC-tagging) on the CPU, and the host tools: a tree written through the
   ``%g`` codec, ``analyze_job``, ``collect_panels`` (without matplotlib),
-  ``PhaseTimer`` and the ``pre_speedup`` preset's ``run``, and two
-  families of the production soak (``tools/torch_soak.py``).
-* No source file of the port (nor chip_smoke.py or tools/torch_soak.py)
-  has an import statement naming either.
+  ``PhaseTimer`` and the ``pre_speedup`` preset's ``run``, two
+  families of the production soak (``tools/torch_soak.py``) and a tiny
+  99-job campaign (``tools/torch_campaign99.py``).
+* No source file of the port (nor chip_smoke.py, tools/torch_soak.py or
+  tools/torch_campaign99.py) has an import statement naming either.
 * The port's own copies of the level tables, the unit constants, the
   ``%g`` writer, the directory encoders, the CLI helpers, the families'
   config defaults, the preset table and the report formats equal the JAX
@@ -158,6 +159,12 @@ with tempfile.TemporaryDirectory() as tmp:
         instant_aniso_steps=2, reequil_steps=2, aniso_relax_steps=2,
         aniso_time_us=0.05)
     assert "aniso_spread_relaxed" in m, m
+# the port's 99-job campaign (tools/torch_campaign99.py) at a tiny size
+import torch_campaign99
+m = torch_campaign99.campaign(device="cpu", n_jobs=2, n0=16, tmax=0.008,
+                              sample_freq=2)
+assert m["n_jobs"] == 2 and "job_spread_t30" in m, m
+assert torch_campaign99.campaign_line(m).startswith("2-job campaign: ")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad
@@ -177,7 +184,8 @@ def test_port_runs_with_jax_refused():
 def _sources():
     pkg = os.path.join(ROOT, "mdqtplasmasims_torch")
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tools", "torch_soak.py")]
+           os.path.join(ROOT, "tools", "torch_soak.py"),
+           os.path.join(ROOT, "tools", "torch_campaign99.py")]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -223,6 +223,49 @@ def test_xval_408quad_on_cpu(tmp_path):
         assert abs(x["z"][k] - (x["pooled"] - p) / se) < 1e-9
 
 
+@pytest.mark.filterwarnings("ignore::RuntimeWarning")
+def test_campaign99_on_cpu(tmp_path):
+    """The ``campaign99`` entry (tools/torch_campaign99.py's campaign) on a
+    tiny fold: its keys, the line's numbers, no kernel on the CPU."""
+    c = torch_soak.EXTRAS["campaign99"]
+    assert c is torch_soak.campaign99
+    m = c(str(tmp_path), device="cpu", n_jobs=2, n0=16, tmax=0.04,
+          sample_freq=2)
+    assert (m["n_jobs"], m["n0"], m["tmax"]) == (2, 16, 0.04)
+    assert m["launches"] == {} and m["max_memory_allocated"] is None
+    n_ticks = 2 * 16 * 20 * 25
+    assert abs(m["agg_updates_per_s"] * m["wall_s"] - n_ticks) < 1e-6 * n_ticks
+    for k in ("dih_peak_t", "dih_peak_ekin_x", "job_spread_t30"):
+        assert math.isfinite(m[k]) and m[k] > 0, k
+    # the per-member diagnostics: the spread's values, the starts' pairs
+    assert len(m["ekin_x_final"]) == len(m["start_closest_pair"]) == 2
+    assert abs(np.std(m["ekin_x_final"]) - m["job_spread_t30"]) < 1e-7
+    assert all(0.0 < r < 16.0 for r in m["start_closest_pair"])
+
+
+def test_closest_pairs_wrap_the_cell():
+    """The closest pair under minimum image: across a face of the cell,
+    and per member."""
+    import torch
+    R = torch.tensor([[[0.1, 5.0, 5.0], [9.95, 5.0, 5.0], [5.0, 1.0, 8.0]],
+                      [[1.0, 1.0, 1.0], [1.0, 1.3, 1.4], [6.0, 6.0, 6.0]]],
+                     dtype=torch.float64)
+    got = torch_soak.closest_pairs(R, 10.0)
+    assert np.allclose(got, [0.15, 0.5], rtol=0, atol=1e-12), got
+
+
+def test_campaign99_trace_on_cpu():
+    """``campaign99_trace`` at a tiny size: its keys, the MD steps it
+    divides by, the start's seconds, a window without device
+    operations."""
+    t = torch_soak.trace_campaign99(2, device="cpu", n_jobs=2, n0=16,
+                                    sample_freq=2)
+    assert (t["n_jobs"], t["n0"], t["segments"], t["steps"]) == (2, 16, 2, 4)
+    assert t["start_s"] > 0 and t["untraced_ms_per_step"] > 0
+    assert t["busy_ms"] == 0.0 and t["top"] == []
+    assert "campaign99_trace" in torch_soak.EXTRAS
+
+
 def test_three_state_seeds_on_cpu(tmp_path):
     """The three-state fold of seeds: per-member metrics, their mean and
     spread (a tiny fold)."""

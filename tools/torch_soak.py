@@ -37,7 +37,7 @@ kernels' ``launches`` during the run.  The trees go to ``--out-dir``
 (default ``$TMPDIR/soak_torch``), never into the repository.
 
 The kernel libraries and the codec are built before the first family is
-timed.  Six diagnostics run when named: ``chain_trace`` traces 300
+timed.  Eight diagnostics run when named: ``chain_trace`` traces 300
 Metropolis steps at the transport configuration with
 ``profiling.device_trace`` (the card's busy share, the top device
 operations), ``md_trace_n14000`` 200 MD steps of the N0 = 14000 cooling
@@ -46,9 +46,12 @@ configuration, ``three_state_trace`` 200 launches (200,000 ticks) of the
 jobs (per-member and pooled tag fractions), and ``xval_408quad`` pools a
 fold of 64 408quad jobs at ``tools/cross_validate_mc_tag.py``'s
 configuration with its z-scores against the archived reference and JAX
-pools, and ``three_state_seeds`` runs the ``three_state`` configuration
-as a fold of 8 seeds (the spread of its final Ekin_x and cooling factor);
-each is stored as ``_<name>``.
+pools, ``three_state_seeds`` runs the ``three_state`` configuration
+as a fold of 8 seeds (the spread of its final Ekin_x and cooling factor),
+``campaign99`` runs the reference's 99-job campaign uncut through
+``tools/torch_campaign99.py`` (one 99-member fold of the flagship), and
+``campaign99_trace`` traces one group of its 10 segments (400 MD steps
+at E = 99) and times the fold's start; each is stored as ``_<name>``.
 
 Every family function takes ``device`` and keyword overrides of its
 configuration, so the tests run the same code at a tiny size on the CPU;
@@ -524,10 +527,10 @@ def update_summary(path: str, family: str, metrics: dict,
     print(f"[soak] {family}: {json.dumps(metrics)}", flush=True)
 
 
-def _trace(device, fn, steps: int) -> dict:
+def _trace(device, fn, steps: int, n_top: int = 5) -> dict:
     """``fn()`` untraced, then under ``profiling.device_trace``: its host
     ms per step, the card's busy share of the traced window, device
-    operations per step and the five that took most time."""
+    operations per step and the ``n_top`` that took most time."""
     from mdqtplasmasims_torch.profiling import device_trace
     _, untraced, _ = _timed(device, fn)
     with tempfile.TemporaryDirectory() as tmp:
@@ -549,7 +552,7 @@ def _trace(device, fn, steps: int) -> dict:
     for e in ops:
         n, t = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, t + e["dur"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
     return dict(steps=steps, untraced_ms_per_step=1e3 * untraced / steps,
                 window_ms=(t_hi - t_lo) / 1e3, busy_ms=busy / 1e3,
                 busy_share=busy / (t_hi - t_lo) if t_hi > t_lo else 0.0,
@@ -603,6 +606,65 @@ def trace_three_state(launches: int, device="cuda", n0: int = 1000,
                                 launches))
 
 
+def closest_pairs(R: torch.Tensor, L: float) -> list:
+    """Each member's closest pair of ions under minimum image, ``R [E, n,
+    3]`` in a cell of side ``L`` (one member's distance matrix at a
+    time)."""
+    out = []
+    for x in R:
+        d = x[:, None, :] - x[None, :, :]
+        r2 = (d - L * torch.round(d / L)).square().sum(-1)
+        r2.fill_diagonal_(float("inf"))
+        out.append(float(r2.min().sqrt()))
+    return out
+
+
+def campaign99(out_dir, device="cuda", n_jobs: int = 99, **over) -> dict:
+    """The reference's 99-job campaign, ``tools/torch_campaign99.py``'s
+    :func:`campaign_run` (no trees; ``over``: CoolingConfig overrides),
+    with two per-member diagnostics beside the JAX script's
+    numbers: ``ekin_x_final``, each member's EkinX at the last sample (the
+    values whose standard deviation is ``job_spread_t30``), and
+    ``start_closest_pair``, the closest pair of ions in each member's
+    start (the same draws, ``member_states``, made again after the run):
+    a uniform frozen-gas start that puts two ions within ~0.01 a of each
+    other gives them a Coulomb energy that its member's EkinX carries to
+    the end."""
+    import torch_campaign99 as tc
+    from mdqtplasmasims_torch.experiments.laser_cooling import member_states
+    from mdqtplasmasims_torch.units import PlasmaUnits
+    m, _, outs = tc.campaign_run(device, n_jobs, **over)
+    cfg = tc.campaign_config(**over)
+    start = member_states(cfg, n_jobs, tc.SEED, device)
+    return dict(m, ekin_x_final=np.asarray(outs["ekin"])[:, -1, 0].tolist(),
+                start_closest_pair=closest_pairs(
+                    start.R, PlasmaUnits.box_length(cfg.n0)))
+
+
+def trace_campaign99(segments: int = 10, device="cuda",
+                     n_jobs: int = 99, **over) -> dict:
+    """:func:`_trace` over ``segments`` output segments of the campaign
+    (one group of ``checkpoint_every_segments`` = 10 uncut: 400 MD steps
+    of the 99-member fold, its samples and its fetch), the ten device
+    operations that took most time, and ``start_s``, the host seconds of
+    the fold's start (``member_states``: the members drawn one by one)."""
+    import torch_campaign99 as tc
+    from mdqtplasmasims_torch.experiments.laser_cooling import member_states
+    cfg = tc.campaign_config(**over)
+    seg = cfg.sample_freq * cfg.timestep
+
+    def run(k):
+        return tc.campaign(device, n_jobs, tc.SEED,
+                           **dict(over, tmax=k * seg))
+    run(1)                                                    # warm-up
+    _, start_s, _ = _timed(device, lambda: member_states(
+        cfg, n_jobs, tc.SEED, device))
+    return dict(n_jobs=n_jobs, n0=cfg.n0, segments=segments,
+                start_s=start_s,
+                **_trace(device, lambda: run(segments),
+                         segments * cfg.sample_freq, n_top=10))
+
+
 # diagnostics, run only when named; stored as ``_<name>``
 EXTRAS = {
     "chain_trace": lambda out_dir: trace_chain(300),
@@ -611,6 +673,8 @@ EXTRAS = {
     "tag_pool": tag_pool,
     "xval_408quad": xval_408quad,
     "three_state_seeds": three_state_seeds,
+    "campaign99": campaign99,
+    "campaign99_trace": lambda out_dir: trace_campaign99(),
 }
 
 
