@@ -194,9 +194,20 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      per sample, G once per sample + 1, nothing else; run twice, bitwise
      equal, every member's final EkinX distinct; then one launch each of
      C, B'rng and G at E=99 on its final state against the plain version
-     of the whole launch, timed.
+     of the whole launch, timed;
+ 32. the analysis layer's tools: ``tools/torch_validate_analysis.py`` at
+     its ``--fast`` sizes, sections A, C and D (N=216: the Gamma=3
+     trajectory and the Gamma=50 one; kernel A once per MD step + once a
+     trajectory, nothing else; the JAX record's keys of those sections,
+     every number finite, float32), ``tools/torch_lccf_dispersion.py``'s
+     laser-free flagship (N0=1024) cut to tmax=12 with the first 4
+     omega_E^-1 dropped (the scheme's coupling all zero; A once per MD
+     step, B'rng once per MD step + once per sample, D once per sample +
+     1; the JAX tool's keys, every number finite), then kernel A at N=216
+     and N=512 (a lattice after 2000 Metropolis steps) against its plain
+     version, timed with its bound.
 
-Phases 7, 10, 11, 12, 17, 19-26, 27, 30 and 31 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-27 and 30-32 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
@@ -205,7 +216,10 @@ G, E, F and B's 20 forms; A, D and B'rng also with their counts from
 phase 27's pre-speedup run, ``launches_pre_speedup``, A, D and B's S=5
 form with phase 30's, ``launches_frozen_production``, C, B'rng and G with
 phase 31's, ``launches_campaign99``, and their E=99 launch's readings and
-bound, ``e99``), each with its bound
+bound, ``e99``; A, B'rng and D with phase 32's laser-free flagship's,
+``launches_lccf``, A with its validation trajectories',
+``launches_validate_analysis``, and its readings at N=216 and N=512,
+``n216`` and ``n512``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -385,38 +399,44 @@ def both(ms: float, idle: float) -> str:
     return f"{ms:.4f} ms ({idle:.4f} from an idle card)"
 
 
-def check_force_kernel(torch, L, ldeb):
+def check_force_kernel(torch, R, L, ldeb, tag="[force]"):
+    """Kernel A on ``n`` ions ``R [n, 3]`` (on the card, in 512 lanes)
+    against its plain version: within :data:`FORCE_TOL`, deterministic run
+    to run, padded lanes exactly 0; timed with its bound."""
     from mdqtplasmasims_torch.ops import yukawa as ty
-    dev = torch.device("cuda")
-    n, npad = 3500, 3584
-    g = torch.Generator(device=dev).manual_seed(11)
-    Rp = torch.zeros((3, npad), device=dev)
-    Rp[:, :n] = torch.rand((3, n), generator=g, device=dev) * L
-    mask = torch.zeros((1, npad), device=dev)
-    mask[0, :n] = 1.0
-    F = ty.yukawa_forces_n3l_soa(Rp, mask, L, ldeb)
-    F2 = ty.yukawa_forces_n3l_soa(Rp, mask, L, ldeb)
-    ref = ty.yukawa_forces_n3l_soa_reference(Rp, mask, L, ldeb)
+    n = R.shape[0]
+    Rp, rows, npad = ty._pack_lanes(R[None], None, 512)
+    F = ty.yukawa_forces_n3l_soa(Rp, rows, L, ldeb)
+    F2 = ty.yukawa_forces_n3l_soa(Rp, rows, L, ldeb)
+    ref = ty.yukawa_forces_n3l_soa_reference(Rp, rows, L, ldeb)
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     err = float((F - ref).abs().max())
-    log(f"[force] Rp [3,{npad}], {n} real lanes, L={L:.6f}, "
+    log(f"{tag} Rp [3,{npad}], {n} real lanes, L={L:.6f}, "
         f"lambda_D={ldeb:.6f}: max|F|={scale:.6g} max abs err={err:.3g} "
         f"(rel {err / scale:.3g}, tol {FORCE_TOL:g} of max|F|)")
     if not err <= FORCE_TOL * scale:
-        raise SystemExit("force kernel disagrees with its twin")
+        raise SystemExit(f"force kernel at N={n} disagrees with its twin")
     if not torch.equal(F, F2):
-        raise SystemExit("force kernel is not deterministic run to run")
-    if float(F[:, n:].abs().max()) != 0.0:
-        raise SystemExit("force kernel: padded lanes are not exactly zero")
+        raise SystemExit(f"force kernel at N={n} is not deterministic run "
+                         f"to run")
+    if bool(F[:, n:].any()):
+        raise SystemExit(f"force kernel at N={n}: padded lanes are not "
+                         f"exactly zero")
     ms, idle = kernel_ms(torch, lambda: ty.yukawa_forces_n3l_soa(
-        Rp, mask, L, ldeb))
+        Rp, rows, L, ldeb))
     plain = cuda_ms(torch, lambda: ty.yukawa_forces_n3l_soa_reference(
-        Rp, mask, L, ldeb))
-    log(f"[force] kernel {both(ms, idle)}, plain torch {plain:.4f} ms "
+        Rp, rows, L, ldeb))
+    log(f"{tag} kernel {both(ms, idle)}, plain torch {plain:.4f} ms "
         f"(median of {N_TIMED})")
     return dict(max_abs_err=err, ms=ms, idle_card_ms=idle, plain_ms=plain,
                 **bound(half_pairs([n]) * PAIR_OPS, 4 * 7 * npad))
+
+
+def random_ions(torch, n: int, L: float, seed: int = 11):
+    """``n`` ions uniform in the box, ``[n, 3]`` on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.rand((3, n), generator=g, device="cuda") * L).T
 
 
 def compare_ticks(torch, spec, out, ref, on, allowed, what):
@@ -3415,6 +3435,127 @@ def campaign_path(torch, card):
     return counts, campaign_kernels(torch, cfg, final, E)
 
 
+# ---- the analysis layer's tools (phase 32)
+
+# tools/torch_validate_analysis.py at --fast sizes (N=216, 1200 recording
+# steps, 6000 Metropolis steps), sections A, C, D: the Gamma=3 trajectory
+# and the Gamma=50 one (2400 recording steps)
+VALIDATE_CUT = ["--fast", "--sections", "ACD", "--skip-e"]
+# tools/torch_lccf_dispersion.py's laser-free flagship cut to tmax=12
+# (6000 MD steps, 150 samples), the first 4 omega_E^-1 dropped
+LCCF_CUT = ["--n0", "1024", "--tmax", "12", "--skip-time", "4"]
+A_SHAPES_MC = 2000        # Metropolis steps behind phase 32's kernel-A inputs
+
+
+def _all_finite(x) -> bool:
+    """Every number in a nested report is finite."""
+    import math
+    if isinstance(x, dict):
+        return all(_all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_all_finite(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+def chain_start_ions(torch, n: int):
+    """``n`` ions of a lattice after :data:`A_SHAPES_MC` Metropolis steps at
+    Gamma=3, kappa=0.5 (``tools/torch_validate_analysis.py::chain_start``):
+    the validation trajectories' start, ``(R [n, 3] on the card, L,
+    lambda_D)``."""
+    import torch_validate_analysis as tva
+    from mdqtplasmasims_torch.core.draws import MemberDraws
+    from mdqtplasmasims_torch.units import PlasmaUnits
+    dev = torch.device("cuda")
+    R, _ = tva.chain_start(n, tva.GAMMA_A, tva.KAPPA_A, A_SHAPES_MC,
+                           MemberDraws([torch.Generator(device=dev)
+                                        .manual_seed(n)]), dev,
+                           torch.float32)
+    return R, PlasmaUnits.box_length(n), 1.0 / tva.KAPPA_A
+
+
+def analysis_tools_path(torch, card):
+    """Phase 32: the analysis layer's tools on the card.
+    ``tools/torch_validate_analysis.py`` at :data:`VALIDATE_CUT` (its
+    trajectories: kernel A once per MD step + once a trajectory, nothing
+    else; every key of the JAX record's sections A, C, D present and every
+    number finite), then ``tools/torch_lccf_dispersion.py``'s laser-free
+    flagship at :data:`LCCF_CUT` (its scheme's coupling all zero, B'rng
+    the only tick form; A once per MD step, B'rng once per MD step + once
+    per sample, D once per sample + 1; the JAX tool's keys, every number
+    finite), then kernel A at N=216 and N=512 against its plain version
+    (:func:`check_force_kernel` on :func:`chain_start_ions`).  Returns
+    ``(counts of each tool, kernel A's readings by N)``."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_lccf_dispersion as tld
+    import torch_validate_analysis as tva
+    from mdqtplasmasims_torch.experiments import laser_cooling as lc
+    counts = {}
+    with open(tva.JAX_REPORT) as f:
+        jax_rep = json.load(f)
+    with tempfile.TemporaryDirectory() as work:
+        args = tva.parse_args(VALIDATE_CUT + ["--work-dir", work, "--out",
+                                              work])
+        plan = tva.trajectory_plan(args)
+        n_md = sum(1 + kw["equil_steps"] + kw["record_steps"]
+                   for kw in plan.values())
+        reset_counts()
+        rep = tva.run(args)
+        counts["validate_analysis"] = read_counts()
+        log(f"[analysis-tools] tools/torch_validate_analysis.py "
+            f"{' '.join(VALIDATE_CUT)}: {rep['wall_s']:.2f} s ({card}); "
+            f"walls {rep['section_walls_s']}; trajectories "
+            + "; ".join(f"Gamma={t['gamma']:g} kappa={t['kappa']:g} "
+                        f"{t['record_steps']} steps {t['wall_s']:.2f} s"
+                        for t in rep["trajectories"]))
+        log(f"[analysis-tools] A ratio {rep['A_gk_vs_msd']['ratio']:.4f}, "
+            f"C max|dS| {rep['C_sk_gofr']['max_abs_err']:.4f}, D ratios "
+            f"{[round(r['ratio'], 3) for r in rep['D_dispersion']['rows']]}"
+            f", Gamma=50 shear {rep['D_dispersion']['gamma50_shear']}; ok "
+            f"{rep['ok']} (the --fast sizes are not the recorded bands)")
+        want_counts(counts["validate_analysis"],
+                    "the validation's trajectories",
+                    yukawa_forces=n_md)
+        missing = [f"{s}.{k}" for s in ("A_gk_vs_msd", "C_sk_gofr",
+                                        "D_dispersion")
+                   for k in jax_rep[s] if k not in rep.get(s, {})]
+        if missing or not _all_finite(rep) or rep["dtype"] != "float32":
+            raise SystemExit(f"the validation's report: missing {missing}, "
+                             f"or a number not finite, or dtype "
+                             f"{rep['dtype']}")
+
+        largs = tld.parse_args(LCCF_CUT + ["--out", os.path.join(work,
+                                                                 "lccf")])
+        cfg = tld.lccf_config(largs)
+        spec = lc.build_scheduler(cfg, "cuda").fused_spec
+        if np.count_nonzero(spec.scheme.coupling) or not spec.internal_rng:
+            raise SystemExit("the laser-free flagship's tick kernel is not "
+                             "B'rng with a zero coupling")
+        n_md = int(round(cfg.tmax / cfg.timestep))
+        samples = n_md // cfg.sample_freq
+        reset_counts()
+        job, wall, launches = tld.run_flagship(cfg, "cuda")
+        counts["lccf"] = read_counts()
+        disp = tld.dispersion(job, cfg, largs, wall)
+        log(f"[analysis-tools] tools/torch_lccf_dispersion.py "
+            f"{' '.join(LCCF_CUT)}: {n_md} MD steps, {samples} samples in "
+            f"{wall:.3f} s ({card}); {len(disp['rows'])} shells, d_omega "
+            f"{disp['d_omega']:.4f}, lowest four ratios "
+            f"{[round(float(r['ratio']), 3) for r in disp['rows'][:4]]}; "
+            f"launches "
+            f"{launches}")
+        want_counts(counts["lccf"], "the laser-free flagship",
+                    yukawa_forces=n_md, fused_ticks_rng=n_md + samples,
+                    yukawa_forces_potential=samples + 1)
+        if not ({"n0", "tmax", "kappa", "d_omega", "wall_s", "rows"}
+                <= set(disp) and disp["rows"] and _all_finite(disp)):
+            raise SystemExit(f"the dispersion's keys or numbers: {disp}")
+    return counts, {n: check_force_kernel(torch, *chain_start_ions(torch, n),
+                                          tag=f"[analysis-tools] N={n}")
+                    for n in (216, 512)}
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -3491,7 +3632,8 @@ def main() -> int:
     L = PlasmaUnits.box_length(cfg.n0)
     log(f"[config] N0={cfg.n0} L={L:.6f} lambda_D={pu.debye_length:.6f} "
         f"ratio={cfg.ratio} qdt={cfg.qdt:g}")
-    force = check_force_kernel(torch, L, pu.debye_length)
+    force = check_force_kernel(torch, random_ions(torch, 3500, L), L,
+                               pu.debye_length)
     ticks = check_tick_kernel(torch, cfg, L, pu.debye_length)
     small = check_small_tick_kernels(torch)
     check_ion_sass()
@@ -3537,6 +3679,12 @@ def main() -> int:
     camp_counts, camp = campaign_path(torch, smi)
     log(f"[env] phase 31 (the 99-job campaign cut to tmax="
         f"{CAMPAIGN_CUT['tmax']:g}) took {time.perf_counter() - t_camp:.1f} s")
+    t_tools = time.perf_counter()
+    tool_counts, force_md = analysis_tools_path(torch, smi)
+    log(f"[env] phase 32 (the analysis layer's tools) took "
+        f"{time.perf_counter() - t_tools:.1f} s")
+    val_counts, lccf_counts = (tool_counts["validate_analysis"],
+                               tool_counts["lccf"])
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -3552,7 +3700,9 @@ def main() -> int:
              launches_mc_tag=mt_counts["yukawa_forces"],
              launches_pre_speedup=preset_counts["yukawa_forces"],
              launches_frozen_production=prod_counts["yukawa_forces"],
-             **force),
+             launches_validate_analysis=val_counts["yukawa_forces"],
+             launches_lccf=lccf_counts["yukawa_forces"],
+             n216=force_md[216], n512=force_md[512], **force),
         dict(name="yukawa_forces_batched", route="cuda", source=src_f,
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:411",
              launches=ens_counts["yukawa_forces_batched"],
@@ -3568,7 +3718,9 @@ def main() -> int:
              launches_frozen_tag=tag_counts["yukawa_forces_potential"],
              launches_pre_speedup=preset_counts["yukawa_forces_potential"],
              launches_frozen_production=prod_counts[
-                 "yukawa_forces_potential"], **pot_d),
+                 "yukawa_forces_potential"],
+             launches_lccf=lccf_counts["yukawa_forces_potential"],
+             **pot_d),
         dict(name="yukawa_forces_potential_batched", route="cuda",
              source=src_f, replaces="mdqtplasmasims_tpu/ops/yukawa.py:166",
              launches=ens_counts["yukawa_forces_potential_batched"],
@@ -3581,6 +3733,7 @@ def main() -> int:
              replaces=tpu_rng, launches=counts["fused_ticks_rng"],
              launches_pre_speedup=preset_counts["fused_ticks_rng"],
              launches_campaign99=camp_counts["fused_ticks_rng"],
+             launches_lccf=lccf_counts["fused_ticks_rng"],
              e99=camp["B'rng"], **rng["fused_ticks_rng"]),
         dict(name="fused_ticks_rng_per_lane_e0", route="cuda", source=src_t,
              replaces=tpu_rng,

@@ -7,10 +7,12 @@
   MC-tagging) on the CPU, and the host tools: a tree written through the
   ``%g`` codec, ``analyze_job``, ``collect_panels`` (without matplotlib),
   ``PhaseTimer`` and the ``pre_speedup`` preset's ``run``, two
-  families of the production soak (``tools/torch_soak.py``) and a tiny
-  99-job campaign (``tools/torch_campaign99.py``).
-* No source file of the port (nor chip_smoke.py, tools/torch_soak.py or
-  tools/torch_campaign99.py) has an import statement naming either.
+  families of the production soak (``tools/torch_soak.py``), a tiny
+  99-job campaign (``tools/torch_campaign99.py``) and the analysis layer's
+  tools (``tools/torch_validate_analysis.py``: trajectories, sections A,
+  C, D and E; ``tools/torch_lccf_dispersion.py``) at a tiny size.
+* No source file of the port (nor chip_smoke.py or the port's tools,
+  tools/torch_*.py) has an import statement naming either.
 * The port's own copies of the level tables, the unit constants, the
   ``%g`` writer, the directory encoders, the CLI helpers, the families'
   config defaults, the preset table and the report formats equal the JAX
@@ -18,6 +20,7 @@
 """
 
 import dataclasses
+import glob
 import os
 import re
 import subprocess
@@ -165,6 +168,30 @@ m = torch_campaign99.campaign(device="cpu", n_jobs=2, n0=16, tmax=0.008,
                               sample_freq=2)
 assert m["n_jobs"] == 2 and "job_spread_t30" in m, m
 assert torch_campaign99.campaign_line(m).startswith("2-job campaign: ")
+# the analysis layer's tools (tools/torch_validate_analysis.py,
+# tools/torch_lccf_dispersion.py) at a tiny size
+import torch_lccf_dispersion
+import torch_validate_analysis as tva
+with tempfile.TemporaryDirectory() as tmp:
+    args = tva.parse_args(["--sections", "ACD", "--record-steps", "80",
+                           "--work-dir", tmp, "--device", "cpu"])
+    trajs = {k: tva.md_trajectory(64, *k[:2], seed=k[2], mc_steps=200,
+                                  equil_steps=5, device="cpu",
+                                  dtype=torch.float64,
+                                  record_steps=kw["record_steps"])
+             for k, kw in tva.trajectory_plan(args).items()}
+    rep = tva.analyze(trajs, args)
+    assert set(rep) == {"A_gk_vs_msd", "C_sk_gofr", "D_dispersion",
+                        "section_walls_s"}, rep
+    e = tva.section_e(args, "cpu", "float64", n=8, mc_steps=40,
+                      gr_every_mc=20, pre_record_md_steps=2, record_steps=8,
+                      gr_every_record=4, instant_aniso_steps=2,
+                      reequil_steps=2, aniso_relax_steps=2,
+                      aniso_time_us=0.05)
+    assert e["k"] == 16 and e["dtype"] == "float64", e
+    assert torch_lccf_dispersion.main([
+        "--n0", "16", "--tmax", "0.04", "--sample-freq", "2",
+        "--skip-time", "0.004", "--device", "cpu", "--out", tmp]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad
@@ -183,9 +210,11 @@ def test_port_runs_with_jax_refused():
 
 def _sources():
     pkg = os.path.join(ROOT, "mdqtplasmasims_torch")
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tools", "torch_soak.py"),
-           os.path.join(ROOT, "tools", "torch_campaign99.py")]
+    tools = glob.glob(os.path.join(ROOT, "tools", "torch_*.py"))
+    assert {os.path.basename(p) for p in tools} >= {
+        "torch_soak.py", "torch_campaign99.py", "torch_validate_analysis.py",
+        "torch_lccf_dispersion.py"}
+    out = [os.path.join(ROOT, "chip_smoke.py"), *tools]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
