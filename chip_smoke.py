@@ -205,9 +205,29 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      step, B'rng once per MD step + once per sample, D once per sample +
      1; the JAX tool's keys, every number finite), then kernel A at N=216
      and N=512 (a lattice after 2000 Metropolis steps) against its plain
-     version, timed with its bound.
+     version, timed with its bound;
+ 33. the JAX package's remaining physics targets and its examples at
+     their full sizes (``tools/torch_physics_targets.py``'s
+     ``run_targets``, each target's launches counted from 0): the DIH
+     curve (N=512 from the JAX test's start, 2000 steps, kernel A once a
+     step), the f32-vs-f64 budget (N=256 x 800 steps through A, and in
+     float64 through the plain all-pairs version, the reference: no
+     launch), the EIT resonance (600 free ions, 3000 ticks of the S = 12
+     explicit form in launches of 1000), the dark-state dip of the written
+     population files at (detSP, detDP) = (-1, 1) and (-0.5, 1) (A once
+     per MD step, B'rng once per MD step + once per sample, D once per
+     sample + 1) and the tagged class (C once per MD step + 1, B's S = 5
+     per-lane e0 form once per pump-window step, G once per block + 2),
+     each held to its launches and its JAX test's asserts; a miss raises,
+     unless it is a dip run that wrote the archived population files
+     byte for byte (the archived run, whose misses tier-1's archive test
+     reports); then the three examples (``examples/torch_*.py``: the
+     dark-state and Rabi sweeps, C, the per-lane e0 or om form of B'rng
+     and G; the tag-class sweep, C, B's S = 5 per-lane e0 form and G),
+     each held to its exact launches and its physics; the phase's wall
+     logged.
 
-Phases 7, 10, 11, 12, 17, 19-27 and 30-32 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-27 and 30-33 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
@@ -219,7 +239,9 @@ phase 31's, ``launches_campaign99``, and their E=99 launch's readings and
 bound, ``e99``; A, B'rng and D with phase 32's laser-free flagship's,
 ``launches_lccf``, A with its validation trajectories',
 ``launches_validate_analysis``, and its readings at N=216 and N=512,
-``n216`` and ``n512``), each with its bound
+``n216`` and ``n512``; every form phase 33 runs with its targets' and
+its examples' counts, ``launches_physics_targets`` and
+``launches_examples``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -232,6 +254,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -3556,6 +3579,158 @@ def analysis_tools_path(torch, card):
                     for n in (216, 512)}
 
 
+# ---- the JAX package's physics targets and its examples (phase 33)
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cooling_fold_counts(cfg, form: str) -> dict:
+    """The launches of a laser-cooling fold (``run`` or ``run_sweep``):
+    the force kernel once per MD step, the tick kernel's ``form`` once
+    per MD step and once per sample, the potential kernel once per sample
+    and once at the start."""
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    samples = n_md // cfg.sample_freq
+    batched = "_batched" if "per_lane" in form else ""
+    return {f"yukawa_forces{batched}": n_md, form: n_md + samples,
+            f"yukawa_forces_potential{batched}": samples + 1}
+
+
+def frozen_sweep_counts(torch, cfg) -> dict:
+    """The launches of a frozen-tag ``run_sweep`` over detunings (kernel
+    C once per MD step and once at the start, G twice plus once per
+    output block, B's S = 5 per-lane e0 form once per MD step of the pump
+    window)."""
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    _, n_md, segs, _ = ft._phase_b_plan(cfg)
+    return dict(yukawa_forces_batched=n_md + 1,
+                yukawa_forces_potential_batched=len(segs) + 2,
+                fused_ticks_s5_per_lane_e0=frozen_pump_steps(torch, cfg)[0])
+
+
+def archived_dip_run(tpt, work_dir: str, name: str) -> bool:
+    """Whether the dip run in ``work_dir/name`` wrote, byte for byte, the
+    population files archived under ``artifacts/physics_targets_torch/
+    <name>/``: the run whose JAX asserts tier-1's archive test reads."""
+    job, = glob.glob(os.path.join(work_dir, name, "*", "job1"))
+    files = tpt.dip_files(job)
+    kept = sorted(glob.glob(os.path.join(tpt.OUT, name, "*.dat")))
+    if [os.path.basename(f) for f in files] != [os.path.basename(f)
+                                                 for f in kept]:
+        return False
+    for f, k in zip(files, kept):
+        with open(f, "rb") as x, open(k, "rb") as y:
+            if x.read() != y.read():
+                return False
+    return True
+
+
+def physics_targets_path(torch, card):
+    """Phase 33: ``tools/torch_physics_targets.py``'s ``run_targets`` at
+    full size, each target's launches held exactly and the report to
+    every JAX assert (``report_misses``), then the three examples at full
+    size held to their launches and their physics (``physics_misses``).
+    Every miss raises but one kind: a dip run that wrote, byte for byte,
+    the archived population files is the archived run, whose misses are
+    tier-1's (tests/test_torch_physics_targets.py::
+    test_archived_dark_state_dip_tracks_detuning); any other run of a dip
+    case, the port's output changed in any bit, is held to the JAX asserts
+    here.  Returns the launches of the targets and of the examples,
+    summed by form."""
+    import math
+    from mdqtplasmasims_torch.experiments.frozen_tagging import (
+        FrozenTagConfig)
+    from mdqtplasmasims_torch.experiments.laser_cooling import CoolingConfig
+    root = os.path.dirname(os.path.abspath(__file__))
+    for d in ("tools", "examples"):
+        sys.path.insert(0, os.path.join(root, d))
+    import torch_dark_state_sweep
+    import torch_physics_targets as tpt
+    import torch_rabi_sweep
+    import torch_tag_class_sweep
+    targets, examples = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rep = tpt.run_targets("cuda", tmp)
+        log(f"[targets] run_targets: {time.perf_counter() - t0:.3f} s "
+            f"({card}); walls {rep['walls_s']}")
+        n_dih, n_budget = tpt.DIH_RUN[1], tpt.DIH_BUDGET[1]
+        sections = [
+            ("DIH", rep["dih"], dict(yukawa_forces=n_dih)),
+            ("budget float32", rep["dih_budget"]["f32"],
+             dict(yukawa_forces=n_budget)),
+            ("budget float64 (plain: the reference)",
+             rep["dih_budget"]["f64"], {}),
+            ("EIT", rep["eit"], dict(fused_ticks=math.ceil(
+                tpt.EIT_TICKS / tpt.EIT_CHUNK))),
+            *((name, d, cooling_fold_counts(tpt.dip_config(
+                d["det_sp"], d["det_dp"], tmp), "fused_ticks_rng"))
+              for name, d in rep["dip"].items()),
+            ("tagged class", rep["tagged"], frozen_sweep_counts(
+                torch, FrozenTagConfig(**tpt.TAG_CONFIG)))]
+        for what, sec, want in sections:
+            log(f"[targets] {what}: {sec['wall_s']:.3f} s; launches "
+                f"{sec['launches']}")
+            # every counter, the ones the report leaves out at 0
+            counts = dict.fromkeys(read_counts(), 0) | sec["launches"]
+            want_counts(counts, what, **want)
+            add_counts(targets, counts)
+        log(f"[targets] DIH {tpt.dih_values(rep['dih']['T'])}; budget "
+            f"early {rep['dih_budget']['early']:.3g}, late "
+            f"{rep['dih_budget']['late']:.3g}")
+        log(f"[targets] EIT P {rep['eit']['pop_p']}, D {rep['eit']['pop_d']}"
+            f", vx fixed {rep['eit']['v_fixed']}")
+        for name, d in rep["dip"].items():
+            log(f"[targets] {name}: v_res {d['v_res']:.4f}, v_dip "
+                f"{d['v_dip']}, window {d['window']} bins, "
+                f"{len(d['files'])} files of {sum(d['file_bytes'])} B")
+        vx = tpt.tagged_vx(rep["tagged"]["rows"])
+        log(f"[targets] tagged <vx> {vx}, spin-up "
+            f"{[round(r['mean'], 4) for r in rep['tagged']['spin_up']]}")
+        archived = {name for name in rep["dip"]
+                    if archived_dip_run(tpt, tmp, name)}
+        misses = tpt.report_misses(rep)
+        held = [m for m in misses if m.split(": ", 1)[0] in archived]
+        log(f"[targets] dip runs equal to the archived run, byte for byte: "
+            f"{sorted(archived)}; their misses, tier-1's archive test's: "
+            f"{held}")
+        faults = [m for m in misses if m not in held]
+        if faults:
+            raise SystemExit(f"phase 33: the targets miss {faults}")
+        for mod, out, cfg in (
+                (torch_dark_state_sweep, os.path.join(tmp, "dark"),
+                 cooling_fold_counts(CoolingConfig(
+                     **torch_dark_state_sweep.CONFIG),
+                     "fused_ticks_rng_per_lane_e0")),
+                (torch_rabi_sweep, None, cooling_fold_counts(CoolingConfig(
+                    **torch_rabi_sweep.CONFIG),
+                    "fused_ticks_rng_per_lane_om")),
+                (torch_tag_class_sweep, None, frozen_sweep_counts(
+                    torch, FrozenTagConfig(**torch_tag_class_sweep.CONFIG)))):
+            name = mod.__name__
+            reset_counts()
+            t0 = time.perf_counter()
+            table = mod.main(out, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            log(f"[examples] {name}: {wall:.3f} s ({card}); launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            want_counts(counts, name, **cfg)
+            add_counts(examples, counts)
+            log(f"[examples] {name}: " + "; ".join(
+                ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else
+                          f"{k} {v}" for k, v in r.items()
+                          if k not in ("centers", "profile"))
+                for r in table["rows"]))
+            if mod.physics_misses(table):
+                raise SystemExit(f"phase 33: {name} misses its physics: "
+                                 f"{mod.physics_misses(table)}")
+    return targets, examples
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -3616,10 +3791,8 @@ def main() -> int:
     # IEEE float32 for the plain versions too (the kernels use no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    from mdqtplasmasims_torch.profiling import card_name
+    smi = card_name("cuda")
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
@@ -3685,6 +3858,10 @@ def main() -> int:
         f"{time.perf_counter() - t_tools:.1f} s")
     val_counts, lccf_counts = (tool_counts["validate_analysis"],
                                tool_counts["lccf"])
+    t_targets = time.perf_counter()
+    target_counts, example_counts = physics_targets_path(torch, smi)
+    log(f"[env] phase 33 (the physics targets and the examples) took "
+        f"{time.perf_counter() - t_targets:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -3804,6 +3981,11 @@ def main() -> int:
              launches=mesh_counts["ring_n3l"]["yukawa_forces_cross"],
              **cross),
     ]
+    for k in kernels:
+        for key, counts in (("launches_physics_targets", target_counts),
+                            ("launches_examples", example_counts)):
+            if counts.get(k["name"]):
+                k[key] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

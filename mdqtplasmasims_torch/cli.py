@@ -381,6 +381,38 @@ def _run_family(parser, ns, module, cfg, t0, grid=LASER_GRID) -> str:
     return "1 run"
 
 
+def _families() -> dict:
+    """Command prefix -> (module, config class, has --resume, sweep grid)
+    of the families besides cooling."""
+    from .experiments import (frozen_tagging, mc_md_anisotropy,
+                              mc_qt_tagging, three_state)
+    return {
+        "three-state": (three_state, three_state.ThreeStateConfig, False,
+                        LASER_GRID),
+        "frozen-tag": (frozen_tagging, frozen_tagging.FrozenTagConfig, True,
+                       LASER_GRID),
+        "transport": (mc_md_anisotropy, mc_md_anisotropy.MCTransportConfig,
+                      True, PHASE_GRID),
+        "mc-tag": (mc_qt_tagging, mc_qt_tagging.MCTagConfig, True,
+                   LASER_GRID),
+    }
+
+
+def build_parser(families=None) -> argparse.ArgumentParser:
+    """The parser of every subcommand and flag (``families`` as
+    :func:`_families` gives them)."""
+    from .experiments import laser_cooling
+    parser = argparse.ArgumentParser(prog="mdqt-torch")
+    parser.add_argument("--version", action="version",
+                        version=f"%(prog)s {_version_string()}")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_cooling_commands(sub, laser_cooling)
+    for name, (_, cls, resume, grid) in (families or _families()).items():
+        _add_family_commands(sub, name, cls, resume, grid)
+    _add_host_subcommands(sub)            # listed in --help; run in main
+    return parser
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     # plot / analyze are host commands: dispatch them before the
@@ -392,28 +424,9 @@ def main(argv=None) -> int:
                                                     required=True))
         return _dispatch_host(parser.parse_args(args), parser)
 
-    from .experiments import (frozen_tagging, laser_cooling,
-                              mc_md_anisotropy, mc_qt_tagging, three_state)
-
-    # command prefix -> (module, config class, has --resume, sweep grid)
-    families = {
-        "three-state": (three_state, three_state.ThreeStateConfig, False,
-                        LASER_GRID),
-        "frozen-tag": (frozen_tagging, frozen_tagging.FrozenTagConfig, True,
-                       LASER_GRID),
-        "transport": (mc_md_anisotropy, mc_md_anisotropy.MCTransportConfig,
-                      True, PHASE_GRID),
-        "mc-tag": (mc_qt_tagging, mc_qt_tagging.MCTagConfig, True,
-                   LASER_GRID),
-    }
-    parser = argparse.ArgumentParser(prog="mdqt-torch")
-    parser.add_argument("--version", action="version",
-                        version=f"%(prog)s {_version_string()}")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    _add_cooling_commands(sub, laser_cooling)
-    for name, (_, cls, resume, grid) in families.items():
-        _add_family_commands(sub, name, cls, resume, grid)
-    _add_host_subcommands(sub)            # listed in --help; run above
+    from .experiments import laser_cooling
+    families = _families()
+    parser = build_parser(families)
     ns = parser.parse_args(args)
     t0 = time.perf_counter()
     if ns.cmd.startswith("cooling"):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict
@@ -106,3 +107,28 @@ def throughput(n_ions: int, n_ticks: int, seconds: float) -> dict:
         "us_per_quantum_tick": seconds / max(n_ticks, 1) * 1e6,
         "seconds": seconds,
     }
+
+
+def card_name(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them, the label every card
+    number carries; "cpu" for a CPU device."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def record_table(path: str, name: str, table: dict, device) -> None:
+    """Merge ``{name: table}``, with the card's :func:`card_name`, into the
+    JSON object at ``path`` (made if absent), keeping its other entries."""
+    cur = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            cur = json.load(f)
+    cur[name] = dict(table, card=card_name(device))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cur, f, indent=1, sort_keys=True)

@@ -10,9 +10,12 @@
   families of the production soak (``tools/torch_soak.py``), a tiny
   99-job campaign (``tools/torch_campaign99.py``) and the analysis layer's
   tools (``tools/torch_validate_analysis.py``: trajectories, sections A,
-  C, D and E; ``tools/torch_lccf_dispersion.py``) at a tiny size.
-* No source file of the port (nor chip_smoke.py or the port's tools,
-  tools/torch_*.py) has an import statement naming either.
+  C, D and E; ``tools/torch_lccf_dispersion.py``), the physics targets
+  (``tools/torch_physics_targets.py``) and the examples
+  (``examples/torch_*.py``) at a tiny size.
+* No source file of the port (nor chip_smoke.py, the port's tools,
+  tools/torch_*.py, or its examples, examples/torch_*.py) has an import
+  statement naming either.
 * The port's own copies of the level tables, the unit constants, the
   ``%g`` writer, the directory encoders, the CLI helpers, the families'
   config defaults, the preset table and the report formats equal the JAX
@@ -192,6 +195,23 @@ with tempfile.TemporaryDirectory() as tmp:
     assert torch_lccf_dispersion.main([
         "--n0", "16", "--tmax", "0.04", "--sample-freq", "2",
         "--skip-time", "0.004", "--device", "cpu", "--out", tmp]) == 0
+# the physics targets (tools/torch_physics_targets.py) and the examples
+# (examples/torch_*.py) at a tiny size
+import torch_physics_targets as tpt
+import torch_dip_seed_scan
+assert tpt.eit_populations("cpu", ntraj=2, ticks=4, chunk=4)["v_fixed"]
+assert tpt.dih_curve(256, 3, device="cpu").shape == (3,)
+sys.path.insert(0, os.path.join(os.getcwd(), "examples"))
+import torch_dark_state_sweep, torch_rabi_sweep, torch_tag_class_sweep
+with tempfile.TemporaryDirectory() as tmp:
+    for mod, over in ((torch_dark_state_sweep, {}), (torch_rabi_sweep, {})):
+        table = mod.main(tmp, device="cpu", n0=16, tmax=0.008,
+                         sample_freq=2, **over)
+        assert len(table["rows"]) >= 3, table
+    table = torch_tag_class_sweep.main(device="cpu", n0=16, tstart=0.02,
+                                       tmax=0.16, sample_freq=4,
+                                       tpump_seconds=5e-8)
+    assert len(table["rows"]) == 5, table
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad
@@ -213,8 +233,13 @@ def _sources():
     tools = glob.glob(os.path.join(ROOT, "tools", "torch_*.py"))
     assert {os.path.basename(p) for p in tools} >= {
         "torch_soak.py", "torch_campaign99.py", "torch_validate_analysis.py",
-        "torch_lccf_dispersion.py"}
-    out = [os.path.join(ROOT, "chip_smoke.py"), *tools]
+        "torch_lccf_dispersion.py", "torch_physics_targets.py",
+        "torch_dip_seed_scan.py"}
+    examples = glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
+    assert {os.path.basename(p) for p in examples} == {
+        "torch_dark_state_sweep.py", "torch_rabi_sweep.py",
+        "torch_tag_class_sweep.py"}
+    out = [os.path.join(ROOT, "chip_smoke.py"), *tools, *examples]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

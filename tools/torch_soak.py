@@ -34,7 +34,11 @@ the source revision (``git rev-parse HEAD``, or "archive" outside a
 checkout) and the date.  Each entry holds ``wall_s`` (host
 clock from a synced card to the run's return, its tree included) and the
 kernels' ``launches`` during the run.  The trees go to ``--out-dir``
-(default ``$TMPDIR/soak_torch``), never into the repository.
+(default ``$TMPDIR/soak_torch``), never into the repository; only the
+files of :data:`ARCHIVED_FILES` (the cooling run's ``energies.dat``, the
+transport run's ``VAF.dat`` and ``temperature.dat``) are copied into
+``--archive-dir`` (default ``artifacts/soak_torch``) in the tree's
+layout.
 
 The kernel libraries and the codec are built before the first family is
 timed.  Eight diagnostics run when named: ``chain_trace`` traces 300
@@ -81,6 +85,13 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 SUMMARY = os.path.join(ROOT, "artifacts", "soak_torch", "summary.json")
+ARCHIVE = os.path.dirname(SUMMARY)
+# the files of a family's tree the archive keeps, in the tree's layout
+# (``<family>/<param dir>/job1/``, as the JAX package's artifacts/soak):
+# tests/test_torch_physics_targets.py fits the cooling slope to the one
+# and the Green-Kubo D to the others
+ARCHIVED_FILES = {"cooling": ("energies.dat",),
+                  "transport": ("VAF.dat", "temperature.dat")}
 
 # tools/soak.py's operating points
 COOLING = dict(n0=3500, tmax=30.0, sample_freq=40)
@@ -488,15 +499,27 @@ def build_libraries() -> float:
 
 # ---- the archive
 
+def archive_files(name: str, out_dir: str, archive_dir: str) -> list:
+    """Copy family ``name``'s :data:`ARCHIVED_FILES` from its tree under
+    ``out_dir`` into the same layout under ``archive_dir``; returns the
+    copies' paths."""
+    out = []
+    for fname in ARCHIVED_FILES.get(name, ()):
+        for src in glob.glob(os.path.join(out_dir, name, "*", "job*",
+                                          fname)):
+            dest = os.path.join(archive_dir,
+                                os.path.relpath(src, out_dir))
+            os.makedirs(os.path.dirname(dest), exist_ok=True)
+            shutil.copy2(src, dest)
+            out.append(dest)
+    return out
+
+
 def run_meta(device) -> dict:
     """The card (``nvidia-smi`` name and power limit), versions, source
     revision and date."""
-    card = "cpu"
-    if torch.device(device).type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
+    from mdqtplasmasims_torch.profiling import card_name
+    card = card_name(device)
     try:
         rev = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
                              capture_output=True, text=True, timeout=30,
@@ -689,6 +712,9 @@ def main(argv=None) -> int:
                    help="where the .dat trees go (default: %(default)s)")
     p.add_argument("--summary", default=SUMMARY,
                    help="the summary to update (default: %(default)s)")
+    p.add_argument("--archive-dir", default=ARCHIVE,
+                   help="where the families' archived files go (default: "
+                   "%(default)s)")
     args = p.parse_args(argv)
     unknown = sorted(set(args.names) - set(FAMILIES) - set(EXTRAS))
     if unknown:
@@ -709,6 +735,9 @@ def main(argv=None) -> int:
         if name in FAMILIES:
             update_summary(args.summary, name,
                            FAMILIES[name](args.out_dir, device="cuda"), meta)
+            for path in archive_files(name, args.out_dir, args.archive_dir):
+                print(f"[soak] archived {path} ({os.path.getsize(path)} B)",
+                      flush=True)
         else:
             update_summary(args.summary, "_" + name,
                            EXTRAS[name](args.out_dir), meta)
