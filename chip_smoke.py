@@ -225,9 +225,19 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      dark-state and Rabi sweeps, C, the per-lane e0 or om form of B'rng
      and G; the tag-class sweep, C, B's S = 5 per-lane e0 form and G),
      each held to its exact launches and its physics; the phase's wall
-     logged.
+     logged;
+ 34. the mesh on distinct cards, its slots here all on the one card
+     (``mesh_cards_path``): a 4 x 1 frozen-tag fold of 8 cut to tmax=1.0
+     through ``member_sharded`` with its blocks in the slots' worker
+     processes (the form it takes on several cards) bitwise equal to the
+     same fold one block after the other, each launching 4x the
+     unsharded fold's kernels (the workers' launches counted here); then
+     the 4 x 1 cooling mesh of 8 jobs cut to tmax=0.2 bitwise equal to
+     the unsharded fold of 8 (final states and samples: a member's force
+     sums do not depend on its fold's width), exact C / B'rng / G
+     launches.
 
-Phases 7, 10, 11, 12, 17, 19-27 and 30-33 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-27 and 30-34 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
@@ -241,7 +251,8 @@ bound, ``e99``; A, B'rng and D with phase 32's laser-free flagship's,
 ``launches_validate_analysis``, and its readings at N=216 and N=512,
 ``n216`` and ``n512``; every form phase 33 runs with its targets' and
 its examples' counts, ``launches_physics_targets`` and
-``launches_examples``), each with its bound
+``launches_examples``, and every form phase 34 runs with its count,
+``launches_mesh_cards``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -3731,6 +3742,103 @@ def physics_targets_path(torch, card):
     return targets, examples
 
 
+# phase 34: the frozen fold (TAG_CUT, N0 = 3500) and the 4 x 1 cooling mesh
+# of 8 jobs (N0 = 3500), cut
+MESH_CARDS_FROZEN = dict(n0=3500, **TAG_CUT)
+MESH_CARDS_COOL = dict(n0=3500, tmax=0.2)
+
+
+@contextlib.contextmanager
+def slot_workers():
+    """``member_sharded`` in its multi-card form (a worker process a slot)
+    on slots that all lie on one card."""
+    from mdqtplasmasims_torch.parallel import ensemble as pe
+    orig = pe.mesh_is_multi_card
+    pe.mesh_is_multi_card = lambda mesh: True
+    try:
+        yield
+    finally:
+        pe.mesh_is_multi_card = orig
+
+
+def mesh_cards_path(torch, card):
+    """Phase 34: the mesh of ``tools/torch_mesh_cards.py`` with every slot
+    on cuda:0: the frozen fold of 8 through ``member_sharded``'s slot
+    workers (its form on several cards) bitwise equal to the same fold in
+    turn, each with 4x the unsharded fold's launches; the 4 x 1 cooling
+    mesh of 8 jobs bitwise equal to
+    the unsharded fold of 8, exact launches.  Returns the launches of the
+    phase, summed by form."""
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, run_ensemble)
+    from mdqtplasmasims_torch.parallel.ensemble import (start_workers,
+                                                        stop_workers)
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import torch_mesh_cards as tmc
+    dev = torch.device("cuda", 0)
+    total = {}
+    cfg = ft.FrozenTagConfig(**MESH_CARDS_FROZEN)
+    mesh = make_mesh(4, 1, devices=[dev] * 4)
+    with slot_workers():
+        log(f"[mesh-cards] four slot workers on {dev} started in "
+            f"{start_workers(mesh):.3f} s")
+    runs = {}
+    for name, kw, ctx in (
+            ("fold", dict(device=dev), contextlib.nullcontext()),
+            ("workers", dict(mesh=mesh), slot_workers()),
+            ("in turn", dict(mesh=mesh), contextlib.nullcontext())):
+        reset_counts()
+        with ctx:
+            res, wall = _synced_wall(torch, lambda: ft.run_ensemble(
+                cfg, 8, seed=5, **kw))
+        runs[name] = (res, read_counts())
+        log(f"[mesh-cards] frozen fold of 8 ({MESH_CARDS_FROZEN}), {name}: "
+            f"{wall:.3f} s ({card}); launches "
+            f"{ {k: v for k, v in runs[name][1].items() if v} }")
+        add_counts(total, runs[name][1])
+    stop_workers()
+    fold_counts = runs["fold"][1]
+    same = tmc.same(runs["workers"][0], runs["in turn"][0])
+    log(f"[mesh-cards] frozen 4 x 1 in the slots' worker processes vs in "
+        f"turn: bitwise equal {same}; vs the unsharded fold of 8: "
+        f"{tmc.same(runs['in turn'][0], runs['fold'][0])}")
+    if not same:
+        raise SystemExit("phase 34: the frozen fold over 4 slots in worker "
+                         "processes differs from the same fold in turn")
+    for name in ("workers", "in turn"):
+        want_counts(runs[name][1], f"the frozen fold over 4 slots ({name})",
+                    **{k: 4 * v for k, v in fold_counts.items() if v})
+    c = CoolingConfig(**MESH_CARDS_COOL)
+    n_md = int(round(c.tmax / c.timestep))
+    segs = n_md // c.sample_freq
+    cool = {}
+    for name, kw, k in (("fold", dict(device=dev), 1),
+                        ("4 x 1", dict(mesh=mesh), 4)):
+        reset_counts()
+        res, wall = _synced_wall(torch, lambda: run_ensemble(
+            c, 8, seed=5, **kw))
+        counts = read_counts()
+        log(f"[mesh-cards] cooling {name} of 8 ({MESH_CARDS_COOL}): "
+            f"{wall:.3f} s ({card}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        want_counts(counts, f"the cooling {name} of 8",
+                    yukawa_forces_batched=k * n_md,
+                    fused_ticks_rng=k * (n_md + segs),
+                    yukawa_forces_potential_batched=segs + 1)
+        add_counts(total, counts)
+        cool[name] = tmc._final_and_outs(res)
+    same = tmc.same(cool["4 x 1"], cool["fold"])
+    log(f"[mesh-cards] cooling 4 x 1 vs the unsharded fold of 8: final "
+        f"states and samples bitwise equal {same}")
+    if not same:
+        raise SystemExit("phase 34: the cooling 4 x 1 mesh differs from the "
+                         "unsharded fold")
+    return total
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -3862,6 +3970,10 @@ def main() -> int:
     target_counts, example_counts = physics_targets_path(torch, smi)
     log(f"[env] phase 33 (the physics targets and the examples) took "
         f"{time.perf_counter() - t_targets:.1f} s")
+    t_mesh = time.perf_counter()
+    mesh_cards_counts = mesh_cards_path(torch, smi)
+    log(f"[env] phase 34 (the mesh on distinct cards, its slots on this "
+        f"card) took {time.perf_counter() - t_mesh:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -3983,7 +4095,8 @@ def main() -> int:
     ]
     for k in kernels:
         for key, counts in (("launches_physics_targets", target_counts),
-                            ("launches_examples", example_counts)):
+                            ("launches_examples", example_counts),
+                            ("launches_mesh_cards", mesh_cards_counts)):
             if counts.get(k["name"]):
                 k[key] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))

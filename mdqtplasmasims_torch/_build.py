@@ -20,6 +20,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -108,6 +109,40 @@ def build_log(name: str) -> str:
         return ""
     with open(log) as f:
         return f.read()
+
+
+# every launch counter that has counted, by "module:function.attr"
+_COUNTERS: dict = {}
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to the launch counter ``fn.<attr>`` of a kernel wrapper."""
+    setattr(fn, attr, getattr(fn, attr) + 1)
+    _COUNTERS.setdefault(f"{fn.__module__}:{fn.__qualname__}.{attr}",
+                         (fn, attr))
+
+
+def launch_snapshot() -> dict:
+    """The value of every launch counter that has counted."""
+    return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTERS.items()}
+
+
+def launch_delta(before: dict) -> dict:
+    """The launches counted since ``before`` (:func:`launch_snapshot`)."""
+    return {k: v - before.get(k, 0) for k, v in launch_snapshot().items()
+            if v != before.get(k, 0)}
+
+
+def add_launches(delta: dict) -> None:
+    """Add another process's launches (:func:`launch_delta`) to this
+    process's counters (a mesh's slot workers launch for it)."""
+    for key, n in delta.items():
+        mod, name = key.split(":")
+        qual, attr = name.rsplit(".", 1)
+        fn = importlib.import_module(mod)
+        for part in qual.split("."):
+            fn = getattr(fn, part)
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 _SAME_DEVICE = contextlib.nullcontext()

@@ -807,8 +807,7 @@ def fused_md_substeps(spec: FusedTickSpec, first: bool, R, V, F, tp,
             int(lane0), geo.blocks, geo.shared_bytes,
             _build.raw_stream(R.device))
     _build.check(lib, err, "fused_ticks_launch")
-    name = launch_counter(spec)
-    setattr(fused_md_substeps, name, getattr(fused_md_substeps, name) + 1)
+    _build.count_launch(fused_md_substeps, launch_counter(spec))
     return outs
 
 

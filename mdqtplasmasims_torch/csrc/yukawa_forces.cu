@@ -66,12 +66,13 @@
 //    so one column read serves two independent pair chains.  The block's
 //    column chunk is swept in tiles of 32 columns, warp w taking tiles w,
 //    w + 4, ...  The chunk length (a multiple of COL_TILE = 128, one tile
-//    per warp) is chosen by the Python wrapper from (npad, ncols, E) alone
-//    (ops/yukawa.py: pair_split), aiming at 32 warps per scheduler, some
-//    three waves of resident blocks, so that the last wave is a small
-//    share: 1568 blocks for A and for E (128-column chunks, the finest),
-//    392 for F and for C at a mesh shard's 1792 lanes, 4480 for an
-//    8-member fold (384-column chunks).
+//    per warp) is chosen by the Python wrapper from (npad, ncols) alone
+//    (ops/yukawa.py: pair_split), never from E, so that a member's row
+//    sums are the same in a fold of any width; it aims at 32 warps per
+//    scheduler for one member, some three waves of resident blocks, so
+//    that the last wave is a small share: 1568 blocks for A and for E
+//    (128-column chunks, the finest), 392 for F and for C at a mesh
+//    shard's 1792 lanes, E times a member's blocks for an E-member fold.
 //  - A warp stages its 32 columns as one float4 (x, y, z, mask) each in
 //    its own 512 B of shared memory (no block barrier in the sweep).  At
 //    step k lane l reads column (l + k) mod 32: one conflict-free 128-bit
@@ -96,8 +97,9 @@
 //    part_g [E, row tiles, npc, 3], which the same second pass sums over
 //    the row tiles in order.  Skipped tiles write zeros there.
 //  - No float atomics anywhere, and every sum has one fixed order given
-//    (npad, ncols, E): all outputs are bitwise equal run to run
-//    (PARITY.md delta 5), an E=1 launch of C is bitwise A, and E with a
+//    (npad, ncols): all outputs are bitwise equal run to run (PARITY.md
+//    delta 5), a member's are the same in a fold of any width (an E=1
+//    launch of C is bitwise A), and E with a
 //    member's own lanes as its columns is bitwise C on real rows (same
 //    split, same sweep).
 // Each pair of A/C/D/G is still evaluated twice (both triangles); the

@@ -40,7 +40,11 @@ then the pump ticks' uniforms (lane-major, core/scheduler.
 lane_major_rolls), then the measurement's uniforms from one generator
 seeded with ``seed`` (default ``cfg.job``); member j of a fold has a
 generator of its own seeded with laser_cooling.member_seed ``(seed, j)``,
-so a member comes out the same in a fold of any size and on any mesh.
+so a member's draws and state come out the same in a fold of any size
+and on any mesh.  On a card its energies, sums over its ions taken by
+torch's reductions over the fold's ``[E, n]`` tensors, can differ in the
+last bits with the fold's width (the reduction lays out its threads by
+E).
 ``rolls_fn`` / ``measure_fn`` replace the two draws (tests replay the JAX
 package's key chain through them).  Nothing is drawn after the tag, so a
 resumed run needs no generator.
@@ -49,6 +53,7 @@ resumed run needs no generator.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Callable, Optional
 
@@ -663,7 +668,8 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
     per-member tables of the tick kernel's per-lane forms (core/scheduler.
     member_sweep).  ``mesh`` runs
     member block k on ens slot k (parallel/ensemble.member_sharded, no
-    collectives).
+    collectives; on several cards each block in a worker process on
+    its slot's card, the blocks at once).
 
     ``mask [E, n_arr]`` (host array) gives each member its own Poissonian
     ion count inside the fixed-shape fold (the reference's init draws a
@@ -682,25 +688,6 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
     n_arr = cfg.n0 if mask is None else mask.shape[1]
     rdtype = cfg.torch_dtype
 
-    def fold(idx, start, e0, om, mk):
-        """Members ``idx`` on idx's device; every tensor argument carries
-        the member axis (the form member_sharded splits), None where the
-        fold has none."""
-        dev = idx.device
-        generators = [torch.Generator(device=dev).manual_seed(
-            member_seed(seed, j)) for j in idx.tolist()]
-        st = (_fold_start(cfg, generators, mk) if start is None
-              else SimState(**start))
-        st = dataclasses.replace(
-            st, F=_forces_fn(cfg, n_arr, mk, fold=True)(st.R)[0])
-        rf = rolls_fn or _fold_rolls(generators)
-        mf = measure_fn or _fold_measure(generators)
-        st, spin_up, epot0, out_tag, outs, vholder = _phases(
-            cfg, st, rf, mf, (e0, om), mk)
-        fields = {k: getattr(st, k) for k in ("R", "V", "F", "psi", "t_part")}
-        return fields, spin_up, epot0, out_tag, outs, vholder, (st.tick,
-                                                                 st.t)
-
     start = None
     if states is not None:
         given = states_from_numpy(states, device=device, dtype=rdtype)
@@ -712,10 +699,10 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
     mask_t = (None if mask is None
               else torch.as_tensor(np.asarray(mask)).to(device, rdtype))
     args = (torch.arange(E, device=device), start, *sweep, mask_t)
-    fn = fold
+    fn = functools.partial(_fold, cfg, seed, n_arr, rolls_fn, measure_fn)
     if mesh is not None:
         from ..parallel.ensemble import member_sharded
-        fn = member_sharded(fold, mesh)
+        fn = member_sharded(fn, mesh, processes=True)
     fields, spin_up, epot0, out_tag, outs, vholder, (tick, t) = fn(*args)
 
     # the fold's one fetch
@@ -744,6 +731,26 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, seed: int,
         if mcfg.save_directory is not None:
             write_outputs(mcfg.job_dir(), mcfg, res, n_md_total)
     return results
+
+
+def _fold(cfg: FrozenTagConfig, seed: int, n_arr: int, rolls_fn, measure_fn,
+          idx, start, e0, om, mk):
+    """All three phases of members ``idx`` on idx's device; every tensor
+    argument carries the member axis (the form member_sharded splits),
+    None where the fold has none."""
+    dev = idx.device
+    generators = [torch.Generator(device=dev).manual_seed(
+        member_seed(seed, j)) for j in idx.tolist()]
+    st = (_fold_start(cfg, generators, mk) if start is None
+          else SimState(**start))
+    st = dataclasses.replace(
+        st, F=_forces_fn(cfg, n_arr, mk, fold=True)(st.R)[0])
+    rf = rolls_fn or _fold_rolls(generators)
+    mf = measure_fn or _fold_measure(generators)
+    st, spin_up, epot0, out_tag, outs, vholder = _phases(
+        cfg, st, rf, mf, (e0, om), mk)
+    fields = {k: getattr(st, k) for k in ("R", "V", "F", "psi", "t_part")}
+    return fields, spin_up, epot0, out_tag, outs, vholder, (st.tick, st.t)
 
 
 def _fold_rolls(generators) -> Callable:

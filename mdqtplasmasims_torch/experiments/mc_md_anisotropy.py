@@ -38,6 +38,7 @@ chain through it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -280,28 +281,22 @@ def _run_batched(cfg: MCTransportConfig, member_cfgs, seed: int,
     (kernel C) per MD step for all members; one fetch; each member's .dat
     tree under its own param-encoded directory.  ``mesh`` runs member
     block k on ens slot k (parallel/ensemble.member_sharded, no
-    collectives)."""
+    collectives; on several cards each block in a worker process on
+    its slot's card, the blocks at once)."""
     device = torch.device(mesh.home if mesh is not None else device)
     check_device(cfg, device)
     if mesh is not None and draws is not None:
         raise ValueError("draws replay one fold's stream and cannot be "
                          "split over a mesh")
 
-    def fold(idx, gammas, ldebs):
-        dev = idx.device
-        src = draws or MemberDraws([torch.Generator(device=dev).manual_seed(
-            member_seed(seed, j)) for j in idx.tolist()])
-        m = members_of(cfg, gammas.tolist(), ldebs.tolist(), src)
-        return _pipeline(cfg, m, fresh_state(dev, ACC_KEYS))
-
     f64 = dict(dtype=torch.float64, device=device)
     args = (torch.arange(len(member_cfgs), device=device),
             torch.tensor([c.gamma for c in member_cfgs], **f64),
             torch.tensor([c.ldeb for c in member_cfgs], **f64))
-    fn = fold
+    fn = functools.partial(_fold, cfg, seed, draws)
     if mesh is not None:
         from ..parallel.ensemble import member_sharded
-        fn = member_sharded(fold, mesh)
+        fn = member_sharded(fn, mesh, processes=True)
     batched = fn(*args)
     results = []
     for j, mcfg in enumerate(member_cfgs):
@@ -310,6 +305,16 @@ def _run_batched(cfg: MCTransportConfig, member_cfgs, seed: int,
         if mcfg.save_directory is not None:
             _write_outputs(mcfg, res)
     return results
+
+
+def _fold(cfg: MCTransportConfig, seed: int, draws, idx, gammas, ldebs):
+    """The pipeline of members ``idx`` on idx's device (the form
+    member_sharded splits)."""
+    dev = idx.device
+    src = draws or MemberDraws([torch.Generator(device=dev).manual_seed(
+        member_seed(seed, j)) for j in idx.tolist()])
+    m = members_of(cfg, gammas.tolist(), ldebs.tolist(), src)
+    return _pipeline(cfg, m, fresh_state(dev, ACC_KEYS))
 
 
 def run_ensemble(cfg: MCTransportConfig, n_jobs: int, seed: int = 0,

@@ -37,6 +37,7 @@ generators (tests replay the JAX package's key chain through it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -388,26 +389,19 @@ def _run_batched(cfg: MCTagConfig, member_cfgs, seed: int,
     None)``, a sweep fold's per-member tables of the tick kernel's
     per-lane forms (core/scheduler.member_sweep).  ``mesh`` runs member
     block k on ens slot k (parallel/ensemble.member_sharded, no
-    collectives)."""
+    collectives; on several cards each block in a worker process on
+    its slot's card, the blocks at once)."""
     device = torch.device(mesh.home if mesh is not None else device)
     check_device(cfg, device)
     if mesh is not None and draws is not None:
         raise ValueError("draws replay one fold's stream and cannot be "
                          "split over a mesh")
 
-    def fold(idx, e0, om):
-        dev = idx.device
-        src = draws or MemberDraws([torch.Generator(device=dev).manual_seed(
-            member_seed(seed, j)) for j in idx.tolist()])
-        m = _members(cfg, len(idx), src)
-        return _pipeline(cfg, m, fresh_state(dev, ACC_KEYS),
-                         sweep=(e0, om))
-
     args = (torch.arange(len(member_cfgs), device=device), *sweep)
-    fn = fold
+    fn = functools.partial(_fold, cfg, seed, draws)
     if mesh is not None:
         from ..parallel.ensemble import member_sharded
-        fn = member_sharded(fold, mesh)
+        fn = member_sharded(fn, mesh, processes=True)
     batched = fn(*args)
     results = []
     for j, mcfg in enumerate(member_cfgs):
@@ -416,6 +410,16 @@ def _run_batched(cfg: MCTagConfig, member_cfgs, seed: int,
         if mcfg.save_directory is not None:
             _write_outputs(mcfg, res)
     return results
+
+
+def _fold(cfg: MCTagConfig, seed: int, draws, idx, e0, om):
+    """The pipeline of members ``idx`` on idx's device (the form
+    member_sharded splits)."""
+    dev = idx.device
+    src = draws or MemberDraws([torch.Generator(device=dev).manual_seed(
+        member_seed(seed, j)) for j in idx.tolist()])
+    m = _members(cfg, len(idx), src)
+    return _pipeline(cfg, m, fresh_state(dev, ACC_KEYS), sweep=(e0, om))
 
 
 def run_ensemble(cfg: MCTagConfig, n_jobs: int, seed: int = 0, mesh=None,

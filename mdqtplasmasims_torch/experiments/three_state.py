@@ -123,7 +123,9 @@ def run_compiled(cfg: ThreeStateConfig, vx, psi_sm, t_part,
     scales ``om_j / cfg.om`` (core/scheduler.member_sweep; the kernel
     scales the coupling and the om-linear Ehrenfest kick by it).  ``mesh``
     spreads the members over the mesh's ``ens`` slots.  Each block of
-    ticks is one launch of the tick kernel.  Returns ``((vx, psi_sm,
+    ticks is one launch of the tick kernel (per slot: on several cards
+    the host enqueues the slots' launches one after the other and the
+    cards run them at once).  Returns ``((vx, psi_sm,
     t_part), recs)`` with ``recs [..., n_segments, 2]`` on the device: per
     segment ``mean(0.5 vx^2)`` and ``mean(|psi_0|^2)`` over the real
     ions."""

@@ -151,10 +151,10 @@ def _round_up(x: int, m: int) -> int:
 ROW_TILE = 64
 COL_TILE = 128
 WARPS = 4
-# blocks wanted per launch: 32 warps for each of the H100's 132 x 4 warp
-# schedulers, some three times what an SM holds at once (10 blocks of 46-47
-# registers per thread), so that the last wave of blocks is a small share
-# of the launch
+# blocks wanted for one member: 32 warps for each of the H100's 132 x 4
+# warp schedulers, some three times what an SM holds at once (10 blocks of
+# 46-47 registers per thread), so that the last wave of blocks is a small
+# share of the launch; a fold of E members launches E times as many
 TARGET_BLOCKS = 132 * 4 * 32 // WARPS
 
 
@@ -171,18 +171,18 @@ class PairSplit(NamedTuple):
 def pair_split(npad: int, ncols: int, e: int) -> PairSplit:
     """The column chunking of a launch over ``e`` members of ``npad`` rows
     x ``ncols`` columns: enough chunks (each a multiple of COL_TILE) that
-    the grid reaches TARGET_BLOCKS where the columns allow it.  A function
-    of the launch shape alone, never of the masks: the chunking fixes the
-    order of every row sum, so launches of one shape agree bit for bit
-    (kernel E on a member's own lanes with kernel C, an E=1 fold with
-    kernel A)."""
+    one member's grid reaches TARGET_BLOCKS where the columns allow it.
+    A function of (npad, ncols) alone, never of ``e`` or the masks: the
+    chunking fixes the order of every row sum, so a member's forces have
+    the same bits in a fold of any width (a mesh slot's block and the
+    unsharded fold, an E=1 fold and kernel A), and kernel E on a member's
+    own lanes agrees with kernel C."""
     if npad <= 0 or npad % ROW_TILE or ncols <= 0 or ncols % COL_TILE:
         raise ValueError(f"want npad a positive multiple of {ROW_TILE} and "
                          f"ncols of {COL_TILE}, got {npad} and {ncols}")
     if not 1 <= e <= 65535:
         raise ValueError(f"want 1 <= E <= 65535 members, got {e}")
-    row_blocks = (npad // ROW_TILE) * e
-    want = min(-(-TARGET_BLOCKS // row_blocks), ncols // COL_TILE)
+    want = min(-(-TARGET_BLOCKS // (npad // ROW_TILE)), ncols // COL_TILE)
     chunk = _round_up(-(-ncols // want), COL_TILE)
     return PairSplit(chunk, (npad // ROW_TILE, -(-ncols // chunk), e))
 
@@ -276,7 +276,7 @@ def yukawa_forces_n3l_soa(Rp: torch.Tensor, mask_row: torch.Tensor,
         raise ValueError("Rp and mask_row must be contiguous")
     soa_force_tile(npad)               # Np must be a multiple of 128
     F, _ = _launch_forces(Rp, mask_row, 1, L, ldeb, None, False)
-    yukawa_forces_n3l_soa.launches += 1
+    _build.count_launch(yukawa_forces_n3l_soa)
     return F
 
 
@@ -342,7 +342,7 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
         raise ValueError("Rp, mask_row and inv_ldeb must be contiguous")
     soa_force_tile(npad)               # Np must be a multiple of 128
     F, _ = _launch_forces(Rp, mask_row, e, L, ldeb, inv_ldeb, False)
-    yukawa_forces_n3l_soa_batched.launches += 1
+    _build.count_launch(yukawa_forces_n3l_soa_batched)
     return F
 
 
@@ -477,7 +477,7 @@ def yukawa_forces_soa_cols_batched(Rp: torch.Tensor, cols: torch.Tensor,
             float((L / 2.0) ** 2), float(1.0 / ldeb),
             _build.raw_stream(Rp.device))
     _build.check(lib, err, "yukawa_forces_cols_launch")
-    yukawa_forces_soa_cols_batched.launches += 1
+    _build.count_launch(yukawa_forces_soa_cols_batched)
     return F
 
 
@@ -554,7 +554,7 @@ def yukawa_forces_cross_n3l_soa_batched(Rp: torch.Tensor,
             float((L / 2.0) ** 2), float(1.0 / ldeb),
             _build.raw_stream(Rp.device))
     _build.check(lib, err, "yukawa_cross_launch")
-    yukawa_forces_cross_n3l_soa_batched.launches += 1
+    _build.count_launch(yukawa_forces_cross_n3l_soa_batched)
     return F, G
 
 
@@ -639,7 +639,7 @@ def yukawa_forces_potential_pallas(R: torch.Tensor, L: float, ldeb: float,
         F, pot = yukawa_forces_potential(R, L, ldeb, mask)
         return F, pot if with_pot else None
     F, pot = _forces_potential_lanes(R[None], L, ldeb, mask, tile, with_pot)
-    yukawa_forces_potential_pallas.launches += 1
+    _build.count_launch(yukawa_forces_potential_pallas)
     return F[0], None if pot is None else pot[0]
 
 
@@ -689,7 +689,7 @@ def yukawa_forces_potential_pallas_batched(
         return (torch.stack([f for f, _ in per]),
                 torch.stack([u for _, u in per]))
     F, pot = _forces_potential_lanes(R, L, ldeb, mask, tile, True)
-    yukawa_forces_potential_pallas_batched.launches += 1
+    _build.count_launch(yukawa_forces_potential_pallas_batched)
     return F, pot
 
 

@@ -20,11 +20,17 @@ trajectory is independent of how the members are laid out.
 
 from __future__ import annotations
 
+import contextlib
+import multiprocessing
+import os
+import time
+from concurrent.futures import ProcessPoolExecutor, wait
 from typing import Callable, List
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..core.scheduler import CoolingScheduler, fold_sweep_lanes
 from ..ops.yukawa import (yukawa_forces_cross_n3l_soa_batched,
                           yukawa_forces_n3l_soa,
@@ -362,14 +368,108 @@ def _leaves(x):
     return out
 
 
-def member_sharded(fn, mesh: Mesh):
+def mesh_is_multi_card(mesh: Mesh) -> bool:
+    """Whether the mesh's slots lie on more than one CUDA card."""
+    return len({d for _, _, d in mesh.slots() if d.type == "cuda"}) > 1
+
+
+# one long-lived worker process per (ens slot, device), started with
+# ``spawn`` (a process that has begun CUDA may not fork), its current
+# device set once: member_sharded's blocks on distinct cards
+_WORKERS: dict = {}
+
+
+def _init_worker(dev: torch.device, n_threads: int) -> None:
+    torch.set_num_threads(n_threads)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+
+def _slot_worker(k: int, dev: torch.device) -> ProcessPoolExecutor:
+    pool = _WORKERS.get((k, dev))
+    if pool is None:
+        pool = _WORKERS[(k, dev)] = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_init_worker, initargs=(dev, torch.get_num_threads()))
+    return pool
+
+
+def start_workers(mesh: Mesh) -> float:
+    """Start (or reuse) the worker process of every ens slot of ``mesh``
+    and wait until each has its device; returns the seconds it took."""
+    t0 = time.perf_counter()
+    futs = [_slot_worker(k, dev).submit(_bound_device)
+            for k, (dev,) in enumerate(mesh.devices)]
+    for f, (dev,) in zip(futs, mesh.devices):
+        if f.result() != str(dev):
+            raise RuntimeError(f"a slot worker of {dev} is bound to "
+                               f"{f.result()}")
+    return time.perf_counter() - t0
+
+
+def _bound_device() -> str:
+    return (f"cuda:{torch.cuda.current_device()}"
+            if torch.cuda.is_initialized() else "cpu")
+
+
+def stop_workers() -> None:
+    """End every slot worker process (they also end with this process)."""
+    while _WORKERS:
+        _WORKERS.popitem()[1].shutdown(wait=True)
+
+
+# where member_sharded's slot workers write a trace of each block (None:
+# no trace; see worker_traces)
+_TRACE_DIR = None
+
+
+@contextlib.contextmanager
+def worker_traces(log_dir: str):
+    """While the context is open, every block that ``member_sharded``
+    runs in a slot worker process is traced there with
+    ``profiling.device_trace`` into ``<log_dir>/slot<k>/trace.json`` (a
+    worker's kernels are not in this process's trace)."""
+    global _TRACE_DIR
+    prev, _TRACE_DIR = _TRACE_DIR, log_dir
+    try:
+        yield
+    finally:
+        _TRACE_DIR = prev
+
+
+def _run_block(fn, dev: torch.device, args, trace_dir=None):
+    """A slot worker's task: ``fn`` on its block moved to ``dev``
+    (traced into ``trace_dir`` if given); the result on the host, with
+    the launches the block made."""
+    from ..profiling import device_trace
+    before = _build.launch_snapshot()
+    with (contextlib.nullcontext() if trace_dir is None
+          else device_trace(trace_dir, device=dev)):
+        out = fn(*_tree_map(lambda t: t.to(dev), args))
+    out = _tree_map(lambda t: t.cpu(), out)
+    return out, _build.launch_delta(before)
+
+
+def member_sharded(fn, mesh: Mesh, processes: bool = False):
     """Multi-slot form of a batched job array for the share-nothing
     families (transport, tagging, 3-state toy): wrap an ``[E]``-batched
     member function (every tensor of every argument and of the result
     carries the member axis leading) so that member block k runs on ens
     slot k; the results are joined on the mesh's home device.  Pure data
     parallelism, no collectives.  These families keep whole members on
-    one slot, so a mesh with an ion axis is refused."""
+    one slot, so a mesh with an ion axis is refused.
+
+    The blocks run one after another from this process.  Where ``fn``
+    only enqueues work (a launch) the cards of a multi-card mesh still
+    run at once.  Where it is a whole fold, which ends in host fetches,
+    ``processes=True`` runs each slot's block on a mesh of several cards
+    in a worker process of its own on the slot's card (spawned once and
+    kept): ``fn`` must then pickle (a module-level function or a
+    ``functools.partial`` of one), its arguments and result cross to and
+    from the host, and the workers' kernel launches are added to this
+    process's launch counters.  A member's result depends only on its
+    own inputs and its block's width, never on where its block ran, so
+    both ways give the same bits."""
     if mesh.shape[ION_AXIS] != 1:
         raise ValueError(
             "member_sharded shards members only; use make_mesh(n_ions=1) "
@@ -381,8 +481,25 @@ def member_sharded(fn, mesh: Mesh):
         if e % K:
             raise ValueError(f"{e} members do not divide over {K} ens slots")
         b = e // K
-        outs = [fn(*_tree_map(lambda t: t[k * b:(k + 1) * b].to(dev), args))
+
+        def block(k):
+            return _tree_map(lambda t: t[k * b:(k + 1) * b], args)
+        if processes and mesh_is_multi_card(mesh):
+            futs = [_slot_worker(k, dev).submit(
+                _run_block, fn, dev,
+                _tree_map(lambda t: t.cpu(), block(k)),
+                None if _TRACE_DIR is None
+                else os.path.join(_TRACE_DIR, f"slot{k}"))
                 for k, (dev,) in enumerate(mesh.devices)]
+            wait(futs)                  # every block ends before a raise
+            outs = []
+            for f in futs:
+                out, launches = f.result()
+                _build.add_launches(launches)
+                outs.append(out)
+        else:
+            outs = [fn(*_tree_map(lambda t: t.to(dev), block(k)))
+                    for k, (dev,) in enumerate(mesh.devices)]
         parts = [_leaves(o) for o in outs]
         joined = iter([torch.cat([p[j].to(mesh.home) for p in parts], 0)
                        for j in range(len(parts[0]))])

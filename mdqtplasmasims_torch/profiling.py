@@ -81,8 +81,9 @@ def device_trace(log_dir: str, device="cuda"):
     (``trace.json``, open in chrome://tracing or Perfetto) into
     ``log_dir``; yields the profiler (``key_averages()``, ``events()``).
 
-    ``device="cuda"`` records CPU and CUDA activity and raises when no
-    CUDA device is there; ``device="cpu"`` records the CPU only."""
+    ``device="cuda"`` records CPU and CUDA activity and waits at the end
+    for every visible card (``"cuda:k"`` for card k alone), and raises
+    when no CUDA device is there; ``device="cpu"`` records the CPU only."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
@@ -95,7 +96,10 @@ def device_trace(log_dir: str, device="cuda"):
         yield prof
     finally:
         if len(acts) > 1:
-            torch.cuda.synchronize()
+            index = torch.device(device).index
+            for j in (range(torch.cuda.device_count()) if index is None
+                      else (index,)):
+                torch.cuda.synchronize(j)
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

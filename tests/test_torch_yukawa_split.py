@@ -184,6 +184,18 @@ def test_single_and_batched_entries_share_one_launch(entry, e_arg):
     assert args[:3] == ["Rp", "mask_row", e_arg]
 
 
+@pytest.mark.parametrize("npad,ncols,e", SHAPES)
+def test_split_is_a_members_own(npad, ncols, e):
+    """The chunking does not depend on the fold's width, so a member's row
+    sums have one order in a fold of any width: a mesh slot's block of a
+    fold and the unsharded fold give a member the same bits."""
+    one = ty.pair_split(npad, ncols, 1)
+    for width in (e, 2, 8, 99, 65535):
+        split = ty.pair_split(npad, ncols, width)
+        assert split.chunk == one.chunk
+        assert split.grid == one.grid[:2] + (width,)
+
+
 @pytest.mark.parametrize("npad,ncols,e", FLAGSHIP_AND_MESH)
 def test_split_fills_the_schedulers(npad, ncols, e):
     assert ty.pair_split(npad, ncols, e).warps >= SCHEDULERS

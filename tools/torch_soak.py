@@ -218,18 +218,23 @@ def _launch_counters():
     return chip_smoke.reset_counts, chip_smoke.read_counts
 
 
+def sync_cards(device) -> None:
+    """Wait for every visible card (a mesh's slots may lie on several);
+    nothing to wait for on the CPU."""
+    if torch.device(device).type == "cuda":
+        for j in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(j)
+
+
 def _timed(device, fn):
-    """``fn()``'s result, its host-clock seconds from a synced card to its
+    """``fn()``'s result, its host-clock seconds from synced cards to its
     return (every family ends in a host fetch), and the launches."""
     reset, read = _launch_counters()
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    sync_cards(device)
     reset()
     t0 = time.perf_counter()
     out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    sync_cards(device)
     wall = time.perf_counter() - t0
     return out, wall, {k: v for k, v in read().items() if v}
 
@@ -284,24 +289,64 @@ def soak_cooling_poisson_ensemble(out_dir, device="cuda", **over):
                 **ensemble_metrics(outs), launches=launches)
 
 
-def soak_cooling_mesh_ensemble(out_dir, device="cuda", **over):
-    """``run_ensemble(mesh=make_mesh(n_cards, 1))`` with 8 members per card,
-    trees and periodic checkpoints (tools/soak.py:259-285); on the CPU one
-    slot on ``device``."""
+def _slots(device, devices) -> list:
+    """A mesh's slot devices: ``devices`` (a list that may repeat one), or
+    by default every visible card, or one slot on a CPU ``device``."""
+    if devices is not None:
+        return list(devices)
+    if torch.device(device).type == "cuda":
+        return [torch.device("cuda", j)
+                for j in range(torch.cuda.device_count())]
+    return [torch.device(device)]
+
+
+def soak_cooling_mesh_ensemble(out_dir, device="cuda", devices=None,
+                               jobs_per_slot=8, **over):
+    """``run_ensemble(mesh=make_mesh(len(devices), 1, devices))`` with
+    ``jobs_per_slot`` members per slot, trees and periodic checkpoints
+    (tools/soak.py:259-285); ``devices`` as :func:`_slots`.  The trees
+    are removed after the run (the metrics come from its outputs; 32
+    members' trees are some 2.3 GiB)."""
     from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
-    dev = torch.device(device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    mesh = make_mesh(n_dev, 1, devices=None if dev.type == "cuda" else [dev])
-    cfg = cooling_config(_fresh(out_dir, "cooling_mesh"), **dict(dict(
+    devices = _slots(device, devices)
+    mesh = make_mesh(len(devices), 1, devices=devices)
+    base = _fresh(out_dir, "cooling_mesh")
+    cfg = cooling_config(base, **dict(dict(
         checkpoint_every_segments=75), **over))
-    n_jobs = 8 * n_dev
+    n_jobs = jobs_per_slot * len(devices)
     (final, outs), wall, launches = _timed(
         device, lambda: run_ensemble(cfg, n_jobs=n_jobs, seed=1, mesh=mesh))
+    shutil.rmtree(base, ignore_errors=True)
     ticks = n_jobs * cfg.n0 * int(round(cfg.tmax / cfg.timestep)) * cfg.ratio
-    return dict(n_devices=n_dev, n_jobs=n_jobs, n0=cfg.n0, tmax=cfg.tmax,
-                wall_s=wall, agg_updates_per_sec=ticks / wall,
+    return dict(n_devices=len({str(d) for d in devices}),
+                slots=[str(d) for d in devices], n_jobs=n_jobs, n0=cfg.n0,
+                tmax=cfg.tmax, wall_s=wall, agg_updates_per_sec=ticks / wall,
                 **ensemble_metrics(outs), launches=launches)
+
+
+def cooling_ion_mesh(out_dir, device="cuda", devices=None,
+                     ion_forces="gather", **over):
+    """The ``cooling_n14000`` run as one member whose ions are sharded over
+    a ``1 x len(devices)`` mesh (``run_ensemble(cfg, 1, mesh=...,
+    ion_forces=...)``, kernels E or C and F), with its tree; its
+    :func:`cooling_metrics` as ``cooling_n14000``'s; ``devices`` as
+    :func:`_slots`."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    devices = _slots(device, devices)
+    mesh = make_mesh(1, len(devices), devices=devices)
+    base = _fresh(out_dir, f"cooling_ions_{ion_forces}")
+    cfg = cooling_config(base, **dict(dict(n0=14000), **over))
+    (final, outs), wall, launches = _timed(
+        device, lambda: run_ensemble(cfg, n_jobs=1, seed=1, mesh=mesh,
+                                     ion_forces=ion_forces))
+    shutil.rmtree(base, ignore_errors=True)
+    return dict(n0=cfg.n0, tmax=cfg.tmax, ion_forces=ion_forces,
+                slots=[str(d) for d in devices], wall_s=wall,
+                **cooling_metrics({k: v[0] for k, v in outs.items()},
+                                  final.psi[0]),
+                launches=launches)
 
 
 def frozen_config(variant: str, save_directory, **over):
@@ -358,6 +403,43 @@ def soak_transport(out_dir, device="cuda", **over):
     res, wall, launches = _timed(device, lambda: run(cfg, device=device))
     return dict(n=cfg.n, mc_steps=cfg.mc_steps, wall_s=wall,
                 **transport_metrics(res, cfg.gamma), launches=launches)
+
+
+def _member_mesh(devices):
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    return None if devices is None else make_mesh(len(devices), 1,
+                                                  devices=devices)
+
+
+def frozen_fold(out_dir, device="cuda", n_jobs=8, devices=None, **over):
+    """The ``frozen`` job (422linear) as one fold of ``n_jobs`` members
+    (seed 1, no trees), over ``make_mesh(len(devices), 1, devices)`` when
+    ``devices`` is given: each member's tag fraction."""
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    cfg = frozen_config("422linear", None, **over)
+    res, wall, launches = _timed(device, lambda: ft.run_ensemble(
+        cfg, n_jobs, seed=1, mesh=_member_mesh(devices), device=device))
+    return dict(n0=cfg.n0, tstart=cfg.tstart, tmax=cfg.tmax, n_jobs=n_jobs,
+                slots=None if devices is None else [str(d) for d in devices],
+                member_fractions=[float(np.asarray(r["spin_up"]).mean())
+                                  for r in res],
+                wall_s=wall, launches=launches)
+
+
+def transport_fold(out_dir, device="cuda", n_jobs=4, devices=None, **over):
+    """The ``transport`` job as one fold of ``n_jobs`` members (seed 1, no
+    trees), over ``make_mesh(len(devices), 1, devices)`` when ``devices``
+    is given: each member's :func:`transport_metrics`."""
+    from mdqtplasmasims_torch.experiments.mc_md_anisotropy import (
+        MCTransportConfig, run_ensemble)
+    cfg = MCTransportConfig(**dict(dict(n=MC_N), **over))
+    res, wall, launches = _timed(device, lambda: run_ensemble(
+        cfg, n_jobs, seed=1, mesh=_member_mesh(devices), device=device))
+    return dict(n=cfg.n, mc_steps=cfg.mc_steps, md_steps=cfg.md_steps,
+                n_jobs=n_jobs,
+                slots=None if devices is None else [str(d) for d in devices],
+                members=[transport_metrics(r, cfg.gamma) for r in res],
+                wall_s=wall, launches=launches)
 
 
 def soak_three_state(out_dir, device="cuda", **over):
@@ -550,10 +632,83 @@ def update_summary(path: str, family: str, metrics: dict,
     print(f"[soak] {family}: {json.dumps(metrics)}", flush=True)
 
 
+def _union_us(ops) -> float:
+    """Microseconds covered by the union of the events' intervals."""
+    busy, end = 0.0, float("-inf")
+    for e in sorted(ops, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        busy += max(0.0, b - a)
+        end = max(end, b)
+    return busy
+
+
+def _top_ops(ops, n_top: int) -> list:
+    by_name = {}
+    for e in ops:
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
+    return [dict(name=k[:120], count=n, ms=t / 1e3) for k, (n, t) in top]
+
+
+# the host's waits for a card in a trace's CUDA runtime events (a tensor's
+# .item() or .cpu() is a copy and a stream synchronize)
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def trace_breakdown(events, steps: int, n_top: int = 5) -> dict:
+    """A Chrome trace's ``traceEvents`` of ``steps`` steps: the window,
+    the device operations' busy share and top ``n_top``, the host's waits
+    for a card and the copies to the host per step, and per card
+    (``cards``, by the device index the kernel events carry) its busy
+    share, its first and last kernel and its own top operations;
+    ``common_ms`` is the window in which every card had begun and none
+    had finished its kernels."""
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    ops = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                "gpu_memset")]
+    t_lo = min((e["ts"] for e in spans), default=0.0)
+    t_hi = max((e["ts"] + e["dur"] for e in spans), default=0.0)
+    window = t_hi - t_lo
+    busy = _union_us(ops)
+    per = {}
+    for e in ops:
+        if "device" in e.get("args", {}):
+            per.setdefault(int(e["args"]["device"]), []).append(e)
+    cards = {}
+    for d, evs in sorted(per.items()):
+        kernels = [e for e in evs if e.get("cat") == "kernel"] or evs
+        first = min(e["ts"] for e in kernels)
+        last = max(e["ts"] + e["dur"] for e in kernels)
+        b = _union_us(evs)
+        cards[str(d)] = dict(busy_ms=b / 1e3,
+                             busy_share=b / window if window else 0.0,
+                             first_ms=(first - t_lo) / 1e3,
+                             last_ms=(last - t_lo) / 1e3,
+                             ops_per_step=len(evs) / steps,
+                             top=_top_ops(evs, n_top))
+    common = (min(c["last_ms"] for c in cards.values())
+              - max(c["first_ms"] for c in cards.values())) if cards else 0.0
+    waits = sum(1 for e in spans if e.get("name") in HOST_WAITS)
+    dtoh = sum(1 for e in ops if "DtoH" in e.get("name", "")
+               or "Device -> Pageable" in e.get("name", "")
+               or "Device -> Pinned" in e.get("name", ""))
+    return dict(steps=steps, window_ms=window / 1e3, busy_ms=busy / 1e3,
+                busy_share=busy / window if window else 0.0,
+                device_ops_per_step=len(ops) / steps,
+                device_us_per_step=busy / steps,
+                host_waits_per_step=waits / steps,
+                copies_to_host_per_step=dtoh / steps,
+                top=_top_ops(ops, n_top), cards=cards,
+                common_ms=max(0.0, common),
+                common_share=max(0.0, common) * 1e3 / window if window
+                else 0.0)
+
+
 def _trace(device, fn, steps: int, n_top: int = 5) -> dict:
     """``fn()`` untraced, then under ``profiling.device_trace``: its host
-    ms per step, the card's busy share of the traced window, device
-    operations per step and the ``n_top`` that took most time."""
+    ms per step and :func:`trace_breakdown` of the traced run."""
     from mdqtplasmasims_torch.profiling import device_trace
     _, untraced, _ = _timed(device, fn)
     with tempfile.TemporaryDirectory() as tmp:
@@ -561,28 +716,8 @@ def _trace(device, fn, steps: int, n_top: int = 5) -> dict:
             fn()
         with open(os.path.join(tmp, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
-    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
-    ops = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy",
-                                                "gpu_memset")]
-    t_lo = min(e["ts"] for e in spans)
-    t_hi = max(e["ts"] + e["dur"] for e in spans)
-    busy, end = 0.0, t_lo
-    for e in sorted(ops, key=lambda e: e["ts"]):     # union of intervals
-        a, b = max(e["ts"], end), e["ts"] + e["dur"]
-        busy += max(0.0, b - a)
-        end = max(end, b)
-    by_name = {}
-    for e in ops:
-        n, t = by_name.get(e["name"], (0, 0.0))
-        by_name[e["name"]] = (n + 1, t + e["dur"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
-    return dict(steps=steps, untraced_ms_per_step=1e3 * untraced / steps,
-                window_ms=(t_hi - t_lo) / 1e3, busy_ms=busy / 1e3,
-                busy_share=busy / (t_hi - t_lo) if t_hi > t_lo else 0.0,
-                device_ops_per_step=len(ops) / steps,
-                device_us_per_step=busy / steps,
-                top=[dict(name=k[:120], count=n, ms=t / 1e3)
-                     for k, (n, t) in top])
+    return dict(untraced_ms_per_step=1e3 * untraced / steps,
+                **trace_breakdown(events, steps, n_top))
 
 
 def trace_chain(steps: int, device="cuda") -> dict:
