@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; none is skipped or passed over):
   1. versions and the card (``nvidia-smi`` name and power limit); no CUDA
      device -> exit 2 before printing any result;
-  2. build both hand-written kernel libraries from
+  2. build the three hand-written kernel libraries from
      mdqtplasmasims_torch/csrc, one nvcc each, in parallel;
   3. the force kernel against its plain torch twin at the flagship shape
      (3500 ions in 3584 lanes), timed with CUDA events;
@@ -40,7 +40,12 @@ Phases (any failure exits non-zero; none is skipped or passed over):
   6. the potential kernels against their twin: D (one member, with and
      without a mask) and G (an 8-member Poissonian fold with per-member
      masks, and a shared mask), ``best_forces_fn`` in every mode, the
-     fold's sample-time potential with and without G; timed;
+     fold's sample-time potential with and without G; timed; then the
+     member-sum kernel (``check_member_sum_kernel``, port-only: the
+     per-member sums over ions with bits that do not depend on the fold's
+     width) at [99, 3584] against torch's sum and a float64 sum, a
+     member's bits in folds of 1, 8, 33 and 99, timed at [8, 3584] and
+     [99, 3584];
   7. the main path: ``laser_cooling.run`` of CoolingConfig(n0=3500,
      tmax=1.0) on CUDA (500 MD steps: 12 samples + 20 trailing steps)
      through the in-kernel RNG, with the kernels' launch counts and
@@ -227,22 +232,30 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      each held to its exact launches and its physics; the phase's wall
      logged;
  34. the mesh on distinct cards, its slots here all on the one card
-     (``mesh_cards_path``): a 4 x 1 frozen-tag fold of 8 cut to tmax=1.0
-     through ``member_sharded`` with its blocks in the slots' worker
-     processes (the form it takes on several cards) bitwise equal to the
-     same fold one block after the other, each launching 4x the
-     unsharded fold's kernels (the workers' launches counted here); then
-     the 4 x 1 cooling mesh of 8 jobs cut to tmax=0.2 bitwise equal to
-     the unsharded fold of 8 (final states and samples: a member's force
+     (``mesh_cards_path``): each share-nothing family's fold of 8 (frozen
+     tagging cut to tmax=1.0, the three-state toy, transport, MC tagging
+     at short cuts) through ``member_sharded`` with its blocks in the
+     slots' worker processes (the form it takes on several cards) and one
+     block after the other, each bitwise equal to the unsharded fold (a
+     member's sums over ions are the member-sum kernel's) and launching
+     4x its kernels (the workers' launches counted here); then the 4 x 1
+     cooling mesh of 8 jobs cut to tmax=0.2 bitwise equal to the
+     unsharded fold of 8 (final states and samples: a member's force
      sums do not depend on its fold's width), exact C / B'rng / G
-     launches.
+     launches;
+ 35. the mesh as ranks over NCCL (``rank_mesh_path``): a 1 x 1 rank
+     mesh (world size 1) bitwise equal to the unsharded fold of 2 with
+     the same launches; with two or more visible cards a 1 x 2 gather and
+     ring-N3L mesh of distinct cards, one rank a card, bitwise equal to
+     the same mesh with both slots on cuda:0 from one process.
 
-Phases 7, 10, 11, 12, 17, 19-27 and 30-34 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-27 and 30-35 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
-last is a JSON object with one entry per kernel and form (26: A, C, D,
-G, E, F and B's 20 forms; A, D and B'rng also with their counts from
+last is a JSON object with one entry per kernel and form (27: A, C, D,
+G, E, F, B's 20 forms and the member-sum kernel, whose count the main
+path reads apart from the others' exact counts; A, D and B'rng also with their counts from
 phase 27's pre-speedup run, ``launches_pre_speedup``, A, D and B's S=5
 form with phase 30's, ``launches_frozen_production``, C, B'rng and G with
 phase 31's, ``launches_campaign99``, and their E=99 launch's readings and
@@ -251,8 +264,9 @@ bound, ``e99``; A, B'rng and D with phase 32's laser-free flagship's,
 ``launches_validate_analysis``, and its readings at N=216 and N=512,
 ``n216`` and ``n512``; every form phase 33 runs with its targets' and
 its examples' counts, ``launches_physics_targets`` and
-``launches_examples``, and every form phase 34 runs with its count,
-``launches_mesh_cards``), each with its bound
+``launches_examples``, every form phase 34 runs with its count,
+``launches_mesh_cards``, and every form phase 35 runs with the ranks'
+count, ``launches_ranks``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -1349,14 +1363,17 @@ def main_path(torch, card):
         t0 = time.perf_counter()
         final, res = run(cfg, device="cuda")     # ends in a host fetch
         wall = time.perf_counter() - t0
-        counts = read_counts()
+        counts = dict(read_counts(), member_sum=member_sum_count())
         log(f"[main] run(CoolingConfig(n0=3500, tmax=1.0), device='cuda'): "
             f"{n_md} MD steps, {ticks} ticks in {wall:.3f} s -> "
             f"{n_md / wall:.1f} MD steps/s, "
             f"{cfg.n0 * ticks / wall:.4g} ion-QT-updates/s ({card})")
         log(f"[main] launches: {counts}")
+        # the member sums: 4 kinetic and 3 KDE sums a sample, 1 potential
+        # sum a sample and at the start
         want = dict(yukawa_forces=500, fused_ticks_rng=512,
-                    yukawa_forces_potential=13, fused_ticks=0)
+                    yukawa_forces_potential=13, fused_ticks=0,
+                    member_sum=8 * 12 + 1)
         if any(counts[k] != v for k, v in want.items()):
             raise SystemExit(f"main path launched {counts}, want {want}")
         outs = res["outs"]
@@ -1554,8 +1571,18 @@ def counters() -> dict:
 
 
 def reset_counts():
+    """Every kernel form's counter to 0, the member-sum kernel's too (read
+    apart, :func:`member_sum_count`: the per-member sums of a path's
+    observables are not among the launches its phases hold exactly)."""
+    from mdqtplasmasims_torch.ops.member_sum import member_sum
     for obj, attr in counters().values():
         setattr(obj, attr, 0)
+    member_sum.launches = 0
+
+
+def member_sum_count() -> int:
+    from mdqtplasmasims_torch.ops.member_sum import member_sum
+    return member_sum.launches
 
 
 def read_counts() -> dict:
@@ -3743,9 +3770,17 @@ def physics_targets_path(torch, card):
 
 
 # phase 34: the frozen fold (TAG_CUT, N0 = 3500) and the 4 x 1 cooling mesh
-# of 8 jobs (N0 = 3500), cut
+# of 8 jobs (N0 = 3500), cut; the other share-nothing families' folds of 8
+# at short depths: the toy at N0 = 1000 (2000 ticks), transport and MC
+# tagging at n = 4096 (500 Metropolis steps, a few hundred MD steps)
 MESH_CARDS_FROZEN = dict(n0=3500, **TAG_CUT)
 MESH_CARDS_COOL = dict(n0=3500, tmax=0.2)
+MESH_CARDS_TOY = dict(n0=1000, tmax=20.0)
+MESH_CARDS_TRANSPORT = dict(mc_steps=500, gr_every_mc=250,
+                            pre_record_md_steps=20, record_steps=100,
+                            gr_every_record=50, instant_aniso_steps=20,
+                            reequil_steps=20, aniso_time_us=0.1,
+                            aniso_relax_steps=20)
 
 
 @contextlib.contextmanager
@@ -3763,13 +3798,18 @@ def slot_workers():
 
 def mesh_cards_path(torch, card):
     """Phase 34: the mesh of ``tools/torch_mesh_cards.py`` with every slot
-    on cuda:0: the frozen fold of 8 through ``member_sharded``'s slot
-    workers (its form on several cards) bitwise equal to the same fold in
-    turn, each with 4x the unsharded fold's launches; the 4 x 1 cooling
-    mesh of 8 jobs bitwise equal to
-    the unsharded fold of 8, exact launches.  Returns the launches of the
-    phase, summed by form."""
+    on cuda:0: each share-nothing family's fold of 8 (frozen tagging, the
+    three-state toy, transport, MC tagging) through ``member_sharded``'s
+    slot workers (its form on several cards) and in turn, each bitwise
+    equal to the unsharded fold of 8 (every per-member sum over ions is
+    the member-sum kernel's, whose bits do not depend on the fold's
+    width) with 4x its launches; the 4 x 1 cooling mesh of 8 jobs bitwise
+    equal to the unsharded fold of 8, exact launches.  Returns the
+    launches of the phase, summed by form."""
     from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    from mdqtplasmasims_torch.experiments import mc_md_anisotropy as tr
+    from mdqtplasmasims_torch.experiments import mc_qt_tagging as mt
+    from mdqtplasmasims_torch.experiments import three_state as ts
     from mdqtplasmasims_torch.experiments.laser_cooling import (
         CoolingConfig, run_ensemble)
     from mdqtplasmasims_torch.parallel.ensemble import (start_workers,
@@ -3780,37 +3820,47 @@ def mesh_cards_path(torch, card):
     import torch_mesh_cards as tmc
     dev = torch.device("cuda", 0)
     total = {}
-    cfg = ft.FrozenTagConfig(**MESH_CARDS_FROZEN)
     mesh = make_mesh(4, 1, devices=[dev] * 4)
     with slot_workers():
         log(f"[mesh-cards] four slot workers on {dev} started in "
             f"{start_workers(mesh):.3f} s")
-    runs = {}
-    for name, kw, ctx in (
-            ("fold", dict(device=dev), contextlib.nullcontext()),
-            ("workers", dict(mesh=mesh), slot_workers()),
-            ("in turn", dict(mesh=mesh), contextlib.nullcontext())):
-        reset_counts()
-        with ctx:
-            res, wall = _synced_wall(torch, lambda: ft.run_ensemble(
-                cfg, 8, seed=5, **kw))
-        runs[name] = (res, read_counts())
-        log(f"[mesh-cards] frozen fold of 8 ({MESH_CARDS_FROZEN}), {name}: "
-            f"{wall:.3f} s ({card}); launches "
-            f"{ {k: v for k, v in runs[name][1].items() if v} }")
-        add_counts(total, runs[name][1])
+    families = (
+        ("frozen", ft, ft.FrozenTagConfig(**MESH_CARDS_FROZEN),
+         MESH_CARDS_FROZEN),
+        ("three-state", ts, ts.ThreeStateConfig(**MESH_CARDS_TOY),
+         MESH_CARDS_TOY),
+        ("transport", tr, tr.MCTransportConfig(**MESH_CARDS_TRANSPORT),
+         MESH_CARDS_TRANSPORT),
+        ("mc-tag", mt, mt.MCTagConfig(variant="408quad", **MC_TAG_SHORT),
+         MC_TAG_SHORT))
+    for fam, module, cfg, over in families:
+        runs = {}
+        for name, kw, ctx in (
+                ("fold", dict(device=dev), contextlib.nullcontext()),
+                ("workers", dict(mesh=mesh), slot_workers()),
+                ("in turn", dict(mesh=mesh), contextlib.nullcontext())):
+            reset_counts()
+            with ctx:
+                res, wall = _synced_wall(torch, lambda: module.run_ensemble(
+                    cfg, 8, seed=5, **kw))
+            runs[name] = (res, read_counts())
+            log(f"[mesh-cards] {fam} fold of 8 ({over}), {name}: "
+                f"{wall:.3f} s ({card}); launches "
+                f"{ {k: v for k, v in runs[name][1].items() if v} }")
+            add_counts(total, runs[name][1])
+        fold_counts = runs["fold"][1]
+        for name in ("workers", "in turn"):
+            same = tmc.same(runs[name][0], runs["fold"][0])
+            diffs = tmc.differ(runs[name][0], runs["fold"][0])
+            log(f"[mesh-cards] {fam} 4 x 1 ({name}) vs the unsharded fold "
+                f"of 8: bitwise equal {same}; differ {diffs[:5]}")
+            if not same:
+                raise SystemExit(f"phase 34: the {fam} fold over 4 slots "
+                                 f"({name}) differs from the unsharded fold")
+            want_counts(runs[name][1],
+                        f"the {fam} fold over 4 slots ({name})",
+                        **{k: 4 * v for k, v in fold_counts.items() if v})
     stop_workers()
-    fold_counts = runs["fold"][1]
-    same = tmc.same(runs["workers"][0], runs["in turn"][0])
-    log(f"[mesh-cards] frozen 4 x 1 in the slots' worker processes vs in "
-        f"turn: bitwise equal {same}; vs the unsharded fold of 8: "
-        f"{tmc.same(runs['in turn'][0], runs['fold'][0])}")
-    if not same:
-        raise SystemExit("phase 34: the frozen fold over 4 slots in worker "
-                         "processes differs from the same fold in turn")
-    for name in ("workers", "in turn"):
-        want_counts(runs[name][1], f"the frozen fold over 4 slots ({name})",
-                    **{k: 4 * v for k, v in fold_counts.items() if v})
     c = CoolingConfig(**MESH_CARDS_COOL)
     n_md = int(round(c.tmax / c.timestep))
     segs = n_md // c.sample_freq
@@ -3839,6 +3889,145 @@ def mesh_cards_path(torch, card):
     return total
 
 
+# the member-sum kernel's bound against a float64 sum of the same values:
+# n float32 additions, each off by at most 2^-24 of the running sum, so
+# |err| <= n * 2^-24 * sum |x| (the plain torch sum obeys the same)
+MEMBER_SUM_ULPS = 2.0 ** -24
+
+
+def _member_sum_case(torch, ms, x, mask, what):
+    """The kernel on ``x [E, n]`` (times ``mask``) against its plain
+    version and a float64 sum at :data:`MEMBER_SUM_ULPS`, run to run.
+    Returns the largest error against the float64 sum."""
+    got = ms.member_sum(x, mask)
+    again = ms.member_sum(x, mask)
+    plain = ms.member_sum_reference(x, mask)
+    y = (x if mask is None else x * mask).double()
+    exact = y.sum(-1)
+    torch.cuda.synchronize()
+    tol = x.shape[-1] * MEMBER_SUM_ULPS * y.abs().sum(-1)
+    err = (got.double() - exact).abs()
+    err_plain = (plain.double() - exact).abs()
+    log(f"[member-sum] {what}: max |err| vs float64 {float(err.max()):.3g} "
+        f"(plain torch {float(err_plain.max()):.3g}; bound n 2^-24 sum|x|, "
+        f"min {float(tol.min()):.3g}); max |kernel - plain| "
+        f"{float((got - plain).abs().max()):.3g}; run to run bitwise "
+        f"{torch.equal(got, again)}")
+    if not (err <= tol).all() or not (err_plain <= tol).all():
+        raise SystemExit(f"member_sum ({what}) is off its float64 sum")
+    if not torch.equal(got, again):
+        raise SystemExit("member_sum is not deterministic run to run")
+    return float(err.max())
+
+
+def check_member_sum_kernel(torch):
+    """The member-sum kernel (ops/member_sum) at a fold's shapes, [8, 3584]
+    and [99, 3584] (the campaign's fold), with no mask, a shared mask row
+    and one row a member: against its plain version (torch's sum) and a
+    float64 sum, every member's bits the same in folds of 1, 8, 33 and 99
+    (and in float64); timed with its plain version, which is also the one
+    torch call of the same function (``library_ms``)."""
+    from mdqtplasmasims_torch.ops import member_sum as ms
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(61)
+    n = 3584
+    x = torch.randn((99, n), generator=g, device=dev)
+    m = (torch.rand((99, n), generator=g, device=dev) < 0.98).float()
+    m[:, 3500:] = 0.0
+    err = 0.0
+    for mask, what in ((None, "no mask"), (m[0], "a shared mask row"),
+                       (m, "a mask row a member")):
+        err = max(err, _member_sum_case(torch, ms, x, mask, f"[99, {n}], "
+                                        + what))
+        full = ms.member_sum(x, mask)
+        for E in (1, 8, 33):
+            part = ms.member_sum(x[:E], mask if mask is None
+                                 or mask.dim() == 1 else mask[:E])
+            if not torch.equal(part, full[:E]):
+                raise SystemExit(f"member_sum: a member's bits differ in a "
+                                 f"fold of {E} and of 99 ({what})")
+    d = ms.member_sum(x.double())
+    if not torch.equal(ms.member_sum(x[:8].double()), d[:8]):
+        raise SystemExit("member_sum (float64): a member's bits depend on "
+                         "the fold's width")
+    log("[member-sum] every member's sum has the same bits in folds of 1, "
+        "8, 33 and 99, float32 and float64")
+    out = {}
+    for E in (8, 99):
+        xe = x[:E].contiguous()
+        ms_k, idle = kernel_ms(torch, lambda: ms.member_sum(xe))
+        plain = cuda_ms(torch, lambda: ms.member_sum_reference(xe))
+        b = bound(E * n, 4 * (E * n + E))
+        log(f"[member-sum] [{E}, {n}]: kernel {both(ms_k, idle)}, plain "
+            f"torch.sum {plain:.4f} ms, bound {b['bound_ms']:.5f} ms "
+            f"({b['bound_by']})")
+        out[E] = dict(ms=ms_k, idle_card_ms=idle, plain_ms=plain,
+                      **dict(b, library_ms=plain))
+    return dict(max_abs_err=err, **out[8], e99=out[99])
+
+
+# phase 35: the rank path over NCCL (N0 = 3500, 100 MD steps, 2 samples)
+RANKS_COOL = dict(n0=3500, tmax=0.2, sample_freq=50)
+
+
+def rank_mesh_path(torch, card):
+    """Phase 35: the mesh as one process a slot (parallel/ranks.py) over
+    NCCL: a 1 x 1 rank mesh (world size 1) on cuda:0 bitwise equal to the
+    unsharded fold of 2 with the same launches; with two or more cards a 1
+    x 2 mesh of distinct cards (ranks by default), gather and ring-N3L,
+    bitwise equal to the single-controller mesh with both slots on cuda:0,
+    with the same launches.  Returns the launches of the rank runs,
+    summed by form."""
+    from mdqtplasmasims_torch.experiments.laser_cooling import (
+        CoolingConfig, run_ensemble)
+    from mdqtplasmasims_torch.parallel.ensemble import start_workers
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    from mdqtplasmasims_torch.parallel.ranks import stop_ranks
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import torch_mesh_cards as tmc
+    dev = torch.device("cuda", 0)
+    cfg = CoolingConfig(**RANKS_COOL)
+    total = {}
+    cases = [("1 x 1 as a rank", dict(mesh=make_mesh(1, 1, [dev],
+                                                     ranks=True)),
+              "the unsharded fold", dict(device=dev), 2)]
+    if torch.cuda.device_count() >= 2:
+        cards = [torch.device("cuda", j) for j in (0, 1)]
+        for form in ("gather", "ring_n3l"):
+            cases.append((f"1 x 2 {form} on two cards",
+                          dict(mesh=make_mesh(1, 2, cards),
+                               ion_forces=form),
+                          "both slots on cuda:0",
+                          dict(mesh=make_mesh(1, 2, [dev] * 2),
+                               ion_forces=form), 1))
+    for what, kw, ref_what, ref_kw, jobs in cases:
+        start = start_workers(kw["mesh"])
+        runs = {}
+        for name, k in (("ranks", kw), ("ref", ref_kw)):
+            reset_counts()
+            res, wall = _synced_wall(torch, lambda: run_ensemble(
+                cfg, jobs, seed=5, **k))
+            runs[name] = (tmc._final_and_outs(res), read_counts(), wall)
+        counts = runs["ranks"][1]
+        same = tmc.same(runs["ranks"][0], runs["ref"][0])
+        log(f"[ranks] {what} (NCCL; ranks started in {start:.3f} s): "
+            f"{runs['ranks'][2]:.3f} s, {ref_what}: {runs['ref'][2]:.3f} s "
+            f"({card}); bitwise equal {same}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not same:
+            raise SystemExit(f"phase 35: the rank mesh ({what}) differs from "
+                             f"{ref_what}")
+        want_counts(counts, f"the rank mesh ({what})",
+                    **{k: v for k, v in runs["ref"][1].items() if v})
+        add_counts(total, counts)
+    if torch.cuda.device_count() < 2:
+        log("[ranks] one visible card: the 1 x 2 mesh of distinct cards is "
+            "held by tools/torch_mesh_cards.py on four")
+    stop_ranks()
+    return total
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -3856,15 +4045,16 @@ TICK_FORMS = 40
 
 
 def build_kernels(torch):
-    """Both kernel libraries, one nvcc each, started together."""
+    """The three kernel libraries, one nvcc each, started together."""
     from mdqtplasmasims_torch import _build
     from mdqtplasmasims_torch.core import qt_fused
-    from mdqtplasmasims_torch.ops import yukawa
+    from mdqtplasmasims_torch.ops import member_sum, yukawa
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(yukawa._lib), pool.submit(qt_fused._lib)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(yukawa._lib), pool.submit(qt_fused._lib),
+                    pool.submit(member_sum._lib)]:
             fut.result()
-    log(f"[build] both kernel libraries loaded in "
+    log(f"[build] the three kernel libraries loaded in "
         f"{time.perf_counter() - t0:.1f} s (nvcc: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in _build.build_seconds.items())
         + ")")
@@ -3920,6 +4110,7 @@ def main() -> int:
     check_ion_sass()
     rng = check_rng_tick_kernels(torch, cfg, L, pu.debye_length)
     pot_d, pot_g = check_potential_kernels(torch, L, pu.debye_length)
+    msum = check_member_sum_kernel(torch)
     counts = main_path(torch, smi)
     force_e = check_batched_force_kernel(torch, L, pu.debye_length)
     lanes = check_lane_kernels(torch, cfg)
@@ -3974,6 +4165,10 @@ def main() -> int:
     mesh_cards_counts = mesh_cards_path(torch, smi)
     log(f"[env] phase 34 (the mesh on distinct cards, its slots on this "
         f"card) took {time.perf_counter() - t_mesh:.1f} s")
+    t_ranks = time.perf_counter()
+    rank_counts = rank_mesh_path(torch, smi)
+    log(f"[env] phase 35 (the mesh as ranks over NCCL) took "
+        f"{time.perf_counter() - t_ranks:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -4092,11 +4287,17 @@ def main() -> int:
              replaces="mdqtplasmasims_tpu/ops/yukawa.py:616",
              launches=mesh_counts["ring_n3l"]["yukawa_forces_cross"],
              **cross),
+        dict(name="member_sum", route="cuda",
+             source="mdqtplasmasims_torch/csrc/member_sum.cu",
+             replaces="none (port-only: the per-member sums over ions "
+             "that the JAX package leaves to XLA, given width-independent "
+             "bits)", launches=counts["member_sum"], **msum),
     ]
     for k in kernels:
         for key, counts in (("launches_physics_targets", target_counts),
                             ("launches_examples", example_counts),
-                            ("launches_mesh_cards", mesh_cards_counts)):
+                            ("launches_mesh_cards", mesh_cards_counts),
+                            ("launches_ranks", rank_counts)):
             if counts.get(k["name"]):
                 k[key] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))

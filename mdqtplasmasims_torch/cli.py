@@ -46,7 +46,9 @@ process, as the JAX CLI does; ``transport --resume`` and ``mc-tag
 checkpoint (published with ``--checkpoint-every-chunks K``).
 ``--mesh-ens K`` (and ``--mesh-ions I``) spread an ensemble or sweep over
 a K x I mesh of device slots (parallel/mesh.py): distinct cards with
-``--device cuda``, CPU slots with ``--device cpu``.
+``--device cuda``, run as one process a card over NCCL
+(parallel/ranks.py), CPU slots stepped from this process with
+``--device cpu``.
 
 Two host commands read a tree once it is written, with the JAX CLI's
 flags; they are dispatched before any experiment family (or torch's CUDA)
@@ -157,8 +159,8 @@ def _add_mesh_args(parser: argparse.ArgumentParser,
 
 def _mesh_from_flags(ns: argparse.Namespace):
     """The K x I mesh of ``--mesh-ens/--mesh-ions``: distinct cards on
-    ``--device cuda``, CPU slots on ``--device cpu``; None without
-    ``--mesh-ens``."""
+    ``--device cuda`` (run as ranks), CPU slots on ``--device cpu``; None
+    without ``--mesh-ens``."""
     if not ns.mesh_ens:
         return None
     from .parallel.mesh import make_mesh

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from .md import wrap_pbc
+from ..ops.member_sum import ion_sum
 
 
 class McDraws(NamedTuple):
@@ -128,8 +129,8 @@ class MetropolisMC:
             rows = base + i[k]
             old = flat.index_select(0, rows)
             new = wrap_pbc(old + move[k], self.L)
-            u = torch.sum(_pair_u_rows(view, torch.stack([old, new], 1),
-                                       self.L, ldeb, rcut2, i[k]), dim=-1)
+            u = ion_sum(_pair_u_rows(view, torch.stack([old, new], 1),
+                                     self.L, ldeb, rcut2, i[k]), dim=-1)
             du = u[:, 1] - u[:, 0]
             accept = (du < 0) | (ua[k] < torch.exp(-du * gamma))
             flat.index_copy_(0, rows, torch.where(accept[:, None], new, old))

@@ -16,6 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.member_sum import ion_mean, ion_sum
+
 
 def wrap_pbc(R: torch.Tensor, L: float) -> torch.Tensor:
     """Pac-man re-insertion after a drift (laserCooling...SpeedUp.cpp:381-389).
@@ -59,15 +61,15 @@ def kinetic_energies(V: torch.Tensor, subtract_mean_vx: bool = False,
     In the expansion frame the x-axis subtracts the ensemble-mean vx.
     Returns ``(ekx, eky, ekz, vx_mean)`` as 0-d tensors."""
     if mask is None:
-        vx_mean = torch.mean(V[:, 0])
+        vx_mean = ion_mean(V[:, 0])
         Vx = V[:, 0] - vx_mean if subtract_mean_vx else V[:, 0]
-        ek = [torch.mean(0.5 * Vx ** 2), torch.mean(0.5 * V[:, 1] ** 2),
-              torch.mean(0.5 * V[:, 2] ** 2)]
+        ek = [ion_mean(0.5 * Vx ** 2), ion_mean(0.5 * V[:, 1] ** 2),
+              ion_mean(0.5 * V[:, 2] ** 2)]
     else:
         n_eff = torch.sum(mask)
-        vx_mean = torch.sum(V[:, 0] * mask) / n_eff
+        vx_mean = ion_sum(V[:, 0], mask=mask) / n_eff
         Vx = V[:, 0] - vx_mean if subtract_mean_vx else V[:, 0]
-        ek = [torch.sum(0.5 * Vx ** 2 * mask) / n_eff,
-              torch.sum(0.5 * V[:, 1] ** 2 * mask) / n_eff,
-              torch.sum(0.5 * V[:, 2] ** 2 * mask) / n_eff]
+        ek = [ion_sum(0.5 * Vx ** 2, mask=mask) / n_eff,
+              ion_sum(0.5 * V[:, 1] ** 2, mask=mask) / n_eff,
+              ion_sum(0.5 * V[:, 2] ** 2, mask=mask) / n_eff]
     return ek[0], ek[1], ek[2], vx_mean

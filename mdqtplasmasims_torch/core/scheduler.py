@@ -112,13 +112,34 @@ def draw_seed_word(generator: torch.Generator) -> torch.Tensor:
                          device=generator.device, dtype=torch.int32)
 
 
-def uniform_rolls(generator: torch.Generator) -> Callable:
+class UniformRolls:
     """``rolls_fn`` drawing ``[n_ticks*5, npad]`` uniforms in [0, 1) from
-    ``generator`` on its device (no host sync)."""
-    def rolls_fn(n_ticks: int, npad: int) -> torch.Tensor:
-        return torch.rand((n_ticks * 5, npad), generator=generator,
-                          dtype=torch.float32, device=generator.device)
-    return rolls_fn
+    ``generator`` on its device (no host sync).  It pickles with the
+    generator's device and state: a mesh's ranks each draw from a copy
+    (parallel/ranks.py)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, n_ticks: int, npad: int) -> torch.Tensor:
+        return torch.rand((n_ticks * 5, npad), generator=self.generator,
+                          dtype=torch.float32, device=self.generator.device)
+
+    def __reduce__(self):
+        return (_uniform_rolls_at, (str(self.generator.device),
+                                    self.generator.get_state()))
+
+
+def _uniform_rolls_at(device: str, state: torch.Tensor) -> UniformRolls:
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return UniformRolls(g)
+
+
+def uniform_rolls(generator: torch.Generator) -> UniformRolls:
+    """``rolls_fn`` drawing ``[n_ticks*5, npad]`` uniforms in [0, 1) from
+    ``generator`` (:class:`UniformRolls`)."""
+    return UniformRolls(generator)
 
 
 class SoACarry(NamedTuple):

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from ..ops.member_sum import ion_sum
+
 
 def tag_classical(vx: torch.Tensor, generator: Optional[torch.Generator],
                   gamma: float, rolls: Optional[torch.Tensor] = None):
@@ -90,7 +92,7 @@ def tagged_moments(vx: torch.Tensor, tags: torch.Tensor,
     files do not."""
     w = tags.to(vx.dtype)
     n = torch.clamp(torch.sum(w, dim=-1), min=1.0)
-    m = torch.stack([torch.sum(w * vx ** k, dim=-1) / n
+    m = torch.stack([ion_sum(w * vx ** k, dim=-1) / n
                      for k in (1, 2, 3, 4)], dim=-1)
     if subtract_equilibrium:
         m = m - torch.tensor([0.0, 1.0 / gamma, 0.0, 3.0 / gamma ** 2],

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.member_sum import ion_mean
+
 
 def collide_and_kick(V_verlet: torch.Tensor,
                      draws: Optional[Tuple[torch.Tensor, torch.Tensor]], *,
@@ -67,10 +69,10 @@ def anisotropize_velocities(V: torch.Tensor,
 def temperature(V: torch.Tensor) -> torch.Tensor:
     """<v^2> over all components (recordTemperature, :525-546); ``[E]`` for
     a fold."""
-    return torch.mean(V * V, dim=(-2, -1))
+    return ion_mean(V * V, dim=(-2, -1))
 
 
 def temperature_per_axis(V: torch.Tensor) -> torch.Tensor:
     """Per-axis <v_a^2> (recordTempForEachAxis, :560-581): ``[3]``, or
     ``[E, 3]`` for a fold."""
-    return torch.mean(V * V, dim=-2)
+    return ion_mean(V * V, dim=-2)

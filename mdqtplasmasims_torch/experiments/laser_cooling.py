@@ -484,6 +484,40 @@ def run_compiled_ensemble(cfg: CoolingConfig, sched: CoolingScheduler,
     return states, outs
 
 
+def sharded_segments(cfg: CoolingConfig, sched: CoolingScheduler, local,
+                     blocks, join, home, n_segments: int, mask=None,
+                     sweep_e0=None, sweep_om=None,
+                     seg_len: Optional[int] = None, tail: int = 0):
+    """The segment loop of a mesh run: ``local`` (a
+    ``fused_local_stepper``) advances the ``[K][I]`` grid ``blocks``; at
+    each output gate ``join`` joins the ``mid`` blocks on ``home`` (None
+    where this process takes no samples: a rank other than 0), where the
+    fold's samples are taken as :func:`run_compiled_ensemble` takes them.
+    Returns ``(join(blocks), outs)``."""
+    L = PlasmaUnits.box_length(cfg.n0)
+    ldeb = PlasmaUnits(cfg.density, cfg.ge).debye_length
+    if home is not None:
+        bins = folded_bins(cfg.torch_dtype, home)
+        kvecs = _lccf_kvecs(cfg, home)
+        mask_t = (None if mask is None else
+                  torch.as_tensor(mask).to(home, cfg.torch_dtype))
+    kw = dict(mask=mask, sweep_e0=sweep_e0, sweep_om=sweep_om)
+    samples, times = [], []
+    for _ in range(n_segments):
+        mid, blocks = local(blocks, seg_len or cfg.sample_freq,
+                            split_last=True, **kw)
+        mid = join(mid)
+        if mid is not None:
+            samples.append(_sample_fold(mid, cfg, L, ldeb, bins, mask_t,
+                                        kvecs))
+            times.append(mid.t)
+    if tail:
+        blocks = local(blocks, tail, **kw)
+    outs = (_stack_samples(samples, times, cfg.torch_dtype, axis=1)
+            if samples else None)
+    return join(blocks), outs
+
+
 def run_compiled_sharded(cfg: CoolingConfig, sched: CoolingScheduler, mesh,
                          states: SimState, n_segments: int, mask=None,
                          sweep_e0=None, sweep_om=None,
@@ -494,36 +528,29 @@ def run_compiled_sharded(cfg: CoolingConfig, sched: CoolingScheduler, mesh,
     members over ``ens`` and ions over ``ions``, each slot stepping its
     block on the production kernels (parallel/ensemble.py
     fused_local_stepper; ``ion_forces`` picks the cross-shard force
-    schedule, ``"gather"`` or ``"ring_n3l"``).  Each sample joins the
-    sampled state on the home device and takes the same observables the
+    schedule, ``"gather"`` or ``"ring_n3l"``).  A mesh that runs as ranks
+    (``mesh.as_ranks``: distinct cards, or ``make_mesh(ranks=True)``)
+    steps each slot in a process of its own (parallel/ranks.py); else this
+    process steps every slot in turn.  Each sample joins the sampled state
+    on the home device (rank 0's) and takes the same observables the
     single fold takes.  Returns ``(states, outs)`` as
     :func:`run_compiled_ensemble` does."""
     from ..parallel.ensemble import fused_local_stepper
     from ..parallel.mesh import join_state, split_state
     check_uniform_tick(states.tick)
     _check_sweep_flags(sched, sweep_e0, sweep_om)
-    L = PlasmaUnits.box_length(cfg.n0)
     ldeb = PlasmaUnits(cfg.density, cfg.ge).debye_length
+    kw = dict(mask=mask, sweep_e0=sweep_e0, sweep_om=sweep_om,
+              seg_len=seg_len, tail=tail)
+    if mesh.as_ranks:
+        from ..parallel.ranks import run_cooling
+        return run_cooling(cfg, sched, mesh, states, n_segments, ldeb,
+                           ion_forces=ion_forces, **kw)
     home = mesh.home
-    bins = folded_bins(cfg.torch_dtype, home)
-    kvecs = _lccf_kvecs(cfg, home)
-    mask_t = (None if mask is None else
-              torch.as_tensor(mask).to(home, cfg.torch_dtype))
     local = fused_local_stepper(sched, ldeb, mesh, ion_forces=ion_forces)
-    blocks = split_state(states, mesh)
-    kw = dict(mask=mask, sweep_e0=sweep_e0, sweep_om=sweep_om)
-    samples, times = [], []
-    for _ in range(n_segments):
-        mid, blocks = local(blocks, seg_len or cfg.sample_freq,
-                            split_last=True, **kw)
-        mid = join_state(mid, home)
-        samples.append(_sample_fold(mid, cfg, L, ldeb, bins, mask_t, kvecs))
-        times.append(mid.t)
-    if tail:
-        blocks = local(blocks, tail, **kw)
-    outs = (_stack_samples(samples, times, cfg.torch_dtype, axis=1)
-            if samples else None)
-    return join_state(blocks, home), outs
+    return sharded_segments(cfg, sched, local, split_state(states, mesh),
+                            lambda b: join_state(b, home), home, n_segments,
+                            **kw)
 
 
 def _save_dir(cfg: CoolingConfig) -> str:

@@ -29,6 +29,7 @@ the draw (tests replay the JAX package's key chain through it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,6 +42,7 @@ from ..core.scheduler import (free_ion_spec, free_ion_ticks, member_sweep,
 from ..io.datfiles import DatWriter
 from ..io.dirs import three_state_dir
 from ..levels import three_state
+from ..ops.member_sum import ion_mean
 from ..state import complex_dtype
 from ..units import SQRT_KELVIN_TO_PLASMA_VEL
 from .laser_cooling import member_seed
@@ -115,23 +117,22 @@ def roll_block(cfg: ThreeStateConfig, lanes) -> int:
 
 def run_compiled(cfg: ThreeStateConfig, vx, psi_sm, t_part,
                  rolls_fn: Callable, n_segments: int, sweep=(None, None),
-                 mesh=None):
+                 block: Optional[int] = None):
     """``n_segments`` segments of ``sample_freq`` ticks from ``vx [..., n]``,
     ``psi_sm [..., S, n]`` (state-major) and ``t_part [..., n]``, one run
     or a fold with the member axis leading.  ``sweep``: ``(e0 [E, S] |
     None, om [E] | None)``, the members' own diagonal energies and Rabi
     scales ``om_j / cfg.om`` (core/scheduler.member_sweep; the kernel
-    scales the coupling and the om-linear Ehrenfest kick by it).  ``mesh``
-    spreads the members over the mesh's ``ens`` slots.  Each block of
-    ticks is one launch of the tick kernel (per slot: on several cards
-    the host enqueues the slots' launches one after the other and the
-    cards run them at once).  Returns ``((vx, psi_sm,
-    t_part), recs)`` with ``recs [..., n_segments, 2]`` on the device: per
-    segment ``mean(0.5 vx^2)`` and ``mean(|psi_0|^2)`` over the real
-    ions."""
+    scales the coupling and the om-linear Ehrenfest kick by it).  Each
+    ``block`` of ticks (default :func:`roll_block` of the lanes; a mesh
+    slot's part of a fold keeps the whole fold's) is one launch of the
+    tick kernel.  Returns ``((vx, psi_sm, t_part), recs)`` with ``recs
+    [..., n_segments, 2]`` on the device: per segment ``mean(0.5 vx^2)``
+    and ``mean(|psi_0|^2)`` over the real ions, each member's from its
+    own lanes alone (ops/member_sum)."""
     lanes = tuple(vx.shape)
     dtype = vx.dtype
-    block = roll_block(cfg, lanes)
+    block = roll_block(cfg, lanes) if block is None else block
     spec = free_ion_spec(build_engine(cfg), block, sweep[0] is not None,
                          sweep[1] is not None)
 
@@ -141,9 +142,6 @@ def run_compiled(cfg: ThreeStateConfig, vx, psi_sm, t_part,
         return free_ion_ticks(spec, vx, psi_sm, tp,
                               rolls.movedim((-3, -2), (0, 1)), e0, om)
 
-    if mesh is not None:
-        from ..parallel.ensemble import member_sharded
-        ticks = member_sharded(ticks, mesh)
     recs = []
     for _ in range(n_segments):
         done = 0
@@ -154,8 +152,8 @@ def run_compiled(cfg: ThreeStateConfig, vx, psi_sm, t_part,
             vx, psi_sm, t_part = ticks(vx, psi_sm, t_part, rolls, *sweep)
             done += nt
         recs.append(torch.stack(
-            [torch.mean(0.5 * vx ** 2, dim=-1),
-             torch.mean(torch.abs(psi_sm[..., 0, :]) ** 2, dim=-1)], dim=-1))
+            [ion_mean(0.5 * vx ** 2, dim=-1),
+             ion_mean(torch.abs(psi_sm[..., 0, :]) ** 2, dim=-1)], dim=-1))
     recs = (torch.stack(recs, dim=-2) if recs
             else torch.zeros(lanes[:-1] + (0, 2), dtype=dtype,
                              device=vx.device))
@@ -223,24 +221,50 @@ def run(cfg: ThreeStateConfig, seed: Optional[int] = None, device="cuda",
     return results
 
 
+def _fold_block(cfg: ThreeStateConfig, block: int, rolls_fn, seeds, V,
+                e0, om):
+    """A block of a fold's members, whole: member j's generator is seeded
+    with ``seeds[j]`` on the seeds' device and draws its start (unless
+    ``V`` is given) and then its uniforms (unless ``rolls_fn``), ``block``
+    ticks a launch.  Returns ``(V, recs)`` with the final vx in V."""
+    gens = [torch.Generator(device=seeds.device).manual_seed(s)
+            for s in seeds.tolist()]
+    if V is None:
+        V = torch.stack([_initial_v(cfg, g) for g in gens])
+    psi_sm, tp = _start(cfg, V)
+    (vx, _, _), recs = run_compiled(cfg, V[..., 0], psi_sm, tp,
+                                    rolls_fn or tick_rolls(gens),
+                                    cfg.n_segments, sweep=(e0, om),
+                                    block=block)
+    V = V.clone()
+    V[..., 0] = vx
+    return V, recs
+
+
 def _run_fold(cfg: ThreeStateConfig, member_cfgs, seed: int, mesh, device,
               V, rolls_fn, sweep=(None, None)):
     """The fold behind :func:`run_ensemble` and :func:`run_sweep`: member
     j draws its start and then its uniforms from a generator seeded with
-    ``member_seed(seed, j)``."""
+    ``member_seed(seed, j)``.  ``mesh`` runs member block k whole on ens
+    slot k (parallel/ensemble.member_sharded: on several cards in a
+    process of the slot's card, the blocks at once), each block in the
+    whole fold's launches of ticks, so every member keeps its bits."""
     device = torch.device(mesh.home if mesh is not None else device)
     check_device(cfg, device)
+    if mesh is not None and rolls_fn is not None:
+        raise ValueError("rolls_fn replays one fold's draws and cannot be "
+                         "split over a mesh")
     E = len(member_cfgs)
-    generators = [torch.Generator(device=device).manual_seed(
-        member_seed(seed, j)) for j in range(E)]
-    V = (torch.stack([_initial_v(cfg, g) for g in generators]) if V is None
-         else _given_v(cfg, V, device, lead=(E,)))
-    psi_sm, tp = _start(cfg, V)
-    (vx, _, _), recs = run_compiled(cfg, V[..., 0], psi_sm, tp,
-                                    rolls_fn or tick_rolls(generators),
-                                    cfg.n_segments, sweep=sweep, mesh=mesh)
-    V = V.clone()
-    V[..., 0] = vx
+    seeds = torch.tensor([member_seed(seed, j) for j in range(E)],
+                         dtype=torch.int64, device=device)
+    if V is not None:
+        V = _given_v(cfg, V, device, lead=(E,))
+    fn = functools.partial(_fold_block, cfg, roll_block(cfg, (E, cfg.n0)),
+                           rolls_fn)
+    if mesh is not None:
+        from ..parallel.ensemble import member_sharded
+        fn = member_sharded(fn, mesh, processes=True)
+    V, recs = fn(seeds, V, *sweep)
     recs = recs.cpu().numpy()               # [E, n_segments, 2], one fetch
     results = dict(t=cfg.t_axis, ekin_x=recs[:, :, 0],
                    ground_pop=recs[:, :, 1], V=V.cpu().numpy())

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from .member_sum import ion_mean, ion_sum
+
 
 def _autocorr_sums(s: torch.Tensor) -> torch.Tensor:
     """sum_j s[j] s[j+tau] for tau in [0, T) via FFT.  s: [..., T]."""
@@ -44,7 +46,7 @@ def power_autocorr(vstore: torch.Tensor, power: int,
     4 -> v^4 autocorr minus 27/Gamma^4 (:771-807)."""
     T, n, _ = vstore.shape
     s = (vstore ** power).permute(1, 2, 0)          # [N, 3, T]
-    c = torch.sum(_autocorr_sums(s), dim=(0, 1))    # [T]
+    c = ion_sum(_autocorr_sums(s), dim=(0, 1))      # [T]
     denom = n * (T - torch.arange(T, device=vstore.device))
     return c / denom - _equilibrium_const(power, gamma)
 
@@ -59,7 +61,7 @@ def power_autocorr_direct(vstore: torch.Tensor, power: int,
     """O(T^2) direct evaluation (for validation against the FFT path)."""
     T, n, _ = vstore.shape
     s = vstore ** power
-    res = torch.stack([torch.sum(s[:T - tau] * s[tau:]) / (n * (T - tau))
+    res = torch.stack([ion_sum(s[:T - tau] * s[tau:]) / (n * (T - tau))
                        for tau in range(T)])
     return res - _equilibrium_const(power, gamma)
 
@@ -80,7 +82,7 @@ def streaming_vaf(v_now: torch.Tensor, v_interval_start: torch.Tensor,
     if weights is not None:
         prod = prod * weights
     n_eff = v_now.shape[0] if mask is None else torch.sum(mask)
-    return torch.sum(prod) / n_eff
+    return ion_sum(prod) / n_eff
 
 
 def streaming_long_kin(vx_now: torch.Tensor, vx_start: torch.Tensor,
@@ -93,8 +95,8 @@ def streaming_long_kin(vx_now: torch.Tensor, vx_start: torch.Tensor,
     (0-avg)^2 terms)."""
     vv_now, vv_start = vx_now * vx_now, vx_start * vx_start
     if mask is None:
-        avg = torch.mean(vv_now)
-        return torch.mean((vv_start - avg) * (vv_now - avg))
+        avg = ion_mean(vv_now)
+        return ion_mean((vv_start - avg) * (vv_now - avg))
     n_eff = torch.sum(mask)
-    avg = torch.sum(vv_now * mask) / n_eff
-    return torch.sum((vv_start - avg) * (vv_now - avg) * mask) / n_eff
+    avg = ion_sum(vv_now, mask=mask) / n_eff
+    return ion_sum((vv_start - avg) * (vv_now - avg), mask=mask) / n_eff

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .member_sum import ion_sum
+
 KDE_WIDTH = 0.002          # gaussian width
 
 
@@ -61,7 +63,7 @@ def gaussian_kde(v: torch.Tensor, bins: torch.Tensor, *, folded: bool,
         k = k + torch.exp(-inv2w2 * s * s)
     if weights is not None:
         k = k * weights[..., None, :]
-    out = torch.sum(k, dim=-1)
+    out = ion_sum(k, dim=-1)
     if normalize:
         out = out / (6.0 * math.sqrt(2.0 * math.pi) * width)
     return out

@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from .member_sum import ion_sum
 
 
 def yukawa_forces_potential(R: torch.Tensor, L: float, ldeb: float,
@@ -98,8 +99,8 @@ def yukawa_potential(R, L, ldeb, mask=None, chunk: int = 512):
     """Potential energy per particle (0-d tensor), reference Epotential()."""
     _, pot = yukawa_forces_potential(R, L, ldeb, mask, chunk)
     if mask is None:
-        return 0.5 * torch.sum(pot) / R.shape[0]
-    return 0.5 * torch.sum(pot * mask) / torch.sum(mask)
+        return 0.5 * ion_sum(pot) / R.shape[0]
+    return 0.5 * ion_sum(pot, mask=mask) / torch.sum(mask)
 
 
 def soa_force_tile(npad: int) -> int:
@@ -656,7 +657,7 @@ def yukawa_potential_pallas(R, L, ldeb, mask=None, tile: int = 512):
     sync) through kernel D: ``0.5 * sum(pot) / n_eff``."""
     _, pot = yukawa_forces_potential_pallas(R, L, ldeb, mask, tile)
     n_eff = torch.sum(mask) if mask is not None else R.shape[0]
-    return 0.5 * torch.sum(pot) / n_eff
+    return 0.5 * ion_sum(pot) / n_eff
 
 
 def yukawa_forces_potential_pallas_batched(
@@ -711,9 +712,9 @@ def yukawa_potential_pallas_batched(R, L, ldeb, mask=None, tile: int = 512):
                             for j in range(R.shape[0])])
     _, pot = yukawa_forces_potential_pallas_batched(R, L, ldeb, tile, mask)
     if mask is None:
-        return 0.5 * torch.sum(pot, dim=1) / R.shape[1]
+        return 0.5 * ion_sum(pot, dim=1) / R.shape[1]
     m = mask.to(pot.dtype).expand(pot.shape)
-    return 0.5 * torch.sum(pot, dim=1) / torch.sum(m, dim=1)
+    return 0.5 * ion_sum(pot, dim=1) / torch.sum(m, dim=1)
 
 
 def yukawa_forces_n3l_pallas(R: torch.Tensor, L: float, ldeb: float,

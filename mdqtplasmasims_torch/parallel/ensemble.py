@@ -5,8 +5,11 @@ are split over the mesh's ``ens`` axis and each member's ion axis may be
 split over ``ions``; every slot advances its block of the fold through
 the same kernels a single fold runs (the tick kernel and a force kernel
 per MD step), and the force refresh couples the ion shards of a member
-through explicit copies between slots (parallel/mesh.py).  One process
-steps all slots in lockstep, as the JAX package's one SPMD program does.
+through the ion axis's collectives.  The per-slot work here serves both
+ways a mesh runs: one process stepping all slots in lockstep, the
+collectives copies between slots (parallel/mesh.py), or one process a
+slot, as the JAX package's one SPMD program runs, the collectives
+torch.distributed's (parallel/ranks.py).
 
 Randomness: the fold keeps one generator and one seed word.  Each slot
 draws the uniforms of the lanes it holds in the fold's *global* lane
@@ -21,16 +24,13 @@ trajectory is independent of how the members are laid out.
 from __future__ import annotations
 
 import contextlib
-import multiprocessing
 import os
 import time
-from concurrent.futures import ProcessPoolExecutor, wait
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from .. import _build
 from ..core.scheduler import CoolingScheduler, fold_sweep_lanes
 from ..ops.yukawa import (yukawa_forces_cross_n3l_soa_batched,
                           yukawa_forces_n3l_soa,
@@ -39,7 +39,7 @@ from ..ops.yukawa import (yukawa_forces_cross_n3l_soa_batched,
                           yukawa_forces_soa_cols_batched)
 from ..state import SimState
 from .mesh import (ENS_AXIS, ION_AXIS, Mesh, all_gather, join_state,
-                   ppermute, split_grid, split_state)
+                   ppermute, slot_block, split_state)
 
 
 def batched_initial_states(init_one: Callable[[int], SimState],
@@ -117,8 +117,30 @@ def ring_forces_fn(L: float, ldeb: float, chunk: int = 512):
     return fn
 
 
+class _AllSlots:
+    """The single controller's side of the mesh's collectives: every slot
+    is in this process, so a list holds every shard of a member block and
+    the collectives are copies between slots (parallel/mesh.py).  A rank
+    of a rank mesh has the same methods over its one slot
+    (parallel/ranks.py ``RankComm``)."""
+
+    @staticmethod
+    def slots(mesh: Mesh):
+        return mesh.slots()
+
+    all_gather = staticmethod(all_gather)
+
+    @staticmethod
+    def hop(*bufs):
+        return tuple(ppermute(b) for b in bufs)
+
+
+ALL_SLOTS = _AllSlots()
+
+
 def ring_n3l_fused_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
-                          npad: int, mrows: List[torch.Tensor]):
+                          npad: int, mrows: List[Optional[torch.Tensor]],
+                          comm=ALL_SLOTS):
     """Cross-shard Newton's-third-law force schedule of one member block
     over the ion ring: each unordered pair of ion blocks is evaluated ONCE
     and the reaction rows ride the ring back to their owner shard, where
@@ -126,7 +148,7 @@ def ring_n3l_fused_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
 
     Shard m's own block runs the batched force kernel C locally; a
     (positions, mask, reaction) buffer then circulates the ring
-    (``ppermute``).  At hop s shard m holds the block of shard (m - s)
+    (``comm.hop``).  At hop s shard m holds the block of shard (m - s)
     mod I and computes the cross tile once with kernel F
     (:func:`yukawa_forces_cross_n3l_soa_batched`): for hops s <= (I-1)//2
     always, at the antipodal hop of an even ring (s = I/2) only on the
@@ -136,14 +158,17 @@ def ring_n3l_fused_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
     per MD step.  Later hops still permute, carrying each reaction buffer
     the full I hops home, where it joins the local forces.
 
-    ``mrows[m] [1|E_loc, npad]`` marks shard m's real ions.  Returns
-    ``soa_forces(Rps) -> Fs``: every shard's ``Rp [3, E_loc*npad]`` ->
-    its row-masked ``F [3, E_loc*npad]``."""
+    ``mrows[m] [1|E_loc, npad]`` marks shard m's real ions, None for a
+    shard held elsewhere (a rank holds one).  Returns ``soa_forces(Rps)
+    -> Fs`` over the shards held here, in shard order: each ``Rp [3,
+    E_loc*npad]`` -> its row-masked ``F [3, E_loc*npad]``."""
+    k = len(mrows)
+    own = [m for m, mr in enumerate(mrows) if mr is not None]
+
     def soa_forces(Rps):
-        k = len(Rps)
-        F = [yukawa_forces_n3l_soa_batched(R, mr, e_loc, sched.L, ldeb)
-             for R, mr in zip(Rps, mrows)]
-        cms = [mr.expand(e_loc, npad).contiguous() for mr in mrows]
+        F = [yukawa_forces_n3l_soa_batched(R, mrows[m], e_loc, sched.L, ldeb)
+             for R, m in zip(Rps, own)]
+        cms = [mrows[m].expand(e_loc, npad).contiguous() for m in own]
         row_masks = [cm.reshape(1, e_loc * npad) for cm in cms]
         if k == 1:
             return [F[0] * row_masks[0]]
@@ -152,101 +177,118 @@ def ring_n3l_fused_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
         buf_m = cms
         buf_G = [torch.zeros_like(b) for b in buf_R]
         for s in range(1, k):
-            buf_R, buf_m, buf_G = (ppermute(buf_R), ppermute(buf_m),
-                                   ppermute(buf_G))
+            buf_R, buf_m, buf_G = comm.hop(buf_R, buf_m, buf_G)
             if s > k // 2:
                 continue                 # carry the reactions home
-            for m in range(k):
+            for j, m in enumerate(own):
                 if k % 2 == 0 and s == k // 2 and m > (m - s) % k:
                     continue                 # antipodal: once per pair
                 Fc, G = yukawa_forces_cross_n3l_soa_batched(
-                    Rps[m], mrows[m], buf_R[m], buf_m[m], e_loc, sched.L,
+                    Rps[j], mrows[m], buf_R[j], buf_m[j], e_loc, sched.L,
                     ldeb)
-                F[m] = F[m] + Fc
-                buf_G[m] = buf_G[m] + G
+                F[j] = F[j] + Fc
+                buf_G[j] = buf_G[j] + G
         # one more hop completes the ring: each reaction buffer reaches
         # the shard that owns its block
-        buf_G = ppermute(buf_G)
-        return [(F[m] + buf_G[m].permute(2, 0, 1).reshape(3, e_loc * npad))
-                * row_masks[m] for m in range(k)]
+        buf_G, = comm.hop(buf_G)
+        return [(F[j] + buf_G[j].permute(2, 0, 1).reshape(3, e_loc * npad))
+                * row_masks[j] for j in range(len(own))]
     return soa_forces
 
 
 def _gather_forces(sched: CoolingScheduler, ldeb: float, e_loc: int,
-                   npad: int, mrows: List[torch.Tensor]):
+                   npad: int, mrows: List[Optional[torch.Tensor]],
+                   comm=ALL_SLOTS):
     """The gather schedule of one member block: every shard's rows against
     the all-gathered positions of its members (kernel E), row-masked by
     the kernel (the JAX package's full-tile kernel has no row mask and its
     caller multiplies by it: padded and masked row lanes must stay inert
-    as they feed back)."""
-    cms = [mr.expand(e_loc, npad).contiguous() for mr in mrows]
-    col_masks = all_gather(cms, 1)                 # [E, I*npad] per slot
+    as they feed back).  ``mrows`` as for :func:`ring_n3l_fused_forces`."""
+    own = [m for m, mr in enumerate(mrows) if mr is not None]
+    cms = [mrows[m].expand(e_loc, npad).contiguous() for m in own]
+    col_masks = comm.all_gather(cms, 1)            # [E, I*npad] per slot
 
     def soa_forces(Rps):
-        cols = all_gather([R.reshape(3, e_loc, npad).permute(1, 2, 0)
-                           for R in Rps], 1)       # [E, I*npad, 3]
+        cols = comm.all_gather([R.reshape(3, e_loc, npad).permute(1, 2, 0)
+                                for R in Rps], 1)  # [E, I*npad, 3]
         return [yukawa_forces_soa_cols_batched(R, c.contiguous(), cm, e_loc,
-                                               sched.L, ldeb, row_mask=mr)
-                for R, c, cm, mr in zip(Rps, cols, col_masks, mrows)]
+                                               sched.L, ldeb,
+                                               row_mask=mrows[m])
+                for R, c, cm, m in zip(Rps, cols, col_masks, own)]
     return soa_forces
 
 
-def _mesh_stepper(sched: CoolingScheduler, mesh: Mesh, forces_for):
-    """The lockstep loop shared by the mesh paths.  ``forces_for(mrows,
-    e_loc, npad, n_loc, masked)`` builds one member block's force schedule
-    ``Rps -> Fs`` from its shards' mask rows.  Returns ``run(blocks, n_steps, mask, sweep_e0,
-    sweep_om, split_last)`` (see :func:`fused_local_stepper`)."""
+def _mesh_stepper(sched: CoolingScheduler, mesh: Mesh, forces_for,
+                  comm=ALL_SLOTS):
+    """The lockstep loop shared by the mesh paths, over the slots
+    ``comm`` holds (every slot; or one, a rank's).  ``forces_for(mrows,
+    e_loc, npad, n_loc, masked)`` builds one member block's force
+    schedule ``Rps -> Fs`` over its shards held here from the mask rows
+    (None for a shard held elsewhere).  Returns ``run(blocks, n_steps,
+    mask, sweep_e0, sweep_om, split_last)`` (see
+    :func:`fused_local_stepper`) on a ``[K][I]`` grid whose slots held
+    elsewhere are None."""
     K, I = mesh.shape[ENS_AXIS], mesh.shape[ION_AXIS]
     spec = sched.fused_spec
+    slots = comm.slots(mesh)
+    ks = sorted({k for k, _, _ in slots})
+    shards = {k: [i for kk, i, _ in slots if kk == k] for k in ks}
 
     def run(blocks, n_steps: int, mask=None, sweep_e0=None, sweep_om=None,
             split_last: bool = False):
-        e_loc, n_loc = blocks[0][0].R.shape[:2]
+        k0, i0, _ = slots[0]
+        e_loc, n_loc = blocks[k0][i0].R.shape[:2]
         npad = sched._npad(n_loc)
         width = e_loc * npad
         lane0 = shard_keys(0, K * e_loc, mesh, npad)[0][::e_loc]   # [K, I]
-        if mask is not None:
-            mgrid = split_grid(torch.as_tensor(mask).to(mesh.home,
-                                                        sched.dtype), mesh)
+        mask_t = None if mask is None else torch.as_tensor(mask)
         mrows = [[None] * I for _ in range(K)]
-        for k, i, dev in mesh.slots():
+        for k, i, dev in slots:
             mr = torch.zeros((1 if mask is None else e_loc, npad),
                              dtype=sched.dtype, device=dev)
-            mr[:, :n_loc] = 1.0 if mask is None else mgrid[k][i]
+            mr[:, :n_loc] = (1.0 if mask is None else
+                             slot_block(mask_t, mesh, k, i).to(dev,
+                                                               sched.dtype))
             mrows[k][i] = mr
-        forces = [forces_for(mrows[k], e_loc, npad, n_loc, mask is not None)
-                  for k in range(K)]
-        lanes = [[fold_sweep_lanes(
+        forces = {k: forces_for(mrows[k], e_loc, npad, n_loc,
+                                mask is not None) for k in ks}
+        lanes = {(k, i): fold_sweep_lanes(
             spec, npad,
             None if sweep_e0 is None else np.asarray(sweep_e0)[
                 k * e_loc:(k + 1) * e_loc],
             None if sweep_om is None else np.asarray(sweep_om)[
                 k * e_loc:(k + 1) * e_loc], dev)
-            for i, dev in enumerate(mesh.devices[k])] for k in range(K)]
-        carries = [[sched.soa_ens_init(b) for b in row] for row in blocks]
+            for k, i, dev in slots}
+        carries = {(k, i): sched.soa_ens_init(blocks[k][i])
+                   for k, i, _ in slots}
 
         def step(carries, n_ticks=None, reuse_forces=False):
-            Fs = (None if reuse_forces else
-                  [forces[k]([c.R for c in carries[k]]) for k in range(K)])
+            Fs = {}
+            if not reuse_forces:
+                for k in ks:
+                    Fk = forces[k]([carries[(k, i)].R for i in shards[k]])
+                    Fs.update({(k, i): F for i, F in zip(shards[k], Fk)})
             rolls = None
             if not spec.internal_rng:
                 nt = sched._tick_spec(n_ticks).ratio
                 rolls = sched.rolls_fn(nt, K * I * width).to(sched.dtype)
-            out = [[None] * I for _ in range(K)]
-            for k, i, dev in mesh.slots():
+            out = {}
+            for k, i, dev in slots:
                 l0 = int(lane0[k, i])
-                out[k][i] = sched.soa_md_step(
-                    carries[k][i], None, *lanes[k][i], n_ticks=n_ticks,
-                    reuse_forces=reuse_forces,
-                    forces=None if Fs is None else Fs[k][i],
+                out[(k, i)] = sched.soa_md_step(
+                    carries[(k, i)], None, *lanes[(k, i)], n_ticks=n_ticks,
+                    reuse_forces=reuse_forces, forces=Fs.get((k, i)),
                     rolls=(None if rolls is None else
                            rolls[:, l0:l0 + width].to(dev).contiguous()),
                     lane0=l0)
             return out
 
         def restore(carries):
-            return [[sched.soa_ens_restore(c, b) for c, b in zip(cr, br)]
-                    for cr, br in zip(carries, blocks)]
+            out = [[None] * I for _ in range(K)]
+            for k, i, _ in slots:
+                out[k][i] = sched.soa_ens_restore(carries[(k, i)],
+                                                  blocks[k][i])
+            return out
 
         for _ in range(n_steps - 1 if split_last else n_steps):
             carries = step(carries)
@@ -262,7 +304,7 @@ def _mesh_stepper(sched: CoolingScheduler, mesh: Mesh, forces_for):
 
 
 def fused_local_stepper(sched: CoolingScheduler, ldeb: float, mesh: Mesh,
-                        ion_forces: str = "gather"):
+                        ion_forces: str = "gather", comm=ALL_SLOTS):
     """The mesh's production stepper: ``local_run(blocks, n_steps,
     mask=None, sweep_e0=None, sweep_om=None, split_last=False)`` advances
     the ``[K][I]`` grid of slot states (:func:`~.mesh.split_state`) by
@@ -271,7 +313,10 @@ def fused_local_stepper(sched: CoolingScheduler, ldeb: float, mesh: Mesh,
     production ensemble layout) kernel A for one member without a mask,
     else kernel C; with a sharded ion axis the ``"gather"`` schedule
     (kernel E against the all-gathered positions) or ``"ring_n3l"``
-    (:func:`ring_n3l_fused_forces`, kernels C and F).
+    (:func:`ring_n3l_fused_forces`, kernels C and F).  ``comm`` is whose
+    slots are stepped and how they meet: every slot from this process
+    (the default), or a rank's one slot (parallel/ranks.py), whose grid
+    holds None elsewhere.
 
     ``mask [E, N]`` marks each member's real ions (Poissonian fold);
     masked lanes stay exactly inert.  ``sweep_e0 [E, S]`` / ``sweep_om [E,
@@ -294,8 +339,8 @@ def fused_local_stepper(sched: CoolingScheduler, ldeb: float, mesh: Mesh,
                 Rps[0], mr, e_loc, sched.L, ldeb)]
         make = (ring_n3l_fused_forces if ion_forces == "ring_n3l"
                 else _gather_forces)
-        return make(sched, ldeb, e_loc, npad, mrows)
-    return _mesh_stepper(sched, mesh, forces_for)
+        return make(sched, ldeb, e_loc, npad, mrows, comm)
+    return _mesh_stepper(sched, mesh, forces_for, comm)
 
 
 def make_sharded_fused_step(sched: CoolingScheduler, ldeb: float, mesh: Mesh,
@@ -373,49 +418,29 @@ def mesh_is_multi_card(mesh: Mesh) -> bool:
     return len({d for _, _, d in mesh.slots() if d.type == "cuda"}) > 1
 
 
-# one long-lived worker process per (ens slot, device), started with
-# ``spawn`` (a process that has begun CUDA may not fork), its current
-# device set once: member_sharded's blocks on distinct cards
-_WORKERS: dict = {}
-
-
-def _init_worker(dev: torch.device, n_threads: int) -> None:
-    torch.set_num_threads(n_threads)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-
-
-def _slot_worker(k: int, dev: torch.device) -> ProcessPoolExecutor:
-    pool = _WORKERS.get((k, dev))
-    if pool is None:
-        pool = _WORKERS[(k, dev)] = ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn"),
-            initializer=_init_worker, initargs=(dev, torch.get_num_threads()))
-    return pool
-
-
 def start_workers(mesh: Mesh) -> float:
-    """Start (or reuse) the worker process of every ens slot of ``mesh``
-    and wait until each has its device; returns the seconds it took."""
+    """Start (or reuse) the process of every ens slot of ``mesh`` (the
+    mesh's rank pool, parallel/ranks.py) and wait until each has its
+    device; returns the seconds it took."""
+    from .ranks import mesh_pool
     t0 = time.perf_counter()
-    futs = [_slot_worker(k, dev).submit(_bound_device)
-            for k, (dev,) in enumerate(mesh.devices)]
-    for f, (dev,) in zip(futs, mesh.devices):
-        if f.result() != str(dev):
-            raise RuntimeError(f"a slot worker of {dev} is bound to "
-                               f"{f.result()}")
+    for got, (_, _, dev) in zip(mesh_pool(mesh).run(
+            _bound_device, [()] * len(mesh.slots()), collective=False),
+            mesh.slots()):
+        if got != str(dev):
+            raise RuntimeError(f"a slot worker of {dev} is bound to {got}")
     return time.perf_counter() - t0
 
 
-def _bound_device() -> str:
+def _bound_device(rank) -> str:
     return (f"cuda:{torch.cuda.current_device()}"
             if torch.cuda.is_initialized() else "cpu")
 
 
 def stop_workers() -> None:
-    """End every slot worker process (they also end with this process)."""
-    while _WORKERS:
-        _WORKERS.popitem()[1].shutdown(wait=True)
+    """End every slot process (they also end with this process)."""
+    from .ranks import stop_ranks
+    stop_ranks()
 
 
 # where member_sharded's slot workers write a trace of each block (None:
@@ -437,17 +462,16 @@ def worker_traces(log_dir: str):
         _TRACE_DIR = prev
 
 
-def _run_block(fn, dev: torch.device, args, trace_dir=None):
-    """A slot worker's task: ``fn`` on its block moved to ``dev``
-    (traced into ``trace_dir`` if given); the result on the host, with
-    the launches the block made."""
+def _run_block(rank, fn, args, trace_dir=None):
+    """A slot process's task: ``fn`` on its block moved to the process's
+    device (traced into ``trace_dir`` if given); the result on the
+    host."""
     from ..profiling import device_trace
-    before = _build.launch_snapshot()
+    dev = rank.device
     with (contextlib.nullcontext() if trace_dir is None
           else device_trace(trace_dir, device=dev)):
         out = fn(*_tree_map(lambda t: t.to(dev), args))
-    out = _tree_map(lambda t: t.cpu(), out)
-    return out, _build.launch_delta(before)
+    return _tree_map(lambda t: t.cpu(), out)
 
 
 def member_sharded(fn, mesh: Mesh, processes: bool = False):
@@ -463,13 +487,14 @@ def member_sharded(fn, mesh: Mesh, processes: bool = False):
     only enqueues work (a launch) the cards of a multi-card mesh still
     run at once.  Where it is a whole fold, which ends in host fetches,
     ``processes=True`` runs each slot's block on a mesh of several cards
-    in a worker process of its own on the slot's card (spawned once and
-    kept): ``fn`` must then pickle (a module-level function or a
-    ``functools.partial`` of one), its arguments and result cross to and
-    from the host, and the workers' kernel launches are added to this
-    process's launch counters.  A member's result depends only on its
-    own inputs and its block's width, never on where its block ran, so
-    both ways give the same bits."""
+    in a worker process of its own on the slot's card (the mesh's rank
+    pool, parallel/ranks.py: spawned once and kept): ``fn`` must then
+    pickle (a module-level function or a ``functools.partial`` of one),
+    its arguments and result cross to and from the host, and the workers'
+    kernel launches are added to this process's launch counters.  A
+    member's result depends only on its own inputs, never on where its
+    block ran nor on its block's width (every per-member sum over ions is
+    ops/member_sum's), so both ways give the unsharded fold's bits."""
     if mesh.shape[ION_AXIS] != 1:
         raise ValueError(
             "member_sharded shards members only; use make_mesh(n_ions=1) "
@@ -485,18 +510,13 @@ def member_sharded(fn, mesh: Mesh, processes: bool = False):
         def block(k):
             return _tree_map(lambda t: t[k * b:(k + 1) * b], args)
         if processes and mesh_is_multi_card(mesh):
-            futs = [_slot_worker(k, dev).submit(
-                _run_block, fn, dev,
-                _tree_map(lambda t: t.cpu(), block(k)),
-                None if _TRACE_DIR is None
-                else os.path.join(_TRACE_DIR, f"slot{k}"))
-                for k, (dev,) in enumerate(mesh.devices)]
-            wait(futs)                  # every block ends before a raise
-            outs = []
-            for f in futs:
-                out, launches = f.result()
-                _build.add_launches(launches)
-                outs.append(out)
+            from .ranks import mesh_pool
+            # every block ends before a raise
+            outs = mesh_pool(mesh).run(_run_block, [
+                (fn, _tree_map(lambda t: t.cpu(), block(k)),
+                 None if _TRACE_DIR is None
+                 else os.path.join(_TRACE_DIR, f"slot{k}"))
+                for k in range(K)], collective=False)
         else:
             outs = [fn(*_tree_map(lambda t: t.to(dev), block(k)))
                     for k, (dev,) in enumerate(mesh.devices)]

@@ -9,13 +9,20 @@ parallelism axes (SURVEY.md section 2) are
   kernel; the force refresh gathers (or circulates) positions over it.
 
 The JAX package runs one program over a ``jax.sharding.Mesh`` with
-``shard_map``.  The port is single-controller too: a :class:`Mesh` is a
-``[n_ens, n_ions]`` grid of device *slots*, and one process steps every
-slot in turn.  Several slots may name the same device: on the CPU that
-stands in for the JAX package's virtual devices, and on one card it runs
-the real shard shapes of a multi-card layout.  The only collectives,
-``all_gather`` and ``ppermute`` over the ion axis, are explicit tensor
-copies between slots.
+``shard_map``.  A :class:`Mesh` is a ``[n_ens, n_ions]`` grid of device
+*slots*, run in one of two ways:
+
+* as ranks (:attr:`Mesh.as_ranks`; parallel/ranks.py), the JAX package's
+  SPMD program: one process a slot, rank ``r = k*n_ions + i`` on slot (k,
+  i)'s device, the ion axis's ``all_gather`` and ring ``ppermute`` as
+  torch.distributed collectives (NCCL on cards, gloo on the CPU).  A mesh
+  whose slots are distinct cards runs so;
+* single-controller: one process steps every slot in turn, and the
+  collectives are explicit tensor copies between slots (:func:`all_gather`,
+  :func:`ppermute`).  Several slots may name the same device: on the CPU
+  that stands in for the JAX package's virtual devices, and on one card it
+  runs the real shard shapes of a multi-card layout.  It is the reference
+  the ranks are held to, bit for bit.
 
 Single device (the reference-parity mode) is mesh (1, 1).
 """
@@ -49,9 +56,22 @@ def factor_devices(n: int, max_ion_shards: int = 4) -> Tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``[n_ens, n_ions]`` grid of device slots; ``devices[k][i]`` holds
-    member block k's ion shard i."""
+    member block k's ion shard i.  ``ranks`` chooses how it runs (see
+    :attr:`as_ranks`)."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    ranks: Optional[bool] = None
+
+    @property
+    def as_ranks(self) -> bool:
+        """Whether the mesh runs as one process a slot: ``ranks`` when it
+        is given, else exactly when the mesh has several slots and each
+        lies on a CUDA card of its own."""
+        if self.ranks is not None:
+            return self.ranks
+        devs = [d for _, _, d in self.slots()]
+        return (len(devs) > 1 and all(d.type == "cuda" for d in devs)
+                and len(set(devs)) == len(devs))
 
     @property
     def shape(self) -> dict:
@@ -71,12 +91,15 @@ class Mesh:
 
 
 def make_mesh(n_ens: Optional[int] = None, n_ions: int = 1,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None,
+              ranks: Optional[bool] = None) -> Mesh:
     """A mesh of ``n_ens x n_ions`` slots.  ``devices=None`` takes distinct
     visible cards (``cuda:0 ..``) and raises when there are fewer than
     ``n_ens * n_ions``; an explicit list (of ``torch.device``s or names)
     may repeat a device.  ``n_ens`` defaults to as many as the devices
-    fill."""
+    fill.  ``ranks=True`` runs the mesh as one process a slot even where
+    slots share a device (the CPU: gloo), ``ranks=False`` from this
+    process; by default a mesh of distinct cards runs as ranks."""
     if devices is None:
         devices = [torch.device("cuda", j)
                    for j in range(torch.cuda.device_count())]
@@ -95,33 +118,38 @@ def make_mesh(n_ens: Optional[int] = None, n_ions: int = 1,
         raise ValueError(f"mesh slots mix device types: {devices}")
     grid = tuple(tuple(devices[k * n_ions:(k + 1) * n_ions])
                  for k in range(n_ens))
-    return Mesh(grid)
+    return Mesh(grid, ranks)
 
 
-def split_grid(x: torch.Tensor, mesh: Mesh, ions: bool = True):
-    """``[E, N, ...]`` (``ions``) or ``[E, ...]`` -> the ``[K][I]`` grid of
-    slot blocks on their devices: member block k (and ion shard i)."""
+def slot_block(x: torch.Tensor, mesh: Mesh, k: int,
+               i: int) -> torch.Tensor:
+    """Slot (k, i)'s block of ``[E, N, ...]``: member block k, ion shard
+    i, a view on x's device."""
     K, I = mesh.shape[ENS_AXIS], mesh.shape[ION_AXIS]
-    E = x.shape[0]
-    if E % K or (ions and x.shape[1] % I):
+    E, N = x.shape[:2]
+    if E % K or N % I:
         raise ValueError(f"shape {tuple(x.shape)} does not divide over the "
                          f"mesh {mesh.shape}")
-    e, n = E // K, (x.shape[1] // I if ions else None)
-    return [[(x[k * e:(k + 1) * e, i * n:(i + 1) * n] if ions
-              else x[k * e:(k + 1) * e]).to(d).contiguous()
-             for i, d in enumerate(row)]
-            for k, row in enumerate(mesh.devices)]
+    e, n = E // K, N // I
+    return x[k * e:(k + 1) * e, i * n:(i + 1) * n]
+
+
+def slot_state(states: SimState, mesh: Mesh, k: int, i: int,
+               device=None) -> SimState:
+    """Slot (k, i)'s block ``[E/K, N/I, ...]`` of a fold, on ``device``
+    (the slot's own by default)."""
+    device = mesh.devices[k][i] if device is None else device
+    return SimState(**{f: slot_block(getattr(states, f), mesh, k, i)
+                       .to(device).contiguous()
+                       for f in ("R", "V", "F", "psi", "t_part")},
+                    tick=states.tick, t=states.t)
 
 
 def split_state(states: SimState, mesh: Mesh) -> List[List[SimState]]:
     """Fold ``[E, N, ...]`` -> ``[K][I]`` grid of slot states ``[E/K,
     N/I, ...]`` (the JAX package's ``state_pspec``: members over ``ens``,
     ions over ``ions``; the tick is shared)."""
-    parts = {f: split_grid(getattr(states, f), mesh)
-             for f in ("R", "V", "F", "psi", "t_part")}
-    return [[SimState(**{f: parts[f][k][i] for f in parts},
-                      tick=states.tick, t=states.t)
-             for i in range(len(row))]
+    return [[slot_state(states, mesh, k, i) for i in range(len(row))]
             for k, row in enumerate(mesh.devices)]
 
 

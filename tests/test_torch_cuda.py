@@ -1087,3 +1087,29 @@ def test_three_state_on_the_card(cuda):
     np.testing.assert_array_equal(again["V"], ens["V"])
     with pytest.raises(NotImplementedError, match="float64"):
         ts.run(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+
+
+def test_member_sum_kernel_bits_do_not_depend_on_the_width(cuda):
+    """A member's sum over its ions (ops/member_sum) has the same bits in
+    folds of 1, 8, 33 and 99 members, with and without a mask, and lies
+    within n * 2^-24 * sum |x| of a float64 sum; the float64 form within
+    n * 2^-53 * sum |x|."""
+    from mdqtplasmasims_torch.ops import member_sum as ms
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((99, NPAD), generator=g, device=cuda)
+    m = (torch.rand((99, NPAD), generator=g, device=cuda) < 0.9).float()
+    for mask in (None, m, m[0]):
+        full = ms.member_sum(x, mask)
+        for E in (1, 8, 33):
+            part = ms.member_sum(x[:E], None if mask is None
+                                 else mask if mask.dim() == 1 else mask[:E])
+            assert torch.equal(part, full[:E])
+        y = (x if mask is None else x * mask).double()
+        err = (full.double() - y.sum(-1)).abs()
+        assert (err <= NPAD * 2.0 ** -24 * y.abs().sum(-1)).all()
+    d = ms.member_sum(x.double())
+    exact = torch.tensor([float(np.sum(r, dtype=np.longdouble))
+                          for r in x.double().cpu().numpy()],
+                         dtype=torch.float64)
+    assert ((d.cpu() - exact).abs()
+            <= NPAD * 2.0 ** -53 * x.double().abs().sum(-1).cpu()).all()

@@ -192,13 +192,17 @@ def test_tool_section_on_cpu_slots(section, tmp_path):
     assert all(rep["flags"].values()), rep["flags"]
     body = rep[section]
     if section == "bitwise":
-        # (a) vs one card and the fold, (b) one 1 x 4 mesh's two forms,
-        # (c) five crossings' final state and files, (d) the tree
-        assert len(rep["flags"]) == 2 + 2 + 10 + 1
+        # (a) both modes vs one card, the ranks vs the fold, (b) one 1 x 4
+        # mesh's two forms in both modes, (c) seven crossings' final state
+        # and files, (d) the tree
+        assert len(rep["flags"]) == 3 + 4 + 14 + 1
         assert body["d_cli"]["trees"]["files"] > 0
         assert sorted(body["c_checkpoints"]["cases"]) == sorted([
             "uninterrupted_fold", "cards_to_cards", "cards_to_fold",
-            "fold_to_cards", "cards_to_cards_2x2_gather"])
+            "fold_to_cards", "cards_to_cards_single",
+            "cards_single_to_cards", "cards_to_cards_2x2_gather"])
+        assert set(body["a_ens_only"]["runs"]) == {
+            "cards", "cards_single", "one_card", "fold"}
     elif section == "share_nothing":
         assert sorted(body["families"]) == ["three_state"]
         r = body["families"]["three_state"]
@@ -208,6 +212,8 @@ def test_tool_section_on_cpu_slots(section, tmp_path):
     elif section == "production":
         assert body["cooling_mesh_ensemble"]["cards"]["n_jobs"] == 4
         assert set(body["cooling_n14000"]) == {"gather", "ring_n3l"}
+        assert set(body["cooling_n14000"]["gather"]) == {
+            "cards", "cards_single", "one_card"}
         assert len(body["frozen_fold"]["cards"]["member_fractions"]) == 4
         assert len(body["transport_fold"]["one_card"]["members"]) == 4
         assert set(body["bands"]) == {
@@ -215,9 +221,14 @@ def test_tool_section_on_cpu_slots(section, tmp_path):
             for run in ("cooling_mesh_ensemble", "cooling_n14000_gather",
                         "cooling_n14000_ring_n3l", "frozen_fold")}
     else:
-        for name in ("cooling_4x1", "cooling_1x4"):
+        for name in ("cooling_4x1", "cooling_1x4", "cooling_4x1_single",
+                     "cooling_1x4_single"):
             assert body[name]["steps"] > 0 and body[name]["window_ms"] > 0
-        assert body["cooling_4x1"]["host_ms_per_md_step"] > 0
+            assert body[name]["host_ms_per_md_step"] > 0
+        # the ranks, each traced in its own process
+        assert len(body["cooling_4x1"]["ranks"]) == 4
+        assert all(r["host_busy_ms_per_md_step"] > 0
+                   for r in body["cooling_1x4"]["ranks"].values())
         # one device: the frozen fold runs in turn here, with no worker
         # process to trace its blocks
         fz = body["frozen_fold"]
@@ -269,12 +280,14 @@ def test_archived_report_ran_on_four_h100s():
 
 def test_archived_report_every_bitwise_flag():
     """Every bitwise flag of the four-card run holds, and the tool's own
-    verdict with it: (a) against one card and the unsharded fold, (b)
-    four ion-sharded runs, (c) five crossings, (d) the CLI tree, each
-    share-nothing family and the production folds against one card."""
+    verdict with it: (a) both modes against one card, the ranks against
+    the unsharded fold, (b) four ion-sharded runs in both modes, (c)
+    seven crossings, (d) the CLI tree, each share-nothing family against
+    one card and against the unsharded fold, the production folds
+    against one card and the cooling runs' two modes."""
     rep = _report()
     f = rep["flags"]
-    assert len(f) == 2 + 4 + 10 + 1 + 4 + 2 and all(f.values()), f
+    assert len(f) == 3 + 8 + 14 + 1 + 8 + 5 and all(f.values()), f
     assert set(rep["share_nothing"]["families"]) == set(FAMILIES)
     assert rep["ok"] is True and not rep["band_misses"]
 
@@ -307,7 +320,8 @@ def test_archived_report_frozen_cards_at_once():
     assert tr["common_ms"] >= 0.5 * 1e3 * tr["untraced_s"]
     fold = rep["production"]["frozen_fold"]
     assert fold["cards"]["wall_s"] > 0 and fold["one_card"]["wall_s"] > 0
-    for name in ("cooling_4x1", "cooling_1x4"):
+    for name in ("cooling_4x1", "cooling_1x4", "cooling_4x1_single",
+                 "cooling_1x4_single"):
         t = rep["traces"][name]
         assert len(t["cards"]) >= 4 and t["host_ms_per_md_step"] > 0
 

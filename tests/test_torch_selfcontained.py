@@ -12,7 +12,9 @@
   tools (``tools/torch_validate_analysis.py``: trajectories, sections A,
   C, D and E; ``tools/torch_lccf_dispersion.py``), the physics targets
   (``tools/torch_physics_targets.py``) and the examples
-  (``examples/torch_*.py``) at a tiny size.
+  (``examples/torch_*.py``) at a tiny size, the member sums
+  (``ops/member_sum``) and a two-rank mesh over gloo
+  (``parallel/ranks``).
 * No source file of the port (nor chip_smoke.py, the port's tools,
   tools/torch_*.py, or its examples, examples/torch_*.py) has an import
   statement naming either.
@@ -212,6 +214,20 @@ with tempfile.TemporaryDirectory() as tmp:
                                        tmax=0.16, sample_freq=4,
                                        tpump_seconds=5e-8)
     assert len(table["rows"]) == 5, table
+# the member sums and the rank mesh are among ``names``; drive them too
+new = {"ops.member_sum", "parallel.ranks"}
+assert {"mdqtplasmasims_torch." + m for m in new} <= set(names), names
+from mdqtplasmasims_torch.ops.member_sum import ion_mean, member_sum
+from mdqtplasmasims_torch.parallel.mesh import make_mesh
+from mdqtplasmasims_torch.parallel.ranks import stop_ranks
+x = torch.randn(3, 40)
+assert torch.equal(member_sum(x), torch.sum(x, dim=-1))
+assert torch.equal(ion_mean(x, dim=-1), torch.mean(x, dim=-1))
+mesh = make_mesh(1, 2, devices=["cpu"] * 2, ranks=True)
+cfg = CoolingConfig(n0=32, tmax=0.004, sample_freq=2)
+final, outs = run_ensemble(cfg, 1, mesh=mesh)
+assert outs["t"].shape == (1, 1), outs["t"].shape
+stop_ranks()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mdqtplasmasims_tpu"))
 assert not bad, bad

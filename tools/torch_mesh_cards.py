@@ -9,7 +9,12 @@ to the same call with its slots on one card.
     python tools/torch_mesh_cards.py [--out DIR] [--sections S ...]
 
 Every mesh here has four slots, slot j on card ``j mod n_cards``: on four
-cards each slot has a card of its own.  The sections, in order:
+cards each slot has a card of its own.  A cooling mesh on the cards runs
+in two modes: ``cards``, as ranks (one process a slot, the ion axis's
+collectives over NCCL; parallel/ranks.py, the default for distinct
+cards), and ``cards_single``, every slot stepped from this process (the
+single controller, ``make_mesh(ranks=False)``); both are held to the same
+call with every slot on card 0, bit for bit.  The sections, in order:
 
 - ``bitwise``: the cooling mesh (a) ens-only ``4 x 1`` (8 jobs, N0 =
   3500, tmax = 1); (b) ion-sharded ``2 x 2`` (2 jobs, N0 = 3500) and
@@ -24,12 +29,14 @@ cards each slot has a card of its own.  The sections, in order:
   and (d) to the unsharded run as well: the force kernels' column split
   (``ops.yukawa.pair_split``) does not depend on a fold's width, so a
   member has the same bits in a slot's block and in the whole fold.
+  (c) also crosses between the two modes.
 - ``share_nothing``: each share-nothing family (frozen tagging, the
   three-state toy, transport, MC tagging) at a cut depth as a ``4 x 1``
-  fold on the cards (``member_sharded``: a worker process a slot for the
-  folds that end in host fetches, the toy's single launches in turn),
-  against the same fold on one card, bit for bit, and against the
-  unsharded fold (where they differ: ``unsharded_fold``).
+  fold on the cards (``member_sharded``: each slot's block whole in a
+  process of its card, the mesh's rank pool), against the same fold on
+  one card and against the unsharded fold, bit for bit (every per-member
+  sum over ions is ops/member_sum's, whose bits do not depend on the
+  fold's width; where they differ: ``unsharded_fold``).
 - ``production``: ``tools/torch_soak.py``'s ``cooling_mesh_ensemble``
   (32 jobs, 8 a slot, N0 = 3500, tmax = 30, trees and checkpoints every
   75 segments), ``cooling_ion_mesh`` (the ``cooling_n14000`` run on a
@@ -40,14 +47,18 @@ cards each slot has a card of its own.  The sections, in order:
   held to the bands of
   ``tests/test_physics_targets.py::TestFullScaleSoak`` against the
   port's archived one-card ``cooling`` entry
-  (``artifacts/soak_torch/summary.json``).
+  (``artifacts/soak_torch/summary.json``); the cooling runs also as
+  ``cards_single``, each metric bit for bit the ranks'.
 - ``traces``: ``profiling.device_trace`` over 200 MD steps of the
   ``4 x 1`` (32 jobs) and ``1 x 4`` (N0 = 14000, gather) cooling meshes'
-  production loop (``run_compiled_sharded``) and over a frozen fold of 8
-  cut to tmax = 2 on the cards: per card its busy share, first and last
-  operation and top operations, the host ms per MD step, the host's waits
-  for a card per MD step; for the frozen fold the window in which all
-  cards worked at once.
+  production loop (``run_compiled_sharded``), as ranks (each rank traced
+  in its process, ``worker_traces``, the traces merged on the wall clock:
+  ``cooling_4x1``, ``cooling_1x4``) and from one process
+  (``cooling_4x1_single``, ``cooling_1x4_single``), and over a frozen
+  fold of 8 cut to tmax = 2 on the cards: per card its busy share, first
+  and last operation and top operations, the host ms per MD step (per
+  rank for the ranks), the host's waits for a card per MD step; for the
+  frozen fold the window in which all cards worked at once.
 
 ``report.json`` (in ``--out``, default ``artifacts/mesh_cards_torch``) is
 written after every section; it holds every card's ``nvidia-smi`` name
@@ -150,6 +161,17 @@ def slot_devices(cards, n: int = SLOTS) -> list:
     return [cards[j % len(cards)] for j in range(n)]
 
 
+#: the two modes of a mesh on the cards, by ``make_mesh``'s ``ranks``
+#: (ranks asked for outright, so that on four CPU slots, the tests' form,
+#: they run as gloo ranks)
+MODES = dict(cards=True, cards_single=False)
+
+
+def card_mesh(cards, K, I, mode):
+    from mdqtplasmasims_torch.parallel.mesh import make_mesh
+    return make_mesh(K, I, slot_devices(cards, K * I), ranks=MODES[mode])
+
+
 def same(a, b) -> bool:
     """Bit for bit equality of two results (arrays by their bytes, dicts,
     lists, tuples and NamedTuples item by item)."""
@@ -231,7 +253,9 @@ def ens_only(cards, sizes) -> dict:
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
     home, s = cards[0], sizes["ens"]
     cfg = _cooling_cfg(**s["cfg"])
-    kinds = dict(cards=dict(mesh=make_mesh(4, 1, slot_devices(cards))),
+    kinds = dict(cards=dict(mesh=card_mesh(cards, 4, 1, "cards")),
+                 cards_single=dict(mesh=card_mesh(cards, 4, 1,
+                                                  "cards_single")),
                  one_card=dict(mesh=make_mesh(4, 1, [home] * SLOTS)),
                  fold=dict(device=home))
     runs, rec = {}, {}
@@ -244,6 +268,8 @@ def ens_only(cards, sizes) -> dict:
                 runs=rec,
                 bitwise_cards_vs_one_card=same(runs["cards"],
                                                runs["one_card"]),
+                bitwise_cards_single_vs_one_card=same(runs["cards_single"],
+                                                      runs["one_card"]),
                 bitwise_cards_vs_fold=same(runs["cards"], runs["fold"]))
 
 
@@ -258,9 +284,10 @@ def ion_sharded(cards, sizes) -> dict:
         cfg = _cooling_cfg(**s["cfg"])
         for form in ("gather", "ring_n3l"):
             runs, rec = {}, {}
-            for name, devs in (("cards", slot_devices(cards, K * I)),
-                               ("one_card", [home] * (K * I))):
-                mesh = make_mesh(K, I, devs)
+            for name, mesh in (
+                    ("cards", card_mesh(cards, K, I, "cards")),
+                    ("cards_single", card_mesh(cards, K, I, "cards_single")),
+                    ("one_card", make_mesh(K, I, [home] * (K * I)))):
                 res, wall, launches = soak._timed(home, lambda mesh=mesh: (
                     run_ensemble(cfg, s["n_jobs"], seed=SEED, mesh=mesh,
                                  ion_forces=form)))
@@ -271,7 +298,9 @@ def ion_sharded(cards, sizes) -> dict:
                             ion_forces=form),
                 runs=rec,
                 bitwise_cards_vs_one_card=same(runs["cards"],
-                                               runs["one_card"]))
+                                               runs["one_card"]),
+                bitwise_cards_single_vs_one_card=same(runs["cards_single"],
+                                                      runs["one_card"]))
     return out
 
 
@@ -281,13 +310,16 @@ def checkpoints(cards, sizes, work) -> dict:
     one-card fold and resumed on the cards.  Each crossing is held to the
     uninterrupted run on the cards (final state, and every file the two
     trees both hold), as is the uninterrupted fold; the same for a ``2 x
-    2`` gather mesh written and resumed on the cards."""
+    2`` gather mesh written and resumed on the cards, and for windows
+    crossing between the two modes on the cards."""
     from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
     home, s = cards[0], sizes["resume"]
     base = _cooling_cfg(**s["cfg"])
     half = dataclasses.replace(base, tmax=base.tmax * s["half"])
-    meshes = {"cards": make_mesh(4, 1, slot_devices(cards)), "fold": None}
+    meshes = {"cards": card_mesh(cards, 4, 1, "cards"),
+              "cards_single": card_mesh(cards, 4, 1, "cards_single"),
+              "fold": None}
     root = os.path.join(work, "resume")
 
     def d(name):
@@ -312,22 +344,26 @@ def checkpoints(cards, sizes, work) -> dict:
     E, E2 = s["n_jobs"], s["ions_jobs"]
     ends = {}
     for layout in meshes:
-        d(f"full_{layout}")
-        ends[layout] = go(base, f"full_{layout}", E, meshes[layout])
+        if layout != "cards_single":
+            d(f"full_{layout}")
+            ends[layout] = go(base, f"full_{layout}", E, meshes[layout])
         d(f"half_{layout}")
         go(half, f"half_{layout}", E, meshes[layout])
     out = {"uninterrupted_fold": check("full_fold", "full_cards",
                                        ends["fold"], final(ends["cards"]))}
     # name: (written by, resumed on)
-    for name, (src, dst) in (("cards_to_cards", ("cards", "cards")),
-                             ("cards_to_fold", ("cards", "fold")),
-                             ("fold_to_cards", ("fold", "cards"))):
+    for name, (src, dst) in (
+            ("cards_to_cards", ("cards", "cards")),
+            ("cards_to_fold", ("cards", "fold")),
+            ("fold_to_cards", ("fold", "cards")),
+            ("cards_to_cards_single", ("cards", "cards_single")),
+            ("cards_single_to_cards", ("cards_single", "cards"))):
         shutil.copytree(os.path.join(root, f"half_{src}"), d(name))
         res, wall, launches = soak._timed(home, lambda name=name, dst=dst: go(
             base, name, E, meshes[dst], resume=True))
         out[name] = dict(check(name, "full_cards", res, final(ends["cards"])),
                          wall_s=wall, launches=launches)
-    m22 = make_mesh(2, 2, slot_devices(cards))
+    m22 = card_mesh(cards, 2, 2, "cards")
     ref22 = final(go(base, d("full_2x2"), E2, m22))
     go(half, d("cards_2x2"), E2, m22)
     res = go(base, "cards_2x2", E2, m22, resume=True)
@@ -386,13 +422,10 @@ def _family(name):
 
 def share_nothing_section(cards, sizes, work, device) -> dict:
     """Each family's ``run_ensemble`` as a ``4 x 1`` fold on the cards
-    against the same fold on one card, bit for bit; and where (and by how
-    much) it differs from the unsharded fold (``unsharded_fold``: on a
-    card a slot's block takes its members' sums over ions with torch's
-    reductions over its own ``[E, n]`` tensors, whose thread layout
-    follows E, so the reduced outputs can differ in the last bits).
-    The slots' worker processes are started first, their start timed
-    apart (``workers_start_s``)."""
+    against the same fold on one card and against the unsharded fold, bit
+    for bit (``unsharded_fold`` lists where, and by how much, they
+    differ).  The slots' worker processes are started first, their start
+    timed apart (``workers_start_s``)."""
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
     from mdqtplasmasims_torch.parallel.ensemble import start_workers
     home, out = cards[0], {}
@@ -414,6 +447,7 @@ def share_nothing_section(cards, sizes, work, device) -> dict:
         out[name] = dict(config=dict(over, n_jobs=n_jobs), runs=rec,
                          bitwise_cards_vs_one_card=same(runs["cards"],
                                                         runs["one_card"]),
+                         bitwise_cards_vs_fold=not diffs,
                          unsharded_fold=dict(equal=not diffs,
                                              differ=diffs[:20]))
     return dict(workers_start_s=workers_s, families=out)
@@ -444,17 +478,22 @@ def production_section(cards, sizes, work, device) -> dict:
 
     def kinds(run):
         return ("cards", "one_card") if run in p["one_card"] else ("cards",)
+
+    def cooling_kinds(run):     # the cooling meshes in both modes
+        return ("cards", "cards_single") + kinds(run)[1:]
+    on["cards_single"] = on["cards"]
     out = dict(cooling_mesh_ensemble={}, cooling_n14000={}, frozen_fold={},
                transport_fold={})
-    for kind in kinds("cooling_mesh_ensemble"):
+    for kind in cooling_kinds("cooling_mesh_ensemble"):
         out["cooling_mesh_ensemble"][kind] = soak.soak_cooling_mesh_ensemble(
             work, device, devices=on[kind], jobs_per_slot=p["jobs_per_slot"],
-            **p["cooling_mesh"])
+            ranks=MODES.get(kind), **p["cooling_mesh"])
     for form in ("gather", "ring_n3l"):
         out["cooling_n14000"][form] = {
             kind: soak.cooling_ion_mesh(work, device, devices=on[kind],
-                                        ion_forces=form, **p["n14000"])
-            for kind in kinds("cooling_n14000")}
+                                        ion_forces=form,
+                                        ranks=MODES.get(kind), **p["n14000"])
+            for kind in cooling_kinds("cooling_n14000")}
     for kind in kinds("frozen_fold"):
         out["frozen_fold"][kind] = soak.frozen_fold(
             work, device, p["frozen_jobs"], devices=on[kind], **p["frozen"])
@@ -483,6 +522,19 @@ def production_section(cards, sizes, work, device) -> dict:
             value=fr, limit=TAG_FRACTION,
             ok=all(TAG_FRACTION[0] < x < TAG_FRACTION[1] for x in fr)))
     out["bands"] = bands
+    # the two modes on the cards: every metric but the clocks and counts
+    clocks = {"wall_s", "agg_updates_per_sec", "launches", "slots",
+              "n_devices"}
+
+    def metrics(m):
+        return {k: v for k, v in m.items() if k not in clocks}
+    out["bitwise_cooling_mesh_ensemble_cards_vs_cards_single"] = same(
+        metrics(out["cooling_mesh_ensemble"]["cards"]),
+        metrics(out["cooling_mesh_ensemble"]["cards_single"]))
+    for form in ("gather", "ring_n3l"):
+        out[f"bitwise_cooling_n14000_{form}_cards_vs_cards_single"] = same(
+            metrics(out["cooling_n14000"][form]["cards"]),
+            metrics(out["cooling_n14000"][form]["cards_single"]))
     out["workers_start_s"] = workers_s
     out["archived_cooling"] = {k: ref[k] for k in (
         "dih_peak_t", "dih_peak_ekin_x", "cooling_ratio", "pop_s", "wall_s")}
@@ -500,15 +552,16 @@ def production_section(cards, sizes, work, device) -> dict:
 # ---- section 4: traces
 
 def cooling_mesh_trace(cards, K, I, n_jobs, steps, ion_forces="gather",
-                       **over) -> dict:
+                       mode="cards", **over) -> dict:
     """``profiling.device_trace`` over ``steps`` MD steps (a sample every
     40) of ``run_compiled_sharded``, the production loop of
-    ``run_ensemble(mesh=)``, on a ``K x I`` mesh on the cards."""
+    ``run_ensemble(mesh=)``, on a ``K x I`` mesh on the cards in ``mode``
+    (:data:`MODES`): as ranks, each rank traced in its own process
+    (:func:`rank_trace`); from one process, one trace."""
     from mdqtplasmasims_torch.core.scheduler import uniform_rolls
     from mdqtplasmasims_torch.experiments import laser_cooling as lc
-    from mdqtplasmasims_torch.parallel.mesh import make_mesh
     home = cards[0]
-    mesh = make_mesh(K, I, slot_devices(cards, K * I))
+    mesh = card_mesh(cards, K, I, mode)
     cfg = lc.CoolingConfig(**over)
     gen = torch.Generator(device=home).manual_seed(1)
     rng = lc._use_internal_rng(home, None)
@@ -517,12 +570,17 @@ def cooling_mesh_trace(cards, K, I, n_jobs, steps, ion_forces="gather",
         sched.seed = torch.tensor([1], dtype=torch.int32, device=home)
     states = lc.member_states(cfg, n_jobs, 1, home)
     n_seg = max(1, steps // cfg.sample_freq)
-    tr = soak._trace(home, lambda: lc.run_compiled_sharded(
-        cfg, sched, mesh, states, n_seg, ion_forces=ion_forces),
-        n_seg * cfg.sample_freq)
-    return dict(mesh=f"{K}x{I}", n_jobs=n_jobs, n0=cfg.n0,
-                ion_forces=ion_forces,
-                host_ms_per_md_step=tr["untraced_ms_per_step"], **tr)
+    n_md = n_seg * cfg.sample_freq
+
+    def run():
+        return lc.run_compiled_sharded(cfg, sched, mesh, states, n_seg,
+                                       ion_forces=ion_forces)
+    head = dict(mesh=f"{K}x{I}", mode=mode, n_jobs=n_jobs, n0=cfg.n0,
+                ion_forces=ion_forces)
+    if mesh.as_ranks:
+        return dict(head, **rank_trace(cards, run, n_md))
+    tr = soak._trace(home, run, n_md)
+    return dict(head, host_ms_per_md_step=tr["untraced_ms_per_step"], **tr)
 
 
 def wall_clock_events(path: str) -> list:
@@ -536,59 +594,85 @@ def wall_clock_events(path: str) -> list:
             if e.get("ph") == "X" and "dur" in e]
 
 
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def rank_trace(cards, fn, steps: int) -> dict:
+    """``fn()`` untraced (``untraced_s``, and its ``host_ms_per_md_step``:
+    the wall per MD step), then traced in every slot process
+    (``worker_traces``; a first traced call starts the processes'
+    profilers and is not kept), the processes' traces merged on the wall
+    clock: ``soak.trace_breakdown`` of them all (``cards``: each card's
+    busy share), ``window_ms`` the first event to the last, and per rank
+    (``ranks``) its host's busy ms per MD step (the union of its host
+    events) and its card's busy share of the window.  ``traced_wall_ms``,
+    the host clock around the traced call, also holds the trace export."""
+    from mdqtplasmasims_torch.parallel.ensemble import worker_traces
+    _, untraced, launches = soak._timed(cards[0], fn)
+    with tempfile.TemporaryDirectory() as tmp:
+        with worker_traces(os.path.join(tmp, "warm")):
+            fn()
+        run_dir = os.path.join(tmp, "run")
+        soak.sync_cards(cards[0])
+        t0 = time.time_ns()
+        with worker_traces(run_dir):
+            fn()
+        soak.sync_cards(cards[0])
+        wall_us = (time.time_ns() - t0) / 1e3
+        per_rank = {d: wall_clock_events(os.path.join(run_dir, d,
+                                                      "trace.json"))
+                    for d in (sorted(os.listdir(run_dir))
+                              if os.path.isdir(run_dir) else [])}
+    events = [e for evs in per_rank.values() for e in evs]
+    tr = soak.trace_breakdown(events, steps)
+    window = tr["window_ms"] * 1e3
+    ranks = {}
+    for d, evs in per_rank.items():
+        host = [e for e in evs if e.get("cat") not in _DEVICE_CATS]
+        dev = [e for e in evs if e.get("cat") in _DEVICE_CATS]
+        ranks[d] = dict(
+            host_busy_ms_per_md_step=soak._union_us(host) / 1e3 / steps,
+            card_busy_share=(soak._union_us(dev) / window if window
+                             else 0.0))
+    return dict(untraced_s=untraced, launches=launches,
+                host_ms_per_md_step=1e3 * untraced / steps,
+                traced_wall_ms=wall_us / 1e3, ranks=ranks, **tr)
+
+
 def frozen_trace(cards, n_jobs, over) -> dict:
     """The frozen fold of ``n_jobs`` on the ``4 x 1`` mesh of the cards,
-    each slot's block traced in its worker process (``worker_traces``),
-    the traces merged on the wall clock; a first traced fold starts the
-    workers' profilers and is not kept.  ``at_once``: every card ran the
-    fold's kernels in one common window of at least
-    :data:`COMMON_SHARE` of the traced fold's span (``window_ms``, the
-    workers' first event to their last).  ``traced_wall_ms``, the host
-    clock around the traced call, also holds the workers' trace export
-    and is not the fold's wall; ``untraced_s`` is."""
+    each slot's block traced in its worker process (:func:`rank_trace`).
+    ``at_once``: every card ran the fold's kernels in one common window
+    of at least :data:`COMMON_SHARE` of the traced fold's span
+    (``window_ms``, the workers' first event to their last)."""
     from mdqtplasmasims_torch.experiments import frozen_tagging as ft
-    from mdqtplasmasims_torch.parallel.ensemble import (start_workers,
-                                                        worker_traces)
+    from mdqtplasmasims_torch.parallel.ensemble import start_workers
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
     cfg = soak.frozen_config("422linear", None, **over)
     mesh = make_mesh(4, 1, slot_devices(cards))
     workers_s = start_workers(mesh)
     n_md = int(round(cfg.tmax / cfg.timestep))
-
-    def fold():
-        return ft.run_ensemble(cfg, n_jobs, seed=1, mesh=mesh)
-    _, untraced, launches = soak._timed(cards[0], fold)
-    with tempfile.TemporaryDirectory() as tmp:
-        with worker_traces(os.path.join(tmp, "warm")):
-            fold()
-        run_dir = os.path.join(tmp, "run")
-        soak.sync_cards(cards[0])
-        t0 = time.time_ns()
-        with worker_traces(run_dir):
-            fold()
-        soak.sync_cards(cards[0])
-        wall_us = (time.time_ns() - t0) / 1e3
-        events = [e for d in (sorted(os.listdir(run_dir))
-                              if os.path.isdir(run_dir) else [])
-                  for e in wall_clock_events(os.path.join(run_dir, d,
-                                                          "trace.json"))]
-    tr = soak.trace_breakdown(events, n_md)
+    tr = rank_trace(cards, lambda: ft.run_ensemble(cfg, n_jobs, seed=1,
+                                                   mesh=mesh), n_md)
     n_cards = len({str(d) for d in cards})
     return dict(n0=cfg.n0, tstart=cfg.tstart, tmax=cfg.tmax, n_jobs=n_jobs,
-                workers_start_s=workers_s, untraced_s=untraced,
-                launches=launches, traced_wall_ms=wall_us / 1e3, **tr,
+                workers_start_s=workers_s, **tr,
                 at_once=bool(len(tr["cards"]) == n_cards
                              and tr["common_share"] >= COMMON_SHARE))
 
 
 def traces_section(cards, sizes, work, device) -> dict:
     t = sizes["traces"]
-    return dict(
-        cooling_4x1=cooling_mesh_trace(cards, 4, 1, t["ens"]["n_jobs"],
-                                       t["steps"], **t["ens"]["cfg"]),
-        cooling_1x4=cooling_mesh_trace(cards, 1, 4, t["ions"]["n_jobs"],
-                                       t["steps"], **t["ions"]["cfg"]),
-        frozen_fold=frozen_trace(cards, t["frozen_jobs"], t["frozen"]))
+    out = {}
+    for mode, suffix in (("cards", ""), ("cards_single", "_single")):
+        out[f"cooling_4x1{suffix}"] = cooling_mesh_trace(
+            cards, 4, 1, t["ens"]["n_jobs"], t["steps"], mode=mode,
+            **t["ens"]["cfg"])
+        out[f"cooling_1x4{suffix}"] = cooling_mesh_trace(
+            cards, 1, 4, t["ions"]["n_jobs"], t["steps"], mode=mode,
+            **t["ions"]["cfg"])
+    out["frozen_fold"] = frozen_trace(cards, t["frozen_jobs"], t["frozen"])
+    return out
 
 
 SECTIONS = dict(bitwise=bitwise_section, share_nothing=share_nothing_section,

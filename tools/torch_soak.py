@@ -301,16 +301,16 @@ def _slots(device, devices) -> list:
 
 
 def soak_cooling_mesh_ensemble(out_dir, device="cuda", devices=None,
-                               jobs_per_slot=8, **over):
+                               jobs_per_slot=8, ranks=None, **over):
     """``run_ensemble(mesh=make_mesh(len(devices), 1, devices))`` with
     ``jobs_per_slot`` members per slot, trees and periodic checkpoints
-    (tools/soak.py:259-285); ``devices`` as :func:`_slots`.  The trees
-    are removed after the run (the metrics come from its outputs; 32
-    members' trees are some 2.3 GiB)."""
+    (tools/soak.py:259-285); ``devices`` as :func:`_slots`, ``ranks`` as
+    ``make_mesh``'s.  The trees are removed after the run (the metrics
+    come from its outputs; 32 members' trees are some 2.3 GiB)."""
     from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
     devices = _slots(device, devices)
-    mesh = make_mesh(len(devices), 1, devices=devices)
+    mesh = make_mesh(len(devices), 1, devices=devices, ranks=ranks)
     base = _fresh(out_dir, "cooling_mesh")
     cfg = cooling_config(base, **dict(dict(
         checkpoint_every_segments=75), **over))
@@ -326,16 +326,16 @@ def soak_cooling_mesh_ensemble(out_dir, device="cuda", devices=None,
 
 
 def cooling_ion_mesh(out_dir, device="cuda", devices=None,
-                     ion_forces="gather", **over):
+                     ion_forces="gather", ranks=None, **over):
     """The ``cooling_n14000`` run as one member whose ions are sharded over
     a ``1 x len(devices)`` mesh (``run_ensemble(cfg, 1, mesh=...,
     ion_forces=...)``, kernels E or C and F), with its tree; its
     :func:`cooling_metrics` as ``cooling_n14000``'s; ``devices`` as
-    :func:`_slots`."""
+    :func:`_slots`, ``ranks`` as ``make_mesh``'s."""
     from mdqtplasmasims_torch.experiments.laser_cooling import run_ensemble
     from mdqtplasmasims_torch.parallel.mesh import make_mesh
     devices = _slots(device, devices)
-    mesh = make_mesh(1, len(devices), devices=devices)
+    mesh = make_mesh(1, len(devices), devices=devices, ranks=ranks)
     base = _fresh(out_dir, f"cooling_ions_{ion_forces}")
     cfg = cooling_config(base, **dict(dict(n0=14000), **over))
     (final, outs), wall, launches = _timed(
