@@ -247,9 +247,17 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      mesh (world size 1) bitwise equal to the unsharded fold of 2 with
      the same launches; with two or more visible cards a 1 x 2 gather and
      ring-N3L mesh of distinct cards, one rank a card, bitwise equal to
-     the same mesh with both slots on cuda:0 from one process.
+     the same mesh with both slots on cuda:0 from one process;
+ 36. the validation matrix against the C++ programs
+     (``validate_all_path``): ``tools/torch_validate_all.py --only
+     frozen_pooled_422,flagship`` at the JAX tools' configurations, pool
+     sizes and seeds (the frozen fold of 8 at N0=600, the flagship fold of
+     3 at N0=256), each step's launches exact, its gates against the
+     archived C++ statistics; a gated miss raises unless the archived
+     report (``artifacts/validate_all_torch/report.json``) records the
+     same miss as a ROADMAP.md Queue 3 fault.
 
-Phases 7, 10, 11, 12, 17, 19-27 and 30-35 each set the launch counts to 0
+Phases 7, 10, 11, 12, 17, 19-27 and 30-36 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
@@ -265,8 +273,9 @@ bound, ``e99``; A, B'rng and D with phase 32's laser-free flagship's,
 ``n216`` and ``n512``; every form phase 33 runs with its targets' and
 its examples' counts, ``launches_physics_targets`` and
 ``launches_examples``, every form phase 34 runs with its count,
-``launches_mesh_cards``, and every form phase 35 runs with the ranks'
-count, ``launches_ranks``), each with its bound
+``launches_mesh_cards``, every form phase 35 runs with the ranks'
+count, ``launches_ranks``, and every form phase 36 runs with its count,
+``launches_validate_all``), each with its bound
 (the larger of its operations over the card's FP32 peak and its bytes
 over the memory rate, counted from this run's inputs: :func:`bound`)
 and two readings of its time (``ms``: device time; ``idle_card_ms``: from
@@ -4028,6 +4037,133 @@ def rank_mesh_path(torch, card):
     return total
 
 
+# phase 36: two steps of the validation matrix at full configuration and k
+VALIDATE_ALL_STEPS = ("frozen_pooled_422", "flagship")
+# each step is deterministic on the card (the same bits in every run so
+# far); its pool and gate values are held to the archived report's within
+# this relative tolerance (plus 1e-12 absolute)
+VALIDATE_ALL_RTOL = 1e-6
+
+
+def flat_numbers(x, path: str = "") -> dict:
+    """Every number of a nested report entry by its path (``/a/0/b``)."""
+    if isinstance(x, dict):
+        return {p: v for k in x for p, v in
+                flat_numbers(x[k], f"{path}/{k}").items()}
+    if isinstance(x, list):
+        return {p: v for i, e in enumerate(x) for p, v in
+                flat_numbers(e, f"{path}/{i}").items()}
+    if isinstance(x, (int, float)) and not isinstance(x, bool):
+        return {path: float(x)}
+    return {}
+
+
+def validate_all_drift(entry: dict, kept: dict) -> tuple:
+    """The largest relative difference of ``entry``'s pool and gate values
+    from the archived entry ``kept``'s, with its path; raises when the two
+    do not hold the same numbers or one differs beyond
+    :data:`VALIDATE_ALL_RTOL`."""
+    new, old = (flat_numbers(dict(port=e["port"],
+                                  gates={g["name"]: g["value"]
+                                         for g in e["gates"]}))
+                for e in (entry, kept))
+    if new.keys() != old.keys():
+        raise SystemExit(f"phase 36: {entry['name']}'s pool and gates are "
+                         f"not the archived report's: {sorted(new)} vs "
+                         f"{sorted(old)}")
+    worst = (0.0, None)
+    for p, v in new.items():
+        d = abs(v - old[p])
+        if d > VALIDATE_ALL_RTOL * abs(old[p]) + 1e-12:
+            raise SystemExit(f"phase 36: {entry['name']}{p} = {v!r}, the "
+                             f"archived report has {old[p]!r}")
+        worst = max(worst, (d / max(abs(old[p]), 1e-30), p),
+                    key=lambda w: w[0])
+    return worst
+
+
+def validate_all_counts(torch, name: str, tva) -> dict:
+    """The exact launches of step ``name`` of ``tools/torch_validate_all.py``:
+    the frozen fold of 8 (C once per MD step and once at the start, G
+    twice plus once per output block, B's S = 5 form once per MD step of
+    the pump window) or the flagship fold of 3 (C once per MD step, B'rng
+    once per MD step and once per sample, G once per sample and once at
+    the start)."""
+    from mdqtplasmasims_torch.experiments import frozen_tagging as ft
+    from mdqtplasmasims_torch.experiments.laser_cooling import CoolingConfig
+    if name == "frozen_pooled_422":
+        cfg = ft.FrozenTagConfig(variant="422linear", **tva.FROZEN)
+        _, n_md, segs, _ = ft._phase_b_plan(cfg)
+        return dict(yukawa_forces_batched=n_md + 1,
+                    yukawa_forces_potential_batched=len(segs) + 2,
+                    fused_ticks_s5=frozen_pump_steps(torch, cfg)[0])
+    cfg = CoolingConfig(**tva.FLAGSHIP)
+    n_md = int(round(cfg.tmax / cfg.timestep))
+    samples = n_md // cfg.sample_freq
+    return dict(yukawa_forces_batched=n_md, fused_ticks_rng=n_md + samples,
+                yukawa_forces_potential_batched=samples + 1)
+
+
+def validate_all_path(torch, card):
+    """Phase 36: ``tools/torch_validate_all.py``'s steps
+    :data:`VALIDATE_ALL_STEPS` on the card at the JAX tools' own
+    configurations, pool sizes and seeds, into a scratch report: each
+    step's launches exact (:func:`validate_all_counts`), its reference
+    numbers those of the archived logs, its statistics finite, its gates
+    evaluated against the C++ programs' pooled statistics, and its pool
+    and gate values those of the archived report
+    (:func:`validate_all_drift`).  A gated miss raises unless the archived
+    report records the same gate of the same step as missed, with the
+    ROADMAP.md Queue 3 fault it is.  Returns the launches summed by
+    form."""
+    import math
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import torch_validate_all as tva
+    with open(os.path.join(tva.OUT, "report.json")) as f:
+        archived = {r["name"]: r for r in json.load(f)["steps"]}
+    total, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rep = tva.run(tva.parse_args(
+            ["--only", ",".join(VALIDATE_ALL_STEPS), "--out", tmp]))
+    for entry in rep["steps"]:
+        name = entry["name"]
+        walls[name] = entry["wall_s"]
+        launches = dict(entry["launches"])
+        msum = launches.pop("member_sum", 0)
+        counts = dict.fromkeys(read_counts(), 0) | launches
+        want_counts(counts, f"validate_all {name}",
+                    **validate_all_counts(torch, name, tva))
+        add_counts(total, dict(counts, member_sum=msum))
+        if entry["reference"] != tva.parse_step(name):
+            raise SystemExit(f"phase 36: {name}'s reference numbers are not "
+                             "the archived logs'")
+        values = [g["value"] for g in entry["gates"]]
+        if not values or not all(math.isfinite(v) for v in values):
+            raise SystemExit(f"phase 36: {name}'s gates are not finite: "
+                             f"{entry['gates']}")
+        log(f"[validate-all] {name}: k={entry['k']} ({entry['seeds']}), "
+            f"{entry['wall_s']:.3f} s ({card}); launches {launches}, member "
+            f"sums {msum}; " + "; ".join(
+                f"{g['name']} {g['value']:.4g} ({g['op']} {g['limit']:g}: "
+                f"{'ok' if g['ok'] else 'MISS'})" for g in entry["gates"]))
+        if name not in archived:
+            raise SystemExit(f"phase 36: the archived report has no {name}")
+        kept = {g["name"]: g for g in archived[name]["gates"]}
+        faults = [g["name"] for g in entry["gates"] if not g["ok"]
+                  and not (g["name"] in kept and not kept[g["name"]]["ok"]
+                           and kept[g["name"]].get("fault"))]
+        if faults:
+            raise SystemExit(f"phase 36: {name} misses {faults}, which the "
+                             "archived report does not record as a fault")
+        rel, where = validate_all_drift(entry, archived[name])
+        log(f"[validate-all] {name}: pool and gates equal the archived "
+            f"report's within {VALIDATE_ALL_RTOL:g} relative (largest "
+            f"{rel:.3g}{f' at {where}' if where else ''})")
+    log(f"[validate-all] walls (s, {card}): {walls}")
+    return total
+
+
 def glob_all(root, name):
     return [os.path.join(d, name) for d, _, fs in os.walk(root) if name in fs]
 
@@ -4169,6 +4305,11 @@ def main() -> int:
     rank_counts = rank_mesh_path(torch, smi)
     log(f"[env] phase 35 (the mesh as ranks over NCCL) took "
         f"{time.perf_counter() - t_ranks:.1f} s")
+    t_val = time.perf_counter()
+    validate_counts = validate_all_path(torch, smi)
+    log(f"[env] phase 36 (the validation matrix's "
+        f"{', '.join(VALIDATE_ALL_STEPS)}) took "
+        f"{time.perf_counter() - t_val:.1f} s")
 
     log(f"[env] card: {smi}")
     src_f = "mdqtplasmasims_torch/csrc/yukawa_forces.cu"
@@ -4297,7 +4438,8 @@ def main() -> int:
         for key, counts in (("launches_physics_targets", target_counts),
                             ("launches_examples", example_counts),
                             ("launches_mesh_cards", mesh_cards_counts),
-                            ("launches_ranks", rank_counts)):
+                            ("launches_ranks", rank_counts),
+                            ("launches_validate_all", validate_counts)):
             if counts.get(k["name"]):
                 k[key] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,10 @@
   tools (``tools/torch_validate_analysis.py``: trajectories, sections A,
   C, D and E; ``tools/torch_lccf_dispersion.py``), the physics targets
   (``tools/torch_physics_targets.py``) and the examples
-  (``examples/torch_*.py``) at a tiny size, the member sums
-  (``ops/member_sum``) and a two-rank mesh over gloo
+  (``examples/torch_*.py``) at a tiny size, the validation matrix
+  against the C++ programs (``tools/torch_validate_all.py``, two steps at
+  ``--tiny``; ``tools/torch_transport_replay.py`` imported), the member
+  sums (``ops/member_sum``) and a two-rank mesh over gloo
   (``parallel/ranks``).
 * No source file of the port (nor chip_smoke.py, the port's tools,
   tools/torch_*.py, or its examples, examples/torch_*.py) has an import
@@ -214,6 +216,18 @@ with tempfile.TemporaryDirectory() as tmp:
                                        tmax=0.16, sample_freq=4,
                                        tpump_seconds=5e-8)
     assert len(table["rows"]) == 5, table
+# the validation matrix against the C++ programs
+# (tools/torch_validate_all.py) at a tiny size
+import json
+import torch_validate_all
+with tempfile.TemporaryDirectory() as tmp:
+    assert torch_validate_all.main([
+        "--device", "cpu", "--tiny", "--only", "frozen_pooled_422,three_state",
+        "--out", tmp]) in (0, 1)
+    with open(os.path.join(tmp, "report.json")) as f:
+        assert [s["name"] for s in json.load(f)["steps"]] == [
+            "three_state", "frozen_pooled_422"]
+import torch_transport_replay  # noqa: F401  (its float64 replay)
 # the member sums and the rank mesh are among ``names``; drive them too
 new = {"ops.member_sum", "parallel.ranks"}
 assert {"mdqtplasmasims_torch." + m for m in new} <= set(names), names
@@ -250,7 +264,8 @@ def _sources():
     assert {os.path.basename(p) for p in tools} >= {
         "torch_soak.py", "torch_campaign99.py", "torch_validate_analysis.py",
         "torch_lccf_dispersion.py", "torch_physics_targets.py",
-        "torch_dip_seed_scan.py"}
+        "torch_dip_seed_scan.py", "torch_validate_all.py",
+        "torch_transport_replay.py"}
     examples = glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
     assert {os.path.basename(p) for p in examples} == {
         "torch_dark_state_sweep.py", "torch_rabi_sweep.py",
