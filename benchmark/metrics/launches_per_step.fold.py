@@ -1,0 +1,5 @@
+"""``launches_per_step`` of a fold cell, whose rate is ``fold_updates_per_s``."""
+
+from harness.registry import reader
+
+read = reader("launches_per_step")

@@ -1,0 +1,5 @@
+"""``pair_roofline`` of a fold cell, whose rate is ``fold_updates_per_s``."""
+
+from harness.registry import reader
+
+read = reader("pair_roofline")

@@ -1,0 +1,5 @@
+"""``tick_roofline`` of a fold cell, whose rate is ``fold_updates_per_s``."""
+
+from harness.registry import reader
+
+read = reader("tick_roofline")

@@ -1,0 +1,191 @@
+"""``correct`` on whole runs at the tiny size on the CPU: a sound run
+passes the cell's limits; the control (the reference in bfloat16 in the
+program's place) and each fault planted in the timed path fail them."""
+
+import dataclasses
+import tempfile
+
+import pytest
+import torch
+
+import rank_faults
+from harness import cell, check
+
+import mdqtplasmasims_torch.experiments.laser_cooling as lc
+from mdqtplasmasims_torch.core.scheduler import CoolingScheduler
+from mdqtplasmasims_torch.parallel.mesh import make_mesh, slot_block
+from mdqtplasmasims_torch.state import tick_time
+
+CELLS = ["cool3500_e99", "cool3500_e100_ranks4"]
+ONE_CARD = CELLS[:1]
+SEED = 2 ** 31 + 12345
+
+
+def run(name, seed=SEED, trace=False, seconds=0.0):
+    with tempfile.TemporaryDirectory() as d:
+        r, f = cell.measure(name, seed, seconds, trace, "cpu", 0.0, d)
+    return cell.verify(r, f, seed, "cpu"), f
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_a_sound_run_is_correct(tiny, name):
+    r, f = run(name)
+    assert r["correct"] and r["failed"] == 0, r["checks"]
+    assert r["groups"] == 1 and r["md_steps"] == 8
+    assert r["memory_peak_bytes"] == 0          # no card: nothing read
+    assert [s.name for s in f["segments"]] == ["start", "mid"]
+    assert r["checks"]["tick_gap"]["value"] == 0
+
+
+def test_a_sound_run_of_two_groups_follows_three_segments(tiny, monkeypatch):
+    groups = []
+    orig = cell.Program.run_group
+
+    def counted(self, fold):
+        groups.append(1)
+        return orig(self, fold)
+    monkeypatch.setattr(cell.Program, "run_group", counted)
+    monkeypatch.setattr(cell.time, "perf_counter",
+                        lambda: 0.0 if len(groups) < 3 else 1.0)
+    r, f = run("cool3500_e99", seconds=0.5)
+    assert r["groups"] == 2
+    assert [s.name for s in f["segments"]] == ["start", "stage", "mid"]
+    assert [s.tick for s in f["segments"]] == [0, 200, 300]
+    assert r["correct"], r["checks"]
+    assert r["checks"]["unmoved"]["value"] == 0
+
+
+@pytest.mark.parametrize("members,mesh", [(99, None), (100, (4, 1)),
+                                          (100, (2, 2))])
+def test_every_block_of_a_full_fold_is_checked(members, mesh):
+    """At the cells' own member counts (states only): over many seeds the
+    checked members fall one in each rank's block of the mesh, and every
+    run of E/2 consecutive members (a fold with half its members left
+    out) holds one."""
+    ids = torch.arange(members)[:, None].expand(members, 8)
+    for seed in range(2 ** 31, 2 ** 31 + 400):
+        got = check.checked_members(seed, members, 4)
+        assert len(set(got)) == 4
+        if mesh:
+            m = make_mesh(*mesh, devices=["cpu"] * (mesh[0] * mesh[1]))
+            blocks = [set(slot_block(ids, m, k, 0)[:, 0].tolist())
+                      for k in range(mesh[0])]
+            assert all(block & set(got) for block in blocks)
+        for lo in range(members - members // 2 + 1):
+            assert set(range(lo, lo + members // 2)) & set(got)
+    seen = {j for s in range(400) for j in check.checked_members(
+        s, members, 4)}
+    assert len(seen) > 0.9 * members
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_is_not_correct(tiny, name):
+    wl = tiny.workload(name)
+    with tempfile.TemporaryDirectory() as d:
+        r, f = cell.measure(name, SEED, 0.0, False, "cpu", 0.0, d)
+    _, ctrl = check.compare(r["config"], f["segments"], r["checked"],
+                            cell.seed_word(SEED), "cpu",
+                            control=torch.bfloat16)
+    ok, table = check.judge(ctrl, wl["limits"])
+    assert not ok, table
+
+
+def _step_unchanged(monkeypatch):
+    monkeypatch.setattr(CoolingScheduler, "soa_md_step",
+                        lambda self, carry, *a, **k: carry)
+
+
+def _half_the_ions(monkeypatch):
+    ke = lc.kinetic_energies
+
+    def half(V, subtract_mean_vx=False, mask=None):
+        return ke(V[: V.shape[0] // 2], subtract_mean_vx, None)
+    monkeypatch.setattr(lc, "kinetic_energies", half)
+
+
+def _answer_altered(monkeypatch):
+    so = lc._sample_outputs
+
+    def altered(*a, **k):
+        out = so(*a, **k)
+        out["vx_ions"] = out["vx_ions"].clone()
+        out["vx_ions"][0] += 0.5
+        return out
+    monkeypatch.setattr(lc, "_sample_outputs", altered)
+
+
+def _group_returns_its_input(monkeypatch):
+    orig = lc.run_compiled_ensemble
+
+    def unchanged(cfg, sched, states, n, **kw):
+        return states, orig(cfg, sched, states, n, **kw)[1]
+    monkeypatch.setattr(lc, "run_compiled_ensemble", unchanged)
+
+
+def _forged_clock(cfg, sched, start, end, n):
+    tick = int(start.tick) + n * cfg.sample_freq * sched.ratio
+    return dataclasses.replace(end, tick=tick,
+                               t=tick_time(tick, sched.qdt, end.R.dtype))
+
+
+def _segments_skipped(monkeypatch):
+    # the first segment of a group run, its sample repeated for the rest,
+    # the clock set as if every segment had run
+    orig = lc.run_compiled_ensemble
+
+    def skipped(cfg, sched, states, n, **kw):
+        end, outs = orig(cfg, sched, states, 1, **kw)
+        return (_forged_clock(cfg, sched, states, end, n),
+                {k: torch.cat([v] * n, 1) for k, v in outs.items()})
+    monkeypatch.setattr(lc, "run_compiled_ensemble", skipped)
+
+
+def _fewer_steps(monkeypatch):
+    # half the MD steps of every segment, the clock set as if all had run
+    orig = lc.run_compiled_ensemble
+
+    def fewer(cfg, sched, states, n, **kw):
+        end, outs = orig(cfg, sched, states, n,
+                         seg_len=cfg.sample_freq // 2, **kw)
+        return _forged_clock(cfg, sched, states, end, n), outs
+    monkeypatch.setattr(lc, "run_compiled_ensemble", fewer)
+
+
+def _half_the_members(monkeypatch):
+    # the first half of the fold steps; the rest keeps its state and
+    # repeats the first half's samples
+    orig = lc.run_compiled_ensemble
+
+    def half(cfg, sched, states, n, **kw):
+        E = states.R.shape[0]
+        h = E // 2
+        part = dataclasses.replace(states, **{
+            f: getattr(states, f)[:h] for f in ("R", "V", "F", "psi",
+                                                "t_part")})
+        end, outs = orig(cfg, sched, part, n, **kw)
+        whole = dataclasses.replace(end, **{
+            f: torch.cat([getattr(end, f), getattr(states, f)[h:]])
+            for f in ("R", "V", "F", "psi", "t_part")})
+        return whole, {k: torch.cat([v] + [v[-1:]] * (E - h))
+                       for k, v in outs.items()}
+    monkeypatch.setattr(lc, "run_compiled_ensemble", half)
+
+
+@pytest.mark.parametrize("name", ONE_CARD)
+@pytest.mark.parametrize("fault", [
+    _step_unchanged, _half_the_ions, _answer_altered,
+    _group_returns_its_input, _segments_skipped, _fewer_steps,
+    _half_the_members])
+def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, name, fault):
+    fault(monkeypatch)
+    r, _ = run(name)
+    assert not r["correct"] and r["failed"] >= 1, r["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(rank_faults.FAULTS))
+def test_a_broken_rank_is_not_correct(tiny, monkeypatch, fault):
+    from mdqtplasmasims_torch.parallel import ranks
+    monkeypatch.setattr(ranks, "_cooling_task", rank_faults.task)
+    monkeypatch.setenv("BENCH_RANK_FAULT", fault)
+    r, _ = run("cool3500_e100_ranks4")
+    assert not r["correct"] and r["failed"] >= 1, r["checks"]

@@ -1,0 +1,75 @@
+"""The result line's schema, and the modules a run and the reference
+load."""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import pytest
+
+import run as bench_run
+from harness import cell, registry
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_last_line_has_the_contracts_keys(tiny, monkeypatch, trace):
+    import torch
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    name = "cool3500_e99"
+    with tempfile.TemporaryDirectory() as d:
+        r, segments = cell.measure(name, 99, 0.0, trace, "cpu", 0.0, d)
+    metrics = registry.cell_metrics(registry.spec(), name, trace)
+    cell.verify(r, segments, 99, "cpu")
+    line = bench_run.result_line(r, metrics, trace)
+    line = json.loads(json.dumps(line))
+    assert list(line)[-1] == "checks"
+    assert {"correct", "attempted", "failed", "metrics", "device"} <= set(line)
+    assert line["correct"] is True and line["attempted"] >= 1
+    assert set(line["device"]) >= {"platform", "kind", "count",
+                                   "memory_peak_bytes"}
+    for v in line["metrics"].values():
+        assert set(v) == {"value", "unit"}
+    names = {m["name"] for m in metrics}
+    assert set(line["metrics"]) <= names
+    for v in line["checks"].values():
+        assert set(v) == {"value", "limit"}
+    if trace:
+        assert {"busy_s", "window_s"} <= set(line["device"])
+        b = line["breakdown"]
+        assert set(b) == {"device_ops", "idle_gaps"}
+        assert len(b["device_ops"]) <= 10 and len(b["idle_gaps"]) <= 10
+    else:
+        assert set(line["metrics"]) == names
+
+
+def _loaded(code: str) -> set:
+    out = subprocess.run(
+        [sys.executable, "-c", f"import sys; sys.path[:0] = [{HERE!r}, "
+         f"{os.path.dirname(HERE)!r}]; {code}; import json; print(json.dumps("
+         "sorted({m.split('.')[0] for m in sys.modules})))"],
+        capture_output=True, text=True, check=True, env=dict(
+            os.environ, USE_FLAX="0"))
+    return set(json.loads(out.stdout.splitlines()[-1]))
+
+
+def test_a_run_loads_neither_jax_nor_the_jax_package():
+    names = ",".join(f"registry.reader({m!r})" for m in registry.names(
+        "metrics"))
+    top = _loaded(
+        "import run; from harness import cell, check, registry, roofline, "
+        "trace; from reference import mdqt; "
+        "from mdqtplasmasims_torch.experiments import laser_cooling; "
+        "from mdqtplasmasims_torch import profiling; "
+        f"[{names}]")
+    assert "mdqtplasmasims_torch" in top
+    assert not top & {"jax", "jaxlib", "flax", "mdqtplasmasims_tpu"}
+
+
+def test_the_reference_loads_nothing_of_either_package():
+    top = _loaded("from reference import mdqt")
+    assert not top & {"jax", "jaxlib", "flax", "mdqtplasmasims_tpu",
+                      "mdqtplasmasims_torch"}
