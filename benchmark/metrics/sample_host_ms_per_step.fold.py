@@ -1,0 +1,6 @@
+"""``sample_host_ms_per_step`` of a fold cell, whose rate is
+``fold_updates_per_s``."""
+
+from harness.registry import reader
+
+read = reader("sample_host_ms_per_step")

@@ -1,0 +1,6 @@
+"""``sample_waits_per_member`` of a fold cell, whose rate is
+``fold_updates_per_s``."""
+
+from harness.registry import reader
+
+read = reader("sample_waits_per_member")

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..levels import LevelScheme
+from ..profiling import span
 from ..state import SimState, complex_dtype, tick_time
 from ..ops.yukawa import yukawa_forces_n3l_soa, yukawa_forces_n3l_soa_batched
 from .md import step_R, wrap_pbc
@@ -246,25 +247,27 @@ class CoolingScheduler:
         (:func:`fold_sweep_lanes`) feed the per-lane variants of a sweep
         fold.  A mesh slot (parallel/ensemble.py) gives its slice of the
         fold's explicit ``rolls``, or with the in-kernel RNG the global
-        lane ``lane0`` of its first lane."""
-        spec = self._tick_spec(n_ticks)
-        npad = carry.R.shape[1]
-        Fp = (carry.F if reuse_forces else
-              forces if forces is not None else soa_forces_fn(carry.R))
-        if spec.internal_rng:
-            if carry.seed is None:
-                raise ValueError("the in-kernel RNG needs the run's seed "
-                                 "word (CoolingScheduler.seed)")
-            rolls = None
-        elif rolls is None:
-            rolls = self.rolls_fn(spec.ratio, npad).to(self.dtype)
-        R, V, tp, pre, pim = fused_md_substeps(
-            spec, carry.tick == 0, carry.R, carry.V, Fp, carry.tp,
-            carry.psi_re, carry.psi_im, rolls, tick0=carry.tick,
-            tables=self.tables_on(carry.R.device), e0_lanes=e0_lanes,
-            om_lanes=om_lanes,
-            seed=carry.seed if spec.internal_rng else None,
-            lane0=lane0 if spec.internal_rng else 0)
+        lane ``lane0`` of its first lane.  A trace shows it as the span
+        ``mdqt.md_step``."""
+        with span("mdqt.md_step"):
+            spec = self._tick_spec(n_ticks)
+            npad = carry.R.shape[1]
+            Fp = (carry.F if reuse_forces else
+                  forces if forces is not None else soa_forces_fn(carry.R))
+            if spec.internal_rng:
+                if carry.seed is None:
+                    raise ValueError("the in-kernel RNG needs the run's "
+                                     "seed word (CoolingScheduler.seed)")
+                rolls = None
+            elif rolls is None:
+                rolls = self.rolls_fn(spec.ratio, npad).to(self.dtype)
+            R, V, tp, pre, pim = fused_md_substeps(
+                spec, carry.tick == 0, carry.R, carry.V, Fp, carry.tp,
+                carry.psi_re, carry.psi_im, rolls, tick0=carry.tick,
+                tables=self.tables_on(carry.R.device), e0_lanes=e0_lanes,
+                om_lanes=om_lanes,
+                seed=carry.seed if spec.internal_rng else None,
+                lane0=lane0 if spec.internal_rng else 0)
         return SoACarry(R, V, Fp, tp, pre, pim, carry.tick + spec.ratio,
                         carry.seed)
 

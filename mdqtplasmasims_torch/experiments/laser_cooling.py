@@ -85,6 +85,7 @@ from ..ops.kde import folded_bins, folded_bins_np, gaussian_kde
 from ..ops.structure import current_fourier, k_grid
 from ..ops.yukawa import (yukawa_potential_pallas,
                           yukawa_potential_pallas_batched)
+from ..profiling import span
 from ..state import SimState, make_state
 from ..units import (K_RATIO_1033, VKICK_408_QUANTUM, PlasmaUnits, QTUnits,
                      qt_units_408)
@@ -417,13 +418,14 @@ def _sample_fold(mid: SimState, cfg: CoolingConfig, L: float, ldeb: float,
                  bins, mask_t, kvecs) -> dict:
     """One sample of every member of a fold, stacked ``[E, ...]``: all
     members' potentials from one launch of kernel G (on the CPU, its twin
-    member by member)."""
-    epots = yukawa_potential_pallas_batched(mid.R, L, ldeb, mask_t)
-    per = [_sample_outputs(_member(mid, j), cfg, L, ldeb, bins,
-                           None if mask_t is None else mask_t[j],
-                           epot=epots[j], kvecs=kvecs)
-           for j in range(mid.R.shape[0])]
-    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    member by member).  A trace shows it as the span ``mdqt.sample``."""
+    with span("mdqt.sample"):
+        epots = yukawa_potential_pallas_batched(mid.R, L, ldeb, mask_t)
+        per = [_sample_outputs(_member(mid, j), cfg, L, ldeb, bins,
+                               None if mask_t is None else mask_t[j],
+                               epot=epots[j], kvecs=kvecs)
+               for j in range(mid.R.shape[0])]
+        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
 
 
 def _check_sweep_flags(sched: CoolingScheduler, sweep_e0, sweep_om) -> None:

@@ -3,7 +3,8 @@
 The reference's only observability is ``cout << k`` progress prints and
 timing notes in comments (SURVEY.md section 5).  Here profiling is a
 module of its own: phase wall-clock timers with derived throughput
-metrics, and a thin wrapper over ``torch.profiler`` for device traces.
+metrics, a thin wrapper over ``torch.profiler`` for device traces, and
+the program's spans (:func:`span`), which only a trace records.
 
 The port's own copy of ``mdqtplasmasims_tpu/profiling.py`` on torch:
 ``PhaseTimer.phase(block_on=...)`` synchronizes the CUDA devices of the
@@ -22,6 +23,22 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+
+#: the one context :func:`span` returns while no trace records spans
+_NO_SPAN = contextlib.nullcontext()
+_spans_on = False
+
+
+def span(name: str):
+    """A named span of the program's host work, for ``with``.  Inside
+    :func:`device_trace` it is ``torch.profiler.record_function(name)``: a
+    ``user_annotation`` event on the trace's clock, beside the kernels it
+    launched, nested in the span open around it.  Outside, the shared
+    null context: ``record_function`` costs the host microseconds a call
+    even with no profiler running, too much for the MD step."""
+    if not _spans_on:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _tensors(tree):
@@ -80,6 +97,7 @@ def device_trace(log_dir: str, device="cuda"):
     """``torch.profiler`` over the block, written as a Chrome trace
     (``trace.json``, open in chrome://tracing or Perfetto) into
     ``log_dir``; yields the profiler (``key_averages()``, ``events()``).
+    The program's :func:`span` s are recorded inside the block only.
 
     ``device="cuda"`` records CPU and CUDA activity and waits at the end
     for every visible card (``"cuda:k"`` for card k alone), and raises
@@ -90,11 +108,14 @@ def device_trace(log_dir: str, device="cuda"):
             raise RuntimeError("device_trace(device='cuda'): no CUDA device")
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    global _spans_on
     prof = torch.profiler.profile(activities=acts)
     prof.start()
+    was, _spans_on = _spans_on, True
     try:
         yield prof
     finally:
+        _spans_on = was
         if len(acts) > 1:
             index = torch.device(device).index
             for j in (range(torch.cuda.device_count()) if index is None
