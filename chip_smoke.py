@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; none is skipped or passed over):
   1. versions and the card (``nvidia-smi`` name and power limit); no CUDA
      device -> exit 2 before printing any result;
-  2. build the three hand-written kernel libraries from
+  2. build the four hand-written kernel libraries from
      mdqtplasmasims_torch/csrc, one nvcc each, in parallel;
   3. the force kernel against its plain torch twin at the flagship shape
      (3500 ions in 3584 lanes), timed with CUDA events;
@@ -45,7 +45,11 @@ Phases (any failure exits non-zero; none is skipped or passed over):
      per-member sums over ions with bits that do not depend on the fold's
      width) at [99, 3584] against torch's sum and a float64 sum, a
      member's bits in folds of 1, 8, 33 and 99, timed at [8, 3584] and
-     [99, 3584];
+     [99, 3584]; then the KDE kernel (``check_kde_kernel``, port-only: a
+     fold's velocity distributions without the [B, n] matrix) at the
+     99-member fold's sample, [297, 3500] x 2001 folded bins, and at 4001
+     centered bins with weights, against its plain version, a row's bits
+     in calls of 297, 8 and 1 rows, timed with its plain version;
   7. the main path: ``laser_cooling.run`` of CoolingConfig(n0=3500,
      tmax=1.0) on CUDA (500 MD steps: 12 samples + 20 trailing steps)
      through the in-kernel RNG, with the kernels' launch counts and
@@ -261,13 +265,14 @@ Phases 7, 10, 11, 12, 17, 19-27 and 30-36 each set the launch counts to 0
 just before they drive their path and read them just after; with them a
 count of the plain engine's ticks (``QTEngine.step_sm`` calls,
 :class:`PlainTicks`), which every phase wants at 0.  The line before the
-last is a JSON object with one entry per kernel and form (27: A, C, D,
-G, E, F, B's 20 forms and the member-sum kernel, whose count the main
-path reads apart from the others' exact counts; A, D and B'rng also with their counts from
-phase 27's pre-speedup run, ``launches_pre_speedup``, A, D and B's S=5
-form with phase 30's, ``launches_frozen_production``, C, B'rng and G with
-phase 31's, ``launches_campaign99``, and their E=99 launch's readings and
-bound, ``e99``; A, B'rng and D with phase 32's laser-free flagship's,
+last is a JSON object with one entry per kernel and form (28: A, C, D,
+G, E, F, B's 20 forms, the member-sum kernel and the KDE kernel, whose
+counts the main path reads apart from the others' exact counts; A, D and
+B'rng also with their counts from phase 27's pre-speedup run,
+``launches_pre_speedup``, A, D and B's S=5 form with phase 30's,
+``launches_frozen_production``, C, B'rng and G with phase 31's,
+``launches_campaign99``, and their E=99 launch's readings and bound,
+``e99``; A, B'rng and D with phase 32's laser-free flagship's,
 ``launches_lccf``, A with its validation trajectories',
 ``launches_validate_analysis``, and its readings at N=216 and N=512,
 ``n216`` and ``n512``; every form phase 33 runs with its targets' and
@@ -1372,17 +1377,18 @@ def main_path(torch, card):
         t0 = time.perf_counter()
         final, res = run(cfg, device="cuda")     # ends in a host fetch
         wall = time.perf_counter() - t0
-        counts = dict(read_counts(), member_sum=member_sum_count())
+        counts = dict(read_counts(), member_sum=member_sum_count(),
+                      kde=kde_count())
         log(f"[main] run(CoolingConfig(n0=3500, tmax=1.0), device='cuda'): "
             f"{n_md} MD steps, {ticks} ticks in {wall:.3f} s -> "
             f"{n_md / wall:.1f} MD steps/s, "
             f"{cfg.n0 * ticks / wall:.4g} ion-QT-updates/s ({card})")
         log(f"[main] launches: {counts}")
-        # the member sums: 4 kinetic and 3 KDE sums a sample, 1 potential
-        # sum a sample and at the start
+        # the member sums: 4 kinetic sums a sample, 1 potential sum a
+        # sample and at the start; one KDE launch a sample (3 rows)
         want = dict(yukawa_forces=500, fused_ticks_rng=512,
                     yukawa_forces_potential=13, fused_ticks=0,
-                    member_sum=8 * 12 + 1)
+                    member_sum=5 * 12 + 1, kde=12)
         if any(counts[k] != v for k, v in want.items()):
             raise SystemExit(f"main path launched {counts}, want {want}")
         outs = res["outs"]
@@ -1580,18 +1586,26 @@ def counters() -> dict:
 
 
 def reset_counts():
-    """Every kernel form's counter to 0, the member-sum kernel's too (read
-    apart, :func:`member_sum_count`: the per-member sums of a path's
-    observables are not among the launches its phases hold exactly)."""
+    """Every kernel form's counter to 0, the member-sum and KDE kernels'
+    too (read apart, :func:`member_sum_count`, :func:`kde_count`: the
+    observables of a path's samples are not among the launches its phases
+    hold exactly)."""
+    from mdqtplasmasims_torch.ops.kde import gaussian_kde
     from mdqtplasmasims_torch.ops.member_sum import member_sum
     for obj, attr in counters().values():
         setattr(obj, attr, 0)
     member_sum.launches = 0
+    gaussian_kde.launches = 0
 
 
 def member_sum_count() -> int:
     from mdqtplasmasims_torch.ops.member_sum import member_sum
     return member_sum.launches
+
+
+def kde_count() -> int:
+    from mdqtplasmasims_torch.ops.kde import gaussian_kde
+    return gaussian_kde.launches
 
 
 def read_counts() -> dict:
@@ -3975,6 +3989,119 @@ def check_member_sum_kernel(torch):
     return dict(max_abs_err=err, **out[8], e99=out[99])
 
 
+# the KDE kernel against its plain version: each term the same float32
+# value on both sides, each bin's sum of n non-negative terms within n *
+# 2^-24 of its float64 sum on either side, and one rounding more each in
+# the normalisation
+def kde_rtol(n: int) -> float:
+    return 2 * (n + 1) * 2.0 ** -24
+
+
+def kde_ops(rows: int, nbins: int, n: int, folded: bool,
+            weighted: bool) -> float:
+    """FP32 operations of a KDE launch, an expf counted as one: per row,
+    bin and ion d = b - v, (c d) d and its expf, the sum's add; folded the
+    same for b + v and the add of the two; the weight's product."""
+    per = (10 if folded else 5) + (1 if weighted else 0)
+    return float(rows) * nbins * n * per
+
+
+def kde_resources() -> dict:
+    """Registers and spill bytes of each KDE form from the nvcc log:
+    ``(folded, weighted) -> dict``."""
+    from mdqtplasmasims_torch import _build
+    entry = re.compile(r"kde_kernelILb([01])ELb([01])E")
+    out, cur = {}, None
+    for line in _build.build_log("kde").splitlines():
+        m = entry.search(line)
+        if m and "Compiling entry function" in line:
+            cur = (m.group(1) == "1", m.group(2) == "1")
+        elif cur is not None:
+            r = re.search(r"Used (\d+) registers", line)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if sp:
+                out.setdefault(cur, {}).update(
+                    spill_stores=int(sp.group(1)),
+                    spill_loads=int(sp.group(2)))
+            if r:
+                out.setdefault(cur, {})["registers"] = int(r.group(1))
+    return out
+
+
+def check_kde_kernel(torch):
+    """The KDE kernel (ops/kde) at the 99-member fold's sample, [297, 3500]
+    velocities onto the 2001 folded bins, and onto the tagging families'
+    4001 centered bins with weights: one launch each, within
+    :func:`kde_rtol` of the plain version bin by bin (the plain version a
+    33-row slice at a time: its [rows, B, n] matrix), deterministic run to
+    run, a row's bits the same in calls of 297, 8 and 1 rows; timed with
+    the plain version (its memory's slices summed), the bound from
+    :func:`kde_ops`, registers and spills from the nvcc log."""
+    from mdqtplasmasims_torch.ops import kde
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(71)
+    rows, n = 297, 3500
+    v = 0.05 + 0.3 * torch.randn((rows, n), generator=g, device=dev)
+    w = (torch.rand((rows, n), generator=g, device=dev) < 0.9).float()
+    res = kde_resources()
+    out = {}
+    for folded, weights, what in ((True, None, "folded"),
+                                  (False, w, "centered_weighted")):
+        bins = kde.folded_bins(device=dev) if folded \
+            else kde.centered_bins(device=dev)
+        kw = dict(folded=folded, weights=weights)
+
+        def plain(sl):
+            return kde.gaussian_kde_reference(
+                v[sl], bins, folded=folded,
+                weights=None if weights is None else weights[sl])
+
+        before = kde.gaussian_kde.launches
+        got = kde.gaussian_kde(v, bins, **kw)
+        if kde.gaussian_kde.launches != before + 1:
+            raise SystemExit("the KDE took more than one launch")
+        if not torch.equal(kde.gaussian_kde(v, bins, **kw), got):
+            raise SystemExit("the KDE kernel is not deterministic run to run")
+        err = 0.0
+        for lo in range(0, rows, 33):
+            sl = slice(lo, lo + 33)
+            want = plain(sl)
+            d = (got[sl] - want).abs()
+            if not (d <= kde_rtol(n) * want.abs()).all():
+                raise SystemExit(f"the KDE kernel ({what}) is off its plain "
+                                 f"version: {float(d.max()):.3g}")
+            err = max(err, float((d / want.abs().clamp_min(1e-30)).max()))
+        for part in (8, 1):
+            small = kde.gaussian_kde(
+                v[:part], bins, folded=folded,
+                weights=None if weights is None else weights[:part])
+            if not torch.equal(small, got[:part]):
+                raise SystemExit(f"the KDE ({what}): a row's bits differ in "
+                                 f"calls of {part} and {rows} rows")
+        k_ms, idle = kernel_ms(torch, lambda: kde.gaussian_kde(v, bins, **kw))
+        plain_ms = cuda_ms(torch, lambda: [
+            plain(slice(lo, lo + 33)) for lo in range(0, rows, 33)], reps=5)
+        nb = bins.shape[0]
+        b = bound(kde_ops(rows, nb, n, folded, weights is not None),
+                  4 * (rows * n * (2 if weights is not None else 1) + nb
+                       + rows * nb))
+        r = res.get((folded, weights is not None), {})
+        log(f"[kde] [{rows}, {n}] x {nb} {what}: kernel {both(k_ms, idle)}, "
+            f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}, {100 * b['bound_ms'] / k_ms:.1f} %), max "
+            f"relative gap to plain {err:.3g} (limit {kde_rtol(n):.3g}); "
+            f"registers {r.get('registers')}, spills "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} B; a row's "
+            f"bits the same in calls of {rows}, 8 and 1 rows")
+        if r.get("spill_stores") or r.get("spill_loads"):
+            raise SystemExit(f"the KDE kernel ({what}) spills")
+        out[what] = dict(ms=k_ms, idle_card_ms=idle, plain_ms=plain_ms,
+                         max_rel_err=err, registers=r.get("registers"),
+                         **dict(b, library_ms=None))
+    return dict(**out["folded"], centered_weighted=out["centered_weighted"])
+
+
 # phase 35: the rank path over NCCL (N0 = 3500, 100 MD steps, 2 samples)
 RANKS_COOL = dict(n0=3500, tmax=0.2, sample_freq=50)
 
@@ -4181,16 +4308,16 @@ TICK_FORMS = 40
 
 
 def build_kernels(torch):
-    """The three kernel libraries, one nvcc each, started together."""
+    """The four kernel libraries, one nvcc each, started together."""
     from mdqtplasmasims_torch import _build
     from mdqtplasmasims_torch.core import qt_fused
-    from mdqtplasmasims_torch.ops import member_sum, yukawa
+    from mdqtplasmasims_torch.ops import kde, member_sum, yukawa
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for fut in [pool.submit(yukawa._lib), pool.submit(qt_fused._lib),
-                    pool.submit(member_sum._lib)]:
+                    pool.submit(member_sum._lib), pool.submit(kde._lib)]:
             fut.result()
-    log(f"[build] the three kernel libraries loaded in "
+    log(f"[build] the four kernel libraries loaded in "
         f"{time.perf_counter() - t0:.1f} s (nvcc: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in _build.build_seconds.items())
         + ")")
@@ -4247,6 +4374,7 @@ def main() -> int:
     rng = check_rng_tick_kernels(torch, cfg, L, pu.debye_length)
     pot_d, pot_g = check_potential_kernels(torch, L, pu.debye_length)
     msum = check_member_sum_kernel(torch)
+    kde_k = check_kde_kernel(torch)
     counts = main_path(torch, smi)
     force_e = check_batched_force_kernel(torch, L, pu.debye_length)
     lanes = check_lane_kernels(torch, cfg)
@@ -4433,6 +4561,11 @@ def main() -> int:
              replaces="none (port-only: the per-member sums over ions "
              "that the JAX package leaves to XLA, given width-independent "
              "bits)", launches=counts["member_sum"], **msum),
+        dict(name="kde", route="cuda",
+             source="mdqtplasmasims_torch/csrc/kde.cu",
+             replaces="none (port-only: the velocity distributions that the "
+             "JAX package leaves to XLA, a fold's rows in one launch)",
+             launches=counts["kde"], **kde_k),
     ]
     for k in kernels:
         for key, counts in (("launches_physics_targets", target_counts),

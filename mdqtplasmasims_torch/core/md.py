@@ -57,19 +57,29 @@ def velocity_verlet_step(R, V, A, dt: float, L: float, forces_fn: Callable):
 
 def kinetic_energies(V: torch.Tensor, subtract_mean_vx: bool = False,
                      mask: Optional[torch.Tensor] = None):
-    """Per-axis mean kinetic energies of ``V [N, 3]`` (output():930-947).
-    In the expansion frame the x-axis subtracts the ensemble-mean vx.
-    Returns ``(ekx, eky, ekz, vx_mean)`` as 0-d tensors."""
+    """Per-axis mean kinetic energies of ``V [N, 3]`` (output():930-947),
+    or of a fold's members at once from ``V [N, E, 3]``, the ions first
+    (``states.V.transpose(0, 1)``), with ``mask [N]`` / ``[N, E]`` marking
+    real ions.  In the expansion frame the x-axis subtracts the
+    ensemble-mean vx.  Returns ``(ekx, eky, ekz, vx_mean)``, 0-d tensors
+    for one state and ``[E]`` for a fold.  Each member's sums run over its
+    own row of ions (:func:`ion_sum`): a member's bits are those of its
+    lone call."""
+    V = V.movedim(0, -2)                   # [..., N, 3]: a member a row
     if mask is None:
-        vx_mean = ion_mean(V[:, 0])
-        Vx = V[:, 0] - vx_mean if subtract_mean_vx else V[:, 0]
-        ek = [ion_mean(0.5 * Vx ** 2), ion_mean(0.5 * V[:, 1] ** 2),
-              ion_mean(0.5 * V[:, 2] ** 2)]
+        vx_mean = ion_mean(V[..., 0], dim=-1)
+        Vx = V[..., 0] - vx_mean[..., None] if subtract_mean_vx \
+            else V[..., 0]
+        ek = [ion_mean(0.5 * Vx ** 2, dim=-1),
+              ion_mean(0.5 * V[..., 1] ** 2, dim=-1),
+              ion_mean(0.5 * V[..., 2] ** 2, dim=-1)]
     else:
-        n_eff = torch.sum(mask)
-        vx_mean = ion_sum(V[:, 0], mask=mask) / n_eff
-        Vx = V[:, 0] - vx_mean if subtract_mean_vx else V[:, 0]
-        ek = [ion_sum(0.5 * Vx ** 2, mask=mask) / n_eff,
-              ion_sum(0.5 * V[:, 1] ** 2, mask=mask) / n_eff,
-              ion_sum(0.5 * V[:, 2] ** 2, mask=mask) / n_eff]
+        mask = mask.movedim(0, -1)
+        n_eff = torch.sum(mask, dim=-1)
+        vx_mean = ion_sum(V[..., 0], dim=-1, mask=mask) / n_eff
+        Vx = V[..., 0] - vx_mean[..., None] if subtract_mean_vx \
+            else V[..., 0]
+        ek = [ion_sum(0.5 * Vx ** 2, dim=-1, mask=mask) / n_eff,
+              ion_sum(0.5 * V[..., 1] ** 2, dim=-1, mask=mask) / n_eff,
+              ion_sum(0.5 * V[..., 2] ** 2, dim=-1, mask=mask) / n_eff]
     return ek[0], ek[1], ek[2], vx_mean

@@ -344,6 +344,36 @@ def random_s_superposition(generator: torch.Generator, n: int, n_states: int,
 def state_populations(psi: torch.Tensor, manifolds) -> list:
     """Total population per manifold, e.g. S/P/D
     (laserCoolingPlusExpansionMDQTSpeedUp.cpp:1019-1021).
-    ``manifolds`` is a list of index tuples; psi is [N,S]."""
+    ``manifolds`` is a list of index tuples; psi is ``[..., S]`` (one
+    state's ``[N, S]``, a fold's ``[E, N, S]``).
+
+    Each manifold's sum is elementwise adds of its levels' slices, in the
+    order torch's CPU sum takes over a row shorter than a vector register:
+    four partial sums (levels 0, 4, 8, ... of the manifold into the first,
+    1, 5, ... into the second, and so on), the levels past the last whole
+    four onto the first, then the four in turn.  So a float32 CPU result
+    has the bits of ``torch.sum(pop[..., idx], -1)``; on a card no index
+    is copied to the device (no host wait), and a member's bits do not
+    depend on the fold's width, as a CUDA reduction's would."""
     pop = psi.real ** 2 + psi.imag ** 2
-    return [torch.sum(pop[:, list(idx)], dim=-1) for idx in manifolds]
+    return [_level_sum(pop, tuple(idx)) for idx in manifolds]
+
+
+def _level_sum(pop: torch.Tensor, idx: tuple) -> torch.Tensor:
+    """``pop[..., idx]`` summed over the levels in
+    :func:`state_populations`' order."""
+    whole = len(idx) // 4 * 4
+    if not whole:
+        acc = pop[..., idx[0]]
+        for i in idx[1:]:
+            acc = acc + pop[..., i]
+        return acc
+    part = [pop[..., i] for i in idx[:4]]
+    for r in range(4, whole, 4):
+        part = [p + pop[..., i] for p, i in zip(part, idx[r:r + 4])]
+    acc = part[0]
+    for i in idx[whole:]:
+        acc = acc + pop[..., i]
+    for p in part[1:]:
+        acc = acc + p
+    return acc

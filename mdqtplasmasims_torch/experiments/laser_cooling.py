@@ -293,39 +293,39 @@ def _sample_outputs(state: SimState, cfg: CoolingConfig, L: float,
                     ldeb: float, bins: torch.Tensor, mask=None,
                     epot=None, kvecs=None) -> dict:
     """Observables of one output sample (reference output()), on the
-    state's device.  ``mask`` marks real ions when the member carries
-    padded lanes (a Poissonian fold); every reduction excludes the rest.
-    The potential comes from kernel D on the card (its twin, the plain
-    ``yukawa_potential``, on the CPU) unless the caller gives ``epot``
-    (a fold's members, from one launch of kernel G).  The interval
+    state's device: of one state ``[n, ...]``, or of every member of a
+    fold at once from ``[E, n, ...]`` (each output then ``[E, ...]``).
+    ``mask`` (``[n]``, or ``[E, n]`` for a fold) marks real ions when the
+    members carry padded lanes (a Poissonian fold); every reduction
+    excludes the rest.  The potential comes from kernel D on the card (its
+    twin, the plain ``yukawa_potential``, on the CPU) unless the caller
+    gives ``epot`` (a fold's, from one launch of kernel G).  The interval
     diagnostics keep V (and, for the LCCF, R and the current J(k) at the
     wavevectors ``kvecs``, on the state's device; padded lanes, V=0, add
-    nothing to it)."""
+    nothing to it).  Every per-member sum runs over that member's own
+    ions, so a fold's sample is its members' samples, bit for bit on the
+    CPU."""
     if epot is None:
         epot = yukawa_potential_pallas(state.R, L, ldeb, mask)
-    ekx, eky, ekz, vx_mean = kinetic_energies(state.V, subtract_mean_vx=True,
-                                              mask=mask)
-    vx = state.V[:, 0] - vx_mean
-    pvel = torch.stack([
-        gaussian_kde(vx, bins, folded=True, weights=mask),
-        gaussian_kde(state.V[:, 1], bins, folded=True, weights=mask),
-        gaussian_kde(state.V[:, 2], bins, folded=True, weights=mask)])
+    V = state.V
+    ekx, eky, ekz, vx_mean = kinetic_energies(
+        V.movedim(-2, 0), subtract_mean_vx=True,
+        mask=None if mask is None else mask.movedim(-1, 0))
+    vx = V[..., 0] - vx_mean[..., None]
+    w = None if mask is None else mask[..., None, :]
+    pvel = gaussian_kde(torch.stack([vx, V[..., 1], V[..., 2]], -2), bins,
+                        folded=True, weights=w)
     pops = state_populations(state.psi, [S_MANIFOLD, P_MANIFOLD, D_MANIFOLD])
-    out = dict(ekin=torch.stack([ekx, eky, ekz]), epot=epot,
-               vx_mean=vx_mean, pvel=pvel, vx_ions=state.V[:, 0],
+    # vx_ions a copy: a view would hold the whole V until the group's stack
+    out = dict(ekin=torch.stack([ekx, eky, ekz], -1), epot=epot,
+               vx_mean=vx_mean, pvel=pvel, vx_ions=V[..., 0].contiguous(),
                pops=torch.stack(pops, -1))
     if cfg.record_snapshots or cfg.vaf_intervals or cfg.record_lccf:
-        out["V"] = state.V
+        out["V"] = V
         if cfg.record_lccf:
             out["R"] = state.R
-            out["J"] = current_fourier(state.R, state.V, kvecs)
+            out["J"] = current_fourier(state.R, V, kvecs)
     return out
-
-
-def _member(states: SimState, j: int) -> SimState:
-    return SimState(R=states.R[j], V=states.V[j], F=states.F[j],
-                    psi=states.psi[j], t_part=states.t_part[j],
-                    tick=states.tick, t=states.t)
 
 
 def _make_advance(sched: CoolingScheduler, forces_for=None, init=None,
@@ -416,16 +416,15 @@ def run_compiled_span(cfg: CoolingConfig, sched: CoolingScheduler,
 
 def _sample_fold(mid: SimState, cfg: CoolingConfig, L: float, ldeb: float,
                  bins, mask_t, kvecs) -> dict:
-    """One sample of every member of a fold, stacked ``[E, ...]``: all
-    members' potentials from one launch of kernel G (on the CPU, its twin
-    member by member).  A trace shows it as the span ``mdqt.sample``."""
+    """One sample of every member of a fold, ``[E, ...]``, in one pass over
+    the fold: all members' potentials from one launch of kernel G (on the
+    CPU, its twin member by member), the rest from one
+    :func:`_sample_outputs` over ``[E, n, ...]``.  A trace shows it as the
+    span ``mdqt.sample``."""
     with span("mdqt.sample"):
         epots = yukawa_potential_pallas_batched(mid.R, L, ldeb, mask_t)
-        per = [_sample_outputs(_member(mid, j), cfg, L, ldeb, bins,
-                               None if mask_t is None else mask_t[j],
-                               epot=epots[j], kvecs=kvecs)
-               for j in range(mid.R.shape[0])]
-        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        return _sample_outputs(mid, cfg, L, ldeb, bins, mask_t, epot=epots,
+                               kvecs=kvecs)
 
 
 def _check_sweep_flags(sched: CoolingScheduler, sweep_e0, sweep_om) -> None:

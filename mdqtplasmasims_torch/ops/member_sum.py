@@ -2,7 +2,8 @@
 
 A fold's per-member observables (temperatures, kinetic and potential
 energies, tagged moments, KDE bins, the three-state records) are sums over
-each member's ions.  torch's CUDA reductions over ``[E, n]`` choose their
+each member's ions (on a card the KDE's are ``csrc/kde.cu``'s own, in the
+same kind of fixed order).  torch's CUDA reductions over ``[E, n]`` choose their
 thread layout from E, so a member's sum rounds differently in a fold of
 another width: a fold spread over a mesh's slots would not give the
 unsharded fold's bits, which the JAX package's mesh contract requires.

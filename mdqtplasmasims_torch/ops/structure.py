@@ -76,7 +76,12 @@ def current_fourier(R: torch.Tensor, V: torch.Tensor,
     reference's O(N*12^3) triple loop, SpeedUp.cpp:1060-1065), as real
     products of V with cos and sin of the phases.  The products run in
     float64 on R's device, which no TF32 setting reaches; J comes back in
-    the complex type of R's precision."""
+    the complex type of R's precision.  A fold's ``R, V [E, N, 3]`` give
+    ``[E, 3, K]``, a member at a time: its float64 phases are ``[N, K]``
+    (K = 12^3), and a whole fold's would hold E times that."""
+    if R.dim() > 2:
+        return torch.stack([current_fourier(r, v, kvecs)
+                            for r, v in zip(R, V)])
     f64 = torch.float64
     phase = R.to(f64) @ kvecs.to(R.device, f64).T           # [N, K]
     Vt = V.to(f64).T

@@ -1113,3 +1113,110 @@ def test_member_sum_kernel_bits_do_not_depend_on_the_width(cuda):
                          dtype=torch.float64)
     assert ((d.cpu() - exact).abs()
             <= NPAD * 2.0 ** -53 * x.double().abs().sum(-1).cpu()).all()
+
+
+# the KDE kernel against the plain [B, n] broadcast-and-reduce: every term
+# has the same float32 value on both sides (the same expression, the same
+# expf), and both sums of a bin's n non-negative terms lie within
+# n * 2^-24 of their float64 sum (relative, the terms being >= 0); the
+# normalisation rounds once more on each side
+KDE_RTOL = 2 * (N + 1) * 2.0 ** -24
+KDE_ROWS = 297                  # the 99-member fold's sample: E x 3 axes
+
+
+def _kde_rows(dev, rows=KDE_ROWS, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = 0.05 + 0.3 * torch.randn((rows, N), generator=g, device=dev)
+    w = (torch.rand((rows, N), generator=g, device=dev) < 0.9).float()
+    return v, w
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weights"])
+@pytest.mark.parametrize("folded", [True, False],
+                         ids=["folded2001", "centered4001"])
+def test_kde_kernel_matches_the_plain_kde(cuda, folded, weighted):
+    """[297, 3500] velocities onto the cooling code's 2001 folded bins and
+    the tagging families' 4001 centered bins, with and without weights:
+    one launch, within :data:`KDE_RTOL` of the plain version bin by bin
+    (exact zeros where every term underflows), deterministic run to run."""
+    from mdqtplasmasims_torch.ops import kde
+    v, w = _kde_rows(cuda)
+    bins = kde.folded_bins(device=cuda) if folded \
+        else kde.centered_bins(device=cuda)
+    w = w if weighted else None
+    before = kde.gaussian_kde.launches
+    got = kde.gaussian_kde(v, bins, folded=folded, weights=w)
+    assert kde.gaussian_kde.launches == before + 1
+    assert got.shape == (KDE_ROWS, bins.shape[0])
+    assert torch.equal(kde.gaussian_kde(v, bins, folded=folded, weights=w),
+                       got)
+    for lo in range(0, KDE_ROWS, 33):        # the plain version's memory
+        sl = slice(lo, lo + 33)
+        want = kde.gaussian_kde_reference(
+            v[sl], bins, folded=folded, weights=None if w is None else w[sl])
+        err = (got[sl] - want).abs()
+        assert (err <= KDE_RTOL * want.abs()).all(), float(err.max())
+    assert (got > 0).any() and (got == 0).any()
+
+
+def test_kde_kernel_bits_do_not_depend_on_the_width(cuda):
+    """A row's bins have the same bits in a call of 297 rows, of 8 rows and
+    alone, weighted or not, folded or not (an order fixed by n alone)."""
+    from mdqtplasmasims_torch.ops import kde
+    v, w = _kde_rows(cuda, seed=6)
+    for folded, bins in ((True, kde.folded_bins(device=cuda)),
+                         (False, kde.centered_bins(device=cuda))):
+        for weights in (None, w):
+            full = kde.gaussian_kde(v, bins, folded=folded, weights=weights)
+            eight = kde.gaussian_kde(v[:8], bins, folded=folded,
+                                     weights=None if weights is None
+                                     else weights[:8])
+            assert torch.equal(eight, full[:8])
+            one = kde.gaussian_kde(v[5], bins, folded=folded,
+                                   weights=None if weights is None
+                                   else weights[5])
+            assert torch.equal(one, full[5])
+
+
+# CUDA operations of one sample of a 99-member pinned fold: kernel G with
+# its packing and its sums, the kinetic energies' copies, sums and
+# elementwise operations, the KDE's stack and launch, the populations' 12
+# elementwise operations and stack, the outputs' copy and stack; 45 with
+# torch 2.11 (the member loop took ~62 a member)
+SAMPLE_E99_LAUNCHES = 48
+
+
+def test_fold_sample_is_one_pass_on_the_card(cuda):
+    """One sample of a 99 x 3500 fold: at most
+    :data:`SAMPLE_E99_LAUNCHES` CUDA operations and no host-to-device copy
+    (nothing the host waits for), and each member's sample that of a fold
+    of 8 bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    from mdqtplasmasims_torch.ops.kde import folded_bins
+    cfg = lc.CoolingConfig()
+    L = PlasmaUnits.box_length(cfg.n0)
+    ldeb = PlasmaUnits(cfg.density, cfg.ge).debye_length
+    states = lc.member_states(cfg, 99, 7, cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    V = 0.3 * torch.randn(states.V.shape, generator=g, device=cuda)
+    psi = torch.complex(torch.randn(states.psi.shape, generator=g,
+                                    device=cuda),
+                        torch.randn(states.psi.shape, generator=g,
+                                    device=cuda)) / 12 ** 0.5
+    mid = dataclasses.replace(states, V=V, psi=psi)
+    bins = folded_bins(device=cuda)
+    lc._sample_fold(mid, cfg, L, ldeb, bins, None, None)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        full = lc._sample_fold(mid, cfg, L, ldeb, bins, None, None)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"{len(ops)} CUDA operations in one E=99 sample")
+    assert 0 < len(ops) <= SAMPLE_E99_LAUNCHES, ops
+    assert not any("HtoD" in o for o in ops), ops
+    eight = dataclasses.replace(mid, **{f: getattr(mid, f)[:8] for f in (
+        "R", "V", "F", "psi", "t_part")})
+    part = lc._sample_fold(eight, cfg, L, ldeb, bins, None, None)
+    for k, v in part.items():
+        assert torch.equal(v, full[k][:8]), k

@@ -94,6 +94,12 @@ def assert_trees_close(root_a, root_b):
                                    err_msg=name)
 
 
+def _member(states, j):
+    """Member j of a fold's ``[E, n, ...]`` state."""
+    return dataclasses.replace(states, **{f: getattr(states, f)[j] for f in (
+        "R", "V", "F", "psi", "t_part")})
+
+
 def jax_member_states(cfg_j, n_jobs, seed):
     """The JAX fold's exact-N start (laser_cooling.py:1124-1127)."""
     keys = jax.random.split(jax.random.PRNGKey(seed), n_jobs)
@@ -174,7 +180,7 @@ def test_fused_substeps_ensemble_matches_members_alone():
     fold = sched.fused_substeps_ensemble(states, F)
     for j in range(2):
         sched.rolls_fn = lambda nt, lanes: rolls[:, j * npad:(j + 1) * npad]
-        one = tlc._member(states, j)
+        one = _member(states, j)
         carry = sched.soa_init(dataclasses.replace(one, F=F[j]))
         carry = sched.soa_md_step(carry, None, reuse_forces=True)
         alone = sched.soa_restore(carry, one)
