@@ -4,8 +4,10 @@ or a metric is added as a file and an entry of ``BENCHMARK.json``:
 * ``configs/<name>.json``: a configuration (its physics, units, level
   scheme, guarantees and frozen work counts);
 * ``workloads/<name>.json``: a cell's traffic (the configuration it runs,
-  its members, groups, traced groups, checked members and the limits of
-  its comparison);
+  the driver that runs it, its members, traced work, checked members and
+  the limits of its comparison);
+* ``drivers/<name>.py``: a cell's program, the system under test as the
+  workload's ``"driver"`` runs it (the interface: ``harness/cell.py``);
 * ``metrics/<name>.py``: a metric's reader, ``read(run) -> float | None``
   (None: nothing to read in this run, and the metric is left out).
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(HERE)
@@ -26,9 +29,9 @@ def _json(path: str) -> dict:
 
 
 def names(kind: str) -> list:
-    """The names of the files in ``configs``, ``workloads`` or
-    ``metrics``."""
-    ext = ".py" if kind == "metrics" else ".json"
+    """The names of the files in ``configs``, ``workloads``, ``drivers``
+    or ``metrics``."""
+    ext = ".py" if kind in ("drivers", "metrics") else ".json"
     return sorted(f[:-len(ext)] for f in os.listdir(os.path.join(HERE, kind))
                   if f.endswith(ext) and not f.startswith("_"))
 
@@ -49,6 +52,28 @@ def reader(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def driver(name: str):
+    """The module ``drivers/<name>.py``, loaded once a process as
+    ``drivers.<name>`` (so that what it sends to worker processes pickles
+    by that name); there is no default driver."""
+    path = os.path.join(HERE, "drivers", name + ".py")
+    key = "drivers." + name
+    mod = sys.modules.get(key)
+    if mod is not None and getattr(mod, "__file__", None) == path:
+        return mod
+    if not os.path.exists(path):
+        raise ValueError(f"no driver {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[key]
+        raise
+    return mod
 
 
 def spec(path: str = None) -> dict:

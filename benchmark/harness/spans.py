@@ -8,7 +8,11 @@ each MD step (``CoolingScheduler.soa_md_step``), ``mdqt.sample`` around
 each sample of a fold (``laser_cooling._sample_fold``).  A trace of a
 program without them has none, and every reader here then returns
 None.  The window is ``trace.trace_breakdown``'s, so the idle parts add
-up to ``device_idle_pct``'s idle time."""
+up to ``device_idle_pct``'s idle time.
+
+``bench.write`` is the harness's own span (``drivers/cooling_job.py``),
+a ``record_function`` around each ``write_outputs`` and
+``checkpoint.save_native`` call of a traced job: the tree writer."""
 
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import bisect
 from .trace import HOST_WAITS, device_ops
 
 SAMPLE, STEP = "mdqt.sample", "mdqt.md_step"
+WRITE = "bench.write"
 
 
 def _complete(events) -> list:
@@ -85,18 +90,22 @@ def _covered(events, name: str) -> list:
     return _merge(spans(events, name))
 
 
-def _idle_us(events) -> dict:
-    """The traced window's idle time (the window less the union of the
-    card's operations), in microseconds, split by the spans over it:
-    ``SAMPLE``, ``STEP`` (outside every sample span) and ``None`` (under
-    neither)."""
-    sample = _covered(events, SAMPLE)
-    step = _subtract(_covered(events, STEP), sample)
+def _idle(events) -> list:
+    """The traced window's idle intervals: the window less the union of
+    the card's operations."""
     every = _complete(events)
     t_lo = min(e["ts"] for e in every)
     t_hi = max(e["ts"] + e["dur"] for e in every)
-    busy = _merge(device_ops(events))
-    idle = _subtract([(t_lo, t_hi)], busy)
+    return _subtract([(t_lo, t_hi)], _merge(device_ops(events)))
+
+
+def _idle_us(events) -> dict:
+    """The traced window's idle time, in microseconds, split by the spans
+    over it: ``SAMPLE``, ``STEP`` (outside every sample span) and ``None``
+    (under neither)."""
+    sample = _covered(events, SAMPLE)
+    step = _subtract(_covered(events, STEP), sample)
+    idle = _idle(events)
     parts = {SAMPLE: _length(_intersect(idle, sample)),
              STEP: _length(_intersect(idle, step))}
     parts[None] = _length(idle) - parts[SAMPLE] - parts[STEP]
@@ -114,17 +123,32 @@ def idle_ms_per_step(run: dict, part):
     return _idle_us(events)[part] / 1e3 / run["traced_md_steps"]
 
 
-def host_ms_per_step(run: dict, name: str):
-    """Milliseconds per traced MD step of the host inside ``name`` spans,
-    less its waits for a card there (``trace.HOST_WAITS``); None without
-    such spans."""
+def idle_ms(run: dict, name: str):
+    """Milliseconds of the traced window in which the card is idle under
+    ``name`` spans; None without such spans."""
+    events = run.get("trace") or []
+    covered = _covered(events, name)
+    if not covered:
+        return None
+    return _length(_intersect(_idle(events), covered)) / 1e3
+
+
+def host_ms(run: dict, name: str):
+    """Milliseconds of the host inside ``name`` spans, less its waits for
+    a card there (``trace.HOST_WAITS``); None without such spans."""
     events = run.get("trace") or []
     covered = _covered(events, name)
     if not covered:
         return None
     held = _merge(e for e in _complete(events) if e["name"] in HOST_WAITS)
-    host = _length(covered) - _length(_intersect(covered, held))
-    return host / 1e3 / run["traced_md_steps"]
+    return (_length(covered) - _length(_intersect(covered, held))) / 1e3
+
+
+def host_ms_per_step(run: dict, name: str):
+    """Milliseconds per traced MD step of the host inside ``name`` spans,
+    less its waits for a card there; None without such spans."""
+    host = host_ms(run, name)
+    return None if host is None else host / run["traced_md_steps"]
 
 
 def per_member(run: dict, count):

@@ -1,0 +1,5 @@
+"""``tick_roofline`` of a job cell, whose rate is ``updates_per_s``."""
+
+from harness.registry import reader
+
+read = reader("tick_roofline")

@@ -4,10 +4,11 @@
         --trace <0|1>
 
 from the root of a checkout, one process per run, on a machine with the
-CUDA cards the cell asks for.  Set-up (building or loading the kernels,
-the cell's start from ``--seed``, one warm-up group), then the window of
-``--seconds`` over the production group loop, then the comparison of the
-window's samples with the plain reference (``benchmark/reference/``).
+CUDA cards the cell asks for.  The cell's program is its workload's
+driver (``benchmark/drivers/``): set-up (building or loading the kernels,
+the cell's start from ``--seed``, a warm-up), then the window of
+``--seconds`` over the driver's production loop, then the comparison of
+what the window produced with the plain reference (``benchmark/reference/``).
 The last line of standard output is one JSON object: ``correct``,
 ``attempted`` and ``failed`` (groups), ``metrics`` (the cell's end-to-end
 metrics, or with ``--trace 1`` its per-layer ones, as ``BENCHMARK.json``

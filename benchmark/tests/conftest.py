@@ -2,7 +2,8 @@
 
 Puts the benchmark's folder and the checkout on the path, and gives the
 tests a tiny form of each cell (``tiny``): 48 ions a member, at most 3
-members (4 on a mesh), 4 MD steps a segment, 2 segments a group, one traced group, the
+members (4 on a mesh), 4 MD steps a segment, 2 segments a group, a job of
+6 segments (tmax 0.048), one traced group, the
 port's plain CPU versions with the tick kernel's own stream (the uniforms'
 form the card takes)."""
 
@@ -27,7 +28,7 @@ TINY_N0 = 48
 def tiny_config(config: dict) -> dict:
     c = copy.deepcopy(config)
     c["physics"].update(n0=TINY_N0, sample_freq=4,
-                        checkpoint_every_segments=2)
+                        checkpoint_every_segments=2, tmax=0.048)
     c["derived"]["L"] = (TINY_N0 * 4 * math.pi / 3) ** (1 / 3)
     c["derived"]["npad"] = 512
     return c

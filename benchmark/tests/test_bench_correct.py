@@ -3,22 +3,32 @@ passes the cell's limits; the control (the reference in bfloat16 in the
 program's place) and each fault planted in the timed path fail them."""
 
 import dataclasses
+import os
 import tempfile
 
+import numpy as np
 import pytest
 import torch
 
 import rank_faults
-from harness import cell, check
+from harness import cell, check, registry
 
 import mdqtplasmasims_torch.experiments.laser_cooling as lc
+from mdqtplasmasims_torch.bridge import state_to_numpy
 from mdqtplasmasims_torch.core.scheduler import CoolingScheduler
+from mdqtplasmasims_torch.io.datfiles import DatWriter
 from mdqtplasmasims_torch.parallel.mesh import make_mesh, slot_block
 from mdqtplasmasims_torch.state import tick_time
 
-CELLS = ["cool3500_e99", "cool3500_e100_ranks4"]
+CELLS = ["cool3500_e99", "cool3500_e100_ranks4", "cool3500_e1_tree"]
 ONE_CARD = CELLS[:1]
+JOB = "cool3500_e1_tree"
 SEED = 2 ** 31 + 12345
+# a sound untraced run at the tiny size with no time to spare: groups and
+# MD steps in the window, the segments followed
+SOUND = {"cool3500_e99": (1, 8, ["start", "mid"]),
+         "cool3500_e100_ranks4": (1, 8, ["start", "mid"]),
+         JOB: (3, 24, ["start", "stage", "mid"])}
 
 
 def run(name, seed=SEED, trace=False, seconds=0.0):
@@ -27,24 +37,56 @@ def run(name, seed=SEED, trace=False, seconds=0.0):
     return cell.verify(r, f, seed, "cpu"), f
 
 
+def segments(f):
+    """The names of the segments a run followed."""
+    if "segments" in f:
+        return [s.name for s in f["segments"]]
+    return [s.name for segs, _ in f["parts"] for s in segs]
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_is_correct(tiny, name):
     r, f = run(name)
     assert r["correct"] and r["failed"] == 0, r["checks"]
-    assert r["groups"] == 1 and r["md_steps"] == 8
+    groups, steps, followed = SOUND[name]
+    assert r["groups"] == groups and r["md_steps"] == steps
     assert r["memory_peak_bytes"] == 0          # no card: nothing read
-    assert [s.name for s in f["segments"]] == ["start", "mid"]
+    assert segments(f) == followed
     assert r["checks"]["tick_gap"]["value"] == 0
+
+
+def test_a_sound_job_window_of_two_jobs_reads_and_deletes_both_trees(
+        tiny, monkeypatch):
+    jobs = []
+    orig = lc.run
+
+    def counted(*a, **k):
+        jobs.append(1)
+        return orig(*a, **k)
+    monkeypatch.setattr(lc, "run", counted)
+    monkeypatch.setattr(cell.time, "perf_counter",
+                        lambda: 0.0 if len(jobs) < 3 else 1.0)
+    with tempfile.TemporaryDirectory() as d:
+        r, f = cell.measure(JOB, SEED, 0.5, False, "cpu", 0.0, d)
+        assert os.listdir(d) == []
+    cell.verify(r, f, SEED, "cpu")
+    assert r["groups"] == 6 and r["md_steps"] == 48
+    assert [s.tick for segs, _ in f["parts"] for s in segs] == [0, 400, 500]
+    # the first job's start and the last job's segments, each job's word
+    words = [w for _, w in f["parts"]]
+    assert words[0] != words[1]
+    assert r["correct"], r["checks"]
 
 
 def test_a_sound_run_of_two_groups_follows_three_segments(tiny, monkeypatch):
     groups = []
-    orig = cell.Program.run_group
+    fold = registry.driver("cooling_fold")
+    orig = fold.Program.run_group
 
-    def counted(self, fold):
+    def counted(self, states):
         groups.append(1)
-        return orig(self, fold)
-    monkeypatch.setattr(cell.Program, "run_group", counted)
+        return orig(self, states)
+    monkeypatch.setattr(fold.Program, "run_group", counted)
     monkeypatch.setattr(cell.time, "perf_counter",
                         lambda: 0.0 if len(groups) < 3 else 1.0)
     r, f = run("cool3500_e99", seconds=0.5)
@@ -83,9 +125,8 @@ def test_the_control_is_not_correct(tiny, name):
     wl = tiny.workload(name)
     with tempfile.TemporaryDirectory() as d:
         r, f = cell.measure(name, SEED, 0.0, False, "cpu", 0.0, d)
-    _, ctrl = check.compare(r["config"], f["segments"], r["checked"],
-                            cell.seed_word(SEED), "cpu",
-                            control=torch.bfloat16)
+    _, ctrl = registry.driver(wl["driver"]).compare(
+        r, f, SEED, torch.device("cpu"), control=torch.bfloat16)
     ok, table = check.judge(ctrl, wl["limits"])
     assert not ok, table
 
@@ -171,14 +212,95 @@ def _half_the_members(monkeypatch):
     monkeypatch.setattr(lc, "run_compiled_ensemble", half)
 
 
+def _sample_files_skipped(monkeypatch):
+    # the writer leaves out the files of the job's second sample
+    write = DatWriter.write
+
+    def skipping(self, name, arr):
+        if "time000001" not in name.lower():
+            write(self, name, arr)
+    monkeypatch.setattr(DatWriter, "write", skipping)
+
+
+def _previous_sample_written(monkeypatch):
+    # sample k's files and energies row hold sample k-1's values
+    write = lc.write_outputs
+    held = {}
+
+    def shifted(directory, cfg, outs, *a, **k):
+        prev = {key: v[-1:] for key, v in held.get(directory, outs).items()}
+        held[directory] = outs
+        late = {key: (v if key == "t" else
+                      np.concatenate([prev[key], v[:-1]]))
+                for key, v in outs.items()}
+        return write(directory, cfg, late, *a, **k)
+    monkeypatch.setattr(lc, "write_outputs", shifted)
+
+
+def _job_stops_after_its_first_group(monkeypatch):
+    # the first group runs; each later one hands back its input with the
+    # clock set as if it had run, and the first group's samples
+    orig = lc.run_compiled
+    first = {}
+
+    def stopped(cfg, sched, state, n):
+        if not first or first["sched"] is not sched:
+            end, outs = orig(cfg, sched, state, n)
+            first.update(sched=sched, outs=outs)
+            return end, outs
+        tick = int(state.tick) + n * cfg.sample_freq * sched.ratio
+        return (dataclasses.replace(state, tick=tick, t=tick_time(
+                    tick, sched.qdt, state.R.dtype)),
+                {k: v[:n] for k, v in first["outs"].items()})
+    monkeypatch.setattr(lc, "run_compiled", stopped)
+
+
+def _energies_one_row_short(monkeypatch):
+    append = DatWriter.append
+    cut = set()
+
+    def short(self, name, arr):
+        if name == "energies.dat" and self.dir not in cut:
+            cut.add(self.dir)
+            arr = np.asarray(arr)[1:]
+        append(self, name, arr)
+    monkeypatch.setattr(DatWriter, "append", short)
+
+
+def _terminal_checkpoint_of_the_start(monkeypatch):
+    run_job, write = lc.run, lc.write_terminal_checkpoint
+    start = {}
+
+    def remember(cfg, *a, state=None, **k):
+        start["state"] = state_to_numpy(state)
+        return run_job(cfg, *a, state=state, **k)
+
+    def of_start(directory, cfg, final, *a, **k):
+        return write(directory, cfg, start["state"], *a, **k)
+    monkeypatch.setattr(lc, "run", remember)
+    monkeypatch.setattr(lc, "write_terminal_checkpoint", of_start)
+
+
+FOLD_FAULTS = [_group_returns_its_input, _segments_skipped, _fewer_steps,
+               _half_the_members]
+JOB_FAULTS = [_sample_files_skipped, _previous_sample_written,
+              _job_stops_after_its_first_group, _energies_one_row_short,
+              _terminal_checkpoint_of_the_start]
+PATH_FAULTS = [_step_unchanged, _half_the_ions, _answer_altered]
+
+
 @pytest.mark.parametrize("name", ONE_CARD)
-@pytest.mark.parametrize("fault", [
-    _step_unchanged, _half_the_ions, _answer_altered,
-    _group_returns_its_input, _segments_skipped, _fewer_steps,
-    _half_the_members])
+@pytest.mark.parametrize("fault", PATH_FAULTS + FOLD_FAULTS)
 def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, name, fault):
     fault(monkeypatch)
     r, _ = run(name)
+    assert not r["correct"] and r["failed"] >= 1, r["checks"]
+
+
+@pytest.mark.parametrize("fault", PATH_FAULTS + JOB_FAULTS)
+def test_a_broken_job_is_not_correct(tiny, monkeypatch, fault):
+    fault(monkeypatch)
+    r, _ = run(JOB)
     assert not r["correct"] and r["failed"] >= 1, r["checks"]
 
 

@@ -6,10 +6,11 @@ import json
 import os
 import re
 import shutil
+import tempfile
 
 import pytest
 
-from harness import registry
+from harness import cell, registry
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -25,15 +26,53 @@ def test_every_config_workload_and_metric_loads_by_name():
         assert wl["config"] == w["config"]
         assert set(wl["limits"]) <= {"ekin", "epot", "vx_mean", "pvel",
                                      "vx_ions", "pops"}
+        drv = registry.driver(wl["driver"])
+        assert callable(drv.Driver) and callable(drv.compare)
+        assert not set(drv.LIMITS) & set(wl["limits"])
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert callable(registry.reader(m["name"]))
     assert set(registry.names("configs")) == {c["name"]
                                               for c in BENCH["configs"]}
 
 
+# a driver of the least work: one unit a window, one number compared
+DRIVER = """
+LIMITS = {"gap": 0.0}
+
+
+class Driver:
+    def __init__(self, config, workload, seed, device, scratch):
+        self.seed = seed
+
+    def warm_up(self):
+        pass
+
+    def window(self, seconds, trace_dir=None):
+        return dict(wall_s=1.0, groups=1, md_steps=1, bad_groups=0,
+                    traced_md_steps=0, traced_segments=0)
+
+    def trace_events(self, trace_dir):
+        return []
+
+    def memory_peak(self):
+        return 0
+
+    def close(self):
+        pass
+
+    def followed(self):
+        return dict(seed=self.seed)
+
+
+def compare(run, followed, seed, device, control=None):
+    return dict(n=0.5, gap=float(followed["seed"] != seed)), None
+"""
+
+
 @pytest.mark.parametrize("kind,text", [
     ("configs", None), ("workloads", None),
-    ("metrics", "def read(run):\n    return 1.0\n")])
+    ("metrics", "def read(run):\n    return 1.0\n"),
+    ("drivers", DRIVER)])
 def test_a_dropped_file_is_found_without_an_edit(tmp_path, monkeypatch,
                                                  kind, text):
     root = tmp_path / "benchmark"
@@ -41,7 +80,21 @@ def test_a_dropped_file_is_found_without_an_edit(tmp_path, monkeypatch,
                     ignore=shutil.ignore_patterns("__pycache__"))
     monkeypatch.setattr(registry, "HERE", str(root))
     folder = root / kind
-    if text is None:
+    if kind == "drivers":
+        # a driver and a workload naming it: run by cell.measure and
+        # cell.verify as they stand
+        (folder / "added_one.py").write_text(text)
+        (root / "workloads" / "added_one.json").write_text(json.dumps(dict(
+            config="sr12_n3500", driver="added_one", members=1,
+            limits=dict(n=1.0))))
+        assert "added_one" in registry.names(kind)
+        with tempfile.TemporaryDirectory() as d:
+            r, f = cell.measure("added_one", 7, 0.0, False, "cpu", 0.0, d)
+        cell.verify(r, f, 7, "cpu")
+        assert r["correct"] and r["groups"] == 1, r["checks"]
+        assert r["checks"] == {"n": dict(value=0.5, limit=1.0),
+                               "gap": dict(value=0.0, limit=0.0)}
+    elif text is None:
         src = sorted(folder.iterdir())[0]
         data = json.loads(src.read_text())
         (folder / "added_one.json").write_text(json.dumps(data))
@@ -51,6 +104,19 @@ def test_a_dropped_file_is_found_without_an_edit(tmp_path, monkeypatch,
         (folder / "added_one.py").write_text(text)
         assert "added_one" in registry.names(kind)
         assert registry.reader("added_one")({}) == 1.0
+
+
+def test_a_workload_without_a_driver_is_refused(monkeypatch):
+    wl = dict(registry.workload("cool3500_e99"))
+    del wl["driver"]
+    monkeypatch.setattr(registry, "workload", lambda name: wl)
+    with pytest.raises(ValueError, match="names no \"driver\""):
+        cell.measure("cool3500_e99", 7, 0.0, False, "cpu", 0.0, "unused")
+
+
+def test_an_unknown_driver_is_refused():
+    with pytest.raises(ValueError, match="no driver 'absent'"):
+        registry.driver("absent")
 
 
 def test_names_units_and_keys_keep_to_the_contract():

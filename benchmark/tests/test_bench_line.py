@@ -46,6 +46,48 @@ def test_the_last_line_has_the_contracts_keys(tiny, monkeypatch, trace):
         assert set(line["metrics"]) == names
 
 
+PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "e99_parent_tiny.json")
+# what changes from run to run: the clocks, and the trace's timings
+VOLATILE = ("setup_s", "wall_s", "check_s", "trace", "breakdown")
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_fold_driver_repeats_the_harness_it_came_from(tiny, monkeypatch,
+                                                          trace):
+    """``cool3500_e99`` through ``drivers/cooling_fold.py`` gives the run
+    record and the last line that the harness gave before the fold moved
+    behind the driver seam (recorded at the tiny size on the CPU, kept in
+    ``e99_parent_tiny.json``), but for the workload's new ``"driver"`` and
+    what a run's clocks and trace timings change."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    with open(PARENT) as f:
+        want = json.load(f)["trace" if trace else "untraced"]
+    name, seed = "cool3500_e99", 2 ** 31 + 12345
+    with tempfile.TemporaryDirectory() as d:
+        r, segments = cell.measure(name, seed, 0.0, trace, "cpu", 0.0, d)
+    cell.verify(r, segments, seed, "cpu")
+    line = json.loads(json.dumps(bench_run.result_line(
+        r, registry.cell_metrics(registry.spec(), name, trace), trace)))
+    assert sorted(r) == want["record_keys"]
+    record = json.loads(json.dumps({k: v for k, v in r.items()
+                                    if k not in VOLATILE + ("config",)}))
+    assert record.pop("workload").pop("driver") == "cooling_fold"
+    assert record == {k: v for k, v in want["record"].items()
+                      if k != "workload"}
+    assert r["workload"] == {**want["record"]["workload"],
+                             "driver": "cooling_fold"}
+    assert list(line) == want["line_keys"]
+    line["metrics"] = {k: v["unit"] for k, v in line["metrics"].items()}
+    for k in ("busy_s", "window_s"):
+        if k in line["device"]:
+            line["device"][k] = None
+    if "breakdown" in line:
+        line["breakdown"] = sorted(line["breakdown"])
+    assert line == want["line"]
+
+
 def _loaded(code: str) -> set:
     out = subprocess.run(
         [sys.executable, "-c", f"import sys; sys.path[:0] = [{HERE!r}, "
@@ -62,6 +104,7 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
     top = _loaded(
         "import run; from harness import cell, check, registry, roofline, "
         "trace; from reference import mdqt; "
+        "[registry.driver(d) for d in registry.names('drivers')]; "
         "from mdqtplasmasims_torch.experiments import laser_cooling; "
         "from mdqtplasmasims_torch import profiling; "
         f"[{names}]")

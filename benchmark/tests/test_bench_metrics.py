@@ -97,3 +97,21 @@ def test_a_fold_cells_readers_are_its_bases():
     for name in folds:
         base = name[:-len(".fold")] if name.endswith(".fold") else name[5:]
         assert registry.reader(name)(run) == registry.reader(base)(run)
+
+
+def test_a_job_cells_readers_are_its_bases():
+    bench = registry.spec()
+    jobs = [m["name"] for m in bench["per_layer"]
+            if m["name"].endswith(".job")]
+    assert len(jobs) == 7
+    run = dict(config=CONFIG, members=1, md_steps=400, wall_s=3.0,
+               traced_segments=10, traced_md_steps=400,
+               breakdown=dict(window_ms=2.0, busy_ms=1.0),
+               trace=[ev("void yukawa_pair_kernel<false, false>", 0, 9e4),
+                      ev("void fused_ticks_kernel<12>", 0, 9e4),
+                      ev("bench.write", 9e4, 50.0, cat="user_annotation"),
+                      ev("mdqt.md_step", 0, 10.0, cat="user_annotation")])
+    for name in jobs:
+        got = registry.reader(name)(run)
+        assert got is not None and got == registry.reader(
+            name[:-len(".job")])(run), name

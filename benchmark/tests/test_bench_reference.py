@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from conftest import TINY_N0, tiny_config
-from harness import cell, registry
+from harness import registry
 from reference import mdqt
 
 import mdqtplasmasims_torch.experiments.laser_cooling as lc
@@ -120,7 +120,7 @@ def test_uniforms_are_the_kernels_stream():
 
 def _state(seed=7):
     c = tiny_config(registry.config("sr12_n3500"))
-    st = cell.start_fold(c, 1, seed, "cpu")
+    st = registry.driver("cooling_fold").start_fold(c, 1, seed, "cpu")
     g = torch.Generator().manual_seed(seed)
     V = 0.3 * torch.randn((TINY_N0, 3), generator=g, dtype=torch.float64)
     return c, make_state(st.R[0], V, st.psi[0], device="cpu",

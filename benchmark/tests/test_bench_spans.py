@@ -99,3 +99,16 @@ def test_the_sample_readers_return_nothing_with_step_spans_alone():
     for name in READERS:
         got = read(name, run)
         assert (got is None) == name.startswith("sample_"), name
+
+
+def test_the_writers_host_and_idle_time_per_sample():
+    sync = "cudaStreamSynchronize"
+    events = [ev("k1", 0, 10), ev("k2", 100, 10),
+              span(spans.WRITE, 20, 60), span(spans.WRITE, 30, 10),
+              ev(sync, 70, 20, cat="cuda_runtime")]      # across the edge
+    run = dict(traced(events, steps=8), traced_segments=2)
+    # the card is idle from 10 to 100; the spans cover 20 to 80
+    assert read("write_idle_ms_per_sample", run) == pytest.approx(60e-3 / 2)
+    assert read("write_host_ms_per_sample", run) == pytest.approx(50e-3 / 2)
+    for name in ("write_idle_ms_per_sample", "write_host_ms_per_sample"):
+        assert read(name, traced([ev("k", 0, 10)])) is None
