@@ -23,6 +23,8 @@ import torch
 from harness import cell, check
 
 LIMITS = check.CLOCK_LIMITS
+NUMBERS = check.NUMBERS
+CONTROL = torch.bfloat16    # below the configuration's float32
 
 
 def start_fold(config: dict, members: int, seed: int, device):

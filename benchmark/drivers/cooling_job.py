@@ -46,6 +46,8 @@ from harness.spans import WRITE
 # reference-schema files %g's six significant digits, whose rounding
 # moves a value by at most half a unit of its sixth digit, 5e-6 of it.
 LIMITS = {**check.CLOCK_LIMITS, "tree_gap": 0, "ckpt_gap": 5e-6}
+NUMBERS = check.NUMBERS
+CONTROL = torch.bfloat16    # below the configuration's float32
 
 KDE_ROWS = 2001          # the vel_dist files' rows (0 .. 5 at 0.0025)
 VZERO_FILES = 13         # the terminal checkpoint's interval snapshots

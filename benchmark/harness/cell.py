@@ -15,9 +15,16 @@ The program a cell runs is its workload's ``"driver"``,
   driver is closed: what the comparison follows;
 * ``compare(run, followed, seed, device, control)``: the compared numbers
   of a run, and with ``control`` (a dtype) the control's;
-* ``LIMITS``: the limits the driver fixes, beside the workload's.
+* ``NUMBERS``: the names of the numbers ``compare`` returns that a
+  workload's ``limits`` may name (the cooling drivers' six are
+  ``check.NUMBERS``);
+* ``LIMITS``: the limits the driver fixes, beside the workload's, on the
+  other numbers ``compare`` returns;
+* ``CONTROL``: the control's dtype, the nearest precision below the one
+  the configuration states (``calibrate.py`` and the CPU tests read it).
 
-Scratch space (a run's trees, its trace) lies under ``scratch``.
+Scratch space (a run's trees, its trace) lies under ``scratch``.  A
+driver's tiny form for the CPU tests is ``tests/tiny/<name>.py``.
 """
 
 from __future__ import annotations

@@ -1,14 +1,10 @@
 """The benchmark's CPU tests: ``python -m pytest benchmark/tests -q``.
 
-Puts the benchmark's folder and the checkout on the path, and gives the
-tests a tiny form of each cell (``tiny``): 48 ions a member, at most 3
-members (4 on a mesh), 4 MD steps a segment, 2 segments a group, a job of
-6 segments (tmax 0.048), one traced group, the
-port's plain CPU versions with the tick kernel's own stream (the uniforms'
-form the card takes)."""
+Puts the benchmark's folder, the checkout and this folder on the path,
+and gives the tests a tiny form of each cell (``tiny``): its driver's
+``tiny/<driver>.py``."""
 
-import copy
-import math
+import importlib
 import os
 import sys
 
@@ -19,36 +15,49 @@ import torch
 # (which take this process's count) share the machine's cores
 torch.set_num_threads(1)
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [HERE, os.path.dirname(HERE)]
+TESTS = os.path.dirname(os.path.abspath(__file__))
+HERE = os.path.dirname(TESTS)
+sys.path[:0] = [HERE, os.path.dirname(HERE), TESTS]
 
-TINY_N0 = 48
 
-
-def tiny_config(config: dict) -> dict:
-    c = copy.deepcopy(config)
-    c["physics"].update(n0=TINY_N0, sample_freq=4,
-                        checkpoint_every_segments=2, tmax=0.048)
-    c["derived"]["L"] = (TINY_N0 * 4 * math.pi / 3) ** (1 / 3)
-    c["derived"]["npad"] = 512
-    return c
+def tiny_form(driver: str):
+    """The module ``tiny/<driver>.py``."""
+    return importlib.import_module("tiny." + driver)
 
 
 @pytest.fixture
 def tiny(monkeypatch):
-    """Every cell at the tiny size on the CPU (a mesh cell's ranks on CPU
-    slots over gloo, 4 members); yields the registry."""
+    """Every cell at its driver's tiny form on the CPU (a mesh cell's
+    ranks on CPU slots over gloo); each configuration at the form of the
+    drivers that run it; a form's ``patch`` applied when the test first
+    loads its driver, so that one family's patch never reaches another's
+    cells; yields the registry."""
     from harness import registry
-    import mdqtplasmasims_torch.experiments.laser_cooling as lc
-    config, workload = registry.config, registry.workload
+    config, workload, driver = (registry.config, registry.workload,
+                                registry.driver)
+    drivers = {n: workload(n)["driver"] for n in registry.names("workloads")}
+    forms = {d: tiny_form(d) for d in set(drivers.values())}
+    shrink = {}
+    for n, d in drivers.items():
+        fn = forms[d].tiny_config
+        assert shrink.setdefault(workload(n)["config"], fn) is fn, \
+            f"{n}: its configuration has another driver's tiny form"
+
+    def tiny_config(name):
+        return shrink[name](config(name))
 
     def tiny_workload(name):
-        w = dict(workload(name))
-        w.update(members=4 if "mesh" in w else min(w["members"], 3),
-                 trace_groups=1)
-        return w
-    monkeypatch.setattr(registry, "config",
-                        lambda name: tiny_config(config(name)))
+        w = workload(name)
+        return forms[w["driver"]].tiny_workload(w)
+    patched = set()
+
+    def patched_driver(name):
+        mod = driver(name)
+        if name in forms and name not in patched:
+            patched.add(name)
+            forms[name].patch(monkeypatch)
+        return mod
+    monkeypatch.setattr(registry, "config", tiny_config)
     monkeypatch.setattr(registry, "workload", tiny_workload)
-    monkeypatch.setattr(lc, "_use_internal_rng", lambda device, rolls: True)
+    monkeypatch.setattr(registry, "driver", patched_driver)
     yield registry

@@ -1,6 +1,8 @@
-"""``correct`` on whole runs at the tiny size on the CPU: a sound run
-passes the cell's limits; the control (the reference in bfloat16 in the
-program's place) and each fault planted in the timed path fail them."""
+"""``correct`` on whole runs at the tiny size on the CPU: a sound run of
+every cell passes its limits and the control (the reference in the
+precision below the configuration's, bfloat16 for cooling, in the
+program's place) fails them; each fault planted in a cooling cell's timed
+path fails them."""
 
 import dataclasses
 import os
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 import rank_faults
+from conftest import tiny_form
 from harness import cell, check, registry
 
 import mdqtplasmasims_torch.experiments.laser_cooling as lc
@@ -20,15 +23,13 @@ from mdqtplasmasims_torch.io.datfiles import DatWriter
 from mdqtplasmasims_torch.parallel.mesh import make_mesh, slot_block
 from mdqtplasmasims_torch.state import tick_time
 
-CELLS = ["cool3500_e99", "cool3500_e100_ranks4", "cool3500_e1_tree"]
-ONE_CARD = CELLS[:1]
+# every cell of BENCHMARK.json, then every workload file kept out of it
+# (the four-card cool3500_e100_ranks4), each at its driver's tiny form
+_IN = [w["name"] for w in registry.spec()["workloads"]]
+CELLS = _IN + [n for n in registry.names("workloads") if n not in _IN]
+ONE_CARD = ["cool3500_e99"]
 JOB = "cool3500_e1_tree"
 SEED = 2 ** 31 + 12345
-# a sound untraced run at the tiny size with no time to spare: groups and
-# MD steps in the window, the segments followed
-SOUND = {"cool3500_e99": (1, 8, ["start", "mid"]),
-         "cool3500_e100_ranks4": (1, 8, ["start", "mid"]),
-         JOB: (3, 24, ["start", "stage", "mid"])}
 
 
 def run(name, seed=SEED, trace=False, seconds=0.0):
@@ -37,22 +38,23 @@ def run(name, seed=SEED, trace=False, seconds=0.0):
     return cell.verify(r, f, seed, "cpu"), f
 
 
-def segments(f):
-    """The names of the segments a run followed."""
-    if "segments" in f:
-        return [s.name for s in f["segments"]]
-    return [s.name for segs, _ in f["parts"] for s in segs]
+def form(tiny, name):
+    """The tiny form of cell ``name``'s driver."""
+    return tiny_form(tiny.workload(name)["driver"])
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_is_correct(tiny, name):
     r, f = run(name)
     assert r["correct"] and r["failed"] == 0, r["checks"]
-    groups, steps, followed = SOUND[name]
-    assert r["groups"] == groups and r["md_steps"] == steps
+    tf = form(tiny, name)
+    sound = tf.SOUND
+    assert r["groups"] == sound["groups"]
+    assert r["md_steps"] == sound["md_steps"]
     assert r["memory_peak_bytes"] == 0          # no card: nothing read
-    assert segments(f) == followed
-    assert r["checks"]["tick_gap"]["value"] == 0
+    assert tf.followed(f) == sound["followed"]
+    for k, v in sound["checks"].items():
+        assert r["checks"][k]["value"] == v, k
 
 
 def test_a_sound_job_window_of_two_jobs_reads_and_deletes_both_trees(
@@ -125,8 +127,9 @@ def test_the_control_is_not_correct(tiny, name):
     wl = tiny.workload(name)
     with tempfile.TemporaryDirectory() as d:
         r, f = cell.measure(name, SEED, 0.0, False, "cpu", 0.0, d)
-    _, ctrl = registry.driver(wl["driver"]).compare(
-        r, f, SEED, torch.device("cpu"), control=torch.bfloat16)
+    drv = registry.driver(wl["driver"])
+    _, ctrl = drv.compare(r, f, SEED, torch.device("cpu"),
+                          control=drv.CONTROL)
     ok, table = check.judge(ctrl, wl["limits"])
     assert not ok, table
 

@@ -9,6 +9,7 @@ import shutil
 import tempfile
 
 import pytest
+import torch
 
 from harness import cell, registry
 
@@ -24,11 +25,16 @@ def test_every_config_workload_and_metric_loads_by_name():
     for w in BENCH["workloads"]:
         wl = registry.workload(w["name"])
         assert wl["config"] == w["config"]
-        assert set(wl["limits"]) <= {"ekin", "epot", "vx_mean", "pvel",
-                                     "vx_ions", "pops"}
         drv = registry.driver(wl["driver"])
         assert callable(drv.Driver) and callable(drv.compare)
-        assert not set(drv.LIMITS) & set(wl["limits"])
+        # a workload limits only its driver's numbers, never one the
+        # driver's own LIMITS fix
+        assert set(wl["limits"]) <= set(drv.NUMBERS), w["name"]
+        assert not set(drv.NUMBERS) & set(drv.LIMITS)
+        assert isinstance(drv.CONTROL, torch.dtype)
+        assert drv.CONTROL.is_floating_point
+        assert os.path.exists(os.path.join(registry.HERE, "tests", "tiny",
+                                           wl["driver"] + ".py"))
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert callable(registry.reader(m["name"]))
     assert set(registry.names("configs")) == {c["name"]

@@ -88,6 +88,41 @@ def test_the_fold_driver_repeats_the_harness_it_came_from(tiny, monkeypatch,
     assert line == want["line"]
 
 
+JOB_PARENT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "e1_tree_parent_tiny.json")
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_job_driver_repeats_its_recorded_run(tiny, monkeypatch, trace):
+    """``cool3500_e1_tree`` gives the run record and the last line it gave
+    when its driver declared no ``NUMBERS`` and the tiny forms lay in
+    ``conftest.py`` (recorded at the tiny size on the CPU, kept in
+    ``e1_tree_parent_tiny.json``), but for what a run's clocks and trace
+    timings change."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    with open(JOB_PARENT) as f:
+        want = json.load(f)["trace" if trace else "untraced"]
+    name, seed = "cool3500_e1_tree", 2 ** 31 + 12345
+    with tempfile.TemporaryDirectory() as d:
+        r, followed = cell.measure(name, seed, 0.0, trace, "cpu", 0.0, d)
+    cell.verify(r, followed, seed, "cpu")
+    line = json.loads(json.dumps(bench_run.result_line(
+        r, registry.cell_metrics(registry.spec(), name, trace), trace)))
+    assert sorted(r) == want["record_keys"]
+    assert json.loads(json.dumps({k: v for k, v in r.items()
+                                  if k not in VOLATILE + ("config",)})) \
+        == want["record"]
+    assert list(line) == want["line_keys"]
+    line["metrics"] = {k: v["unit"] for k, v in line["metrics"].items()}
+    for k in ("busy_s", "window_s"):
+        if k in line["device"]:
+            line["device"][k] = None
+    if "breakdown" in line:
+        line["breakdown"] = sorted(line["breakdown"])
+    assert line == want["line"]
+
+
 def _loaded(code: str) -> set:
     out = subprocess.run(
         [sys.executable, "-c", f"import sys; sys.path[:0] = [{HERE!r}, "

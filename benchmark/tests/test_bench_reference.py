@@ -1,8 +1,10 @@
 """The plain reference against the port's plain CPU versions at a tiny
-size, both in float64, and the configurations' frozen tables against the
-port's own derivation and against the JAX package's (``levels.py``,
-``units.py``), which the port was ported from and checked against."""
+size, both in float64, and the cooling configurations' frozen tables
+against the port's own derivation and against the JAX package's
+(``levels.py``, ``units.py``), which the port was ported from and checked
+against.  Another family brings its own table tests as a file."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -12,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import TINY_N0, tiny_config
-from harness import registry
+from harness import check, registry
 from reference import mdqt
+from tiny.cooling_fold import TINY_N0, tiny_config
 
 import mdqtplasmasims_torch.experiments.laser_cooling as lc
 from mdqtplasmasims_torch.core.rng import tick_uniforms
@@ -25,7 +27,25 @@ from mdqtplasmasims_torch.state import make_state
 WORD = 123456789
 
 
-CONFIGS = [c["name"] for c in registry.spec()["configs"]]
+# the cooling configurations, by what the table tests compare: every
+# configuration file with a level scheme and physics that build a
+# CoolingConfig (another family's configuration has keys of its own)
+_FIELDS = {f.name for f in dataclasses.fields(lc.CoolingConfig)}
+CONFIGS = [n for n in registry.names("configs")
+           if "scheme" in registry.config(n)
+           and "n0" in registry.config(n).get("physics", {})
+           and set(registry.config(n)["physics"]) <= _FIELDS]
+
+
+def test_every_configuration_a_cooling_driver_runs_has_its_tables():
+    """Each configuration that a workload of a driver comparing cooling's
+    numbers runs is among the table tests' cases."""
+    ran = set()
+    for name in registry.names("workloads"):
+        wl = registry.workload(name)
+        if set(registry.driver(wl["driver"]).NUMBERS) == set(check.NUMBERS):
+            ran.add(wl["config"])
+    assert ran and ran <= set(CONFIGS), (ran, CONFIGS)
 
 # Prints the JAX package's scheme and units of a configuration's physics
 # as JSON (run in a process of its own, so that no test's process loads
