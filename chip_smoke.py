@@ -1391,6 +1391,11 @@ def main_path(torch, card):
                     member_sum=5 * 12 + 1, kde=12)
         if any(counts[k] != v for k, v in want.items()):
             raise SystemExit(f"main path launched {counts}, want {want}")
+        half = half_count()
+        log(f"[main] launches of the half-pair form: {half}")
+        if half != dict(yukawa_forces=500, yukawa_forces_batched=0):
+            raise SystemExit("the flagship run's force launches did not all "
+                             "take the half-pair form")
         outs = res["outs"]
         arrays = [final.R, final.V, final.F, final.psi, final.t_part,
                   *outs.values()]
@@ -1496,6 +1501,109 @@ def check_batched_force_kernel(torch, L, ldeb):
                 **bound(half_pairs(n_js) * PAIR_OPS, 4 * 7 * E * npad))
 
 
+def bits_equal(a, b) -> bool:
+    """Same shape and the same float32 bits (a -0 is not a +0)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_half_pair_kernel(torch, L, ldeb):
+    """The half-pair form of kernels A and C (members of ``HALF_MIN_NPAD``
+    lanes or more; the E=8 Poissonian fold with per-member masks and
+    1/lambda is :func:`check_batched_force_kernel`'s): a fold of 99
+    members of 3500 ions in 3584 lanes with a shared mask against the
+    plain version, bitwise run to run, padded lanes exactly 0; its first 8
+    members as a fold of 8 and member 0 as a fold of 1 and through kernel
+    A against the plain version and bit for bit equal to the same members
+    in the fold of 99 (an E=1 fold is kernel A); 8 members whose masks
+    have holes (a whole row tile, an unaligned stretch, every tenth lane
+    at random) with their own 1/lambda and positions on the masked lanes;
+    ``half_launches`` moving with each of these launches, at 2048 lanes
+    and not at 1920, nor with the frozen pools' 8 x 600 fold in 640
+    lanes, whose forces keep the full rectangle."""
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    n, npad, E = 3500, 3584, 99
+    shared = torch.zeros((1, npad), device=dev)
+    shared[0, :n] = 1.0
+    R = torch.rand((3, E, npad), generator=g, device=dev) * L * shared
+    fold = lambda k: R[:, :k].reshape(3, k * npad).contiguous()
+    C = ty.yukawa_forces_n3l_soa_batched
+    A = ty.yukawa_forces_n3l_soa
+    before = half_count()
+    F99, again = C(fold(E), shared, E, L, ldeb), C(fold(E), shared, E, L, ldeb)
+    F8, F1 = C(fold(8), shared, 8, L, ldeb), C(fold(1), shared, 1, L, ldeb)
+    FA = A(fold(1), shared, L, ldeb)
+    ref = ty.yukawa_forces_n3l_soa_batched_reference(fold(E), shared, E, L,
+                                                     ldeb)
+    torch.cuda.synchronize()
+    on = (torch.arange(E * npad, device=dev) % npad) < n
+    worst = {}
+    for what, F in (("E=99", F99), ("E=8", F8), ("E=1", F1), ("A", FA)):
+        r = ref[:, :F.shape[1]]
+        scale = float(r.abs().max())
+        worst[what] = float((F - r).abs().max()) / scale
+        pads = float(F[:, ~on[:F.shape[1]]].abs().max())
+        log(f"[half] {what}: {F.shape[1] // npad} x {n} ions in {npad} "
+            f"lanes against the plain version: max|F| {scale:.6g}, rel err "
+            f"{worst[what]:.3g} (tol {FORCE_TOL:g}); padded lanes {pads:g}")
+        if not worst[what] <= FORCE_TOL or pads != 0.0:
+            raise SystemExit(f"the half-pair form ({what}) disagrees with "
+                             "its plain version")
+    same = dict(run_to_run=bits_equal(F99, again),
+                e8_in_e99=bits_equal(F8, F99[:, :8 * npad]),
+                e1_in_e99=bits_equal(F1, F99[:, :npad]),
+                e1_is_a=bits_equal(F1, FA))
+    log(f"[half] bitwise: {same}")
+    if not all(same.values()):
+        raise SystemExit("the half-pair form's bits depend on the run or "
+                         "on the fold's width")
+
+    holes = (torch.rand((8, npad), generator=g, device=dev) < 0.9).float()
+    holes[:, n:] = 0.0
+    holes[:, 640:704] = 0.0
+    holes[:, 1000:1111] = 0.0
+    il = (1.0 / ldeb) * (1.0 + 0.05 * torch.arange(8, device=dev))
+    Rh = torch.rand((3, 8 * npad), generator=g, device=dev) * L
+    Fh, Fh2 = C(Rh, holes, 8, L, ldeb, il), C(Rh, holes, 8, L, ldeb, il)
+    ref = ty.yukawa_forces_n3l_soa_batched_reference(Rh, holes, 8, L, ldeb,
+                                                     il)
+    torch.cuda.synchronize()
+    dead = holes.reshape(-1) == 0
+    scale = float(ref.abs().max())
+    worst["holes"] = float((Fh - ref).abs().max()) / scale
+    pads = float(Fh[:, dead].abs().max())
+    log(f"[half] 8 members, masks with holes ({int(dead.sum())} masked "
+        f"lanes), per-member 1/lambda: rel err {worst['holes']:.3g} (tol "
+        f"{FORCE_TOL:g}); masked lanes {pads:g}; bitwise run to run "
+        f"{bits_equal(Fh, Fh2)}")
+    if not (worst["holes"] <= FORCE_TOL and pads == 0.0
+            and bits_equal(Fh, Fh2)):
+        raise SystemExit("the half-pair form with holed masks disagrees")
+
+    want = dict(yukawa_forces=1, yukawa_forces_batched=6)
+    for lanes, engaged in ((1920, False), (2048, True)):
+        m = torch.zeros((1, lanes), device=dev)
+        m[0, :lanes - 100] = 1.0
+        x = torch.rand((3, lanes), generator=g, device=dev) * L * m
+        C(x, m, 1, L, ldeb)
+        want["yukawa_forces_batched"] += engaged
+    pools = torch.zeros((1, 640), device=dev)
+    pools[0, :600] = 1.0
+    x = torch.rand((3, 8, 640), generator=g, device=dev) * L * pools
+    C(x.reshape(3, 8 * 640), pools, 8, L, ldeb)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in half_count().items()}
+    log(f"[half] half_launches moved by {moved} (want {want}: the 1920- "
+        f"and 640-lane launches keep the full rectangle)")
+    if moved != want:
+        raise SystemExit("half_launches does not count the half-pair form's "
+                         "launches")
+    return worst
+
+
 def check_lane_kernels(torch, cfg):
     """The per-lane tick variants (explicit rolls) against the twin on a
     4-member fold."""
@@ -1587,15 +1695,28 @@ def counters() -> dict:
 
 def reset_counts():
     """Every kernel form's counter to 0, the member-sum and KDE kernels'
-    too (read apart, :func:`member_sum_count`, :func:`kde_count`: the
-    observables of a path's samples are not among the launches its phases
-    hold exactly)."""
+    and the half-pair form's too (read apart, :func:`member_sum_count`,
+    :func:`kde_count`: the observables of a path's samples are not among
+    the launches its phases hold exactly; :func:`half_count`: already
+    counted among A's and C's)."""
     from mdqtplasmasims_torch.ops.kde import gaussian_kde
     from mdqtplasmasims_torch.ops.member_sum import member_sum
+    from mdqtplasmasims_torch.ops import yukawa as ty
     for obj, attr in counters().values():
         setattr(obj, attr, 0)
     member_sum.launches = 0
     gaussian_kde.launches = 0
+    ty.yukawa_forces_n3l_soa.half_launches = 0
+    ty.yukawa_forces_n3l_soa_batched.half_launches = 0
+
+
+def half_count() -> dict:
+    """Launches of kernels A and C that took the half-pair form, read apart
+    (a phase's exact counts hold a kernel's launches whatever its form)."""
+    from mdqtplasmasims_torch.ops import yukawa as ty
+    return dict(yukawa_forces=ty.yukawa_forces_n3l_soa.half_launches,
+                yukawa_forces_batched=(
+                    ty.yukawa_forces_n3l_soa_batched.half_launches))
 
 
 def member_sum_count() -> int:
@@ -1970,7 +2091,9 @@ def check_cols_kernel(torch, L, ldeb):
     handed to the kernel as ``_gather_forces`` does), run to run, masked
     rows exactly 0, and timed in that form; the same without the row mask;
     then 2 Poissonian members per slot against the plain version, masked
-    and not, and a member's own lanes as columns against kernel C."""
+    and not, and a member's own lanes as columns against kernel C (bit
+    for bit below ``HALF_MIN_NPAD`` lanes, within :data:`FORCE_TOL` in the
+    half-pair form)."""
     from mdqtplasmasims_torch.core.init import poisson_member_mask
     from mdqtplasmasims_torch.ops import yukawa as ty
     dev = torch.device("cuda")
@@ -1988,24 +2111,34 @@ def check_cols_kernel(torch, L, ldeb):
     _cols_check(torch, L, ldeb, 2, cols2, cmask2, "2 Poissonian members",
                 cmask2[:, :npad].contiguous())
     _cols_check(torch, L, ldeb, 2, cols2, cmask2, "2 Poissonian members")
-    # a member's own lanes as its columns: kernel C's forces bit for bit
-    m, n2 = poisson_member_mask(3500, 2, 9)
-    npad2 = -(-max(3584, m.shape[1]) // 128) * 128
-    masks = torch.zeros((2, npad2), device=dev)
-    masks[:, :m.shape[1]] = torch.as_tensor(m, device=dev)
-    own = torch.rand((2, npad2, 3), generator=g, device=dev) * L
-    own = own * masks[..., None]
-    Fc = ty.yukawa_forces_n3l_soa_batched(_lanes(own), masks, 2, L, ldeb)
-    Fe = ty.yukawa_forces_soa_cols_batched(_lanes(own), own, masks, 2, L,
-                                           ldeb)
-    torch.cuda.synchronize()
-    real = masks.reshape(-1) > 0
-    same = torch.equal(Fc[:, real], Fe[:, real])
-    log(f"[cols] E with the member's own {npad2} lanes as columns vs kernel "
-        f"C on real rows: bitwise equal {same} (max abs diff "
-        f"{float((Fc[:, real] - Fe[:, real]).abs().max()):.3g})")
-    if not same:
-        raise SystemExit("kernel E on a member's own lanes differs from C")
+    # a member's own lanes as its columns: kernel C's forces on real rows,
+    # bit for bit where C sweeps the same rectangle; from HALF_MIN_NPAD
+    # lanes C evaluates each pair once and sums in another order, so there
+    # within FORCE_TOL
+    for n0, floor in ((3500, 3584), (1700, 1792)):
+        m, n2 = poisson_member_mask(n0, 2, 9)
+        npad2 = -(-max(floor, m.shape[1]) // 128) * 128
+        masks = torch.zeros((2, npad2), device=dev)
+        masks[:, :m.shape[1]] = torch.as_tensor(m, device=dev)
+        own = torch.rand((2, npad2, 3), generator=g, device=dev) * L
+        own = own * masks[..., None]
+        Fc = ty.yukawa_forces_n3l_soa_batched(_lanes(own), masks, 2, L, ldeb)
+        Fe = ty.yukawa_forces_soa_cols_batched(_lanes(own), own, masks, 2, L,
+                                               ldeb)
+        torch.cuda.synchronize()
+        real = masks.reshape(-1) > 0
+        same = bits_equal(Fc[:, real], Fe[:, real])
+        scale = float(Fc[:, real].abs().max())
+        diff = float((Fc[:, real] - Fe[:, real]).abs().max())
+        half = ty.half_form(npad2)
+        log(f"[cols] E with the member's own {npad2} lanes as columns vs "
+            f"kernel C ({'half-pair' if half else 'full'} form) on real "
+            f"rows: bitwise equal {same}, max abs diff {diff:.3g} (rel "
+            f"{diff / scale:.3g}, tol {FORCE_TOL:g} of max|F| in the half "
+            f"form, else 0)")
+        if not (diff <= FORCE_TOL * scale if half else same):
+            raise SystemExit(f"kernel E on a member's own {npad2} lanes "
+                             "differs from C")
     ms, idle = kernel_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched(
         rows, cols, cmask, E, L, ldeb, row_mask=rmask))
     plain = cuda_ms(torch, lambda: ty.yukawa_forces_soa_cols_batched_reference(
@@ -3260,8 +3393,8 @@ def trace_path(torch, card):
         by_name[e["name"]] = (n + 1, t + e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     kernels = [e["name"] for e in dev if e.get("cat") == "kernel"]
-    a_hits = sum(_template_args(k, "yukawa_pair_kernel") == ["false", "false"]
-                 for k in kernels)
+    a_hits = sum(_template_args(k, "yukawa_pair_kernel")
+                 == ["false", "false", "true"] for k in kernels)
     b_hits = sum((lambda t: t is not None and t[0] == "12" and t[2:5] == [
         "false", "false", "true"])(_template_args(k, "fused_ticks_kernel"))
         for k in kernels)
@@ -3274,7 +3407,8 @@ def trace_path(torch, card):
         f"{wall_ms:.3f} ms")
     for name, (n, t) in top:
         log(f"[trace]   {t / 1e3:9.3f} ms  x{n:<6d} {name[:110]}")
-    log(f"[trace] kernel A (yukawa_pair_kernel<false, false>) events "
+    log(f"[trace] kernel A (yukawa_pair_kernel<false, false, true>, the "
+        f"half-pair form) events "
         f"{a_hits}, kernel B'rng (fused_ticks_kernel<12, G, false, false, "
         f"true, W>) events {b_hits}")
     if not (a_hits >= n_md and b_hits >= n_md and wall_ms >= busy / 1e3):
@@ -3495,6 +3629,9 @@ def campaign_path(torch, card):
     want = dict(yukawa_forces_batched=n_md, fused_ticks_rng=n_md + samples,
                 yukawa_forces_potential_batched=samples + 1)
     want_counts(counts, "the cut campaign", **want)
+    if half_count() != dict(yukawa_forces=0, yukawa_forces_batched=n_md):
+        raise SystemExit(f"the cut campaign's C launches in the half-pair "
+                         f"form: {half_count()}, want {n_md}")
     if m2["launches"] != m["launches"]:
         raise SystemExit(f"the second cut campaign launched "
                          f"{m2['launches']}")
@@ -4321,10 +4458,16 @@ def build_kernels(torch):
         f"{time.perf_counter() - t0:.1f} s (nvcc: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in _build.build_seconds.items())
         + ")")
+    pair_spills = []
     for line in _build.build_log("yukawa_forces").splitlines():
         if ("registers" in line or "spill" in line
                 or "Compiling entry" in line):
             log(f"[build] yukawa_forces: {line.strip()}")
+        if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" \
+                not in line:
+            pair_spills.append(line.strip())
+    if pair_spills:
+        raise SystemExit(f"the pair kernels spill: {pair_spills}")
     forms = kernel_resources()
     for (S, pat, pe0, pom, rng, long_rows), res in sorted(forms.items()):
         log(f"[build] fused_ticks S={S}{' ' + pat if pat else ''} "
@@ -4377,6 +4520,7 @@ def main() -> int:
     kde_k = check_kde_kernel(torch)
     counts = main_path(torch, smi)
     force_e = check_batched_force_kernel(torch, L, pu.debye_length)
+    check_half_pair_kernel(torch, L, pu.debye_length)
     lanes = check_lane_kernels(torch, cfg)
     ens_counts = ensemble_path(torch, smi)
     sweep_counts = sweep_path(torch, smi)

@@ -39,7 +39,8 @@
 // by the row mask afterwards; a masked row comes out exactly 0 either
 // way).  The sweep and the arithmetic are one code path, so E with the
 // member's own lanes as its columns gives kernel C's forces on every real
-// row bit for bit.
+// row bit for bit where C sweeps the rectangle too (below 2048 lanes: HALF
+// below).
 //
 // F (the ring-N3L path: rows of one ion shard against the visiting block
 // of another shard of the same member) is the REACT form: each (row,
@@ -59,7 +60,8 @@
 // several warps whatever the shape, (2) each warp has several independent
 // chains in flight, and (3) tiles of padding cost nothing.
 //
-// Design, one template for every form (yukawa_pair_kernel<POT, REACT>):
+// Design, one template for every form (yukawa_pair_kernel<POT, REACT,
+// HALF>):
 //  - The work of a member is its rows x columns rectangle, cut both ways:
 //    grid (row tiles, column chunks, members).  A block of 4 warps owns a
 //    ROW_TILE = 64 row tile; each thread carries 2 rows (lane, lane + 32),
@@ -70,9 +72,9 @@
 //    (ops/yukawa.py: pair_split), never from E, so that a member's row
 //    sums are the same in a fold of any width; it aims at 32 warps per
 //    scheduler for one member, some three waves of resident blocks, so
-//    that the last wave is a small share: 1568 blocks for A and for E
-//    (128-column chunks, the finest), 392 for F and for C at a mesh
-//    shard's 1792 lanes, E times a member's blocks for an E-member fold.
+//    that the last wave is a small share: 1568 blocks for E (128-column
+//    chunks, the finest), 392 for F and for C at a mesh shard's 1792
+//    lanes, E times a member's blocks for an E-member fold.
 //  - A warp stages its 32 columns as one float4 (x, y, z, mask) each in
 //    its own 512 B of shared memory (no block barrier in the sweep).  At
 //    step k lane l reads column (l + k) mod 32: one conflict-free 128-bit
@@ -96,20 +98,46 @@
 //    ... in a fixed order, and sits in lane c.  It goes (negated) to
 //    part_g [E, row tiles, npc, 3], which the same second pass sums over
 //    the row tiles in order.  Skipped tiles write zeros there.
+//  - HALF (kernels A and C from HALF_MIN_NPAD = 2048 lanes a member): each
+//    pair of a member once.  The member's npad / 64 row tiles form the JAX
+//    package's _n3l_pairs triangle of tile pairs (I, J >= I); block b
+//    takes row tile t = half[b].x against the columns [64 t + k chunk,
+//    + chunk), k = half[b].y, so a row tile's chunks start at its own
+//    diagonal tile.  The table half [blocks] (int2) comes from the wrapper,
+//    made from npad alone (ops/yukawa.py: half_pair_split; the triangle's
+//    columns over TARGET_BLOCKS rounded up to COL_TILE: 812 blocks of
+//    128 columns a member at 3584 lanes, 1596 of its 3136 tile pairs), as
+//    the JAX kernel reads scalar-prefetched tables: decoding b in the
+//    kernel costs a loop over the row tiles or a square root per block.
+//    The diagonal tile is swept whole, its reaction left out (each of its
+//    pairs twice, once from each row: 51 % of the rectangle's pair work
+//    at 3584 lanes, against 50 % for its strict triangle, which would
+//    need a third sweep and a compare per pair).  Every other 32-column
+//    tile carries REACT's rotating column sums, negated into part_g [E,
+//    row tiles, 3, npad] (component planes: a warp's 32 lanes store 128
+//    contiguous bytes); the block's row sums go to slab k of part_f
+//    [chunks, 3, E*npad].  The second pass gives ion i of row tile t the
+//    reactions of row tiles 0, ..., t - 1 and then its own row tile's
+//    chunks in order: ascending partner tile, one order given npad.  Below
+//    2048 lanes a member's launch is set by its fixed cost and its last
+//    wave rather than by its pairs (A at 512 lanes: 0.0156 ms, 0.4 % of
+//    its bound), the full form keeps the bits of every shape the
+//    validation archive replays (8 x 600 ions in 640 lanes, 3 x 256), the
+//    N=512 trajectories and the ring shard's 1792 lanes.
 //  - No float atomics anywhere, and every sum has one fixed order given
 //    (npad, ncols): all outputs are bitwise equal run to run (PARITY.md
 //    delta 5), a member's are the same in a fold of any width (an E=1
-//    launch of C is bitwise A), and E with a
-//    member's own lanes as its columns is bitwise C on real rows (same
-//    split, same sweep).
-// Each pair of A/C/D/G is still evaluated twice (both triangles); the
-// half-pair schedule inside one member is later work.
+//    launch of C is bitwise A), and E with a member's own lanes as its
+//    columns is bitwise C on real rows below 2048 lanes (same split, same
+//    sweep); from there on C sweeps the triangle, E the rectangle, and
+//    they agree to some 3e-7 of the largest |F|.
 //
 // Registers and static shared memory (nvcc 12.8 -O3 -Xptxas -v, sm_90a;
-// chip_smoke.py prints them at each build): forces 47 registers and 4352
-// B, forces + potential 46 and 5120 B, the REACT form 46 and 4352 B, the
-// second pass 32 and none; no spills anywhere.  So 10 blocks (40 warps)
-// fit on an SM.
+// chip_smoke.py prints them at each build and fails on a spill): forces
+// 40 registers and 4352 B (47 before the HALF parameter, the same bits),
+// the half form 56 and 4352 B, forces + potential 48 and 5120 B, the
+// REACT form 47 and 4352 B, the second pass 32 and none; no spills.  So
+// 10 blocks (40 warps) fit on an SM, 9 of the half form.
 //
 // Measured (tools/torch_pair_kernel_times.py, device time between two
 // events, median of 30; NVIDIA H100 80GB HBM3, 700.00 W): A 0.036 ms, D
@@ -125,7 +153,12 @@
 // 0.216, E 0.030, F 0.024, C on a shard 0.022 ms: two rows lose 2 % on the
 // 8-member fold and win 19-23 % at a mesh shard's shapes, where a 64-row
 // tile makes twice the blocks of a small launch and the skipped padding
-// is cut finer.
+// is cut finer.  The half form, in turns with the full one in one command
+// (second pass included): A 0.0320 ms (0.0366), C 0.1265 ms (0.1961) on
+// the 8-member fold, C 1.4312 ms (2.3340) on 99 x 3500 ions: 0.61 of the
+// time for 0.52 of the pair work, the rest the reactions' adds and
+// shuffles (some 5 instructions on a pair's 40-65), the scratch (at E=99
+// about 180 MB written and read once) and the second pass.
 //
 // Numerics match the JAX kernel's tile math (_half_pair_tile):
 // round-half-even minimum image (rintf, as jnp.round), strict r2 > 0 and
@@ -158,17 +191,62 @@ __device__ __forceinline__ float pair_ft(float& dx, float& dy, float& dz,
   return ex * (inv_r + il) * inv_r * inv_r;
 }
 
-// Grid (npad / ROW_TILE, column chunks, E).
+// One warp's 32 staged columns against the thread's RPT rows: the row sums
+// into f*/u and, with RX, each column's sum, handed on with its column
+// (after the 32 steps lane l holds column l's).  HALF starts a step's
+// column sum at -0, which the first add folds away (-0 + x is x); kernel
+// F keeps its +0 and its bits.
+template <bool POT, bool RX, bool HALF>
+__device__ __forceinline__ void sweep(
+    const float4* st, int lane, const float (&xi)[RPT],
+    const float (&yi)[RPT], const float (&zi)[RPT], const bool (&mi)[RPT],
+    float L, float inv_L, float rcut2, float il, float (&fx)[RPT],
+    float (&fy)[RPT], float (&fz)[RPT], float (&u)[RPT], float& gx,
+    float& gy, float& gz) {
+#pragma unroll 2
+  for (int k = 0; k < 32; ++k) {
+    const float4 c = st[(lane + k) & 31];
+    const bool mc = c.w > 0.f;
+    float sx = HALF ? -0.f : 0.f, sy = sx, sz = sx;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      float dx = xi[r] - c.x;
+      float dy = yi[r] - c.y;
+      float dz = zi[r] - c.z;
+      const float ft = pair_ft<POT>(dx, dy, dz, mi[r] && mc, L, inv_L,
+                                    rcut2, il, u[r]);
+      const float px = dx * ft, py = dy * ft, pz = dz * ft;
+      fx[r] += px;
+      fy[r] += py;
+      fz[r] += pz;
+      if (RX) {
+        sx += px;
+        sy += py;
+        sz += pz;
+      }
+    }
+    if (RX) {          // the column's sum moves on with its column
+      gx = __shfl_sync(FULL_WARP, gx + sx, (lane + 1) & 31);
+      gy = __shfl_sync(FULL_WARP, gy + sy, (lane + 1) & 31);
+      gz = __shfl_sync(FULL_WARP, gz + sz, (lane + 1) & 31);
+    }
+  }
+}
+
+// Grid (npad / ROW_TILE, column chunks, E), or with HALF (blocks of a
+// member's triangle, 1, E).
 // Rows: member e's lanes of Rp [3, E*npad], masked by rmask[e*rmask_stride
-// + i] (rmask NULL: no row mask).
+// + i] (rmask NULL: no row mask); with HALF block b takes row tile
+// half[b].x.
 // Columns: element j of member e, component c at
 // cols[e*col_member + c*col_comp + j*col_elem], j < ncols, masked by
 // cmask[e*cmask_stride + j]; this block takes j in [blockIdx.y * chunk,
-// + chunk).
+// + chunk), with HALF [tile * ROW_TILE + half[b].y * chunk, + chunk).
 // Row sums go to F / pot with one chunk, else to part_f [chunks, 3|4,
-// E*npad]; with REACT the negated column sums of this row tile go to
-// part_g [E, row tiles, ncols, 3].
-template <bool POT, bool REACT>
+// E*npad] (with HALF always, slab half[b].y); with REACT the negated
+// column sums of this row tile go to part_g [E, row tiles, ncols, 3], with
+// HALF to part_g [E, row tiles, 3, npad] but for the diagonal tile's.
+template <bool POT, bool REACT, bool HALF>
 __global__ void __launch_bounds__(THREADS)
 yukawa_pair_kernel(const float* __restrict__ Rp,
                    const float* __restrict__ rmask, int rmask_stride,
@@ -176,6 +254,7 @@ yukawa_pair_kernel(const float* __restrict__ Rp,
                    int col_comp, int col_elem, int ncols, int chunk,
                    const float* __restrict__ cmask, int cmask_stride,
                    const float* __restrict__ inv_ldeb_e,
+                   const int2* __restrict__ half,
                    float* __restrict__ F, float* __restrict__ pot,
                    float* __restrict__ part_f, float* __restrict__ part_g,
                    int npad, int n_members, float L, float inv_L,
@@ -186,14 +265,25 @@ yukawa_pair_kernel(const float* __restrict__ Rp,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int e = blockIdx.z;
   const size_t row = (size_t)n_members * npad;    // stride between x, y, z
-  const int i0 = blockIdx.x * ROW_TILE + lane;    // this thread's first row
+  // (row tile, chunk) of this block
+  const int2 tc = HALF ? half[blockIdx.x]
+                       : make_int2(blockIdx.x, blockIdx.y);
+  const int i0 = tc.x * ROW_TILE + lane;          // this thread's first row
   const size_t q0 = (size_t)e * npad + i0;        // its lane in the fold
-  float* out = gridDim.y == 1 ? F : part_f + (size_t)blockIdx.y * NV * row;
+  float* out = !HALF && gridDim.y == 1 ? F
+                                       : part_f + (size_t)tc.y * NV * row;
   float* out_u = gridDim.y == 1 ? pot : out + 3 * row;
-  const int j_begin = blockIdx.y * chunk;
+  // HALF: a row tile's chunks start at its diagonal tile, whose columns
+  // (j < diag) carry no reaction
+  const int diag = HALF ? (tc.x + 1) * ROW_TILE : 0;
+  const int j_begin = (HALF ? diag - ROW_TILE : 0) + tc.y * chunk;
   const int j_end = min(j_begin + chunk, ncols);
   float* P = REACT ? part_g + ((size_t)e * gridDim.x + blockIdx.x) * ncols * 3
+           : HALF  ? part_g + ((size_t)e * (npad / ROW_TILE) + tc.x) * 3 * npad
                    : nullptr;
+  // component c of column j's reaction at P[pj(j) + c * pc]
+  const size_t pc = HALF ? npad : 1;
+  auto pj = [](int j) { return HALF ? (size_t)j : 3 * (size_t)j; };
 
   float xi[RPT], yi[RPT], zi[RPT];
   bool mi[RPT];
@@ -221,6 +311,9 @@ yukawa_pair_kernel(const float* __restrict__ Rp,
     if (REACT)
       for (int j = 3 * j_begin + threadIdx.x; j < 3 * j_end; j += THREADS)
         P[j] = 0.f;
+    if (HALF)
+      for (int j = max(j_begin, diag) + threadIdx.x; j < j_end; j += THREADS)
+        P[j] = P[npad + j] = P[2 * (size_t)npad + j] = 0.f;
     return;
   }
 
@@ -234,8 +327,9 @@ yukawa_pair_kernel(const float* __restrict__ Rp,
   for (int j0 = j_begin + 32 * warp; j0 < j_end; j0 += COL_TILE) {
     const int j = j0 + lane;
     const float m = CM[j];
+    const bool rx = REACT || (HALF && j0 >= diag);
     if (__ballot_sync(FULL_WARP, m > 0.f) == 0) {      // a tile of padding
-      if (REACT) P[3 * j] = P[3 * j + 1] = P[3 * j + 2] = 0.f;
+      if (rx) P[pj(j)] = P[pj(j) + pc] = P[pj(j) + 2 * pc] = 0.f;
       continue;
     }
     const size_t jc = (size_t)j * col_elem;
@@ -244,38 +338,16 @@ yukawa_pair_kernel(const float* __restrict__ Rp,
                                     C[2 * (size_t)col_comp + jc], m);
     __syncwarp();
     float gx = 0.f, gy = 0.f, gz = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < 32; ++k) {
-      const float4 c = stage[warp][(lane + k) & 31];
-      const bool mc = c.w > 0.f;
-      float sx = 0.f, sy = 0.f, sz = 0.f;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        float dx = xi[r] - c.x;
-        float dy = yi[r] - c.y;
-        float dz = zi[r] - c.z;
-        const float ft = pair_ft<POT>(dx, dy, dz, mi[r] && mc, L, inv_L,
-                                      rcut2, il, u[r]);
-        const float px = dx * ft, py = dy * ft, pz = dz * ft;
-        fx[r] += px;
-        fy[r] += py;
-        fz[r] += pz;
-        if (REACT) {
-          sx += px;
-          sy += py;
-          sz += pz;
-        }
-      }
-      if (REACT) {       // the column's sum moves on with its column
-        gx = __shfl_sync(FULL_WARP, gx + sx, (lane + 1) & 31);
-        gy = __shfl_sync(FULL_WARP, gy + sy, (lane + 1) & 31);
-        gz = __shfl_sync(FULL_WARP, gz + sz, (lane + 1) & 31);
-      }
-    }
-    if (REACT) {         // after 32 steps lane l holds column l's sum
-      P[3 * j] = -gx;
-      P[3 * j + 1] = -gy;
-      P[3 * j + 2] = -gz;
+    if (rx)
+      sweep<POT, true, HALF>(stage[warp], lane, xi, yi, zi, mi, L, inv_L,
+                             rcut2, il, fx, fy, fz, u, gx, gy, gz);
+    else
+      sweep<POT, false, HALF>(stage[warp], lane, xi, yi, zi, mi, L, inv_L,
+                              rcut2, il, fx, fy, fz, u, gx, gy, gz);
+    if (rx) {            // after 32 steps lane l holds column l's sum
+      P[pj(j)] = -gx;
+      P[pj(j) + pc] = -gy;
+      P[pj(j) + 2 * pc] = -gz;
     }
   }
 
@@ -321,9 +393,36 @@ struct Slabs {
   int n_slab, n_outer;
 };
 
-__global__ void yukawa_reduce_slabs(Slabs rows, Slabs cols) {
-  const Slabs s = blockIdx.y == 0 ? rows : cols;
+// The half form's second pass (F non-NULL): component c of ion i of member
+// e, in row tile t, is the reactions of row tiles 0, 1, ..., t - 1
+// (part_g [E, tiles, 3, npad]) and then the row partials of its own row
+// tile's chunks 0, 1, ..., ceil((tiles - t) / per_chunk) - 1 (part_f
+// [chunks, 3, E*npad]), summed in that order: ascending partner tile.
+struct HalfSlabs {
+  const float* part_f;
+  const float* part_g;
+  float* F;
+  int npad, n_members, per_chunk;     // per_chunk: row tiles a chunk spans
+};
+
+__global__ void yukawa_reduce_slabs(Slabs rows, Slabs cols, HalfSlabs h) {
   const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (h.F) {
+    const size_t lanes = (size_t)h.n_members * h.npad;
+    if (q >= 3 * lanes) return;
+    const size_t c = q / lanes, l = q % lanes;
+    const int i = (int)(l % h.npad), t = i / ROW_TILE;
+    const int tiles = h.npad / ROW_TILE;
+    const float* g = h.part_g + ((l / h.npad) * tiles * 3 + c) * h.npad + i;
+    const float* f = h.part_f + c * lanes + l;
+    const int chunks = (tiles - t + h.per_chunk - 1) / h.per_chunk;
+    float sum = 0.f;
+    for (int s = 0; s < t; ++s) sum += g[(size_t)s * 3 * h.npad];
+    for (int k = 0; k < chunks; ++k) sum += f[(size_t)k * 3 * lanes];
+    h.F[q] = sum;
+    return;
+  }
+  const Slabs s = blockIdx.y == 0 ? rows : cols;
   if (q >= s.per * s.n_outer) return;
   const float* p = s.part + (q / s.per) * s.n_slab * s.per + q % s.per;
   float sum = 0.f;
@@ -347,7 +446,10 @@ struct PairLaunch {
   float* pot;       // non-NULL: the potential form
   float* part_f;    // [chunks, 3|4, E*npad], needed with several chunks
   float* G;         // non-NULL: the reaction form (kernel F)
-  float* part_g;    // [E, npad / ROW_TILE, ncols, 3]
+  float* part_g;    // [E, npad / ROW_TILE, ncols, 3]; the half form's
+                    // [E, npad / ROW_TILE, 3, npad]
+  const int2* half; // non-NULL: the half form's (row tile, chunk) a block
+  int n_half;       // its blocks of a member
   int npad, n_members;
   float L, inv_L, rcut2, inv_ldeb;
 };
@@ -358,40 +460,51 @@ int launch_pairs(const PairLaunch& a, cudaStream_t st) {
       a.n_members < 1 || a.n_members > 65535 ||
       (a.rmask_stride != 0 && a.rmask_stride != a.npad) ||
       (a.cmask_stride != 0 && a.cmask_stride != a.ncols) ||
-      (a.pot && a.G) || (a.G && !a.part_g))
+      (a.pot && a.G) || (a.G && !a.part_g) ||
+      (a.half && (a.pot || a.G || a.n_half <= 0 || a.ncols != a.npad ||
+                  !a.part_f || !a.part_g)))
     return (int)cudaErrorInvalidValue;
-  const int n_chunks = (a.ncols + a.chunk - 1) / a.chunk;
+  const int n_chunks = a.half ? 1 : (a.ncols + a.chunk - 1) / a.chunk;
   const int n_tiles = a.npad / ROW_TILE;
   if (n_chunks > 65535 || (n_chunks > 1 && !a.part_f))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_tiles, n_chunks, a.n_members);
+  const dim3 grid(a.half ? a.n_half : n_tiles, n_chunks, a.n_members);
 #define PAIR_ARGS                                                          \
   a.Rp, a.rmask, a.rmask_stride, a.cols, a.col_member, a.col_comp,        \
       a.col_elem, a.ncols, a.chunk, a.cmask, a.cmask_stride, a.inv_ldeb_e, \
-      a.F, a.pot, a.part_f, a.part_g, a.npad, a.n_members, a.L, a.inv_L,   \
-      a.rcut2, a.inv_ldeb
+      a.half, a.F, a.pot, a.part_f, a.part_g, a.npad, a.n_members, a.L,    \
+      a.inv_L, a.rcut2, a.inv_ldeb
   if (a.pot)
-    yukawa_pair_kernel<true, false><<<grid, THREADS, 0, st>>>(PAIR_ARGS);
+    yukawa_pair_kernel<true, false, false><<<grid, THREADS, 0, st>>>(
+        PAIR_ARGS);
   else if (a.G)
-    yukawa_pair_kernel<false, true><<<grid, THREADS, 0, st>>>(PAIR_ARGS);
+    yukawa_pair_kernel<false, true, false><<<grid, THREADS, 0, st>>>(
+        PAIR_ARGS);
+  else if (a.half)
+    yukawa_pair_kernel<false, false, true><<<grid, THREADS, 0, st>>>(
+        PAIR_ARGS);
   else
-    yukawa_pair_kernel<false, false><<<grid, THREADS, 0, st>>>(PAIR_ARGS);
+    yukawa_pair_kernel<false, false, false><<<grid, THREADS, 0, st>>>(
+        PAIR_ARGS);
 #undef PAIR_ARGS
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || (n_chunks == 1 && !a.G)) return (int)err;
+  if (err != cudaSuccess || (n_chunks == 1 && !a.G && !a.half))
+    return (int)err;
   const size_t lanes = (size_t)a.n_members * a.npad;
   const size_t nv = a.pot ? 4 : 3;
+  const HalfSlabs h = {a.part_f, a.part_g, a.half ? a.F : nullptr, a.npad,
+                       a.n_members, a.chunk / ROW_TILE};
   // with one chunk the rows are written already: an empty job
   const Slabs rows = {a.part_f, a.F, a.pot, 3 * lanes, nv * lanes,
                       n_chunks, n_chunks > 1 ? 1 : 0};
   const size_t per_g = (size_t)a.ncols * 3;
   const Slabs cols = {a.part_g, a.G, nullptr, per_g * a.n_members, per_g,
                       n_tiles, a.n_members};
-  const size_t n_rows = rows.per * rows.n_outer;
+  const size_t n_rows = a.half ? 3 * lanes : rows.per * rows.n_outer;
   const size_t n_cols = a.G ? cols.per * cols.n_outer : 0;
   const size_t n_max = n_rows > n_cols ? n_rows : n_cols;
   yukawa_reduce_slabs<<<dim3((unsigned)((n_max + 255) / 256), a.G ? 2 : 1),
-                        256, 0, st>>>(rows, cols);
+                        256, 0, st>>>(rows, cols, h);
   return (int)cudaGetLastError();
 }
 
@@ -403,16 +516,20 @@ extern "C" {
 // E*npad], pot [E*npad] or NULL (forces only); mask [E, npad]
 // (mask_stride = npad) or [1, npad] (mask_stride = 0); inv_ldeb_e [E] or
 // NULL (scalar inv_ldeb); columns in chunks of `chunk`; part_f the
-// caller's scratch [chunks, 3|4, E*npad] (NULL with one chunk)
+// caller's scratch [chunks, 3|4, E*npad] (NULL with one chunk).  The half
+// form (forces only): half [n_half] the blocks' (row tile, chunk), part_f
+// [chunks, 3, E*npad] and part_g [E, npad / 64, 3, npad] the caller's
+// scratch; half NULL: the full rectangle
 int yukawa_forces_launch(const float* Rp, const float* mask, int mask_stride,
                          const float* inv_ldeb_e, float* F, float* pot,
-                         float* part_f, int npad, int n_members, int chunk,
+                         float* part_f, float* part_g, const int* half,
+                         int n_half, int npad, int n_members, int chunk,
                          float L, float inv_L, float rcut2, float inv_ldeb,
                          void* stream) {
   const PairLaunch a = {Rp, mask, mask_stride, Rp, npad, n_members * npad, 1,
                         npad, chunk, mask, mask_stride, inv_ldeb_e, F, pot,
-                        part_f, nullptr, nullptr, npad, n_members, L, inv_L,
-                        rcut2, inv_ldeb};
+                        part_f, nullptr, part_g, (const int2*)half, n_half,
+                        npad, n_members, L, inv_L, rcut2, inv_ldeb};
   return launch_pairs(a, (cudaStream_t)stream);
 }
 
@@ -427,8 +544,8 @@ int yukawa_forces_cols_launch(const float* Rp, const float* row_mask,
                               float rcut2, float inv_ldeb, void* stream) {
   const PairLaunch a = {Rp, row_mask, row_mask_stride, cols, ncols * 3, 1, 3,
                         ncols, chunk, col_mask, col_mask_stride, nullptr, F,
-                        nullptr, part_f, nullptr, nullptr, npad, n_members,
-                        L, inv_L, rcut2, inv_ldeb};
+                        nullptr, part_f, nullptr, nullptr, nullptr, 0, npad,
+                        n_members, L, inv_L, rcut2, inv_ldeb};
   return launch_pairs(a, (cudaStream_t)stream);
 }
 
@@ -445,8 +562,8 @@ int yukawa_cross_launch(const float* Rp, const float* mask, int mask_stride,
   if (!mask || !G) return (int)cudaErrorInvalidValue;
   const PairLaunch a = {Rp, mask, mask_stride, cols, npc * 3, 1, 3, npc,
                         chunk, col_mask, col_mask_stride, nullptr, F, nullptr,
-                        part_f, G, part_g, npad, n_members, L, inv_L, rcut2,
-                        inv_ldeb};
+                        part_f, G, part_g, nullptr, 0, npad, n_members, L,
+                        inv_L, rcut2, inv_ldeb};
   return launch_pairs(a, (cudaStream_t)stream);
 }
 

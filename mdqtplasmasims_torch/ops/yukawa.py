@@ -18,7 +18,9 @@ Counterpart of ``mdqtplasmasims_tpu/ops/yukawa.py``.  Physics:
   ``[3, E*Np]`` (member blocks contiguous on the lane axis), with a
   shared or per-member real-ion mask and an optional per-member 1/lambda;
   one launch of the same kernel with a member grid axis, or
-  :func:`yukawa_forces_n3l_soa_batched_reference` on the CPU.
+  :func:`yukawa_forces_n3l_soa_batched_reference` on the CPU.  From
+  ``HALF_MIN_NPAD`` lanes a member on, these two take the half-pair form,
+  each pair of a member once (:func:`half_pair_split`).
 * ``yukawa_forces_potential_pallas`` (and ``yukawa_forces_pallas``,
   ``yukawa_potential_pallas``) / ``yukawa_forces_potential_pallas_batched``
   (``yukawa_potential_pallas_batched``): the JAX package's entries of its
@@ -177,7 +179,9 @@ def pair_split(npad: int, ncols: int, e: int) -> PairSplit:
     chunking fixes the order of every row sum, so a member's forces have
     the same bits in a fold of any width (a mesh slot's block and the
     unsharded fold, an E=1 fold and kernel A), and kernel E on a member's
-    own lanes agrees with kernel C."""
+    own lanes agrees bit for bit with kernel C where C sweeps the same
+    rectangle (below :data:`HALF_MIN_NPAD` lanes; from there on
+    :func:`half_pair_split` cuts A and C)."""
     if npad <= 0 or npad % ROW_TILE or ncols <= 0 or ncols % COL_TILE:
         raise ValueError(f"want npad a positive multiple of {ROW_TILE} and "
                          f"ncols of {COL_TILE}, got {npad} and {ncols}")
@@ -186,6 +190,71 @@ def pair_split(npad: int, ncols: int, e: int) -> PairSplit:
     want = min(-(-TARGET_BLOCKS // (npad // ROW_TILE)), ncols // COL_TILE)
     chunk = _round_up(-(-ncols // want), COL_TILE)
     return PairSplit(chunk, (npad // ROW_TILE, -(-ncols // chunk), e))
+
+
+# members of at least this many lanes take the half-pair form of kernels A
+# and C (csrc/yukawa_forces.cu): below it a member's launch is set by its
+# fixed cost and its last wave rather than by its pairs, and every shape
+# keeps the full rectangle's bits
+HALF_MIN_NPAD = 2048
+
+
+def half_form(npad: int, with_pot: bool = False) -> bool:
+    """Whether a launch of kernel A or C over members of ``npad`` lanes
+    takes the half-pair form: forces only, and ``npad`` at least
+    :data:`HALF_MIN_NPAD`; the potential forms D and G never do."""
+    return not with_pot and npad >= HALF_MIN_NPAD
+
+
+class HalfSplit(NamedTuple):
+    """How the half-pair form cuts one member's triangle of row tiles:
+    block b takes row tile ``t, k = blocks[b]`` against the columns
+    ``[t * ROW_TILE + k * chunk, + chunk)`` (cut at npad), so that chunk 0
+    of a row tile starts at its own diagonal tile."""
+    chunk: int                          # columns per block
+    blocks: Tuple[Tuple[int, int], ...]     # (row tile, chunk), i-major
+    chunks: int     # of row tile 0, the most: the row-sum scratch's slabs
+
+
+def half_pair_split(npad: int) -> HalfSplit:
+    """The block decomposition of the half-pair form for members of
+    ``npad`` lanes: each pair of row tiles (I, J >= I) once, in the JAX
+    package's ``_n3l_pairs`` order (i-major, J ascending), a block taking
+    a chunk of ``chunk / ROW_TILE`` of them from one row tile; the chunk is
+    the triangle's columns over TARGET_BLOCKS rounded up to a multiple of
+    COL_TILE, so that one member's grid comes near TARGET_BLOCKS where the
+    triangle is large enough and takes the finest chunk where it is not.
+    A function of ``npad`` alone, as :func:`pair_split` is of its shape: a
+    member's forces have the same bits in a fold of any width, and an E=1
+    fold is kernel A."""
+    if npad <= 0 or npad % COL_TILE:
+        raise ValueError(f"want npad a positive multiple of {COL_TILE}, got "
+                         f"{npad}")
+    tiles = npad // ROW_TILE
+    pair_cols = tiles * (tiles + 1) // 2 * ROW_TILE
+    chunk = _round_up(-(-pair_cols // TARGET_BLOCKS), COL_TILE)
+    per = chunk // ROW_TILE
+    return HalfSplit(chunk, tuple((t, k) for t in range(tiles)
+                                  for k in range(-(-(tiles - t) // per))),
+                     -(-tiles // per))
+
+
+def half_scratch_floats(split: HalfSplit, npad: int,
+                        e: int) -> Tuple[int, int]:
+    """Floats of the half form's scratch: the row sums ``part_f [chunks,
+    3, E*npad]`` and the reactions ``part_g [E, row tiles, 3, npad]`` (a
+    row tile's reactions on the columns past its diagonal tile)."""
+    return (split.chunks * 3 * e * npad,
+            e * (npad // ROW_TILE) * 3 * npad)
+
+
+@functools.lru_cache(maxsize=None)
+def _half_plan(npad: int, device) -> Tuple[HalfSplit, torch.Tensor]:
+    """:func:`half_pair_split` and its blocks as the kernel reads them
+    (``int32 [blocks, 2]`` on ``device``), made once per shape."""
+    split = half_pair_split(npad)
+    return split, torch.tensor(split.blocks, dtype=torch.int32,
+                               device=device)
 
 
 def row_scratch_floats(split: PairSplit, npad: int, nv: int) -> int:
@@ -217,8 +286,8 @@ def _ptr(x: Optional[torch.Tensor]):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("yukawa_forces")
     p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.yukawa_forces_launch.argtypes = [p, p, i, p, p, p, p, i, i, i, f, f,
-                                         f, f, p]
+    lib.yukawa_forces_launch.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i,
+                                         i, f, f, f, f, p]
     lib.yukawa_forces_launch.restype = ctypes.c_int
     lib.yukawa_forces_cols_launch.argtypes = [p, p, i, p, p, i, p, p, i, i, i,
                                               i, f, f, f, f, p]
@@ -235,18 +304,30 @@ def _launch_forces(Rp: torch.Tensor, mask_row: torch.Tensor, e: int,
     """One launch of ``yukawa_forces_launch`` (kernels A, C, D, G) on
     checked CUDA operands: ``(F [3, E*Np], pot [E*Np] | None)``."""
     npad = Rp.shape[1] // e
-    split = pair_split(npad, npad, e)
+    split = pair_split(npad, npad, e)   # checks the shape for both forms
     F = torch.empty_like(Rp)
     pot = (torch.empty((e * npad,), dtype=torch.float32, device=Rp.device)
            if with_pot else None)
-    part = _row_scratch(split, npad, 4 if with_pot else 3, Rp.device)
+    if half_form(npad, with_pot):
+        # one scratch: part_f's floats, then part_g's
+        half, blocks = _half_plan(npad, Rp.device)
+        n_rows, n_react = half_scratch_floats(half, npad, e)
+        scratch = torch.empty((n_rows + n_react,), dtype=torch.float32,
+                              device=Rp.device)
+        chunk, part = half.chunk, scratch.data_ptr()
+        react, table = part + 4 * n_rows, blocks.data_ptr()
+        n_blocks = blocks.shape[0]
+    else:
+        scratch = _row_scratch(split, npad, 4 if with_pot else 3, Rp.device)
+        chunk, part, react, table, n_blocks = (split.chunk, _ptr(scratch),
+                                               None, None, 0)
     lib = _lib()
     with _build.device_guard(Rp.device):
         err = lib.yukawa_forces_launch(
             Rp.data_ptr(), mask_row.data_ptr(),
             npad if mask_row.shape[0] > 1 else 0, _ptr(inv_ldeb),
-            F.data_ptr(), _ptr(pot), _ptr(part), npad, e, split.chunk,
-            float(L), float(1.0 / L), float((L / 2.0) ** 2),
+            F.data_ptr(), _ptr(pot), part, react, table, n_blocks, npad, e,
+            chunk, float(L), float(1.0 / L), float((L / 2.0) ** 2),
             float(1.0 / ldeb), _build.raw_stream(Rp.device))
     _build.check(lib, err, "yukawa_forces_launch")
     return F, pot
@@ -260,7 +341,9 @@ def yukawa_forces_n3l_soa(Rp: torch.Tensor, mask_row: torch.Tensor,
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
     ``csrc/yukawa_forces.cu`` and add one to ``yukawa_forces_n3l_soa.
-    launches``; CPU tensors run the plain twin."""
+    launches``, and from :data:`HALF_MIN_NPAD` lanes on, where the launch
+    takes the half-pair form (each pair once, :func:`half_pair_split`), to
+    ``.half_launches``; CPU tensors run the plain twin."""
     npad = Rp.shape[1] if Rp.dim() == 2 else -1
     if Rp.shape != (3, npad) or mask_row.shape != (1, npad):
         raise ValueError(f"want Rp [3, Np] and mask_row [1, Np], got "
@@ -278,10 +361,13 @@ def yukawa_forces_n3l_soa(Rp: torch.Tensor, mask_row: torch.Tensor,
     soa_force_tile(npad)               # Np must be a multiple of 128
     F, _ = _launch_forces(Rp, mask_row, 1, L, ldeb, None, False)
     _build.count_launch(yukawa_forces_n3l_soa)
+    if half_form(npad):
+        _build.count_launch(yukawa_forces_n3l_soa, "half_launches")
     return F
 
 
 yukawa_forces_n3l_soa.launches = 0
+yukawa_forces_n3l_soa.half_launches = 0     # those of the half-pair form
 
 
 def yukawa_forces_n3l_soa_batched_reference(
@@ -316,9 +402,11 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
     padded lanes are exactly 0.
 
     CUDA tensors (float32, contiguous, Np a multiple of 128) launch
-    ``csrc/yukawa_forces.cu`` over the grid of :func:`pair_split` and add
-    one to ``yukawa_forces_n3l_soa_batched.launches``; CPU tensors run the
-    plain twin."""
+    ``csrc/yukawa_forces.cu`` over the grid of :func:`pair_split`, or from
+    :data:`HALF_MIN_NPAD` lanes on over each member's triangle of
+    :func:`half_pair_split` (each pair once), and add one to
+    ``yukawa_forces_n3l_soa_batched.launches`` (and then to
+    ``.half_launches``); CPU tensors run the plain twin."""
     if Rp.dim() != 2 or Rp.shape[0] != 3 or e < 1 or Rp.shape[1] % e:
         raise ValueError(f"want Rp [3, E*Np] with E={e}, got "
                          f"{tuple(Rp.shape)}")
@@ -344,10 +432,13 @@ def yukawa_forces_n3l_soa_batched(Rp: torch.Tensor, mask_row: torch.Tensor,
     soa_force_tile(npad)               # Np must be a multiple of 128
     F, _ = _launch_forces(Rp, mask_row, e, L, ldeb, inv_ldeb, False)
     _build.count_launch(yukawa_forces_n3l_soa_batched)
+    if half_form(npad):
+        _build.count_launch(yukawa_forces_n3l_soa_batched, "half_launches")
     return F
 
 
 yukawa_forces_n3l_soa_batched.launches = 0
+yukawa_forces_n3l_soa_batched.half_launches = 0
 
 
 def _pair_ft(d: torch.Tensor, valid: torch.Tensor, inv_ldeb):

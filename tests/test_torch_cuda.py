@@ -542,7 +542,10 @@ def _fold_lanes(R):
 def test_cols_kernel_e_matches_twin_and_c(cuda, per_member):
     """Kernel E at a mesh slot's shapes (2 members, rows 1792 against 4 x
     1792 columns) against its twin, run to run, and with a member's own
-    lanes as its columns bitwise against kernel C on real rows."""
+    lanes as its columns against kernel C on real rows: at these 3584
+    lanes C takes the half-pair form, which sums each pair once in another
+    order, so within 2e-5 of the largest |F| (bit for bit below
+    ``HALF_MIN_NPAD``: test_pair_kernel_edge_shapes)."""
     Rp, masks, L, ldeb = _fold_positions(cuda, True)
     E, npad = 2, Rp.shape[1] // E_FOLD
     own = Rp.reshape(3, E_FOLD, npad)[:, :E].permute(1, 2, 0).contiguous()
@@ -563,7 +566,8 @@ def test_cols_kernel_e_matches_twin_and_c(cuda, per_member):
     torch.cuda.synchronize()
     assert ty.yukawa_forces_soa_cols_batched.launches == before + 3
     real = (m.expand(E, npad) > 0).reshape(-1)
-    assert torch.equal(Fe[:, real], Fc[:, real])
+    assert ty.half_form(npad)
+    assert _close(Fe[:, real], Fc[:, real], 2e-5)
     assert torch.equal(F1, F2)
     assert float((F1 - Fr).abs().max()) < 2e-5 * float(Fr.abs().max())
 
@@ -626,6 +630,7 @@ EDGE_SHAPES = {                 # E members, row lanes, columns (E and F)
     "one_tile": (1, 128, 128),              # fewer columns than one chunk
     "empty_and_single_member": (3, 256, 384),
     "holes": (2, 512, 1024),
+    "half_holes": (2, 2048, 2048),          # A and C in the half-pair form
 }
 
 
@@ -691,10 +696,13 @@ def test_pair_kernel_edge_shapes(cuda, form, case):
                                                         il)
         assert torch.equal(F1, F2) and _close(F1, Fr, 2e-5)
         assert not F1[:, dead].any()
-        # kernel E on the members' own lanes: kernel C on real rows
+        # kernel E on the members' own lanes: kernel C on real rows, bit
+        # for bit where C sweeps the same rectangle
         Fe = ty.yukawa_forces_soa_cols_batched(Rp, R, rm, e, L, ldeb)
-        if il is None:
+        if il is None and not ty.half_form(npad):
             assert torch.equal(Fe[:, ~dead], F1[:, ~dead])
+        elif il is None:
+            assert _close(Fe[:, ~dead], F1[:, ~dead], 2e-5)
     elif form == "D":
         for k in range(e):
             out1 = ty.yukawa_forces_potential_pallas(R[k], L, ldeb, rm[k],
@@ -733,6 +741,40 @@ def test_pair_kernel_edge_shapes(cuda, form, case):
         assert float((G1 - Gr).abs().max()) <= 2e-5 * scale
         assert not F1[:, dead].any() and not G1[cm == 0].any()
     torch.cuda.synchronize()
+
+
+def test_half_pair_form_keeps_a_members_bits(cuda):
+    """The half-pair form (3584 lanes): a member's forces are the same bits
+    in folds of 1, 8 and 20 members and through kernel A, run to run, and
+    within 2e-5 of the plain version; ``half_launches`` counts it."""
+    L = PlasmaUnits.box_length(N)
+    ldeb = PlasmaUnits(2.0, 0.1).debye_length
+    g = torch.Generator(device=cuda).manual_seed(9)
+    mask = torch.zeros((1, NPAD), device=cuda)
+    mask[0, :N] = 1.0
+    R = torch.rand((3, 20, NPAD), generator=g, device=cuda) * L * mask
+    fold = lambda k: R[:, :k].reshape(3, k * NPAD).contiguous()
+    bits = lambda x: x.view(torch.int32)
+    before = (ty.yukawa_forces_n3l_soa.half_launches,
+              ty.yukawa_forces_n3l_soa_batched.half_launches)
+    F20 = ty.yukawa_forces_n3l_soa_batched(fold(20), mask, 20, L, ldeb)
+    again = ty.yukawa_forces_n3l_soa_batched(fold(20), mask, 20, L, ldeb)
+    F8 = ty.yukawa_forces_n3l_soa_batched(fold(8), mask, 8, L, ldeb)
+    F1 = ty.yukawa_forces_n3l_soa_batched(fold(1), mask, 1, L, ldeb)
+    FA = ty.yukawa_forces_n3l_soa(fold(1), mask, L, ldeb)
+    ref = ty.yukawa_forces_n3l_soa_batched_reference(fold(20), mask, 20, L,
+                                                     ldeb)
+    torch.cuda.synchronize()
+    assert (ty.yukawa_forces_n3l_soa.half_launches,
+            ty.yukawa_forces_n3l_soa_batched.half_launches) == (
+                before[0] + 1, before[1] + 4)
+    assert torch.equal(bits(F20), bits(again))
+    assert torch.equal(bits(F8), bits(F20[:, :8 * NPAD]))
+    assert torch.equal(bits(F1), bits(F20[:, :NPAD]))
+    assert torch.equal(bits(FA), bits(F1))
+    assert _close(F20, ref, 2e-5)
+    pads = (torch.arange(20 * NPAD, device=cuda) % NPAD) >= N
+    assert float(F20[:, pads].abs().max()) == 0.0
 
 
 # ---- the tick kernel (one ion across the lanes of a group): every form at

@@ -113,8 +113,9 @@ def _split_args(monkeypatch, entry, *operands):
 @pytest.mark.parametrize("npad,ncols,e", SHAPES)
 def test_split_depends_on_the_launch_shape_only(monkeypatch, npad, ncols, e):
     """One shape, one chunking, whatever the masks: it is what keeps kernel
-    E on a member's own lanes bitwise equal to kernel C, and an E=1 fold
-    to kernel A.  ``pair_split`` sees three integers and reads nothing but
+    E on a member's own lanes bitwise equal to kernel C (below
+    ``HALF_MIN_NPAD`` lanes, where C sweeps the rectangle too), and an E=1
+    fold to kernel A.  ``pair_split`` sees three integers and reads nothing but
     the kernel's geometry constants; the wrappers of A, C and E hand it
     (rows, columns, members) of their operands for a full mask, a mask
     with holes and an empty one."""

@@ -26,9 +26,10 @@ call with every slot on card 0, bit for bit.  The sections, in order:
   ``cooling-ensemble --mesh-ens K --device cuda`` (K the cards) against
   the same command without ``--mesh-ens``, tree for tree.  (a) and (b)
   are held to the same call with the mesh's slots on card 0, (a), (c)
-  and (d) to the unsharded run as well: the force kernels' column split
-  (``ops.yukawa.pair_split``) does not depend on a fold's width, so a
-  member has the same bits in a slot's block and in the whole fold.
+  and (d) to the unsharded run as well: the force kernels' split
+  (``ops.yukawa.pair_split``, ``half_pair_split``) does not depend on a
+  fold's width, so a member has the same bits in a slot's block and in
+  the whole fold.
   (c) also crosses between the two modes.
 - ``share_nothing``: each share-nothing family (frozen tagging, the
   three-state toy, transport, MC tagging) at a cut depth as a ``4 x 1``

@@ -6,7 +6,7 @@ NVIDIA GPU, for one or several source trees in turns.
 
     python tools/torch_pair_kernel_times.py
     python tools/torch_pair_kernel_times.py --trees OTHER . . OTHER \\
-        [--kernels-only] [--flagship] [--out times.json]
+        [--kernels-only] [--flagship] [--bits DIR] [--out times.json]
 
 Each tree is a checkout of this repository (for another commit:
 ``mkdir OTHER && git archive <commit> | tar -x -C OTHER``).  Every turn is
@@ -27,7 +27,8 @@ nothing but those entries.  It reports
     mesh slot's shapes, 875 ions in 1792 lanes per shard, E row-masked as
     the tree's gather schedule does it: by the kernel where the entry has
     ``row_mask``, else by a multiply after it; ``C_ring``: kernel C on one
-    such shard, as the ring schedule launches it); the tick kernel from
+    such shard, as the ring schedule launches it; ``C_E99``: the 99-job
+    campaign's fold, 99 x 3500 ions in 3584 lanes); the tick kernel from
     an excited start, 25 ticks: ``B`` (explicit rolls) and ``B_rng`` (the
     in-kernel stream) at 3584 lanes, ``B_rng_1792`` on a mesh shard (875
     ions in 1792 lanes, ``lane0`` 1792), the six per-lane forms on a
@@ -49,6 +50,10 @@ nothing but those entries.  It reports
     mesh runs (``run_ensemble`` of 2 members, tmax=1.0, with trees; gather
     and ring-N3L); with ``--flagship`` also ``CoolingConfig()`` (tmax=30)
     once without and once with the .dat tree.
+
+With ``--bits DIR`` each turn also keeps the outputs of every pair-kernel
+form on fixed inputs (:func:`pair_bits`), and the last line says, per
+form and shape, whether each tree's bits equal the first tree's.
 
 The last line is one JSON object with the card and every turn (``--out``
 writes it to a file as well).  Exits non-zero without a CUDA device.
@@ -160,7 +165,59 @@ def small_tick_kernel_ms(torch, cs, dev, g) -> dict:
     return ms
 
 
-def one_turn(kernels_only: bool, flagship: bool = False) -> dict:
+def pair_bits(torch, ty, dev) -> dict:
+    """The outputs of every pair-kernel form on fixed inputs (made on the
+    CPU from one seed, so every tree gets the same), at the shapes the
+    paths give them: A at 512 and 1792 lanes and the flagship's 3584; C on
+    the validation's 16 x 512, the flagship fold of 3 x 256 and 8 x 3584,
+    the frozen pools' 8 x 640 (600 ions), the ring shard's 1792 (875
+    ions), with holed per-member masks and 1/lambda at 2 x 1920 and 2 x
+    2048; D at 3500 ions; G on an 8 x 3500 fold; E and F at a mesh slot's
+    shapes."""
+    g = torch.Generator().manual_seed(2026)
+    L, ldeb = 15.3, 0.9
+    cuda = lambda x: x.to(dev).contiguous()
+
+    def fold(e, npad, n):
+        m = torch.zeros((1, npad))
+        m[0, :n] = 1.0
+        R = torch.rand((3, e, npad), generator=g) * L * m
+        return cuda(R.reshape(3, e * npad)), cuda(m)
+
+    out = {}
+    for npad, n in ((512, 512), (1792, 875), (3584, 3500)):
+        Rp, m = fold(1, npad, n)
+        out[f"A_{npad}"] = ty.yukawa_forces_n3l_soa(Rp, m, L, ldeb)
+    for e, npad, n in ((16, 512, 512), (3, 256, 256), (8, 640, 600),
+                       (1, 1792, 875), (8, 3584, 3500)):
+        Rp, m = fold(e, npad, n)
+        out[f"C_{e}x{npad}"] = ty.yukawa_forces_n3l_soa_batched(Rp, m, e, L,
+                                                               ldeb)
+    for npad in (1920, 2048):
+        m = (torch.rand((2, npad), generator=g) < 0.9).float()
+        m[:, 640:704] = 0.0
+        Rp = cuda(torch.rand((3, 2 * npad), generator=g) * L)
+        il = cuda(torch.tensor([1.0 / ldeb, 1.1 / ldeb]))
+        out[f"C_holes_2x{npad}"] = ty.yukawa_forces_n3l_soa_batched(
+            Rp, cuda(m), 2, L, ldeb, il)
+    R = cuda(torch.rand((3500, 3), generator=g) * L)
+    out["D_F"], out["D_pot"] = ty.yukawa_forces_potential_pallas(R, L, ldeb)
+    RE = cuda(torch.rand((8, 3500, 3), generator=g) * L)
+    out["G_F"], out["G_pot"] = ty.yukawa_forces_potential_pallas_batched(
+        RE, L, ldeb)
+    rows, rm = fold(1, 1792, 875)
+    cols = cuda(torch.rand((1, 4 * 1792, 3), generator=g) * L)
+    cm = cuda((torch.rand((1, 4 * 1792), generator=g) < 0.5).float())
+    out["E"] = ty.yukawa_forces_soa_cols_batched(rows, cols, cm, 1, L, ldeb)
+    out["F_F"], out["F_G"] = ty.yukawa_forces_cross_n3l_soa_batched(
+        rows, rm, cols[:, :1792].contiguous(), cm[:, :1792].contiguous(),
+        1, L, ldeb)
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def one_turn(kernels_only: bool, flagship: bool = False,
+             bits_out: str = None) -> dict:
     """Measure the tree in the working directory."""
     sys.path.insert(0, os.getcwd())
     import torch
@@ -207,6 +264,10 @@ def one_turn(kernels_only: bool, flagship: bool = False) -> dict:
     Rp8 = Rp8.reshape(3, E * npad8)
     ms["C"] = clock(lambda: ty.yukawa_forces_n3l_soa_batched(
         Rp8, masks, E, L, ldeb))
+    R99 = (torch.rand((3, 99, npad), generator=g, device=dev) * L
+           * mask).reshape(3, 99 * npad)
+    ms["C_E99"] = clock(lambda: ty.yukawa_forces_n3l_soa_batched(
+        R99, mask, 99, L, ldeb))
     ms["G"] = clock(lambda: ty.yukawa_forces_potential_pallas_batched(
         RE, L, ldeb, mask=members))
 
@@ -226,6 +287,8 @@ def one_turn(kernels_only: bool, flagship: bool = False) -> dict:
         rows, ma, B, mb, e_loc, L, ldeb))
     ms["C_ring"] = clock(lambda: ty.yukawa_forces_n3l_soa_batched(
         rows, ma, e_loc, L, ldeb))
+    if bits_out:
+        torch.save(pair_bits(torch, ty, dev), bits_out)
     tick_ms, idle = tick_kernel_ms(torch, cs, lc, dev, g)
     ms.update(tick_ms)
     ms.update(small_tick_kernel_ms(torch, cs, dev, g))
@@ -293,22 +356,32 @@ def main() -> int:
                     help="also time CoolingConfig() (tmax=30) without and "
                          "with the .dat tree")
     ap.add_argument("--out", help="also write the result to this file")
+    ap.add_argument("--bits", metavar="DIR",
+                    help="also keep every pair-kernel form's outputs on "
+                         "fixed inputs (pair_bits) of each turn in DIR and "
+                         "report which equal the first tree's bit for bit")
+    ap.add_argument("--bits-out", help=argparse.SUPPRESS)
     ap.add_argument("--turn", action="store_true",
                     help="measure the working directory's tree (internal)")
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(one_turn(args.kernels_only, args.flagship)),
-              flush=True)
+        print(json.dumps(one_turn(args.kernels_only, args.flagship,
+                                  args.bits_out)), flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     turns = []
-    for tree in args.trees:
+    if args.bits:
+        os.makedirs(args.bits, exist_ok=True)
+    for i, tree in enumerate(args.trees):
         cmd = [sys.executable, os.path.abspath(__file__), "--turn"]
         cmd += [f for f, on in (("--kernels-only", args.kernels_only),
                                 ("--flagship", args.flagship)) if on]
+        if args.bits:
+            cmd += ["--bits-out", os.path.abspath(
+                os.path.join(args.bits, f"turn{i}.pt"))]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -321,7 +394,19 @@ def main() -> int:
             f"{k} {v:.4f}" for k, v in {**res["ms"],
                                         **res.get("wall_s", {})}.items()),
               flush=True)
-    result = json.dumps({"card": card, "turns": turns})
+    result = {"card": card, "turns": turns}
+    if args.bits:
+        import torch
+        outs = [torch.load(os.path.join(args.bits, f"turn{i}.pt"))
+                for i in range(len(args.trees))]
+        result["bits_equal_first_tree"] = same = [
+            {k: bool(torch.equal(o[k].view(torch.int32),
+                                 outs[0][k].view(torch.int32)))
+             for k in outs[0]} for o in outs]
+        for tree, eq in zip(args.trees, same):
+            print(f"[{tree}] bitwise equal to {args.trees[0]}'s: "
+                  + ", ".join(f"{k} {v}" for k, v in eq.items()), flush=True)
+    result = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:
             f.write(result + "\n")
